@@ -1,0 +1,1 @@
+"""Wrappers of the port's CUDA kernels, each beside its plain PyTorch version."""
