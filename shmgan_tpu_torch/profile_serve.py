@@ -9,8 +9,9 @@ committed 256-px bundle's hyperparameters, batch 8, 256 px), then:
      plain versions in turns (kernel, plain, plain, kernel, ...), and reports
      images/s and request latency of each;
   2. traces one request with torch.profiler and splits the device time
-     (device-side events only) into convolutions, the port's two kernels,
-     copies and everything else, with the device's idle share of the
+     (device-side events only) into convolutions, each of the port's two
+     kernels (instance norm, and the preprocess cluster kernel), copies and
+     everything else, with the device's idle share of the
      request's wall time (which the profiler itself lengthens).
 Prints one JSON line. Needs a CUDA card.
 """
@@ -33,7 +34,9 @@ from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 from shmgan_tpu_torch.ops.kernels import preprocess as pre
 from shmgan_tpu_torch.serve import BatchInferenceEngine
 
-OUR_KERNELS = ("instance_norm_kernel", "partial_moments", "standardize")
+# device kernel names of the port's kernels, by the key of their share
+OUR_KERNELS = {"instance_norm_ms": ("instance_norm_kernel",),
+               "preprocess_ms": ("standardize_yuv",)}
 CONV_MARKERS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "winograd", "fft")
 BATCH, SIZE, REQUESTS = 8, 256, 20
 
@@ -75,7 +78,8 @@ def _device_split(engine, rgb):
         engine.process_images(rgb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    split = {"conv_ms": 0.0, "port_kernels_ms": 0.0, "copy_ms": 0.0, "other_ms": 0.0}
+    split = {"conv_ms": 0.0, **{k: 0.0 for k in OUR_KERNELS}, "copy_ms": 0.0,
+             "other_ms": 0.0}
     top = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -85,8 +89,9 @@ def _device_split(engine, rgb):
             continue
         name = ev.key
         low = name.lower()
-        if any(k in name for k in OUR_KERNELS):
-            split["port_kernels_ms"] += us / 1e3
+        ours = [key for key, names in OUR_KERNELS.items() if any(k in name for k in names)]
+        if ours:
+            split[ours[0]] += us / 1e3
         elif low.startswith(("memcpy", "memset")):
             split["copy_ms"] += us / 1e3
         elif any(k in low for k in CONV_MARKERS):

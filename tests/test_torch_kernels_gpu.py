@@ -38,7 +38,8 @@ class TestKernelsOnCard:
         torch.testing.assert_close(y, ink.instance_norm_plain(x, gamma, beta),
                                    rtol=1e-4, atol=1e-4)
 
-    @pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 17, 31, 3), (2, 100, 130, 3)])
+    @pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 17, 31, 3), (2, 100, 130, 3),
+                                       (1, 256, 256, 3), (2, 640, 640, 3)])
     def test_preprocess(self, cuda, shape):
         x = torch.rand(shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
         x[0] = 0.0
@@ -49,6 +50,24 @@ class TestKernelsOnCard:
         torch.testing.assert_close(yuv, ryuv, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(scale, rscale, rtol=1e-5, atol=1e-5)
         assert scale[0].item() == 1.0 / 256.0
+
+    def test_preprocess_on_unaligned_storage(self, cuda):
+        # a contiguous view 4 bytes past an aligned base takes the 4-byte path
+        shape = (3, 64, 64, 3)
+        x = torch.rand(3 * 64 * 64 * 3 + 1, device=cuda)[1:].view(shape)
+        yuv, scale = pre.fused_standardize_yuv(x)
+        ryuv, rscale = pre.fused_standardize_yuv_plain(x)
+        torch.testing.assert_close(yuv, ryuv, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(scale, rscale, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("shape", [(8, 256, 256, 3), (2, 640, 640, 3)],
+                             ids=["resident", "streaming"])
+    def test_preprocess_is_deterministic(self, cuda, shape):
+        # the moments are summed in a fixed order: no atomics, no scratch
+        x = torch.rand(shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+        yuv, scale = pre.fused_standardize_yuv(x)
+        yuv2, scale2 = pre.fused_standardize_yuv(x)
+        assert torch.equal(yuv, yuv2) and torch.equal(scale, scale2)
 
     def test_instance_norm_on_unaligned_storage(self, cuda):
         # a contiguous view 4 bytes past an aligned base takes the scalar path
