@@ -1,9 +1,10 @@
-"""PyTorch / CUDA port of shmgan_tpu's single-RGB inference path.
+"""PyTorch / CUDA port of shmgan_tpu: single-RGB inference and the fused train step.
 
 Imports torch, numpy and the standard library only. The JAX package
 (shmgan_tpu) is the reference that the port's tests hold it against.
 """
 
-from shmgan_tpu_torch.config import Config, EvalConfig, ModelConfig
+from shmgan_tpu_torch.config import (Config, DataConfig, EvalConfig, ModelConfig,
+                                     TrainConfig)
 
-__all__ = ["Config", "EvalConfig", "ModelConfig"]
+__all__ = ["Config", "DataConfig", "EvalConfig", "ModelConfig", "TrainConfig"]

@@ -1,9 +1,11 @@
-"""The configuration fields that inference reads: an own copy of
-shmgan_tpu/config.py's ModelConfig and EvalConfig, with the same defaults.
+"""The configuration fields that inference and the train step read: an own
+copy of shmgan_tpu/config.py's ModelConfig, TrainConfig, DataConfig and
+EvalConfig, with the same defaults.
 
 The port computes in float32 throughout (the JAX package's
-compute_dtype="float32"); bf16 compute is not ported yet. The image size is
-the input's own: nothing in inference reads a configured one.
+compute_dtype="float32"); bf16 compute is not ported yet. Inference takes the
+input's own image size; `model.image_size` sizes the discriminator's class
+head and the NST loss's style factor.
 """
 
 from __future__ import annotations
@@ -13,15 +15,53 @@ from dataclasses import dataclass, field
 
 @dataclass
 class ModelConfig:
-    filter_size: int = 64          # base conv width of G
+    image_size: int = 128
+    filter_size: int = 64          # base conv width of G and D
     c_dim: int = 5                 # polarimetric domains (I0, I45, I90, I135, ED)
     specseg_base_filters: int = 16
     # 1 = standardised luma only; 2 = luma + the chroma prior (ops/specprior.py)
     specseg_in_channels: int = 1
     instance_norm_eps: float = 1e-6
     leaky_relu_slope: float = 0.2
+    d_input_noise: float = 0.1     # D's GaussianNoise stddev on its live pass
+    d_dropout: float = 0.2         # D's dropout rate on its live pass
     # "conv_transpose" (reference parity) or "resize_conv" (nearest 2x + conv3x3)
     upsample_mode: str = "conv_transpose"
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 1
+    g_lr: float = 2e-5
+    d_lr: float = 2e-5
+    beta1: float = 0.5
+    beta2: float = 0.99
+    adam_eps: float = 1e-7         # outside the square root, as optax's scale_by_adam
+    lr_decay_steps: int = 10000    # lr * rate ** (count / steps), continuous
+    lr_decay_rate: float = 0.95
+    grad_clip: float = 1.0         # elementwise clip before Adam
+    randomness: float = 0.50       # Bernoulli drop probability of each input view
+    target_label_low: float = 0.8  # per-step label smoothing t ~ U[low, high]
+    target_label_high: float = 1.2
+    train_G_after: int = 0         # epochs before G updates begin
+    style_weight: float = 100.0    # NST loss weights
+    content_weight: float = 1.0
+    # one drop pattern shared by the batch (reference parity) or one per sample
+    scalar_channel_dropout: bool = True
+    # quality-mode flags (defaults are reference parity; see the JAX config)
+    live_g1: bool = False
+    g1_recon_weight: float = 0.0
+    single_input_prob: float = 0.0
+    consistent_domains: bool = False
+    # "none" | "models" | "disc" | "gen": which forwards run under
+    # torch.utils.checkpoint (recomputed in the backward)
+    remat: str = "none"
+    g_ema: float = 0.0             # EMA decay of G's params; 0 = off
+
+
+@dataclass
+class DataConfig:
+    flip: bool = True              # per-step paired random up/down flip
 
 
 @dataclass
@@ -35,4 +75,6 @@ class EvalConfig:
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)

@@ -1,10 +1,13 @@
-"""Weight bridge: flax parameter trees (nested dicts of numpy arrays, as
-`shmgan_tpu.checkpoint.load_inference_bundle` or a flax `.init` returns them)
-into the port's modules.
+"""Weight bridge between flax parameter trees (nested dicts of numpy arrays,
+as `shmgan_tpu.checkpoint.load_inference_bundle` or a flax `.init` returns
+them) and the port's modules: `load_flax` fills a module from a tree,
+`to_flax` lays named tensors of a module (its parameters, their gradients or
+optimizer moments) out as the tree they came from.
 
 Layouts:
   conv kernel            (kh, kw, in, out) -> weight (out, in, kh, kw)
   transposed-conv kernel (kh, kw, in, out) -> flipped in space, (in, out, kh, kw)
+  Dense kernel           (in, out)          -> Linear weight (out, in)
   InstanceNorm           scale / bias      -> scale / bias (gamma / beta)
   BatchNorm              scale / bias      -> weight / bias;
                          batch_stats mean / var -> running_mean / running_var
@@ -25,6 +28,7 @@ import torch.nn as nn
 _LEAF_NAMES = {
     nn.Conv2d: {"kernel": "weight", "bias": "bias"},
     nn.ConvTranspose2d: {"kernel": "weight", "bias": "bias"},
+    nn.Linear: {"kernel": "weight", "bias": "bias"},
     nn.BatchNorm2d: {"scale": "weight", "bias": "bias", "mean": "running_mean",
                      "var": "running_var"},
 }
@@ -35,7 +39,20 @@ def _torch_layout(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray
         return value
     if isinstance(module, nn.ConvTranspose2d):
         return value[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, nn.Linear):
+        return value.T
     return value.transpose(3, 2, 0, 1)
+
+
+def _flax_layout(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of _torch_layout."""
+    if leaf != "kernel":
+        return value
+    if isinstance(module, nn.ConvTranspose2d):
+        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if isinstance(module, nn.Linear):
+        return value.T
+    return value.transpose(2, 3, 1, 0)
 
 
 def _walk(tree: Mapping, prefix: str = ""):
@@ -45,6 +62,14 @@ def _walk(tree: Mapping, prefix: str = ""):
             yield from _walk(val, path)
         else:
             yield path, val
+
+
+def _resolve(module: nn.Module, path: str):
+    """(owning submodule, flax leaf name, torch name) of a flax leaf path."""
+    owner_path, _, leaf = path.rpartition(".")
+    owner = module.get_submodule(owner_path)
+    name = _LEAF_NAMES.get(type(owner), {}).get(leaf, leaf)
+    return owner, leaf, f"{owner_path}.{name}" if owner_path else name
 
 
 def load_flax(module: nn.Module, params: Mapping,
@@ -57,10 +82,7 @@ def load_flax(module: nn.Module, params: Mapping,
     leaves = list(_walk(params)) + list(_walk(batch_stats or {}))
     with torch.no_grad():
         for path, value in leaves:
-            owner_path, _, leaf = path.rpartition(".")
-            owner = module.get_submodule(owner_path)
-            name = _LEAF_NAMES.get(type(owner), {}).get(leaf, leaf)
-            target = f"{owner_path}.{name}" if owner_path else name
+            owner, leaf, target = _resolve(module, path)
             if target not in targets:
                 raise KeyError(f"flax leaf {path} has no counterpart {target} in "
                                f"{type(module).__name__}")
@@ -77,6 +99,22 @@ def load_flax(module: nn.Module, params: Mapping,
     if missing:
         raise KeyError(f"no flax leaf for {missing}")
     return module
+
+
+def to_flax(module: nn.Module, template: Mapping,
+            named: Mapping[str, torch.Tensor]) -> Dict:
+    """`named` (torch name -> tensor of `module`, e.g. its gradients) as a
+    nested dict of numpy arrays shaped like the flax tree `template`."""
+    out: Dict = {}
+    for path, _ in _walk(template):
+        owner, leaf, target = _resolve(module, path)
+        value = named[target].detach().cpu().numpy()
+        node = out
+        *parents, key = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = np.ascontiguousarray(_flax_layout(owner, leaf, value))
+    return out
 
 
 def load_inference_weights(gen: nn.Module, specseg: nn.Module, g_params: Mapping,

@@ -1,4 +1,5 @@
-"""Generator blocks (the counterparts of shmgan_tpu/models/blocks.py), NCHW.
+"""Generator and discriminator blocks (the counterparts of
+shmgan_tpu/models/blocks.py), NCHW.
 
 Submodule and parameter names follow the flax modules', so `convert.py` can
 fill them from a flax parameter tree leaf by leaf. Layout facts the port
@@ -10,7 +11,9 @@ relies on (each held by a CPU test against flax):
   - `jax.image.resize(.., "nearest")` x2 is `interpolate(scale_factor=2,
     mode="nearest")`;
   - flax `max_pool` / `avg_pool` 2x2 with `SAME` padding on even sizes are the
-    plain 2x2 pools.
+    plain 2x2 pools;
+  - flax `Conv` 3x3 stride 2 `SAME` on even sizes pads (0, 1) on each axis:
+    `F.pad(x, (0, 1, 0, 1))`, then `conv2d(stride=2, padding=0)`.
 """
 
 from __future__ import annotations
@@ -69,6 +72,21 @@ class ConvIN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.inorm(leaky_relu(self.conv(x), self.slope))
+
+
+class ConvLReLUIN(nn.Module):
+    """Conv 3x3 stride 2 (flax SAME), no bias, + leaky_relu + InstanceNorm:
+    the discriminator's strided block."""
+
+    def __init__(self, cin: int, features: int, slope: float = 0.2, eps: float = 1e-6):
+        super().__init__()
+        self.slope = slope
+        self.conv = nn.Conv2d(cin, features, 3, stride=2, padding=0, bias=False)
+        self.inorm = InstanceNorm(features, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(F.pad(x, (0, 1, 0, 1)))
+        return self.inorm(leaky_relu(x, self.slope))
 
 
 class MaskAttention(nn.Module):

@@ -6,6 +6,8 @@ shmgan_tpu/ops/standardize.py):
   - scale = max(stddev, 1/256) at every image size (the reference hardcodes
     num_pixels = 65536, so the floor is rsqrt(65536) even at 128 px);
   - NO mean subtraction.
+
+and the per-image min-max rescale the train step's SSIM losses take.
 """
 
 from __future__ import annotations
@@ -32,3 +34,13 @@ def per_image_standardization(image: torch.Tensor) -> Tuple[torch.Tensor, ImageS
     scale = torch.clamp(torch.sqrt(variance), min=MIN_STDDEV)
     out = x / scale.view((-1,) + (1,) * (x.dim() - 1))
     return out, ImageStats(mean=mean, stddev=scale, variance=variance)
+
+
+def rescale_01_per_image(x: torch.Tensor) -> torch.Tensor:
+    """Per-image min-max rescale to [0, 1] over everything but the batch
+    axis; an image with max == min becomes zeros."""
+    dims = tuple(range(1, x.dim()))
+    lo = x.amin(dim=dims, keepdim=True)
+    hi = x.amax(dim=dims, keepdim=True)
+    denom = hi - lo
+    return torch.where(denom == 0, torch.zeros_like(x), (x - lo) / denom)

@@ -9,9 +9,9 @@ committed 256-px bundle's hyperparameters, batch 8, 256 px), then:
      plain versions in turns (kernel, plain, plain, kernel, ...), and reports
      images/s and request latency of each;
   2. traces one request with torch.profiler and splits the device time
-     (device-side events only) into convolutions, each of the port's two
-     kernels (instance norm, and the preprocess cluster kernel), copies and
-     everything else, with the device's idle share of the
+     (device-side events only) into convolutions, each of the port's
+     kernels (instance norm, its backward, and the preprocess cluster
+     kernel), copies and everything else, with the device's idle share of the
      request's wall time (which the profiler itself lengthens).
 Prints one JSON line. Needs a CUDA card.
 """
@@ -36,6 +36,7 @@ from shmgan_tpu_torch.serve import BatchInferenceEngine
 
 # device kernel names of the port's kernels, by the key of their share
 OUR_KERNELS = {"instance_norm_ms": ("instance_norm_kernel",),
+               "instance_norm_backward_ms": ("instance_norm_bwd_kernel", "channel_sums_kernel"),
                "preprocess_ms": ("standardize_yuv",)}
 CONV_MARKERS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "winograd", "fft")
 BATCH, SIZE, REQUESTS = 8, 256, 20
@@ -69,13 +70,13 @@ def _timed(engine, rgb) -> float:
     return time.perf_counter() - t0
 
 
-def _device_split(engine, rgb):
-    """Device time by category for one request, from torch.profiler."""
+def device_split(fn):
+    """Device time by category for one call of fn, from torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.process_images(rgb)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     split = {"conv_ms": 0.0, **{k: 0.0 for k in OUR_KERNELS}, "copy_ms": 0.0,
@@ -113,7 +114,7 @@ def main() -> None:
         raise SystemExit("profile_serve needs a CUDA card")
 
     cfg = serving_config()
-    gen, specseg = build_models(cfg, device="cuda", seed=0)
+    gen, _, specseg = build_models(cfg, device="cuda", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=BATCH, device="cuda")
     rgb = np.random.default_rng(0).random((BATCH, SIZE, SIZE, 3), np.float32)
     for _ in range(2):  # warm-up of the kernel path
@@ -146,7 +147,7 @@ def main() -> None:
                         "min_request_ms": ts[0] * 1e3,
                         "images_per_s_at_median": BATCH / statistics.median(ts)}
     result["kernels_won_pairs"] = sum(k < p for k, p in zip(times["kernels"], times["plain"]))
-    result["profile"] = _device_split(engine, rgb)
+    result["profile"] = device_split(lambda: engine.process_images(rgb))
     print(json.dumps(result))
 
 

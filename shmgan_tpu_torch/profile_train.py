@@ -1,0 +1,91 @@
+"""Train-step measurement of the port on one CUDA card.
+
+    python -m shmgan_tpu_torch.profile_train
+
+Builds the train state at full width on weights from seed 0 (the JAX
+package's default model in float32: 128 px, filter 64, c_dim 5, SpecSeg base
+16, batch 8, flip on, reference-parity flags), then:
+  1. times steps through the kernels and through their plain versions in
+     turns (kernels, plain, plain, kernels, ...), each on a fresh batch and
+     fresh draws, and reports the median step ms and images/s (B images a
+     step) of each, and the peak device memory of the kernel path;
+  2. traces one step with torch.profiler and splits its device time into
+     convolutions, each of the port's kernels, copies and everything else,
+     with the device's idle share of the step's wall time.
+Prints one JSON line. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+from shmgan_tpu_torch import Config
+from shmgan_tpu_torch.models import build_models
+from shmgan_tpu_torch.profile_serve import device_split, plain_versions
+from shmgan_tpu_torch.train.state import create_train_state
+from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+STEPS = 10
+
+
+def training_config() -> Config:
+    """The JAX package's default configuration at batch 8, in float32."""
+    cfg = Config()
+    cfg.train.batch_size = 8
+    return cfg
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    cfg = training_config()
+    v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def timed_step(plain: bool) -> float:
+        nonlocal state
+        views = torch.rand((v, b, s, s, 3), device="cuda", generator=gen)
+        draws = sample_draws(cfg, gen, v, b, s, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plain:
+            with plain_versions():
+                state, _ = step(state, views, draws, 0)
+        else:
+            state, _ = step(state, views, draws, 0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for plain in (False, True):  # warm-up of both paths
+        timed_step(plain)
+    torch.cuda.reset_peak_memory_stats()
+    times = {"kernels": [], "plain": []}
+    for i in range(STEPS):
+        for plain in ((False, True) if i % 2 == 0 else (True, False)):
+            times["plain" if plain else "kernels"].append(timed_step(plain))
+    peak = torch.cuda.max_memory_allocated()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": b,
+              "size": s, "steps_per_path": STEPS, "peak_device_memory_gib": peak / 2**30}
+    for path, ts in times.items():
+        result[f"{path}_step_ms_in_order"] = [round(t * 1e3, 2) for t in ts]
+        med = statistics.median(ts)
+        result[path] = {"median_step_ms": med * 1e3, "min_step_ms": min(ts) * 1e3,
+                        "max_step_ms": max(ts) * 1e3, "images_per_s_at_median": b / med}
+    result["kernels_won_pairs"] = sum(k < p for k, p in zip(times["kernels"], times["plain"]))
+    result["profile"] = device_split(lambda: timed_step(False))
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,7 @@ The engine runs at a fixed batch size with the weights resident on the
 device, and pads a partial batch to that size, so every call the device sees
 has one shape. Numpy in, numpy out.
 
-    gen, specseg = build_models(cfg, device="cuda", seed=0)
+    gen, _, specseg = build_models(cfg, device="cuda", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=8)
     outputs = engine.process_images(rgb_batch)   # (N, H, W, 3) float32 in [0, 1]
 

@@ -1,7 +1,7 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
 lacks: no import of jax, flax, optax, orbax, msgpack, PIL or shmgan_tpu, by
-reading the sources and by running the port where those modules cannot be
-imported."""
+reading the sources and by running the port (serving, and one train step)
+where those modules cannot be imported."""
 
 import ast
 import os
@@ -63,10 +63,23 @@ def test_port_runs_with_banned_modules_blocked():
 
         cfg = Config()
         cfg.model.filter_size, cfg.model.specseg_base_filters = 8, 4
-        gen, specseg = build_models(cfg, device="cpu", seed=0)
+        gen, _, specseg = build_models(cfg, device="cpu", seed=0)
         out = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, device="cpu"
                                    ).process_images(np.full((1, 32, 32, 3), 0.5, np.float32))
         assert np.isfinite(out["gen_rgb_calibrated"]).all()
+
+        import torch
+        import shmgan_tpu_torch.profile_train  # noqa: F401
+        torch.set_num_threads(1)  # the suite's other workers hold the cores
+        from shmgan_tpu_torch.train.state import create_train_state
+        from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+        cfg.model.image_size = 64
+        state = create_train_state(cfg, build_models(cfg, device="cpu", seed=0))
+        g = torch.Generator().manual_seed(0)
+        state, m = make_train_step(cfg)(state, torch.rand((5, 1, 64, 64, 3), generator=g),
+                                        sample_draws(cfg, g, 5, 1, 64, 64), 0)
+        assert state.step == 1 and all(torch.isfinite(v).all() for v in m.values())
         print("OK", sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -95,7 +95,7 @@ def _close(got, want, key):
 
 
 def _port(cfg, g_params, specseg_vars):
-    gen, specseg = build_models(cfg, device="cpu")
+    gen, _, specseg = build_models(cfg, device="cpu")
     load_inference_weights(gen, specseg, g_params, specseg_vars)
     return gen, specseg
 
@@ -144,7 +144,7 @@ def test_engine_pads_partial_batches():
 
 def test_engine_rejects_bad_shapes():
     _, cfg = _configs()
-    gen, specseg = build_models(cfg, device="cpu", seed=0)
+    gen, _, specseg = build_models(cfg, device="cpu", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, device="cpu")
     with pytest.raises(ValueError):
         engine.process_images(np.zeros((2, 32, 32, 4), np.float32))

@@ -79,6 +79,45 @@ class TestKernelsOnCard:
                                    ink.instance_norm_plain(x, gamma, beta),
                                    rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("shape", [(2, 64, 32, 32), (3, 5, 7, 9), (4, 1024, 4, 4),
+                                       (2, 8, 5, 3)])
+    def test_instance_norm_backward(self, cuda, shape):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn(shape, device=cuda, generator=g) + 0.5
+        dy = torch.randn(shape, device=cuda, generator=g)
+        gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
+        mean = x.mean(dim=(2, 3))
+        rstd = torch.rsqrt((x - mean[:, :, None, None]).square().mean(dim=(2, 3)) + 1e-6)
+        before = ink.backward_launches
+        got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        assert ink.backward_launches == before + 1
+        again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        for a, b, ref in zip(got, again, ink.instance_norm_backward_plain(x, gamma, mean,
+                                                                        rstd, dy)):
+            torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4)
+            assert torch.equal(a, b)  # deterministic: no atomics
+
+    def test_instance_norm_gradients_reach_inputs(self, cuda):
+        """The kernel path is differentiable: x, gamma and beta get the plain
+        version's gradients, through the backward kernel."""
+        g = torch.Generator(device=cuda).manual_seed(4)
+        shape = (4, 16, 12, 12)
+        ins = [torch.randn(shape, device=cuda, generator=g),
+               torch.rand(16, device=cuda, generator=g) + 0.5,
+               torch.randn(16, device=cuda, generator=g)]
+        dy = torch.randn(shape, device=cuda, generator=g)
+        a = [t.clone().requires_grad_(True) for t in ins]
+        before = (ink.launches, ink.backward_launches)
+        y = ink.instance_norm(*a)
+        assert y.grad_fn is not None
+        y.backward(dy)
+        assert (ink.launches, ink.backward_launches) == (before[0] + 1, before[1] + 1)
+        b = [t.clone().requires_grad_(True) for t in ins]
+        ink.instance_norm_plain(*b).backward(dy)
+        for ta, tb in zip(a, b):
+            assert ta.grad is not None
+            torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-4, atol=1e-4)
+
     def test_wrappers_reject_wrong_dtype(self, cuda):
         with pytest.raises(ValueError):
             ink.instance_norm(torch.zeros(1, 2, 4, 4, device=cuda, dtype=torch.float64),

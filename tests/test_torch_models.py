@@ -174,7 +174,7 @@ class TestConvert:
     def test_unexpected_collection_raises(self):
         cfg = Config()
         cfg.model.filter_size, cfg.model.specseg_base_filters = 8, 4
-        gen, specseg = build_models(cfg, device="cpu")
+        gen, _, specseg = build_models(cfg, device="cpu")
         with pytest.raises(KeyError):
             load_inference_weights(gen, specseg, {}, {"params": {}, "dropout": {}})
 
@@ -195,7 +195,7 @@ class TestSeededInit:
             assert any(not torch.equal(sa[k], sc[k]) for k in sa)
 
     def test_scales_follow_jax_init(self):
-        gen, specseg = build_models(self._cfg(), device="cpu", seed=0)
+        gen, _, specseg = build_models(self._cfg(), device="cpu", seed=0)
         w = gen.up0_0.conv.weight
         assert abs(w.std().item() - 0.02) < 0.002 and not gen.up0_0.conv.bias.any()
         assert torch.equal(gen.up0_0.inorm.scale, torch.ones(64))
