@@ -1,35 +1,50 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernels, serving,
-training.
+training, in float32 and in bfloat16 (the JAX package's default compute
+dtype).
 
     python3 chip_smoke.py
 
 Phases (each prints its name before it starts and its seconds after):
-  device   the card's name, count, CUDA version, nvidia-smi's name and power limit;
-  build    compiles csrc/*.cu with nvcc (one process per source) and prints
-           what ptxas reports;
-  kernels  holds each kernel against its plain PyTorch version on the card at
-           the shapes its path gives it: the IN forward at the serving
-           shapes, the IN backward at every IN shape of the train step
-           (repeat calls bit for bit), the preprocess kernel in both its
-           variants, at both cluster sizes, on an unaligned input, and call
-           against call, bit for bit. It times kernel, plain version, the
-           library yardstick (F.instance_norm's forward, and its backward
-           through a retained graph) and the memory bound. A kernel has two
-           times: `ms`, back to back with the wrapper's host cost, and
-           `device_ms`, its own time from CUDA-graph replays; the preprocess
-           kernel also `device_cold_ms`, with L2 flushed first;
-  serve    BatchInferenceEngine at full width (the committed 256-px bundle's
-           hyperparameters) on seeded random weights serves three requests;
-           counts the kernel launches of each, and checks every output against
-           the same engine run through the plain versions on the card, and
-           against the CPU at a small size;
-  train    the fused train step at full width (the JAX package's default
-           model in f32: 128 px, filter 64, batch 8) on seeded weights: one
-           step through the kernels against the same step through the plain
-           versions (every gradient leaf and every loss), the launches of
-           each kernel in a step, ten more steps (median step ms, images/s,
-           peak device memory), one K = 3 make_scan_train_steps call, and
-           the card against the CPU on one step at batch 2.
+  device      the card's name, count, CUDA version, nvidia-smi's name and
+              power limit;
+  build       compiles csrc/*.cu with nvcc (one process per source) and prints
+              what ptxas reports;
+  kernels     holds each kernel against its plain PyTorch version on the card
+              at the shapes its path gives it: the IN forward at the serving
+              shapes, the IN backward (and the forward with its stats) at every
+              IN shape of the train step (repeat calls bit for bit), each with
+              f32 and with bf16 activations, and autograd through the kernels
+              (the path the models take) against autograd through the plain
+              version at those shapes; the preprocess kernel in both its
+              variants, at both cluster sizes, on an unaligned input, and call
+              against call, bit for bit. It times kernel, plain version, the
+              library yardstick (F.instance_norm's forward, and its backward
+              through a retained graph, in the same dtype) and the memory
+              bound. A kernel has three times: `ms`, back to back with the
+              wrapper's host cost, `device_ms`, its own time from CUDA-graph
+              replays (L2 warm), and `device_cold_ms`, one call alone with L2
+              flushed first;
+  serve       BatchInferenceEngine at full width in f32 (the committed 256-px
+              bundle's hyperparameters) on seeded random weights serves three
+              requests; counts the kernel launches of each, times five more,
+              and checks every output against the same engine run through the
+              plain versions on the card, and against the CPU at a small size;
+  serve_bf16  the same in bf16: launches, times, and each output of the kernel
+              path no further (relative L2) from the plain path's than the
+              plain path's is from the f32 phase's output of that request;
+  train       the fused train step at full width in f32 (the JAX package's
+              default model: 128 px, filter 64, batch 8) on seeded weights: one
+              step through the kernels against the same step through the plain
+              versions (every gradient leaf and every loss), the launches of
+              each kernel in a step, ten more steps (median step ms, images/s,
+              peak device memory), one K = 3 make_scan_train_steps call, and
+              the card against the CPU on one step at batch 2;
+  train_bf16  the same step in bf16: through the kernels against the plain
+              versions, G's and D's gradients and the losses no further apart
+              than the plain bf16 step is from the f32 step on the same
+              weights and draws; the launches of a step; ten timed steps.
+The card against the CPU is compared in f32 only: bf16 rounds at other places
+there, and bf16 convolutions at full width are slow on a CPU.
 The last lines are the card's nvidia-smi line, one JSON line of kernel
 numbers, and `{"ok": true, "device": {...}}`. Any failure raises and exits
 non-zero before the last line. Needs a CUDA card; imports no JAX.
@@ -48,7 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# The port computes in float32: TF32 off wherever it is compared with anything.
+# TF32 off wherever float32 is compared with anything.
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -67,14 +82,24 @@ TRAIN_IN_SHAPES = [
     ((16, 512, 8, 8), 1), ((16, 1024, 4, 4), 1),
     ((80, 64, 64, 64), 1), ((80, 128, 32, 32), 1), ((80, 256, 16, 16), 1),
     ((80, 512, 8, 8), 1), ((80, 1024, 4, 4), 1)]
-# launches of one train step in the reference-parity mode: IN forwards in G1
-# (18), the cyclic G (18), live and frozen D (5 + 5); IN backwards in all but
-# G1, whose params are stopped
-STEP_LAUNCHES = {"instance_norm": 46, "instance_norm_backward": 28, "fused_standardize_yuv": 1}
+
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
 PRE_TRAIN_SHAPE = (40, 128, 128, 3)   # the train step's 5 views of 8 images
 IN_TOL = dict(rtol=1e-4, atol=1e-4)   # one-pass vs two-pass moments, other sum order
+# bf16 activations (y, dx): kernel and plain version round the same f32
+# formula, computed in another order, so within one bf16 ulp (rtol 2^-7),
+# plus the f32 kernel's own atol for values near 0, where a bf16 ulp is finer
+# than the f32 difference
+IN_TOL_BF16 = dict(rtol=2.0 ** -7, atol=1e-4)
+IN_PARAM_TOL_BF16 = dict(rtol=1e-3, atol=1e-3)  # dgamma, dbeta (f32) of bf16 activations
+# bf16 paths, kernels vs plain versions: each output, each network's gradients
+# and the losses no further apart (relative L2) than GAP_C times the plain
+# bf16 path's own distance from f32. On an H100 the two bf16 paths, which
+# differ only in where an IN output rounds, read 0.23-0.90 of that distance;
+# an IN backward whose dx is 1.01 times too large reads 1.09 on G's
+# gradients (shmgan_tpu_torch/plant_faults.py)
+GAP_C = 1.0
 PRE_TOL = dict(rtol=1e-5, atol=1e-5)  # same arithmetic, other sum order
 SERVE_ATOL = 1e-3                     # kernel path vs plain path, whole engine
 # train step, kernel path vs plain path and card vs CPU: G's and D's gradients
@@ -84,6 +109,20 @@ SERVE_ATOL = 1e-3                     # kernel path vs plain path, whole engine
 # up to 7.4e-2 of their scale on the card; a wrong or missing gradient path
 # moves a leaf by ~1), every loss within 1e-4 (relative)
 GRAD_NORM_RTOL, GRAD_LEAF_RTOL, LOSS_RTOL = 2e-3, 2.5e-1, 1e-4
+
+
+def _in_name(dtype, kind="forward"):
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    return ink.kernel_name(kind, dtype)
+
+
+def step_launches(dtype):
+    """Launches of one train step computing in `dtype`, by kernel, in the
+    reference-parity mode: IN forwards in G1 (18), the cyclic G (18), live and
+    frozen D (5 + 5); IN backwards in all but G1, whose params are stopped."""
+    return {**{k: 0 for k in _launch_counts()}, _in_name(dtype): 46,
+            _in_name(dtype, "backward"): 28, "fused_standardize_yuv": 1}
 
 
 def say(*args) -> None:
@@ -191,64 +230,65 @@ def build_phase():
                 say(f"  {line.strip()}")
 
 
-def instance_norm_row(dev, g):
+def instance_norm_row(dev, g, dtype=torch.float32):
+    """The IN forward at the serving shapes, activations in `dtype`."""
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 
+    name = _in_name(dtype)
+    tol = IN_TOL if dtype == torch.float32 else IN_TOL_BF16
     rows = []
-    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                 library_device_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
-    bound_by = set()
+    keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms")
+    total = dict.fromkeys(keys, 0.0)
+    bound_by, worst = set(), 0.0
     for shape, sites in IN_SHAPES:
         b, c, h, w = shape
         # post-leaky-relu-like activations: mean and spread comparable
-        x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2)
+        x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2).to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
         beta = 0.02 * torch.randn(c, device=dev, generator=g)
-        y = ink.instance_norm(x, gamma, beta, 1e-6)
-        ref = ink.instance_norm_plain(x, gamma, beta, 1e-6)
+        y = ink.instance_norm(x, gamma, beta, 1e-6).float()
+        ref = ink.instance_norm_plain(x, gamma, beta, 1e-6).float()
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
-        ok = torch.allclose(y, ref, **IN_TOL)
-        say(f"instance_norm {shape}: max_abs_err={err:.3e} tol rtol={IN_TOL['rtol']} "
-            f"atol={IN_TOL['atol']} {'ok' if ok else 'FAIL'}")
+        ok = torch.allclose(y, ref, **tol)
+        say(f"{name} {shape}: max_abs_err={err:.3e} tol rtol={tol['rtol']:.3g} "
+            f"atol={tol['atol']} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"instance_norm kernel disagrees at {shape}: {err}")
+            raise AssertionError(f"{name} kernel disagrees at {shape}: {err}")
         del y, ref
         iters = 20 if x.numel() > 1 << 24 else 100
         kernel = lambda: ink.instance_norm(x, gamma, beta, 1e-6)  # noqa: E731
         library = lambda: F.instance_norm(x, weight=gamma, bias=beta, eps=1e-6)  # noqa: E731
-        ms = time_ms(kernel, iters)
-        dev_ms = device_ms(kernel, iters)
-        plain_ms = time_ms(lambda: ink.instance_norm_plain(x, gamma, beta, 1e-6), iters)
-        lib_ms = time_ms(library, iters)
-        lib_dev_ms = device_ms(library, iters)
-        bms, by = bound(2 * x.numel() * 4 + 2 * c * 4, 5 * x.numel())
-        say(f"  ms={ms:.4f} ({share(bms, ms)}) device_ms={dev_ms:.4f} "
-            f"({share(bms, dev_ms)}) plain_ms={plain_ms:.4f} F.instance_norm_ms={lib_ms:.4f} "
-            f"F.instance_norm_device_ms={lib_dev_ms:.4f} bound_ms={bms:.4f} ({by}) "
-            f"sites_per_G={sites}")
+        bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * 4, 5 * x.numel())
+        row = dict(ms=time_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+                   device_cold_ms=device_cold_ms(kernel),
+                   plain_ms=time_ms(lambda: ink.instance_norm_plain(x, gamma, beta, 1e-6),
+                                    iters),
+                   library_ms=time_ms(library, iters),
+                   library_device_ms=device_ms(library, iters), bound_ms=bms)
+        say(f"  ms={row['ms']:.4f} ({share(bms, row['ms'])}) device_ms={row['device_ms']:.4f} "
+            f"({share(bms, row['device_ms'])}) device_cold_ms={row['device_cold_ms']:.4f} "
+            f"({share(bms, row['device_cold_ms'])}) plain_ms={row['plain_ms']:.4f} "
+            f"F.instance_norm_ms={row['library_ms']:.4f} "
+            f"F.instance_norm_device_ms={row['library_device_ms']:.4f} bound_ms={bms:.4f} "
+            f"({by}) sites_per_G={sites}")
         bound_by.add(by)
-        rows.append(dict(shape=list(shape), sites_per_g_call=sites, max_abs_err=err, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         library_device_ms=lib_dev_ms, bound_ms=bms))
-        for k, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("library_device_ms", lib_dev_ms),
-                     ("bound_ms", bms)):
-            total[k] += sites * v
-        total["max_abs_err"] = max(total["max_abs_err"], err)
+        worst = max(worst, err)
+        rows.append(dict(shape=list(shape), sites_per_g_call=sites, max_abs_err=err, **row))
+        for k in keys:
+            total[k] += sites * row[k]
         del x
-    say(f"instance_norm per G call: ms={total['ms']:.4f} ({share(total['bound_ms'], total['ms'])}) "
+    say(f"{name} per G call: ms={total['ms']:.4f} ({share(total['bound_ms'], total['ms'])}) "
         f"device_ms={total['device_ms']:.4f} ({share(total['bound_ms'], total['device_ms'])}) "
+        f"device_cold_ms={total['device_cold_ms']:.4f} "
+        f"({share(total['bound_ms'], total['device_cold_ms'])}) "
         f"F.instance_norm_device_ms={total['library_device_ms']:.4f} "
         f"bound_ms={total['bound_ms']:.4f}")
-    return dict(name="instance_norm", route="cuda",
+    return dict(name=name, route="cuda", dtype=str(dtype).split(".")[-1],
                 source="shmgan_tpu_torch/csrc/instance_norm.cu",
                 replaces="shmgan_tpu/ops/pallas/instance_norm.py:197",
-                launches=0, max_abs_err=total["max_abs_err"], ms=total["ms"],
-                device_ms=total["device_ms"], plain_ms=total["plain_ms"],
-                bound_ms=total["bound_ms"], bound_by="/".join(sorted(bound_by)),
-                library_ms=total["library_ms"],
-                library_device_ms=total["library_device_ms"],
+                launches=0, max_abs_err=worst, **total, bound_by="/".join(sorted(bound_by)),
                 per="the 18 launches of one G call at batch 8, 256 px", shapes=rows)
 
 
@@ -268,74 +308,114 @@ def library_backward_ms(x, gamma, beta, dy, iters):
     return ms, dms
 
 
-def instance_norm_backward_row(dev, g):
-    """The IN backward at every IN shape of the train step: against its plain
-    version (from the forward kernel's own mean and rstd), repeat calls bit
-    for bit, and timed; the forward (with its stats) checked and its device
-    time beside it."""
+def _autograd_check(ink, name, shape, x, gamma, beta, dy, tols):
+    """Autograd through `instance_norm` (the kernels, as the models call them:
+    the forward saves its mean and rstd, the backward takes a cotangent in
+    the output's dtype) against autograd through the plain version: y, dx
+    (x's dtype), dgamma and dbeta (float32). Returns the worst error."""
+    got, ref = [], []
+    for fn, out in ((ink.instance_norm, got), (ink.instance_norm_plain, ref)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta)]
+        y = fn(*leaves, 1e-6)
+        out.extend([y.detach(), *torch.autograd.grad(y, leaves, dy)])
+    torch.cuda.synchronize()
+    want = [x.dtype, x.dtype, torch.float32, torch.float32]
+    if [t.dtype for t in got] != want or [t.dtype for t in ref] != want:
+        raise AssertionError(f"{name} autograd {shape}: dtypes {[t.dtype for t in got]}, "
+                             f"plain {[t.dtype for t in ref]}, expected {want}")
+    err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+    ok = all(torch.allclose(a.float(), r.float(), **t) for a, r, t in zip(got, ref, tols))
+    say(f"{name} autograd {shape}: max_abs_err={err:.3e} (y, dx, dgamma, dbeta) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: autograd through the kernels disagrees at {shape}: {err}")
+    return err
+
+
+def instance_norm_backward_row(dev, g, dtype=torch.float32):
+    """The IN backward at every IN shape of the train step, activations in
+    `dtype`: against its plain version (from the forward kernel's own mean and
+    rstd), repeat calls bit for bit, autograd through the kernels against
+    autograd through the plain version, and timed; the forward (with its
+    stats) checked and its device time beside it."""
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 
+    name = _in_name(dtype, "backward")
+    # (y and dx, dgamma and dbeta)
+    tol, ptol = (IN_TOL, IN_TOL) if dtype == torch.float32 else (IN_TOL_BF16, IN_PARAM_TOL_BF16)
+
     rows = []
-    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                 library_device_ms=0.0, bound_ms=0.0, forward_device_ms=0.0)
+    keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "forward_device_ms")
+    total = dict.fromkeys(keys, 0.0)
     bound_by, worst = set(), 0.0
     for shape, sites in TRAIN_IN_SHAPES:
         b, c, h, w = shape
-        x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2)
+        x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2).to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
         beta = 0.02 * torch.randn(c, device=dev, generator=g)
-        dy = torch.randn(shape, device=dev, generator=g)
+        dy = torch.randn(shape, device=dev, generator=g).to(dtype)
         y, mean, rstd = ink._forward(x, gamma, beta, 1e-6, with_stats=True)
-        fwd_err = (y - ink.instance_norm_plain(x, gamma, beta, 1e-6)).abs().max().item()
-        ok_fwd = fwd_err <= IN_TOL["atol"] + IN_TOL["rtol"] * y.abs().max().item()
-        say(f"instance_norm {shape} (with stats): max_abs_err={fwd_err:.3e} "
+        y = y.float()
+        ref_y = ink.instance_norm_plain(x, gamma, beta, 1e-6).float()
+        fwd_err = (y - ref_y).abs().max().item()
+        ok_fwd = torch.allclose(y, ref_y, **tol)
+        say(f"{_in_name(dtype)} {shape} (with stats): max_abs_err={fwd_err:.3e} "
             f"{'ok' if ok_fwd else 'FAIL'}")
         if not ok_fwd:
-            raise AssertionError(f"instance_norm forward disagrees at {shape}: {fwd_err}")
-        del y
+            raise AssertionError(f"{_in_name(dtype)} forward disagrees at {shape}: {fwd_err}")
+        del y, ref_y
         got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
         again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
         ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
         torch.cuda.synchronize()
-        err = max((a - r).abs().max().item() for a, r in zip(got, ref))
-        ok = all(torch.allclose(a, r, **IN_TOL) for a, r in zip(got, ref))
+        if got[0].dtype != dtype or ref[0].dtype != dtype or got[1].dtype != torch.float32:
+            raise AssertionError(f"{name}: dtypes {[t.dtype for t in got]}")
+        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+        ok = all(torch.allclose(a.float(), r.float(), **t)
+                 for a, r, t in zip(got, ref, (tol, ptol, ptol)))
         same = all(torch.equal(a, r) for a, r in zip(got, again))
-        say(f"instance_norm_backward {shape}: max_abs_err={err:.3e} (dx, dgamma, dbeta) "
-            f"tol rtol={IN_TOL['rtol']} atol={IN_TOL['atol']} {'ok' if ok else 'FAIL'}; "
+        say(f"{name} {shape}: max_abs_err={err:.3e} (dx, dgamma, dbeta) "
+            f"tol dx rtol={tol['rtol']:.3g} atol={tol['atol']}, dgamma/dbeta "
+            f"rtol={ptol['rtol']} atol={ptol['atol']} {'ok' if ok else 'FAIL'}; "
             f"repeat {'bit-identical' if same else 'FAIL'}")
         if not (ok and same):
-            raise AssertionError(f"instance_norm_backward disagrees at {shape}: err={err} "
-                                 f"repeat={same}")
-        worst = max(worst, err)
+            raise AssertionError(f"{name} disagrees at {shape}: err={err} repeat={same}")
         del got, again, ref
+        err = max(err, _autograd_check(ink, name, shape, x, gamma, beta, dy,
+                                       (tol, tol, ptol, ptol)))
+        worst = max(worst, err)
         iters = 10 if x.numel() > 1 << 24 else 50
         kernel = lambda: ink.instance_norm_backward(x, gamma, mean, rstd, dy)  # noqa: E731
-        ms = time_ms(kernel, iters)
-        dev_ms = device_ms(kernel, iters)
-        fwd_ms = device_ms(lambda: ink.instance_norm(x, gamma, beta, 1e-6), iters)
-        plain_ms = time_ms(lambda: ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy),
-                           iters)
         lib_ms, lib_dev_ms = library_backward_ms(x, gamma, beta, dy, iters)
-        bms, by = bound(3 * x.numel() * 4 + (2 * b * c + 3 * c) * 4, 10 * x.numel())
-        say(f"  ms={ms:.4f} ({share(bms, ms)}) device_ms={dev_ms:.4f} ({share(bms, dev_ms)}) "
-            f"plain_ms={plain_ms:.4f} F.instance_norm_backward_ms={lib_ms:.4f} "
+        bms, by = bound(3 * x.numel() * x.element_size() + (2 * b * c + 3 * c) * 4,
+                        10 * x.numel())
+        row = dict(ms=time_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+                   device_cold_ms=device_cold_ms(kernel),
+                   plain_ms=time_ms(lambda: ink.instance_norm_backward_plain(
+                       x, gamma, mean, rstd, dy), iters),
+                   library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bms,
+                   forward_device_ms=device_ms(
+                       lambda: ink.instance_norm(x, gamma, beta, 1e-6), iters))
+        say(f"  ms={row['ms']:.4f} ({share(bms, row['ms'])}) device_ms={row['device_ms']:.4f} "
+            f"({share(bms, row['device_ms'])}) device_cold_ms={row['device_cold_ms']:.4f} "
+            f"({share(bms, row['device_cold_ms'])}) plain_ms={row['plain_ms']:.4f} "
+            f"F.instance_norm_backward_ms={lib_ms:.4f} "
             f"F.instance_norm_backward_device_ms={lib_dev_ms:.4f} bound_ms={bms:.4f} ({by}) "
-            f"forward_device_ms={fwd_ms:.4f} sites_per_step={sites}")
+            f"forward_device_ms={row['forward_device_ms']:.4f} sites_per_step={sites}")
         bound_by.add(by)
-        rows.append(dict(shape=list(shape), sites_per_step=sites, max_abs_err=err, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         library_device_ms=lib_dev_ms, bound_ms=bms, forward_device_ms=fwd_ms))
-        for k, val in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("library_device_ms", lib_dev_ms),
-                       ("bound_ms", bms), ("forward_device_ms", fwd_ms)):
-            total[k] += sites * val
+        rows.append(dict(shape=list(shape), sites_per_step=sites, max_abs_err=err, **row))
+        for k in keys:
+            total[k] += sites * row[k]
         del x, dy
-    say(f"instance_norm_backward per train step: ms={total['ms']:.4f} "
+    say(f"{name} per train step: ms={total['ms']:.4f} "
         f"device_ms={total['device_ms']:.4f} ({share(total['bound_ms'], total['device_ms'])}) "
+        f"device_cold_ms={total['device_cold_ms']:.4f} "
+        f"({share(total['bound_ms'], total['device_cold_ms'])}) "
         f"F.instance_norm_backward_device_ms={total['library_device_ms']:.4f} "
         f"bound_ms={total['bound_ms']:.4f}; the forward's 28 matching launches "
         f"device_ms={total['forward_device_ms']:.4f}")
-    return dict(name="instance_norm_backward", route="cuda",
+    return dict(name=name, route="cuda", dtype=str(dtype).split(".")[-1],
                 source="shmgan_tpu_torch/csrc/instance_norm.cu",
                 replaces="shmgan_tpu/ops/pallas/instance_norm.py:225",
                 launches=0, max_abs_err=worst, **total, bound_by="/".join(sorted(bound_by)),
@@ -439,8 +519,11 @@ def preprocess_row(dev, g):
 def kernels_phase():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    # the f32 rows first: their inputs are then the same draws in every
+    # version of this script, so their errors compare across commits
     return [instance_norm_row(dev, g), instance_norm_backward_row(dev, g),
-            preprocess_row(dev, g)]
+            preprocess_row(dev, g), instance_norm_row(dev, g, torch.bfloat16),
+            instance_norm_backward_row(dev, g, torch.bfloat16)]
 
 
 def _compare(out, ref, label):
@@ -456,21 +539,39 @@ def _compare(out, ref, label):
     return worst
 
 
-def serve_phase():
+def _gap_check(label, kernels, plain, f32):
+    """One output of a bf16 path (arrays, flattened here) through the kernels
+    and through the plain versions: ||kernels - plain|| <= GAP_C ||plain -
+    f32||, relative L2 to the f32 output of the same input. The limit comes
+    from the plain path and the f32 path alone."""
+    k, p, f = (np.asarray(t, np.float64).ravel() for t in (kernels, plain, f32))
+    ref = max(np.linalg.norm(f), 1e-300)
+    d_kp, d_pf = np.linalg.norm(k - p) / ref, np.linalg.norm(p - f) / ref
+    say(f"  {label}: ||kernels - plain||={d_kp:.3e}, ||plain - f32||={d_pf:.3e} (relative "
+        f"L2), ratio {d_kp / max(d_pf, 1e-300):.3f} (limit {GAP_C})")
+    if not d_kp <= GAP_C * d_pf:
+        raise AssertionError(f"{label}: kernels vs plain {d_kp} > {GAP_C} x plain vs f32 "
+                             f"{d_pf}")
+
+
+def serve_phase(compute_dtype="float32", f32_outputs=None):
+    """Three requests at full width through the kernels, counted, against the
+    same requests through the plain versions: in f32 within SERVE_ATOL, and
+    against the CPU; in bf16 by the gap to `f32_outputs`, the f32 phase's
+    outputs of the same requests. Returns (launches, outputs)."""
     from shmgan_tpu_torch.models import build_models
-    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
-    from shmgan_tpu_torch.ops.kernels import preprocess as pre
     from shmgan_tpu_torch.profile_serve import plain_versions, serving_config
     from shmgan_tpu_torch.serve import BatchInferenceEngine
 
     size, batch = 256, 8
-    cfg = serving_config()
+    cfg = serving_config(compute_dtype)
+    dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
 
     gen, _, specseg = build_models(cfg, device="cuda", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch, device="cuda")
     cyclic = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch, with_cyclic=True,
                                   device="cuda")
-    say(f"G params={sum(p.numel() for p in gen.parameters())} "
+    say(f"compute dtype {compute_dtype}; G params={sum(p.numel() for p in gen.parameters())} "
         f"SpecSeg params={sum(p.numel() for p in specseg.parameters())}")
 
     rng = np.random.default_rng(0)
@@ -483,55 +584,78 @@ def serve_phase():
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    results, totals = [], {"instance_norm": 0, "fused_standardize_yuv": 0}
+    results = []
+    totals = {k: 0 for k in _launch_counts()}
+    in_name = _in_name(dtype)
     for label, eng, rgb, g_calls in requests:
-        ink.launches = 0
-        pre.launches = 0
+        _launch_counts(reset=True)
         t0 = time.perf_counter()
         out = eng.process_images(rgb)
         secs = time.perf_counter() - t0
-        n_in, n_pre = ink.launches, pre.launches
+        counts = _launch_counts(reset=True)
+        want = {**{k: 0 for k in totals}, in_name: 18 * g_calls,
+                "fused_standardize_yuv": 1}
         say(f"request '{label}': {rgb.shape[0] / secs:.2f} images/s ({secs:.4f} s), "
-            f"instance_norm launches={n_in}, fused_standardize_yuv launches={n_pre}")
-        if n_in != 18 * g_calls or n_pre != 1:
-            raise AssertionError(f"'{label}': expected {18 * g_calls} IN and 1 preprocess "
-                                 f"launches, got {n_in} and {n_pre}")
+            f"{in_name} launches={counts[in_name]}, fused_standardize_yuv "
+            f"launches={counts['fused_standardize_yuv']}")
+        if counts != want:
+            raise AssertionError(f"'{label}': launches {counts}, expected {want}")
         for k, v in out.items():
-            want = ((cfg.model.c_dim,) if k == "cyc_rgb" else ()) + (rgb.shape[0], size, size)
-            if v.shape[:-1] != want or not np.isfinite(v).all():
+            shape = ((cfg.model.c_dim,) if k == "cyc_rgb" else ()) + (rgb.shape[0], size, size)
+            if v.shape[:-1] != shape or not np.isfinite(v).all():
                 raise AssertionError(f"'{label}': output {k} has shape {v.shape} "
                                      f"or non-finite values")
-        totals["instance_norm"] += n_in
-        totals["fused_standardize_yuv"] += n_pre
+        for k in totals:
+            totals[k] += counts[k]
         results.append(out)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    rgb = requests[0][2]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.process_images(rgb)
+        times.append(time.perf_counter() - t0)
+    _launch_counts(reset=True)
+    med = float(np.median(times))
+    say(f"full batch of 8, {compute_dtype}: median request {med * 1e3:.2f} ms "
+        f"({batch / med:.2f} images/s) over {len(times)} requests")
 
     # the same engine through the plain versions (kernels not launched)
     with plain_versions():
-        ink.launches = pre.launches = 0
-        for (label, eng, rgb, _), out in zip(requests, results):
-            _compare(out, eng.process_images(rgb), f"kernels vs plain, '{label}':")
-        if ink.launches or pre.launches:
+        for i, ((label, eng, rgb, _), out) in enumerate(zip(requests, results)):
+            plain = eng.process_images(rgb)
+            if f32_outputs is None:
+                _compare(out, plain, f"kernels vs plain, '{label}':")
+            else:
+                for k in plain:
+                    _gap_check(f"kernels vs plain, '{label}': {k}", out[k], plain[k],
+                               f32_outputs[i][k])
+        if any(_launch_counts(reset=True).values()):
             raise AssertionError("plain run launched a kernel")
 
-    # the card against the CPU (plain versions) on a small input, same weights
-    small = rng.random((2, 64, 64, 3), np.float32)
-    on_card = BatchInferenceEngine(cfg, gen, specseg, batch_size=2,
-                                   device="cuda").process_images(small)
-    on_cpu = BatchInferenceEngine(cfg, copy.deepcopy(gen).cpu(), copy.deepcopy(specseg).cpu(),
-                                  batch_size=2, device="cpu").process_images(small)
-    _compare(on_card, on_cpu, "card vs CPU, 64 px:")
-    return totals
+    if dtype == torch.float32:
+        # the card against the CPU (plain versions) on a small input, same weights
+        small = rng.random((2, 64, 64, 3), np.float32)
+        on_card = BatchInferenceEngine(cfg, gen, specseg, batch_size=2,
+                                       device="cuda").process_images(small)
+        on_cpu = BatchInferenceEngine(cfg, copy.deepcopy(gen).cpu(),
+                                      copy.deepcopy(specseg).cpu(), batch_size=2,
+                                      device="cpu").process_images(small)
+        _launch_counts(reset=True)
+        _compare(on_card, on_cpu, "card vs CPU, 64 px:")
+    return totals, results
 
 
 def _launch_counts(reset: bool = False):
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
     from shmgan_tpu_torch.ops.kernels import preprocess as pre
 
-    counts = {"instance_norm": ink.launches, "instance_norm_backward": ink.backward_launches,
+    counts = {**{ink.kernel_name(*k): n for k, n in ink.launches.items()},
               "fused_standardize_yuv": pre.launches}
     if reset:
-        ink.launches = ink.backward_launches = pre.launches = 0
+        ink.launches.update(dict.fromkeys(ink.launches, 0))
+        pre.launches = 0
     return counts
 
 
@@ -567,7 +691,7 @@ def train_phase():
     from shmgan_tpu_torch.train.step import (make_scan_train_steps, make_train_step,
                                              sample_draws)
 
-    cfg = training_config()
+    cfg = training_config("float32")
     v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
     state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
     say(f"train config: {size} px, batch {b}, filter {cfg.model.filter_size}, SpecSeg base "
@@ -592,9 +716,10 @@ def train_phase():
     state, through_kernels = checked(state, views, draws, 0)
     torch.cuda.synchronize()
     step_counts = _launch_counts(reset=True)
-    say(f"one train step: launches {step_counts} (expected {STEP_LAUNCHES})")
-    if step_counts != STEP_LAUNCHES:
-        raise AssertionError(f"train step launches {step_counts}, expected {STEP_LAUNCHES}")
+    say(f"one train step: launches {step_counts} (expected {step_launches(torch.float32)})")
+    if step_counts != step_launches(torch.float32):
+        raise AssertionError(f"train step launches {step_counts}, expected "
+                             f"{step_launches(torch.float32)}")
     with plain_versions():
         plain_state, through_plain = checked(plain_state, views, draws, 0)
     if any(_launch_counts(reset=True).values()):
@@ -638,14 +763,14 @@ def train_phase():
         raise AssertionError("make_scan_train_steps: wrong step count, shape or values")
     say(f"make_scan_train_steps K=3: total_G {stacked['total_G'].tolist()}")
     counts = _launch_counts(reset=True)
-    want = {k: 13 * n for k, n in STEP_LAUNCHES.items()}
+    want = {k: 13 * n for k, n in step_launches(torch.float32).items()}
     say(f"launches over those 13 steps: {counts}")
     if counts != want:
         raise AssertionError(f"13 train steps launched {counts}, expected {want}")
     totals = {k: step_counts[k] + counts[k] for k in counts}
 
     # 5. the card against the CPU on one step at batch 2, same weights and draws
-    small = training_config()
+    small = training_config("float32")
     small.train.batch_size = 2
     models = build_models(small, device="cpu", seed=1)
     cpu_state = create_train_state(small, tuple(copy.deepcopy(m) for m in models))
@@ -663,6 +788,94 @@ def train_phase():
     return totals
 
 
+def _compare_step_gap(got, plain, f32, label):
+    """A bf16 step through the kernels against the same step through the
+    plain versions (_gap_check): G's and D's gradients, each network as one
+    vector, and the losses as one vector, each loss scaled by its f32 value."""
+    def flat(m, net):
+        return torch.cat([m["_grads"][net][k].double().flatten().cpu()
+                          for k in sorted(m["_grads"][net])]).numpy()
+
+    for net in ("G", "D"):
+        _gap_check(f"{label} {net} gradients", *(flat(m, net) for m in (got, plain, f32)))
+    keys = sorted(k for k in f32 if not k.startswith("_") and k != "target_label")
+    _gap_check(f"{label} losses ({len(keys)}, each scaled by its f32 value)",
+               *([float(m[k]) / max(abs(float(f32[k])), 1e-30) for k in keys]
+                 for m in (got, plain, f32)))
+
+
+def train_bf16_phase():
+    """The train step at full width computing in bf16: one step through the
+    kernels against the same step through the plain versions, by the gap to
+    the same step in f32 on the card; launches of each kernel a step; ten
+    timed steps."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    cfg, f32_cfg = training_config("bfloat16"), training_config("float32")
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    say(f"train config: {size} px, batch {b}, filter {cfg.model.filter_size}, compute dtype "
+        f"{cfg.model.compute_dtype}, parameters {next(state.gen.parameters()).dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def batch():
+        return torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+
+    checked, fast = make_train_step(cfg, debug_grads=True), make_train_step(cfg)
+    views, draws = batch(), sample_draws(cfg, gen, v, b, size, size)
+    fast(copy.deepcopy(state), views, draws, 0)  # warm-up: cuDNN's choices, allocator
+    torch.cuda.synchronize()
+
+    # the same step in f32 on the same weights (seed 0), views and draws
+    f32_state = create_train_state(f32_cfg, build_models(f32_cfg, device="cuda", seed=0))
+    _, in_f32 = make_train_step(f32_cfg, debug_grads=True)(f32_state, views, draws, 0)
+    del f32_state
+
+    plain_state = copy.deepcopy(state)
+    _launch_counts(reset=True)
+    state, through_kernels = checked(state, views, draws, 0)
+    torch.cuda.synchronize()
+    step_counts = _launch_counts(reset=True)
+    want = step_launches(torch.bfloat16)
+    say(f"one bf16 train step: launches {step_counts} (expected {want})")
+    if step_counts != want:
+        raise AssertionError(f"bf16 train step launches {step_counts}, expected {want}")
+    with plain_versions():
+        plain_state, through_plain = checked(plain_state, views, draws, 0)
+    if any(_launch_counts(reset=True).values()):
+        raise AssertionError("the plain train step launched a kernel")
+    _compare_step_gap(through_kernels, through_plain, in_f32, "kernels vs plain, bf16:")
+    del plain_state, through_plain, through_kernels, in_f32
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        views, draws = batch(), sample_draws(cfg, gen, v, b, size, size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = fast(state, views, draws, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, val in metrics.items() if not torch.isfinite(val).all()]
+        if bad:
+            raise AssertionError(f"non-finite losses after step {state.step}: {bad}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times))
+    say(f"bf16 train steps: median {med * 1e3:.2f} ms ({b / med:.2f} images/s at B={b}), "
+        f"min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms over {len(times)} "
+        f"steps; peak device memory {peak:.3f} GiB; losses of the last: total_G="
+        f"{float(metrics['total_G']):.4f} total_D={float(metrics['total_D']):.4f}")
+    counts = _launch_counts(reset=True)
+    want = {k: 10 * n for k, n in step_launches(torch.bfloat16).items()}
+    if counts != want:
+        raise AssertionError(f"10 bf16 train steps launched {counts}, expected {want}")
+    return {k: step_counts[k] + counts[k] for k in counts}
+
+
 def main() -> int:
     current = "device"
     try:
@@ -672,9 +885,15 @@ def main() -> int:
         current = "kernels"
         rows = phase("kernels", kernels_phase)
         current = "serve"
-        by_path = {"serve": phase("serve", serve_phase)}
+        by_path = {}
+        by_path["serve"], f32_outputs = phase("serve", serve_phase)
+        current = "serve_bf16"
+        by_path["serve_bf16"], _ = phase("serve_bf16", serve_phase, "bfloat16", f32_outputs)
+        del f32_outputs
         current = "train"
         by_path["train"] = phase("train", train_phase)
+        current = "train_bf16"
+        by_path["train_bf16"] = phase("train_bf16", train_bf16_phase)
     except Exception:
         traceback.print_exc()
         say(f"chip_smoke FAILED in phase {current}")

@@ -2,15 +2,31 @@
 copy of shmgan_tpu/config.py's ModelConfig, TrainConfig, DataConfig and
 EvalConfig, with the same defaults.
 
-The port computes in float32 throughout (the JAX package's
-compute_dtype="float32"); bf16 compute is not ported yet. Inference takes the
-input's own image size; `model.image_size` sizes the discriminator's class
-head and the NST loss's style factor.
+`model.compute_dtype` is the models' compute dtype, as in the JAX package:
+"bfloat16" (its default) or "float32". Parameters are float32 at either; each
+convolution and dense layer casts its input, weight and bias to the compute
+dtype, instance norm and SpecSeg's batch norm compute in float32 and hand
+back the compute dtype, and the rest of inference and of the train step
+(preprocessing, losses, SSIM, the optimizer) stays float32. Inference takes
+the input's own image size; `model.image_size` sizes the discriminator's
+class head and the NST loss's style factor.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a `model.compute_dtype` name; raises on any other."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"model.compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                         f"got {name!r}")
+    return COMPUTE_DTYPES[name]
 
 
 @dataclass
@@ -27,6 +43,11 @@ class ModelConfig:
     d_dropout: float = 0.2         # D's dropout rate on its live pass
     # "conv_transpose" (reference parity) or "resize_conv" (nearest 2x + conv3x3)
     upsample_mode: str = "conv_transpose"
+    # the models' compute dtype; parameters stay float32 (see the docstring)
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        compute_dtype(self.compute_dtype)
 
 
 @dataclass

@@ -2,8 +2,13 @@
 shmgan_tpu/infer.py's `make_infer_fn`.
 
 Input contract: RGB in [0, 1], (B, H, W, 3). The input plays the I0 role, the
-other Y planes are zero and the target label is ED. Every tensor is NHWC and
-float32; TF32 is off for the convolutions while the function runs.
+other Y planes are zero and the target label is ED. Every tensor is NHWC. G
+and SpecSeg compute in `cfg.model.compute_dtype` (bfloat16 by default, or
+float32); preprocessing, the mask's post-processing, the luma refit and the
+colour conversions compute in float32, since a bfloat16 tensor meeting a
+float32 one promotes to float32 in both frameworks. So `gen_y` comes back in
+the compute dtype, as the JAX function returns it, and every other output in
+float32. TF32 is off for the float32 convolutions while the function runs.
 """
 
 from __future__ import annotations

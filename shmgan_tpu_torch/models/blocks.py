@@ -14,11 +14,17 @@ relies on (each held by a CPU test against flax):
     plain 2x2 pools;
   - flax `Conv` 3x3 stride 2 `SAME` on even sizes pads (0, 1) on each axis:
     `F.pad(x, (0, 1, 0, 1))`, then `conv2d(stride=2, padding=0)`.
+
+Compute dtype: each block has a `dtype`, as the flax modules' `dtype` field
+(float32 or bfloat16). Parameters stay float32; `conv`, `conv_transpose` and
+`linear` cast the input, weight and bias to the block's dtype when called, as
+flax's `promote_dtype` does, so gradients reach the float32 parameters
+through the cast. InstanceNorm returns its input's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -46,9 +52,30 @@ def same_conv(cin: int, cout: int, kernel: int = 3) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+def conv(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """m(x) computed in `dtype`: input, weight and bias cast to it."""
+    return m._conv_forward(x.to(dtype), m.weight.to(dtype), _cast(m.bias, dtype))
+
+
+def conv_transpose(m: nn.ConvTranspose2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """m(x) computed in `dtype`: input, weight and bias cast to it."""
+    return F.conv_transpose2d(x.to(dtype), m.weight.to(dtype), _cast(m.bias, dtype), m.stride,
+                              m.padding, m.output_padding, m.groups, m.dilation)
+
+
+def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """m(x) computed in `dtype`: input, weight and bias cast to it."""
+    return F.linear(x.to(dtype), m.weight.to(dtype), _cast(m.bias, dtype))
+
+
 class InstanceNorm(nn.Module):
     """Per-instance, per-channel normalisation over H, W through the CUDA
-    kernel (ops/kernels/instance_norm.py). `scale` is gamma, `bias` beta."""
+    kernel (ops/kernels/instance_norm.py), computed in f32 and returned in
+    the input's dtype. `scale` is gamma, `bias` beta."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -64,28 +91,29 @@ class ConvIN(nn.Module):
     """Conv (stride 1, SAME) + leaky_relu + InstanceNorm."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, slope: float = 0.2,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope = slope
+        self.slope, self.dtype = slope, dtype
         self.conv = same_conv(cin, features, kernel)
         self.inorm = InstanceNorm(features, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.inorm(leaky_relu(self.conv(x), self.slope))
+        return self.inorm(leaky_relu(conv(self.conv, x, self.dtype), self.slope))
 
 
 class ConvLReLUIN(nn.Module):
     """Conv 3x3 stride 2 (flax SAME), no bias, + leaky_relu + InstanceNorm:
     the discriminator's strided block."""
 
-    def __init__(self, cin: int, features: int, slope: float = 0.2, eps: float = 1e-6):
+    def __init__(self, cin: int, features: int, slope: float = 0.2, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope = slope
+        self.slope, self.dtype = slope, dtype
         self.conv = nn.Conv2d(cin, features, 3, stride=2, padding=0, bias=False)
         self.inorm = InstanceNorm(features, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(F.pad(x, (0, 1, 0, 1)))
+        x = conv(self.conv, F.pad(x, (0, 1, 0, 1)), self.dtype)
         return self.inorm(leaky_relu(x, self.slope))
 
 
@@ -94,41 +122,44 @@ class MaskAttention(nn.Module):
     Returns (attention features, pooled mask)."""
 
     def __init__(self, cin: int, features: int, pool: bool = True, pool_size: int = 2,
-                 slope: float = 0.2):
+                 slope: float = 0.2, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pool, self.pool_size, self.slope = pool, pool_size, slope
+        self.pool, self.pool_size, self.slope, self.dtype = pool, pool_size, slope, dtype
         self.conv0 = same_conv(cin, features)
         self.conv1 = same_conv(features, features)
 
     def forward(self, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         pooled = max_pool(mask, self.pool_size) if self.pool else mask
-        a = leaky_relu(self.conv0(pooled), self.slope)
-        a = leaky_relu(self.conv1(a), self.slope)
+        a = leaky_relu(conv(self.conv0, pooled, self.dtype), self.slope)
+        a = leaky_relu(conv(self.conv1, a, self.dtype), self.slope)
         return a, pooled
 
 
 class ConvTransposeUp(nn.Module):
     """Transposed conv k3 s2 (flax SAME: exactly 2x) + leaky_relu."""
 
-    def __init__(self, cin: int, features: int, slope: float = 0.2):
+    def __init__(self, cin: int, features: int, slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope = slope
+        self.slope, self.dtype = slope, dtype
         self.convt = nn.ConvTranspose2d(cin, features, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        return leaky_relu(self.convt(x)[..., :2 * h, :2 * w], self.slope)
+        y = conv_transpose(self.convt, x, self.dtype)
+        return leaky_relu(y[..., :2 * h, :2 * w], self.slope)
 
 
 class ResizeConvUp(nn.Module):
     """Nearest 2x resize + conv3x3 + leaky_relu. The conv is named `convt`, as
     in flax, so both upsample modes share one parameter tree."""
 
-    def __init__(self, cin: int, features: int, slope: float = 0.2):
+    def __init__(self, cin: int, features: int, slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope = slope
+        self.slope, self.dtype = slope, dtype
         self.convt = same_conv(cin, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return leaky_relu(self.convt(x), self.slope)
+        return leaky_relu(conv(self.convt, x, self.dtype), self.slope)

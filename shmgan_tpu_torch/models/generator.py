@@ -7,6 +7,9 @@ the interface, NCHW inside. Topology (N = filter_size):
   bottleneck:    2x ConvIN 1x1 at 8N;
   4 up levels:   upsample, concat skip, 2x ConvIN;
   head:          conv 1x1 -> 1 channel, leaky_relu.
+
+Computes in `dtype` (float32 or bfloat16, the JAX module's `dtype`): the
+mask is cast to it, every block returns it, and so does the output.
 """
 
 from __future__ import annotations
@@ -16,42 +19,42 @@ import torch.nn as nn
 
 from shmgan_tpu_torch.models.blocks import (
     INIT_STDDEV, ConvIN, ConvTransposeUp, InstanceNorm, MaskAttention, ResizeConvUp,
-    avg_pool_2x2, leaky_relu,
+    avg_pool_2x2, conv, leaky_relu,
 )
 
 
 class SHMGenerator(nn.Module):
     def __init__(self, filter_size: int = 64, c_dim: int = 5, levels: int = 4,
                  instance_norm_eps: float = 1e-6, slope: float = 0.2,
-                 upsample_mode: str = "conv_transpose"):
+                 upsample_mode: str = "conv_transpose", dtype: torch.dtype = torch.float32):
         super().__init__()
         if upsample_mode not in ("conv_transpose", "resize_conv"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}")
-        self.levels, self.slope = levels, slope
-        n, eps = filter_size, instance_norm_eps
+        self.levels, self.slope, self.dtype = levels, slope, dtype
+        n = filter_size
+        kw = dict(slope=slope, eps=instance_norm_eps, dtype=dtype)
         cin = 2 * c_dim
         for lvl in range(levels):
             feats = n * 2 ** lvl
-            self.add_module(f"down{lvl}_0", ConvIN(cin, feats, slope=slope, eps=eps))
-            self.add_module(f"down{lvl}_1", ConvIN(feats, feats, slope=slope, eps=eps))
+            self.add_module(f"down{lvl}_0", ConvIN(cin, feats, **kw))
+            self.add_module(f"down{lvl}_1", ConvIN(feats, feats, **kw))
             self.add_module(f"attn{lvl}", MaskAttention(1, feats, pool=lvl > 0,
-                                                        slope=slope))
+                                                        slope=slope, dtype=dtype))
             cin = feats
         for i in range(2):
-            self.add_module(f"bottleneck_{i}", ConvIN(cin, cin, kernel=1, slope=slope,
-                                                      eps=eps))
+            self.add_module(f"bottleneck_{i}", ConvIN(cin, cin, kernel=1, **kw))
         up = ResizeConvUp if upsample_mode == "resize_conv" else ConvTransposeUp
         for ulvl in range(levels):
             feats = n * 2 ** (levels - 1 - ulvl)
-            self.add_module(f"up{ulvl}_t", up(cin, feats, slope=slope))
-            self.add_module(f"up{ulvl}_0", ConvIN(2 * feats, feats, slope=slope, eps=eps))
-            self.add_module(f"up{ulvl}_1", ConvIN(feats, feats, slope=slope, eps=eps))
+            self.add_module(f"up{ulvl}_t", up(cin, feats, slope=slope, dtype=dtype))
+            self.add_module(f"up{ulvl}_0", ConvIN(2 * feats, feats, **kw))
+            self.add_module(f"up{ulvl}_1", ConvIN(feats, feats, **kw))
             cin = feats
         self.head = nn.Conv2d(cin, 1, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous()
-        pooled = mask.permute(0, 3, 1, 2).contiguous()
+        pooled = mask.permute(0, 3, 1, 2).contiguous().to(self.dtype)
         skips = []
         for lvl in range(self.levels):
             x = getattr(self, f"down{lvl}_1")(getattr(self, f"down{lvl}_0")(x))
@@ -63,7 +66,7 @@ class SHMGenerator(nn.Module):
             x = getattr(self, f"up{ulvl}_t")(x)
             x = torch.cat([x, skips[self.levels - 1 - ulvl]], dim=1)
             x = getattr(self, f"up{ulvl}_1")(getattr(self, f"up{ulvl}_0")(x))
-        y = leaky_relu(self.head(x), self.slope)
+        y = leaky_relu(conv(self.head, x, self.dtype), self.slope)
         return y.permute(0, 2, 3, 1).contiguous()
 
     @torch.no_grad()

@@ -1,5 +1,5 @@
 """Instance normalisation over NCHW activations: the CUDA kernels (forward and
-backward) and their plain versions.
+backward) and their plain versions, for float32 and bfloat16 activations.
 
 `instance_norm(x, gamma, beta, eps)` runs `instance_norm_plain` for a CPU
 tensor, which autograd differentiates. For a CUDA tensor it launches
@@ -14,58 +14,75 @@ kernel takes one-pass moments, the plain version two-pass ones, as the JAX
 package's `instance_norm_reference` does, so the two agree to rounding.
 `instance_norm_backward_plain` transcribes `_bwd`.
 
-`launches` and `backward_launches` count kernel launches, so a run can show
-its path went through the kernels.
+Dtypes follow the TPU kernel's: the activations x, y, g and dx are all
+float32 or all bfloat16, gamma, beta and the saved mean and rstd are float32,
+every moment and affine is computed in float32, y and dx come back in x's
+dtype and dgamma, dbeta in float32. A CUDA tensor of any other dtype (float16,
+float64) raises.
+
+`launches[kind, dtype]` counts the launches of each kernel ("forward" or
+"backward") by activation dtype, so a run can show its path went through the
+kernels; `kernel_name(kind, dtype)` names each in reports.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-launches = 0
-backward_launches = 0
+# the kernels' entry points in csrc/instance_norm.cu, by activation dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_fns: Dict[torch.dtype, tuple] = {}
+KINDS = ("forward", "backward")
+launches: Dict[Tuple[str, torch.dtype], int] = {(k, d): 0 for k in KINDS for d in _SUFFIX}
 
-_fwd = None
-_bwd = None
+
+def kernel_name(kind: str, dtype: torch.dtype) -> str:
+    """instance_norm, instance_norm_backward, and each with _bf16 for bf16."""
+    return ("instance_norm" + ("_backward" if kind == "backward" else "")
+            + ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
-def _kernel_fns():
-    global _fwd, _bwd
-    if _fwd is None:
+def _kernel_fns(dtype: torch.dtype):
+    """(forward, backward) C functions for activations of `dtype`."""
+    if dtype not in _fns:
         from shmgan_tpu_torch.runtime.build import load
 
         lib = load("instance_norm")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fwd = lib.shm_instance_norm_f32
+        fwd = getattr(lib, f"shm_instance_norm_{_SUFFIX[dtype]}")
         fwd.argtypes = [p, p, p, p, p, p, ll, i, ll, ctypes.c_float, p]
         fwd.restype = i
-        bwd = lib.shm_instance_norm_bwd_f32
+        bwd = getattr(lib, f"shm_instance_norm_bwd_{_SUFFIX[dtype]}")
         bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ll, p]
         bwd.restype = i
-        _fwd, _bwd = fwd, bwd
-    return _fwd, _bwd
+        _fns[dtype] = (fwd, bwd)
+    return _fns[dtype]
 
 
 def instance_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                         eps: float = 1e-6) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, H, W); per-(b, c) moments over H, W, in f32."""
+    """(B, C, H, W) -> (B, C, H, W) in x's dtype; per-(b, c) moments over H,
+    W, and the affine, in f32 (`instance_norm_reference`)."""
     xf = x.float()
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return y * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
+    return (y * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)).to(x.dtype)
 
 
 def instance_norm_backward_plain(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
                                  rstd: torch.Tensor, g: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta) of instance norm at x for the output gradient g,
-    from the per-plane mean and rstd (B, C); `_bwd` of the JAX package."""
+    from the per-plane mean and rstd (B, C); `_bwd` of the JAX package: f32
+    arithmetic, dx in x's dtype, dgamma and dbeta in f32."""
     n = x.shape[2] * x.shape[3]
+    dtype = x.dtype
+    x, g = x.float(), g.float()
     inv = rstd[:, :, None, None]
     xhat = (x - mean[:, :, None, None]) * inv
     dgamma = (g * xhat).sum(dim=(0, 2, 3))
@@ -74,18 +91,24 @@ def instance_norm_backward_plain(x: torch.Tensor, gamma: torch.Tensor, mean: tor
     sum_gg = gg.sum(dim=(2, 3), keepdim=True)
     sum_gg_xhat = (gg * xhat).sum(dim=(2, 3), keepdim=True)
     dx = inv / n * (n * gg - sum_gg - xhat * sum_gg_xhat)
-    return dx, dgamma, dbeta
+    return dx.to(dtype), dgamma, dbeta
 
 
-def _check(x: torch.Tensor, **others: torch.Tensor) -> None:
+def _check(acts: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> None:
+    """The activations (x first) contiguous on one card in x's dtype, float32
+    or bfloat16; the per-channel and per-plane tensors contiguous float32."""
+    x = acts["x"]
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"instance_norm: expected (B, C, H, W), got {tuple(x.shape)}")
-    for name, t in (("x", x), *others.items()):
-        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"instance_norm: {name} must be contiguous float32 on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
+    if x.dtype not in _SUFFIX:
+        raise ValueError(f"instance_norm: x must be float32 or bfloat16, got {x.dtype}")
+    for names, dtype in ((acts, x.dtype), (params, torch.float32)):
+        for name, t in names.items():
+            if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"instance_norm: {name} must be contiguous {dtype} on "
+                                 f"{x.device}, got {t.dtype} on {t.device}")
 
 
 def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
@@ -93,7 +116,6 @@ def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: floa
                                         Optional[torch.Tensor]]:
     """One launch of the forward kernel; with_stats also returns the (B, C)
     mean and rstd."""
-    global launches
     b, c, h, w = x.shape
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"instance_norm: gamma/beta must be ({c},), got "
@@ -106,13 +128,13 @@ def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: floa
     if x.numel() == 0:
         return y, mean, rstd
     with torch.cuda.device(x.device):
-        err = _kernel_fns()[0](
+        err = _kernel_fns(x.dtype)[0](
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr() if with_stats else None, rstd.data_ptr() if with_stats else None,
             b * c, c, h * w, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"instance_norm kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches["forward", x.dtype] += 1
     return y, mean, rstd
 
 
@@ -120,9 +142,9 @@ def instance_norm_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Ten
                            rstd: torch.Tensor, g: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dgamma, dbeta) through the backward kernel, for CUDA tensors: x and
-    g (B, C, H, W), gamma (C,), mean and rstd (B, C) from the forward."""
-    global backward_launches
-    _check(x, g=g, gamma=gamma, mean=mean, rstd=rstd)
+    g (B, C, H, W) in one dtype, gamma (C,), mean and rstd (B, C) from the
+    forward in f32. dx comes back in x's dtype, dgamma and dbeta in f32."""
+    _check({"x": x, "g": g}, {"gamma": gamma, "mean": mean, "rstd": rstd})
     b, c, h, w = x.shape
     if g.shape != x.shape or gamma.shape != (c,) or mean.shape != (b, c) \
             or rstd.shape != (b, c):
@@ -136,13 +158,13 @@ def instance_norm_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Ten
         return dx, dgamma.zero_(), dbeta.zero_()
     scratch = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernel_fns()[1](
+        err = _kernel_fns(x.dtype)[1](
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(),
             b, c, h * w, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"instance_norm backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
+    launches["backward", x.dtype] += 1
     return dx, dgamma, dbeta
 
 
@@ -165,11 +187,13 @@ class _InstanceNormFn(torch.autograd.Function):
 
 def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    """Instance norm of a contiguous f32 (B, C, H, W) tensor with per-channel
-    gamma and beta of shape (C,). Differentiable in x, gamma and beta."""
+    """Instance norm of a contiguous (B, C, H, W) tensor, float32 or bfloat16,
+    with per-channel float32 gamma and beta of shape (C,); the result in x's
+    dtype. Differentiable in x, gamma and beta: the gradient reaching the
+    output comes in the output's dtype, as JAX's cotangent does."""
     if x.device.type == "cpu":
         return instance_norm_plain(x, gamma, beta, eps)
-    _check(x, gamma=gamma, beta=beta)
+    _check({"x": x}, {"gamma": gamma, "beta": beta})
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _InstanceNormFn.apply(x, gamma, beta, eps)

@@ -1,9 +1,10 @@
 """Serving measurement of the port on one CUDA card.
 
-    python -m shmgan_tpu_torch.profile_serve
+    python -m shmgan_tpu_torch.profile_serve [--compute_dtype bfloat16|float32]
 
 Builds BatchInferenceEngine at full width on weights from seed 0 (the
-committed 256-px bundle's hyperparameters, batch 8, 256 px), then:
+committed 256-px bundle's hyperparameters, batch 8, 256 px) computing in
+the given dtype (default bfloat16, the JAX package's default), then:
   1. times full-batch requests end to end (numpy in, numpy out): first a run
      through the kernels alone, then through the kernels and through their
      plain versions in turns (kernel, plain, plain, kernel, ...), and reports
@@ -18,6 +19,7 @@ Prints one JSON line. Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from shmgan_tpu_torch import Config
+from shmgan_tpu_torch.config import COMPUTE_DTYPES
 from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 from shmgan_tpu_torch.ops.kernels import preprocess as pre
@@ -42,10 +45,12 @@ CONV_MARKERS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "winograd",
 BATCH, SIZE, REQUESTS = 8, 256, 20
 
 
-def serving_config() -> Config:
+def serving_config(compute_dtype: str) -> Config:
     """artifacts/shmgan_infer_256.msgpack.json's hyperparameters, with the
-    chroma prior fused into the mask as it is served."""
+    chroma prior fused into the mask as it is served, computing in
+    `compute_dtype`."""
     cfg = Config()
+    cfg.model.compute_dtype = compute_dtype
     cfg.model.filter_size = 64
     cfg.model.c_dim = 5
     cfg.model.specseg_base_filters = 16
@@ -110,10 +115,13 @@ def device_split(fn):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
 
-    cfg = serving_config()
+    cfg = serving_config(args.compute_dtype)
     gen, _, specseg = build_models(cfg, device="cuda", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=BATCH, device="cuda")
     rgb = np.random.default_rng(0).random((BATCH, SIZE, SIZE, 3), np.float32)
@@ -138,7 +146,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "batch": BATCH, "size": SIZE, "requests_per_path": REQUESTS}
+              "compute_dtype": args.compute_dtype, "batch": BATCH, "size": SIZE,
+              "requests_per_path": REQUESTS}
     for path, ts in (("kernels_alone", alone), *times.items()):
         result[f"{path}_request_ms_in_order"] = [round(t * 1e3, 2) for t in ts]
         ts = sorted(ts)

@@ -1,10 +1,11 @@
 """Train-step measurement of the port on one CUDA card.
 
-    python -m shmgan_tpu_torch.profile_train
+    python -m shmgan_tpu_torch.profile_train [--compute_dtype bfloat16|float32]
 
 Builds the train state at full width on weights from seed 0 (the JAX
-package's default model in float32: 128 px, filter 64, c_dim 5, SpecSeg base
-16, batch 8, flip on, reference-parity flags), then:
+package's default model: 128 px, filter 64, c_dim 5, SpecSeg base 16, batch
+8, flip on, reference-parity flags) computing in the given dtype (default
+bfloat16, the JAX package's default), then:
   1. times steps through the kernels and through their plain versions in
      turns (kernels, plain, plain, kernels, ...), each on a fresh batch and
      fresh draws, and reports the median step ms and images/s (B images a
@@ -17,6 +18,7 @@ Prints one JSON line. Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -25,6 +27,7 @@ import time
 import torch
 
 from shmgan_tpu_torch import Config
+from shmgan_tpu_torch.config import COMPUTE_DTYPES
 from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.profile_serve import device_split, plain_versions
 from shmgan_tpu_torch.train.state import create_train_state
@@ -33,17 +36,22 @@ from shmgan_tpu_torch.train.step import make_train_step, sample_draws
 STEPS = 10
 
 
-def training_config() -> Config:
-    """The JAX package's default configuration at batch 8, in float32."""
+def training_config(compute_dtype: str) -> Config:
+    """The JAX package's default configuration at batch 8, computing in
+    `compute_dtype`."""
     cfg = Config()
     cfg.train.batch_size = 8
+    cfg.model.compute_dtype = compute_dtype
     return cfg
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
-    cfg = training_config()
+    cfg = training_config(args.compute_dtype)
     v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
     state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
     step = make_train_step(cfg)
@@ -75,7 +83,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
-    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "batch": b,
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "compute_dtype": args.compute_dtype, "batch": b,
               "size": s, "steps_per_path": STEPS, "peak_device_memory_gib": peak / 2**30}
     for path, ts in times.items():
         result[f"{path}_step_ms_in_order"] = [round(t * 1e3, 2) for t in ts]

@@ -3,7 +3,10 @@
 
 The engine runs at a fixed batch size with the weights resident on the
 device, and pads a partial batch to that size, so every call the device sees
-has one shape. Numpy in, numpy out.
+has one shape. Numpy in, numpy out: every output comes back as a float32
+array. In bfloat16 compute `gen_y` is a bfloat16 tensor on the device and is
+widened exactly to float32 on the host, where the JAX engine hands back an
+`ml_dtypes.bfloat16` array (numpy has no bfloat16).
 
     gen, _, specseg = build_models(cfg, device="cuda", seed=0)
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=8)
@@ -48,7 +51,7 @@ class BatchInferenceEngine:
                 chunk = np.concatenate([chunk, pad])
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
             out = self._infer(self._gen, self._specseg, x)
-            outs.append({k: (v[:, :real] if k == "cyc_rgb" else v[:real]).cpu().numpy()
+            outs.append({k: (v[:, :real] if k == "cyc_rgb" else v[:real]).cpu().float().numpy()
                          for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=1 if k == "cyc_rgb" else 0)
                 for k in outs[0]}

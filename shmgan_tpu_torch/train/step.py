@@ -13,6 +13,11 @@ One step runs:
     stop_gradient of the JAX step is a .detach();
   * the D update, the G update when epoch >= train_G_after, then the EMA.
 
+G, D and SpecSeg compute in `cfg.model.compute_dtype` (f32 parameters). Their
+bf16 outputs meet f32 tensors in concatenations and selects, which promote
+to f32 as jnp's do, so preprocessing, the losses, SSIM and the optimizer run
+in f32 at either dtype.
+
 Random draws are arguments (`Draws`), so a test can inject the JAX step's;
 `sample_draws` reproduces their distributions from a torch.Generator. The
 step updates the state in place and returns it with the metrics.
@@ -46,7 +51,8 @@ class Draws:
     flip: torch.Tensor                   # () bool: flip all views up/down
     t: torch.Tensor                      # () f32: smoothed label t ~ U[low, high]
     drop: torch.Tensor                   # (1, V) or (B, V) f32, 1 = view dropped
-    noise: Optional[torch.Tensor] = None  # (2B, 3, H, W) N(0, 1) of D's live pass
+    noise: Optional[torch.Tensor] = None  # (2B, 3, H, W) N(0, 1) of D's live pass,
+    #                                       rounded to D's compute dtype there
     keep: Optional[torch.Tensor] = None   # (2B, 16N, H/32, W/32) D dropout's keep mask
 
     def to(self, device) -> "Draws":

@@ -2,7 +2,8 @@
 on the CPU: every output, the cyclic pass and dihedral TTA, on weights
 carried over by convert.py, and once on the committed trained 128-px bundle.
 
-The JAX side runs with compute_dtype="float32", as the port does. Tolerance:
+Both sides run with compute_dtype="float32" (tests/test_torch_bf16.py holds
+the bfloat16 default). Tolerance:
 abs 1e-3 on the [0, 1] outputs (mask, calibrated, composited) and 1e-3
 relative to the output's scale on the others; the convolutions sum in
 another order in the two frameworks.
@@ -42,7 +43,7 @@ def _configs(image_size=32, filter_size=8, base=4, in_channels=1,
         upsample_mode=upsample_mode, compute_dtype="float32")
     jcfg.eval = dataclasses.replace(jcfg.eval, mask_tta=tta, mask_chroma_prior=prior)
     cfg = Config()
-    for k in ("filter_size", "specseg_in_channels", "upsample_mode"):
+    for k in ("filter_size", "specseg_in_channels", "upsample_mode", "compute_dtype"):
         setattr(cfg.model, k, getattr(jcfg.model, k))
     cfg.model.specseg_base_filters = base
     cfg.eval.mask_tta, cfg.eval.mask_chroma_prior = tta, prior

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, with
+float32 and with bfloat16 activations.
 
 Marked `gpu`; each test skips where there is no CUDA card. This file imports
 neither JAX nor the JAX package, so it runs on a machine with the card and
@@ -22,6 +23,11 @@ def cuda():
     return torch.device("cuda")
 
 
+def launched(before):
+    """The IN kernels launched since `before`, a copy of `ink.launches`."""
+    return {k: n - before[k] for k, n in ink.launches.items() if n != before[k]}
+
+
 @pytest.mark.gpu
 class TestKernelsOnCard:
     """The CUDA kernels vs their plain versions on the card."""
@@ -32,9 +38,9 @@ class TestKernelsOnCard:
         x = torch.randn(shape, device=cuda, generator=g) + 0.5
         gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
         beta = torch.randn(shape[1], device=cuda, generator=g) * 0.1
-        before = ink.launches
+        before = dict(ink.launches)
         y = ink.instance_norm(x, gamma, beta)
-        assert ink.launches == before + 1
+        assert launched(before) == {("forward", torch.float32): 1}
         torch.testing.assert_close(y, ink.instance_norm_plain(x, gamma, beta),
                                    rtol=1e-4, atol=1e-4)
 
@@ -88,9 +94,9 @@ class TestKernelsOnCard:
         gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
         mean = x.mean(dim=(2, 3))
         rstd = torch.rsqrt((x - mean[:, :, None, None]).square().mean(dim=(2, 3)) + 1e-6)
-        before = ink.backward_launches
+        before = dict(ink.launches)
         got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
-        assert ink.backward_launches == before + 1
+        assert launched(before) == {("backward", torch.float32): 1}
         again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
         for a, b, ref in zip(got, again, ink.instance_norm_backward_plain(x, gamma, mean,
                                                                         rstd, dy)):
@@ -107,11 +113,12 @@ class TestKernelsOnCard:
                torch.randn(16, device=cuda, generator=g)]
         dy = torch.randn(shape, device=cuda, generator=g)
         a = [t.clone().requires_grad_(True) for t in ins]
-        before = (ink.launches, ink.backward_launches)
+        before = dict(ink.launches)
         y = ink.instance_norm(*a)
         assert y.grad_fn is not None
         y.backward(dy)
-        assert (ink.launches, ink.backward_launches) == (before[0] + 1, before[1] + 1)
+        assert launched(before) == {("forward", torch.float32): 1,
+                                    ("backward", torch.float32): 1}
         b = [t.clone().requires_grad_(True) for t in ins]
         ink.instance_norm_plain(*b).backward(dy)
         for ta, tb in zip(a, b):
@@ -119,8 +126,81 @@ class TestKernelsOnCard:
             torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-4, atol=1e-4)
 
     def test_wrappers_reject_wrong_dtype(self, cuda):
-        with pytest.raises(ValueError):
-            ink.instance_norm(torch.zeros(1, 2, 4, 4, device=cuda, dtype=torch.float64),
-                              torch.ones(2, device=cuda), torch.zeros(2, device=cuda))
+        for dtype in (torch.float64, torch.float16):
+            with pytest.raises(ValueError):
+                ink.instance_norm(torch.zeros(1, 2, 4, 4, device=cuda, dtype=dtype),
+                                  torch.ones(2, device=cuda), torch.zeros(2, device=cuda))
+        with pytest.raises(ValueError):  # gamma and beta stay f32 for bf16 activations
+            ink.instance_norm(torch.zeros(1, 2, 4, 4, device=cuda, dtype=torch.bfloat16),
+                              torch.ones(2, device=cuda, dtype=torch.bfloat16),
+                              torch.zeros(2, device=cuda))
+        x = torch.zeros(1, 2, 4, 4, device=cuda, dtype=torch.bfloat16)
+        stats = torch.zeros(1, 2, device=cuda)
+        with pytest.raises(ValueError):  # x and g share one dtype
+            ink.instance_norm_backward(x, torch.ones(2, device=cuda), stats, stats + 1,
+                                       torch.zeros(1, 2, 4, 4, device=cuda))
         with pytest.raises(ValueError):
             pre.fused_standardize_yuv(torch.zeros(1, 4, 4, 3, device=cuda).transpose(1, 2))
+
+    # bf16 activations: y and dx within one bf16 ulp of the plain version
+    # (rtol 2^-7) plus the f32 kernel's atol, dgamma and dbeta (f32) within 1e-3
+    BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+
+    @pytest.mark.parametrize("shape", [(2, 64, 32, 32), (3, 5, 7, 9), (4, 1024, 4, 4),
+                                       (2, 8, 5, 3)])
+    def test_instance_norm_bf16(self, cuda, shape):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = (torch.randn(shape, device=cuda, generator=g) + 0.5).bfloat16()
+        gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
+        beta = torch.randn(shape[1], device=cuda, generator=g) * 0.1
+        before = dict(ink.launches)
+        y = ink.instance_norm(x, gamma, beta)
+        assert launched(before) == {("forward", torch.bfloat16): 1}
+        ref = ink.instance_norm_plain(x, gamma, beta)
+        assert y.dtype == ref.dtype == torch.bfloat16
+        torch.testing.assert_close(y.float(), ref.float(), **self.BF16_TOL)
+        assert torch.equal(y, ink.instance_norm(x, gamma, beta))
+
+    @pytest.mark.parametrize("shape", [(2, 64, 32, 32), (3, 5, 7, 9), (4, 1024, 4, 4),
+                                       (2, 8, 5, 3)])
+    def test_instance_norm_backward_bf16(self, cuda, shape):
+        g = torch.Generator(device=cuda).manual_seed(6)
+        x = (torch.randn(shape, device=cuda, generator=g) + 0.5).bfloat16()
+        dy = torch.randn(shape, device=cuda, generator=g).bfloat16()
+        gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3))
+        rstd = torch.rsqrt((xf - mean[:, :, None, None]).square().mean(dim=(2, 3)) + 1e-6)
+        before = dict(ink.launches)
+        got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        assert launched(before) == {("backward", torch.bfloat16): 1}
+        assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+        again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
+        torch.testing.assert_close(got[0].float(), ref[0].float(), **self.BF16_TOL)
+        for a, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-3)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+    def test_instance_norm_bf16_gradients_reach_inputs(self, cuda):
+        """bf16 activations through the kernels: x gets a bf16 gradient, gamma
+        and beta f32 ones, those of the plain version."""
+        g = torch.Generator(device=cuda).manual_seed(7)
+        shape = (4, 16, 12, 12)
+        ins = [torch.randn(shape, device=cuda, generator=g).bfloat16(),
+               torch.rand(16, device=cuda, generator=g) + 0.5,
+               torch.randn(16, device=cuda, generator=g)]
+        dy = torch.randn(shape, device=cuda, generator=g).bfloat16()
+        a = [t.clone().requires_grad_(True) for t in ins]
+        before = dict(ink.launches)
+        y = ink.instance_norm(*a)
+        assert y.dtype == torch.bfloat16 and y.grad_fn is not None
+        y.backward(dy)
+        assert launched(before) == {("forward", torch.bfloat16): 1,
+                                    ("backward", torch.bfloat16): 1}
+        b = [t.clone().requires_grad_(True) for t in ins]
+        ink.instance_norm_plain(*b).backward(dy)
+        assert a[0].grad.dtype == torch.bfloat16 and a[1].grad.dtype == torch.float32
+        torch.testing.assert_close(a[0].grad.float(), b[0].grad.float(), **self.BF16_TOL)
+        for ta, tb in zip(a[1:], b[1:]):
+            torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-3, atol=1e-3)

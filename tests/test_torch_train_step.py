@@ -1,9 +1,10 @@
 """The port's train step against JAX `make_train_step(debug_grads=True)` on the
-CPU, leaf for leaf, at a small width: filter 8, batch 2, SpecSeg base 4, f32,
-at the configuration's own 128 px. (At 32 px D's last instance norm
-normalises 1x1 planes, so D's outputs do not depend on its input and 18 of
-its 21 gradient leaves are exactly zero; G's bottleneck normalises 2x2
-planes.)
+CPU, leaf for leaf, at a small width: filter 8, batch 2, SpecSeg base 4, f32
+(compute_dtype "float32" on both sides: the port's config copies every field
+of the JAX one), at the configuration's own 128 px. (At 32 px D's last
+instance norm normalises 1x1 planes, so D's outputs do not depend on its
+input and 18 of its 21 gradient leaves are exactly zero; G's bottleneck
+normalises 2x2 planes.)
 
 Both steps start from one state: JAX's `create_train_state`, carried into the
 port by convert.py. D's noise and dropout are off and the flip is off, as in
