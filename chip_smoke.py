@@ -15,7 +15,10 @@ Phases (each prints its name before it starts and its seconds after):
               IN shape of the train step (repeat calls bit for bit), each with
               f32 and with bf16 activations, and autograd through the kernels
               (the path the models take) against autograd through the plain
-              version at those shapes; the preprocess kernel in both its
+              version at those shapes; the backward's plan (variant, threads,
+              blocks per SM) at each shape, its streaming variant at one larger
+              shape and its packed and resident variants on unaligned storage,
+              checked the same way; the preprocess kernel in both its
               variants, at both cluster sizes, on an unaligned input, and call
               against call, bit for bit. It times kernel, plain version, the
               library yardstick (F.instance_norm's forward, and its backward
@@ -82,6 +85,13 @@ TRAIN_IN_SHAPES = [
     ((16, 512, 8, 8), 1), ((16, 1024, 4, 4), 1),
     ((80, 64, 64, 64), 1), ((80, 128, 32, 32), 1), ((80, 256, 16, 16), 1),
     ((80, 512, 8, 8), 1), ((80, 1024, 4, 4), 1)]
+
+# an IN backward shape above the resident limit, in both dtypes: the
+# streaming variant, checked but not counted in the per-step sums
+IN_STREAM_SHAPE = (2, 16, 256, 256)
+# IN backward shapes checked on storage one element past an aligned base
+# (packed and resident variants)
+IN_UNALIGNED_SHAPES = [(16, 512, 8, 8), (16, 64, 64, 64)]
 
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
@@ -332,12 +342,87 @@ def _autograd_check(ink, name, shape, x, gamma, beta, dy, tols):
     return err
 
 
+def _backward_check(ink, name, shape, x, gamma, beta, dy, tol, ptol):
+    """The forward with its stats against the plain forward; the backward
+    kernel from those stats against its plain version, a repeat call bit for
+    bit; autograd through the kernels against the plain version. Returns
+    (worst error, mean, rstd)."""
+    dtype = x.dtype
+    y, mean, rstd = ink._forward(x, gamma, beta, 1e-6, with_stats=True)
+    y = y.float()
+    ref_y = ink.instance_norm_plain(x, gamma, beta, 1e-6).float()
+    fwd_err = (y - ref_y).abs().max().item()
+    ok_fwd = torch.allclose(y, ref_y, **tol)
+    say(f"{_in_name(dtype)} {shape} (with stats): max_abs_err={fwd_err:.3e} "
+        f"{'ok' if ok_fwd else 'FAIL'}")
+    if not ok_fwd:
+        raise AssertionError(f"{_in_name(dtype)} forward disagrees at {shape}: {fwd_err}")
+    del y, ref_y
+    got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+    again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+    ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    if got[0].dtype != dtype or ref[0].dtype != dtype or got[1].dtype != torch.float32:
+        raise AssertionError(f"{name}: dtypes {[t.dtype for t in got]}")
+    err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+    ok = all(torch.allclose(a.float(), r.float(), **t)
+             for a, r, t in zip(got, ref, (tol, ptol, ptol)))
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    say(f"{name} {shape}: max_abs_err={err:.3e} (dx, dgamma, dbeta) "
+        f"tol dx rtol={tol['rtol']:.3g} atol={tol['atol']}, dgamma/dbeta "
+        f"rtol={ptol['rtol']} atol={ptol['atol']} {'ok' if ok else 'FAIL'}; "
+        f"repeat {'bit-identical' if same else 'FAIL'}")
+    if not (ok and same):
+        raise AssertionError(f"{name} disagrees at {shape}: err={err} repeat={same}")
+    del got, again, ref
+    err = max(err, _autograd_check(ink, name, shape, x, gamma, beta, dy,
+                                   (tol, tol, ptol, ptol)))
+    return err, mean, rstd
+
+
+def _in_inputs(dev, g, shape, dtype, unaligned=False):
+    """x (post-leaky-relu-like: mean and spread comparable), gamma, beta, dy;
+    with `unaligned`, x and dy are views one element past an aligned base."""
+    k, n = int(unaligned), int(np.prod(shape))
+    x = F.leaky_relu(torch.randn(n + k, device=dev, generator=g) + 0.5, 0.2).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(shape[1], device=dev, generator=g)
+    beta = 0.02 * torch.randn(shape[1], device=dev, generator=g)
+    dy = torch.randn(n + k, device=dev, generator=g).to(dtype)
+    return x[k:].view(shape), gamma, beta, dy[k:].view(shape)
+
+
+def _backward_extra_checks(ink, name, dev, dtype, tol, ptol):
+    """The backward's streaming variant at IN_STREAM_SHAPE, and its packed and
+    resident variants on unaligned storage, each checked as the train shapes
+    are (_backward_check), on draws of their own generator (the other rows'
+    inputs stay those of earlier versions of this script). Returns the worst
+    error."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    cases = [(IN_STREAM_SHAPE, False, "streaming")] + [
+        (s, True, None) for s in IN_UNALIGNED_SHAPES]
+    for shape, unaligned, want in cases:
+        b, c, h, w = shape
+        plan = ink._bwd_plan(b, c, h * w, dtype)
+        if want is not None and plan.variant != want:
+            raise AssertionError(f"{name} {shape}: plan {plan}, expected {want}")
+        x, gamma, beta, dy = _in_inputs(dev, g, shape, dtype, unaligned)
+        if unaligned and (x.data_ptr() % 16 == 0 or dy.data_ptr() % 16 == 0):
+            raise AssertionError(f"{name} {shape}: inputs are 16-byte aligned")
+        say(f"{name} {shape} plan: {plan.variant}"
+            f"{', x and dy one element past an aligned base' if unaligned else ''}")
+        worst = max(worst, _backward_check(ink, name, shape, x, gamma, beta, dy, tol, ptol)[0])
+        del x, dy
+    return worst
+
+
 def instance_norm_backward_row(dev, g, dtype=torch.float32):
     """The IN backward at every IN shape of the train step, activations in
-    `dtype`: against its plain version (from the forward kernel's own mean and
-    rstd), repeat calls bit for bit, autograd through the kernels against
-    autograd through the plain version, and timed; the forward (with its
-    stats) checked and its device time beside it."""
+    `dtype`: its plan, against its plain version (from the forward kernel's
+    own mean and rstd), repeat calls bit for bit, autograd through the kernels
+    against autograd through the plain version, and timed; the forward (with
+    its stats) checked and its device time beside it. Then the streaming
+    variant and unaligned storage (_backward_extra_checks), not timed."""
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 
     name = _in_name(dtype, "backward")
@@ -351,39 +436,12 @@ def instance_norm_backward_row(dev, g, dtype=torch.float32):
     bound_by, worst = set(), 0.0
     for shape, sites in TRAIN_IN_SHAPES:
         b, c, h, w = shape
-        x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2).to(dtype)
-        gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
-        beta = 0.02 * torch.randn(c, device=dev, generator=g)
-        dy = torch.randn(shape, device=dev, generator=g).to(dtype)
-        y, mean, rstd = ink._forward(x, gamma, beta, 1e-6, with_stats=True)
-        y = y.float()
-        ref_y = ink.instance_norm_plain(x, gamma, beta, 1e-6).float()
-        fwd_err = (y - ref_y).abs().max().item()
-        ok_fwd = torch.allclose(y, ref_y, **tol)
-        say(f"{_in_name(dtype)} {shape} (with stats): max_abs_err={fwd_err:.3e} "
-            f"{'ok' if ok_fwd else 'FAIL'}")
-        if not ok_fwd:
-            raise AssertionError(f"{_in_name(dtype)} forward disagrees at {shape}: {fwd_err}")
-        del y, ref_y
-        got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
-        again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
-        ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
-        torch.cuda.synchronize()
-        if got[0].dtype != dtype or ref[0].dtype != dtype or got[1].dtype != torch.float32:
-            raise AssertionError(f"{name}: dtypes {[t.dtype for t in got]}")
-        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
-        ok = all(torch.allclose(a.float(), r.float(), **t)
-                 for a, r, t in zip(got, ref, (tol, ptol, ptol)))
-        same = all(torch.equal(a, r) for a, r in zip(got, again))
-        say(f"{name} {shape}: max_abs_err={err:.3e} (dx, dgamma, dbeta) "
-            f"tol dx rtol={tol['rtol']:.3g} atol={tol['atol']}, dgamma/dbeta "
-            f"rtol={ptol['rtol']} atol={ptol['atol']} {'ok' if ok else 'FAIL'}; "
-            f"repeat {'bit-identical' if same else 'FAIL'}")
-        if not (ok and same):
-            raise AssertionError(f"{name} disagrees at {shape}: err={err} repeat={same}")
-        del got, again, ref
-        err = max(err, _autograd_check(ink, name, shape, x, gamma, beta, dy,
-                                       (tol, tol, ptol, ptol)))
+        x, gamma, beta, dy = _in_inputs(dev, g, shape, dtype)
+        plan = ink._bwd_plan(b, c, h * w, dtype)
+        per_sm = ink.blocks_per_sm(plan, dtype)
+        say(f"{name} {shape} plan: {plan.variant}, {plan.lanes} threads a plane, "
+            f"{plan.threads} a block, cluster {plan.cluster}, {per_sm} blocks per SM")
+        err, mean, rstd = _backward_check(ink, name, shape, x, gamma, beta, dy, tol, ptol)
         worst = max(worst, err)
         iters = 10 if x.numel() > 1 << 24 else 50
         kernel = lambda: ink.instance_norm_backward(x, gamma, mean, rstd, dy)  # noqa: E731
@@ -404,10 +462,13 @@ def instance_norm_backward_row(dev, g, dtype=torch.float32):
             f"F.instance_norm_backward_device_ms={lib_dev_ms:.4f} bound_ms={bms:.4f} ({by}) "
             f"forward_device_ms={row['forward_device_ms']:.4f} sites_per_step={sites}")
         bound_by.add(by)
-        rows.append(dict(shape=list(shape), sites_per_step=sites, max_abs_err=err, **row))
+        rows.append(dict(shape=list(shape), sites_per_step=sites, variant=plan.variant,
+                         threads=plan.threads, cluster=plan.cluster, blocks_per_sm=per_sm,
+                         max_abs_err=err, **row))
         for k in keys:
             total[k] += sites * row[k]
         del x, dy
+    worst = max(worst, _backward_extra_checks(ink, name, dev, dtype, tol, ptol))
     say(f"{name} per train step: ms={total['ms']:.4f} "
         f"device_ms={total['device_ms']:.4f} ({share(total['bound_ms'], total['device_ms'])}) "
         f"device_cold_ms={total['device_cold_ms']:.4f} "

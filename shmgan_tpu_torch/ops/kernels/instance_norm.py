@@ -20,6 +20,10 @@ every moment and affine is computed in float32, y and dx come back in x's
 dtype and dgamma, dbeta in float32. A CUDA tensor of any other dtype (float16,
 float64) raises.
 
+The backward kernel has three variants (packed, resident, streaming);
+`_bwd_plan` picks one from the shape alone, with its threads, and the
+launch takes the plan and refuses one it cannot run.
+
 `launches[kind, dtype]` counts the launches of each kernel ("forward" or
 "backward") by activation dtype, so a run can show its path went through the
 kernels; `kernel_name(kind, dtype)` names each in reports.
@@ -28,7 +32,7 @@ kernels; `kernel_name(kind, dtype)` names each in reports.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,6 +42,71 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: Dict[torch.dtype, tuple] = {}
 KINDS = ("forward", "backward")
 launches: Dict[Tuple[str, torch.dtype], int] = {(k, d): 0 for k in KINDS for d in _SUFFIX}
+
+
+# The backward's launch plan. Packed: a lane holds at most PACKED_ELEMS
+# elements of x (and of g), so planes of up to 32 * PACKED_ELEMS elements
+# are packed, several to a warp. Resident: a thread holds at most
+# RESIDENT_CHUNKS 16-byte chunks of x (and of g), a block has at most
+# RESIDENT_THREADS threads (two such blocks fit an SM's registers) and at
+# least RESIDENT_MIN_THREADS (at 32x32 bf16 planes 64 threads of 2 chunks
+# each ran faster on the H100 than 128 of one: time_instance_norm.py
+# --sweep, PERF.md §6), and a plane takes at most RESIDENT_MAX_CLUSTER
+# blocks. Streaming: the rest, in STREAM_THREADS-thread blocks that read the
+# plane twice. csrc/instance_norm.cu holds the same limits.
+PACKED_ELEMS = 8
+PACKED_THREADS = 256
+RESIDENT_CHUNKS = 4
+RESIDENT_THREADS = 512
+RESIDENT_MIN_THREADS = 64
+RESIDENT_MAX_CLUSTER = 2
+STREAM_THREADS = 256
+_VARIANTS = {"packed": 0, "resident": 1, "streaming": 2}
+
+
+class BwdPlan(NamedTuple):
+    variant: str           # "packed", "resident" or "streaming"
+    planes_per_block: int  # packed: threads // lanes; else 1
+    lanes: int             # threads that own one plane
+    threads: int           # threads per block
+    cluster: int           # blocks per plane (resident); else 1
+    width: int             # elements per chunk: 16 bytes' worth, or 1 when H*W is
+                           # not a multiple of that
+    chunks: int            # chunks a thread holds (streaming: visits) at most
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward kernel's launch for a (b, c, H*W) tensor of `dtype`, from
+    its shape alone. Packed for planes of up to 32 * PACKED_ELEMS elements:
+    lanes = the plane's chunks rounded up to a power of 2, at most 32; resident
+    where the plane's 16-byte chunks fit RESIDENT_MAX_CLUSTER blocks'
+    registers; streaming otherwise."""
+    if b <= 0 or c <= 0 or hw <= 0:
+        raise ValueError(f"instance_norm_backward: empty shape ({b}, {c}, {hw})")
+    vec = 16 // dtype.itemsize
+    width = vec if hw % vec == 0 else 1
+    nchunks = hw // width
+    if hw <= 32 * PACKED_ELEMS:
+        lanes = min(32, _pow2_ceil(nchunks))
+        return BwdPlan("packed", PACKED_THREADS // lanes, lanes, PACKED_THREADS, 1, width,
+                       _ceil_div(nchunks, lanes))
+    cluster = _ceil_div(nchunks, RESIDENT_THREADS * RESIDENT_CHUNKS)
+    if width == vec and cluster <= RESIDENT_MAX_CLUSTER:
+        run = _ceil_div(nchunks, cluster)
+        threads = min(RESIDENT_THREADS,
+                      max(RESIDENT_MIN_THREADS, 32 * _ceil_div(run, 32 * RESIDENT_CHUNKS)))
+        return BwdPlan("resident", 1, threads * cluster, threads, cluster, width,
+                       _ceil_div(run, threads))
+    return BwdPlan("streaming", 1, STREAM_THREADS, STREAM_THREADS, 1, width,
+                   _ceil_div(nchunks, STREAM_THREADS))
 
 
 def kernel_name(kind: str, dtype: torch.dtype) -> str:
@@ -57,9 +126,12 @@ def _kernel_fns(dtype: torch.dtype):
         fwd.argtypes = [p, p, p, p, p, p, ll, i, ll, ctypes.c_float, p]
         fwd.restype = i
         bwd = getattr(lib, f"shm_instance_norm_bwd_{_SUFFIX[dtype]}")
-        bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ll, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ll, i, i, i, i, p]
         bwd.restype = i
-        _fns[dtype] = (fwd, bwd)
+        lib.shm_instance_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i,
+                                                            ctypes.POINTER(i)]
+        lib.shm_instance_norm_bwd_blocks_per_sm.restype = i
+        _fns[dtype] = (fwd, bwd, lib.shm_instance_norm_bwd_blocks_per_sm)
     return _fns[dtype]
 
 
@@ -138,6 +210,42 @@ def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: floa
     return y, mean, rstd
 
 
+def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                     rstd: torch.Tensor, g: torch.Tensor, plan: BwdPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel with the given plan, on checked CUDA tensors."""
+    b, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernel_fns(x.dtype)[1](
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(),
+            b, c, h * w, _VARIANTS[plan.variant], plan.lanes, plan.threads, plan.cluster,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"instance_norm backward kernel launch failed ({plan}): "
+                           f"CUDA error {err}")
+    launches["backward", x.dtype] += 1
+    return dx, dgamma, dbeta
+
+
+def blocks_per_sm(plan: BwdPlan, dtype: torch.dtype) -> int:
+    """How many blocks of the plan's backward kernel fit on one SM of the
+    current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    vec = 16 // dtype.itemsize
+    count = ctypes.c_int(0)
+    err = _kernel_fns(dtype)[2](int(dtype == torch.bfloat16), _VARIANTS[plan.variant],
+                                int(plan.width == vec), plan.threads, plan.cluster,
+                                ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
+                           f"CUDA error {err}")
+    return count.value
+
+
 def instance_norm_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
                            rstd: torch.Tensor, g: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -151,21 +259,10 @@ def instance_norm_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Ten
         raise ValueError(f"instance_norm_backward: shapes x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)}, gamma {tuple(gamma.shape)}, mean "
                          f"{tuple(mean.shape)}, rstd {tuple(rstd.shape)} do not fit")
-    dx = torch.empty_like(x)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return dx, dgamma.zero_(), dbeta.zero_()
-    scratch = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel_fns(x.dtype)[1](
-            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(),
-            b, c, h * w, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"instance_norm backward kernel launch failed: CUDA error {err}")
-    launches["backward", x.dtype] += 1
-    return dx, dgamma, dbeta
+        return (torch.empty_like(x), torch.zeros(c, dtype=torch.float32, device=x.device),
+                torch.zeros(c, dtype=torch.float32, device=x.device))
+    return _launch_backward(x, gamma, mean, rstd, g, _bwd_plan(b, c, h * w, x.dtype))
 
 
 class _InstanceNormFn(torch.autograd.Function):

@@ -1,0 +1,104 @@
+"""Times the instance-norm backward kernel of one checkout on the card, to
+compare commits.
+
+    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--sweep]
+
+Imports `shmgan_tpu_torch` from DIR (default: the checkout this file is in),
+so the same timings can run against an older commit unpacked elsewhere; run
+each checkout in its own process, in turns (old, new, new, old), on one
+card. At the 15 IN shapes of the train step
+(`chip_smoke.TRAIN_IN_SHAPES`), with f32 and with bf16 activations, it times
+that checkout's `instance_norm_backward` on the inputs chip_smoke uses, with
+`chip_smoke.py`'s timers (from the checkout this file is in): `device_ms`
+from CUDA-graph replays (L2 warm) and `device_cold_ms` of one call after an
+L2 flush, and their sums over the sites of one train step. With --sweep
+(a checkout that has `_bwd_plan`) it also times, at each shape, the resident
+variant at every block size from 32 to 512 threads in one block and in a
+cluster of two, and the streaming variant, beside the plan's choice: the
+measurement the plan's constants rest on. Prints one JSON line. Needs a CUDA
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def _sweep(cs, ink, plan, x, gamma, mean, rstd, dy):
+    """device_ms of each other plan the kernels accept at this shape:
+    {"variant/threads/cluster": ms}."""
+    vec = 16 // x.element_size()
+    nchunks = x.shape[2] * x.shape[3] // vec
+    others = [ink.BwdPlan("resident", 1, t * k, t, k, vec, -(-nchunks // k // t))
+              for k in (1, 2) for t in (32, 64, 128, 256, 512)]
+    others.append(ink.BwdPlan("streaming", 1, 256, 256, 1, vec, -(-nchunks // 256)))
+    out = {}
+    for p in others:
+        if (p.variant, p.threads, p.cluster) == (plan.variant, plan.threads, plan.cluster):
+            continue
+        try:
+            ink._launch_backward(x, gamma, mean, rstd, dy, p)
+        except RuntimeError:  # the kernels refuse this plan at this shape
+            continue
+        out[f"{p.variant}/{p.threads}/{p.cluster}"] = cs.device_ms(
+            lambda: ink._launch_backward(x, gamma, mean, rstd, dy, p), 50)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(HERE), help="checkout whose package is timed")
+    ap.add_argument("--sweep", action="store_true", help="also time other plans")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import torch
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_instance_norm needs a CUDA card")
+    if not Path(ink.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {ink.__file__}, not the package under {tree}")
+    dev = torch.device("cuda")
+    rows, totals = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(0)
+        name = str(dtype).split(".")[-1]
+        total = totals.setdefault(name, dict(device_ms=0.0, device_cold_ms=0.0))
+        for shape, sites in cs.TRAIN_IN_SHAPES:
+            c = shape[1]
+            x, gamma, beta, dy = cs._in_inputs(dev, g, shape, dtype)
+            _, mean, rstd = ink._forward(x, gamma, beta, 1e-6, with_stats=True)
+            call = lambda: ink.instance_norm_backward(x, gamma, mean, rstd, dy)  # noqa: E731
+            iters = 10 if x.numel() > 1 << 24 else 50
+            row = dict(dtype=name, shape=list(shape), sites_per_step=sites,
+                       device_ms=cs.device_ms(call, iters), device_cold_ms=cs.device_cold_ms(call))
+            if hasattr(ink, "_bwd_plan"):
+                plan = ink._bwd_plan(shape[0], c, shape[2] * shape[3], dtype)
+                row.update(variant=plan.variant, threads=plan.threads, cluster=plan.cluster)
+                if args.sweep:
+                    row["others"] = _sweep(cs, ink, plan, x, gamma, mean, rstd, dy)
+            rows.append(row)
+            for k in total:
+                total[k] += sites * row[k]
+            del x, dy
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(json.dumps({"tree": str(tree), "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "per_step": totals, "rows": rows}))
+
+
+if __name__ == "__main__":
+    main()

@@ -204,3 +204,90 @@ class TestKernelsOnCard:
         torch.testing.assert_close(a[0].grad.float(), b[0].grad.float(), **self.BF16_TOL)
         for ta, tb in zip(a[1:], b[1:]):
             torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-3, atol=1e-3)
+
+    # every variant of the backward kernel in both dtypes: shape, then (variant,
+    # blocks per plane) in f32 and in bf16; packed with 16-byte chunks and with
+    # single elements (H*W not a multiple of 16 bytes), resident in one block
+    # and in a cluster of two, streaming with both
+    VARIANT_CASES = [
+        ((2, 64, 8, 8), ("packed", 1), ("packed", 1)),
+        ((2, 32, 16, 16), ("packed", 1), ("packed", 1)),
+        ((3, 5, 7, 9), ("packed", 1), ("packed", 1)),
+        ((2, 8, 5, 3), ("packed", 1), ("packed", 1)),
+        ((2, 64, 32, 32), ("resident", 1), ("resident", 1)),
+        ((2, 16, 64, 64), ("resident", 1), ("resident", 1)),
+        ((2, 8, 128, 128), ("resident", 2), ("resident", 1)),
+        ((1, 4, 128, 256), ("streaming", 1), ("resident", 2)),
+        ((2, 16, 256, 256), ("streaming", 1), ("streaming", 1)),
+        ((1, 2, 33, 33), ("streaming", 1), ("streaming", 1))]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    @pytest.mark.parametrize("shape,f32_plan,bf16_plan", VARIANT_CASES,
+                             ids=lambda v: "x".join(map(str, v)))
+    def test_instance_norm_backward_variants(self, cuda, shape, f32_plan, bf16_plan, dtype):
+        b, c, h, w = shape
+        plan = ink._bwd_plan(b, c, h * w, dtype)
+        assert (plan.variant, plan.cluster) == (f32_plan if dtype == torch.float32
+                                                else bf16_plan)
+        g = torch.Generator(device=cuda).manual_seed(8)
+        x = (torch.randn(shape, device=cuda, generator=g) + 0.5).to(dtype)
+        dy = torch.randn(shape, device=cuda, generator=g).to(dtype)
+        gamma = torch.rand(c, device=cuda, generator=g) + 0.5
+        y, mean, rstd = ink._forward(x, gamma, torch.zeros_like(gamma), 1e-6, with_stats=True)
+        before = dict(ink.launches)
+        got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        assert launched(before) == {("backward", dtype): 1}
+        again = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
+        tol, ptol = ((dict(rtol=1e-4, atol=1e-4),) * 2 if dtype == torch.float32
+                     else (self.BF16_TOL, dict(rtol=1e-3, atol=1e-3)))
+        assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32]
+        torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+        for a, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, r, **ptol)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))  # no atomics
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    @pytest.mark.parametrize("shape", [(3, 16, 8, 8), (2, 8, 32, 32), (1, 2, 128, 128)])
+    def test_instance_norm_backward_on_unaligned_storage(self, cuda, shape, dtype):
+        # x, g and dx views one element past an aligned base: the same plan,
+        # 16-byte chunks moved one element at a time
+        n = torch.Size(shape).numel()
+        g = torch.Generator(device=cuda).manual_seed(9)
+        x = (torch.randn(n + 1, device=cuda, generator=g) + 0.5).to(dtype)[1:].view(shape)
+        dy = torch.randn(n + 1, device=cuda, generator=g).to(dtype)[1:].view(shape)
+        gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3))
+        rstd = torch.rsqrt((xf - mean[:, :, None, None]).square().mean(dim=(2, 3)) + 1e-6)
+        got = ink.instance_norm_backward(x, gamma, mean, rstd, dy)
+        ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else self.BF16_TOL
+        torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+        for a, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-3)
+
+    def test_backward_refuses_a_plan_it_cannot_run(self, cuda):
+        """A plan the kernels cannot run at the shape launches nothing and
+        raises: no other variant takes over."""
+        x = torch.randn(2, 4, 16, 16, device=cuda)
+        stats = torch.ones(2, 4, device=cuda)
+        gamma = torch.ones(4, device=cuda)
+        good = ink._bwd_plan(2, 4, 256, torch.float32)
+        bad = [good._replace(lanes=3), good._replace(lanes=4),  # 3: not a power of 2
+               good._replace(threads=1024), good._replace(cluster=2),
+               ink.BwdPlan("resident", 1, 128, 128, 1, 4, 1)._replace(lanes=64),
+               ink.BwdPlan("streaming", 1, 128, 128, 1, 4, 1),
+               good._replace(variant="streaming")]
+        before = dict(ink.launches)
+        for plan in bad:
+            with pytest.raises(RuntimeError):
+                ink._launch_backward(x, gamma, stats, stats, x, plan)
+        assert launched(before) == {}
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    def test_resident_plans_fit_two_blocks_per_sm(self, cuda, dtype):
+        for hw in (32 * 32, 64 * 64, 128 * 128):
+            plan = ink._bwd_plan(40, 64, hw, dtype)
+            assert plan.variant == "resident"
+            assert ink.blocks_per_sm(plan, dtype) >= 2
