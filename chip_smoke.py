@@ -35,6 +35,30 @@ Phases (each prints its name before it starts and its seconds after):
   serve_bf16  the same in bf16: launches, times, and each output of the kernel
               path no further (relative L2) from the plain path's than the
               plain path's is from the f32 phase's output of that request;
+  bundle      artifacts/shmgan_infer_256.msgpack (the trained 256-px weights)
+              read by the port's reader: leaf count and shapes against the
+              models, written back by the port's writer bit for bit and
+              exported from the loaded models bit for bit; then serve and
+              serve_bf16's three requests on those weights and on seeded
+              scenes with highlights (the card against the CPU at batch 2,
+              256 px), and the b8 bf16 request timed with every output and
+              with outputs=("gen_rgb_calibrated", "mask"), in turns;
+  serve_native process_images_native on the bundle at a square, a
+              non-square and a 612x816 photo (bucket 640x832: the preprocess
+              kernel's streaming variant, recorded launch by launch), f32 and
+              bf16: launches, each output against the plain versions, ms per
+              shape;
+  serve_http  `python -m shmgan_tpu_torch.cli --mode serve` on the bundle as a
+              subprocess (batch 8, a 20 ms window): /healthz by a deadline,
+              PNGs at size=256 with each output=, at size=native, resized
+              from 612x816, each within one level of an in-process engine's
+              pixels; 16 concurrent requests in fewer device calls than
+              requests; request ms and requests/s; the server's kernel
+              launches from /stats; host PNG and resize ms. The server is
+              terminated in any case;
+  serve_folder process_folder and watch_folder(max_iterations=3), square and
+              native, on ten PNGs: the files written, their shapes, the
+              square job's pixels against process_images', launches;
   train       the fused train step at full width in f32 (the JAX package's
               default model: 128 px, filter 64, batch 8) on seeded weights: one
               step through the kernels against the same step through the plain
@@ -57,6 +81,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -92,6 +117,12 @@ IN_STREAM_SHAPE = (2, 16, 256, 256)
 # IN backward shapes checked on storage one element past an aligned base
 # (packed and resident variants)
 IN_UNALIGNED_SHAPES = [(16, 512, 8, 8), (16, 64, 64, 64)]
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BUNDLE = "artifacts/shmgan_infer_256.msgpack"   # the trained 256-px weights
+# photo shapes of serve_native: square, not square, and one whose bucket
+# (640x832) is too large for a cluster's shared memory (the streaming variant)
+NATIVE_SHAPES = [(256, 256), (300, 452), (612, 816)]
 
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
@@ -615,11 +646,14 @@ def _gap_check(label, kernels, plain, f32):
                              f"{d_pf}")
 
 
-def serve_phase(compute_dtype="float32", f32_outputs=None):
+def serve_phase(compute_dtype="float32", f32_outputs=None, bundle=None):
     """Three requests at full width through the kernels, counted, against the
     same requests through the plain versions: in f32 within SERVE_ATOL, and
     against the CPU; in bf16 by the gap to `f32_outputs`, the f32 phase's
-    outputs of the same requests. Returns (launches, outputs)."""
+    outputs of the same requests. On seeded weights and uniform noise, or,
+    given a bundle (load_inference_bundle's triple), on its weights and on
+    seeded scenes with highlights (the CPU comparison then at batch 2, 256
+    px). Returns (launches, outputs)."""
     from shmgan_tpu_torch.models import build_models
     from shmgan_tpu_torch.profile_serve import plain_versions, serving_config
     from shmgan_tpu_torch.serve import BatchInferenceEngine
@@ -627,19 +661,31 @@ def serve_phase(compute_dtype="float32", f32_outputs=None):
     size, batch = 256, 8
     cfg = serving_config(compute_dtype)
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(0)
+    if bundle is None:
+        gen, _, specseg = build_models(cfg, device="cuda", seed=0)
+        weights = "seeded weights"
 
-    gen, _, specseg = build_models(cfg, device="cuda", seed=0)
+        def draw(n, s=size):
+            return rng.random((n, s, s, 3), np.float32)
+        small_size = 64
+    else:
+        gen, specseg = bundle_models(cfg, bundle)
+        weights = f"trained bundle (step {bundle[2]['step']})"
+
+        def draw(n, s=size):
+            return scenes(n, s, s, rng)
+        small_size = size
     engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch, device="cuda")
     cyclic = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch, with_cyclic=True,
                                   device="cuda")
-    say(f"compute dtype {compute_dtype}; G params={sum(p.numel() for p in gen.parameters())} "
+    say(f"compute dtype {compute_dtype}, {weights}; G params="
+        f"{sum(p.numel() for p in gen.parameters())} "
         f"SpecSeg params={sum(p.numel() for p in specseg.parameters())}")
 
-    rng = np.random.default_rng(0)
-    requests = [("full batch of 8", engine, rng.random((8, size, size, 3), np.float32), 1),
-                ("partial batch of 5", engine, rng.random((5, size, size, 3), np.float32), 1),
-                ("full batch of 8, with_cyclic", cyclic,
-                 rng.random((8, size, size, 3), np.float32), 2)]
+    requests = [("full batch of 8", engine, draw(8), 1),
+                ("partial batch of 5", engine, draw(5), 1),
+                ("full batch of 8, with_cyclic", cyclic, draw(8), 2)]
     for _, eng, rgb, _ in requests:  # warm-up: cuDNN's algorithm choice, allocator
         eng.process_images(rgb)
     torch.cuda.synchronize()
@@ -679,7 +725,7 @@ def serve_phase(compute_dtype="float32", f32_outputs=None):
         times.append(time.perf_counter() - t0)
     _launch_counts(reset=True)
     med = float(np.median(times))
-    say(f"full batch of 8, {compute_dtype}: median request {med * 1e3:.2f} ms "
+    say(f"full batch of 8, {compute_dtype}, {weights}: median request {med * 1e3:.2f} ms "
         f"({batch / med:.2f} images/s) over {len(times)} requests")
 
     # the same engine through the plain versions (kernels not launched)
@@ -696,24 +742,475 @@ def serve_phase(compute_dtype="float32", f32_outputs=None):
             raise AssertionError("plain run launched a kernel")
 
     if dtype == torch.float32:
-        # the card against the CPU (plain versions) on a small input, same weights
-        small = rng.random((2, 64, 64, 3), np.float32)
+        # the card against the CPU (plain versions) at batch 2, same weights
+        small = draw(2, small_size)
         on_card = BatchInferenceEngine(cfg, gen, specseg, batch_size=2,
                                        device="cuda").process_images(small)
         on_cpu = BatchInferenceEngine(cfg, copy.deepcopy(gen).cpu(),
                                       copy.deepcopy(specseg).cpu(), batch_size=2,
                                       device="cpu").process_images(small)
         _launch_counts(reset=True)
-        _compare(on_card, on_cpu, "card vs CPU, 64 px:")
+        _compare(on_card, on_cpu, f"card vs CPU, {small_size} px:")
     return totals, results
+
+
+def scenes(n, h, w, rng):
+    """n smooth (h, w) scenes with three bright, near-white highlights each:
+    float32 in [0, 1], from `rng`."""
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    imgs = []
+    for _ in range(n):
+        base = rng.uniform(0.15, 0.6, 3)[None, None] * (0.6 + 0.4 * xx[..., None])
+        for _ in range(3):
+            cy, cx = rng.uniform(0.2, 0.8) * h / max(h, w), rng.uniform(0.2, 0.8) * w / max(h, w)
+            blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 0.004)[..., None]
+            base = base + (0.95 - base) * blob
+        imgs.append(base + 0.02 * rng.standard_normal((h, w, 3)))
+    return np.clip(np.stack(imgs), 0, 1).astype(np.float32)
+
+
+def bundle_models(cfg, bundle, device="cuda"):
+    """(G, SpecSeg) on `device` with a bundle's weights; the bundle's header
+    sets cfg.model's hyperparameters."""
+    from shmgan_tpu_torch.checkpoint import model_config
+    from shmgan_tpu_torch.convert import load_inference_weights
+    from shmgan_tpu_torch.models import build_models
+
+    g_params, specseg_vars, header = bundle
+    cfg.model = model_config(cfg.model, header)
+    gen, _, specseg = build_models(cfg, device="cpu")
+    load_inference_weights(gen, specseg, g_params, specseg_vars)
+    return gen.to(device), specseg.to(device)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _sum_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def bundle_phase():
+    """The trained 256-px bundle read with the port's reader: its leaves
+    against the models' tensors, one for one, shape for shape; written back
+    by the port's writer (and exported from the loaded models) bit for bit;
+    then served (serve_phase) in f32 and bf16, and the b8 bf16 request timed
+    with every output and with the two the folder job writes. Returns
+    (launches, the bundle)."""
+    import tempfile
+
+    from shmgan_tpu_torch.checkpoint import export_inference_bundle, load_inference_bundle
+    from shmgan_tpu_torch.convert import flax_tree
+    from shmgan_tpu_torch.profile_serve import serving_config
+    from shmgan_tpu_torch.runtime import flax_msgpack
+
+    path = os.path.join(ROOT, BUNDLE)
+    data = _read(path)
+    t0 = time.perf_counter()
+    bundle = load_inference_bundle(path)
+    secs = time.perf_counter() - t0
+    g_params, specseg_vars, header = bundle
+    leaves = list(_leaves(g_params)) + list(_leaves(specseg_vars))
+    say(f"{BUNDLE}: {len(data)} bytes, read in {secs:.3f} s; header {header}; "
+        f"{len(leaves)} leaves, {sum(v.size for v in leaves)} values, dtypes "
+        f"{sorted({str(v.dtype) for v in leaves})}")
+    cfg = serving_config("float32")
+    # strict: each leaf fills one tensor of its own shape (convert.load_flax)
+    gen, specseg = bundle_models(cfg, bundle, device="cpu")
+    want = [v.shape for m in (gen, specseg) for tree in flax_tree(m) for v in _leaves(tree)]
+    if sorted(v.shape for v in leaves) != sorted(want) or header["image_size"] != 256:
+        raise AssertionError(f"bundle leaves {len(leaves)} do not match the models' "
+                             f"{len(want)} tensors (or the header is not 256 px)")
+    raw = flax_msgpack.loads(data)
+    if flax_msgpack.dumps(raw) != data:
+        raise AssertionError("the port's writer does not give back the bundle's bytes")
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_path = os.path.join(tmp, "bundle.msgpack")
+        export_inference_bundle(gen, specseg, cfg, copy_path, header["step"],
+                                header.get("store_dtype"))
+        with open(copy_path, "rb") as f:
+            same = f.read() == data
+        with open(copy_path + ".json") as f, open(path + ".json") as g:
+            same_header = json.load(f) == json.load(g)
+    say(f"round trip: reader -> writer bit-identical; reader -> models -> "
+        f"export_inference_bundle {'bit-identical' if same else 'FAIL'}, header "
+        f"{'equal' if same_header else 'FAIL'}")
+    if not (same and same_header):
+        raise AssertionError("the exported bundle differs from the file it was read from")
+    del raw, gen, specseg
+
+    f32_counts, f32_outputs = serve_phase("float32", bundle=bundle)
+    bf16_counts, _ = serve_phase("bfloat16", f32_outputs, bundle=bundle)
+    outputs_timing(bundle)
+    return _sum_counts(f32_counts, bf16_counts), bundle
+
+
+def outputs_timing(bundle):
+    """The b8 bf16 request with every output and with outputs=
+    ("gen_rgb_calibrated", "mask"), in turns."""
+    from shmgan_tpu_torch.profile_serve import serving_config
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+
+    cfg = serving_config("bfloat16")
+    gen, specseg = bundle_models(cfg, bundle)
+    engines = {"all six": BatchInferenceEngine(cfg, gen, specseg, batch_size=8),
+               "calibrated+mask": BatchInferenceEngine(
+                   cfg, gen, specseg, batch_size=8,
+                   outputs=("gen_rgb_calibrated", "mask"))}
+    rgb = scenes(8, 256, 256, np.random.default_rng(3))
+    for eng in engines.values():
+        eng.process_images(rgb)
+    times = {k: [] for k in engines}
+    for i in range(16):
+        order = list(engines) if i % 2 == 0 else list(engines)[::-1]
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[k].process_images(rgb)
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    _launch_counts(reset=True)
+    for k, ts in times.items():
+        say(f"b8 bf16 request, outputs {k}: median {np.median(ts):.2f} ms, p90 "
+            f"{np.percentile(ts, 90):.2f} ms, min {min(ts):.2f} ms over {len(ts)} (in turns)")
+    for eng in engines.values():
+        eng.close()
+
+
+def serve_native_phase(bundle):
+    """process_images_native on the trained bundle at NATIVE_SHAPES, two
+    images each (batch 2), in f32 and bf16: launches counted, the preprocess
+    variant of each launch recorded (the largest bucket must stream), every
+    output against the plain versions (f32 within SERVE_ATOL, bf16 by the
+    gap to the f32 outputs), and ms per shape."""
+    from unittest import mock
+
+    from shmgan_tpu_torch.infer import bucket_shape
+    from shmgan_tpu_torch.ops.kernels import preprocess as pre
+    from shmgan_tpu_torch.profile_serve import plain_versions, serving_config
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+
+    totals, f32_outs = [], None
+    for compute_dtype in ("float32", "bfloat16"):
+        dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        cfg = serving_config(compute_dtype)
+        gen, specseg = bundle_models(cfg, bundle)
+        eng = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, native_resolution=True)
+        rng = np.random.default_rng(2)
+        images = [img for h, w in NATIVE_SHAPES for img in scenes(2, h, w, rng)]
+        eng.process_images_native(images)  # warm-up
+        torch.cuda.synchronize()
+        plans, launch = [], pre._launch
+
+        def spy(rgb, plan):
+            plans.append((tuple(rgb.shape), plan.variant))
+            return launch(rgb, plan)
+
+        _launch_counts(reset=True)
+        with mock.patch.object(pre, "_launch", spy):
+            outs = eng.process_images_native(images)
+        counts = _launch_counts(reset=True)
+        want = {**{k: 0 for k in counts}, _in_name(dtype): 18 * len(NATIVE_SHAPES),
+                "fused_standardize_yuv": len(NATIVE_SHAPES)}
+        say(f"serve_native {compute_dtype}: launches {counts}; preprocess launches {plans}")
+        if counts != want:
+            raise AssertionError(f"serve_native launches {counts}, expected {want}")
+        streamed = [s for s, v in plans if v == "streaming"]
+        big = (2,) + bucket_shape(*NATIVE_SHAPES[-1]) + (3,)
+        if streamed != [big]:
+            raise AssertionError(f"expected exactly {big} to take the streaming variant: {plans}")
+        for img, out in zip(images, outs):
+            for k, v in out.items():
+                if v.shape[:2] != img.shape[:2] or not np.isfinite(v).all():
+                    raise AssertionError(f"serve_native {k}: shape {v.shape} for an image of "
+                                         f"{img.shape}, or non-finite values")
+        with plain_versions():
+            plain = eng.process_images_native(images)
+        if any(_launch_counts(reset=True).values()):
+            raise AssertionError("the plain native run launched a kernel")
+        for i, (img, out, ref) in enumerate(zip(images, outs, plain)):
+            label = f"kernels vs plain, native {img.shape[0]}x{img.shape[1]} #{i % 2}"
+            if f32_outs is None:
+                _compare(out, ref, label + ":")
+            else:
+                for k in ref:
+                    _gap_check(f"{label}: {k}", out[k], ref[k], f32_outs[i][k])
+        for j, (h, w) in enumerate(NATIVE_SHAPES):
+            pair = images[2 * j:2 * j + 2]
+            ts = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.process_images_native(pair)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            say(f"serve_native {compute_dtype} {h}x{w} (bucket {bucket_shape(h, w)}), batch 2: "
+                f"median {np.median(ts):.2f} ms ({2e3 / np.median(ts):.2f} images/s), min "
+                f"{min(ts):.2f} ms over {len(ts)}")
+        _launch_counts(reset=True)
+        eng.close()
+        totals.append(counts)
+        f32_outs = outs
+    return _sum_counts(*totals)
+
+
+def _http(url, body=None, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def serve_http_phase():
+    """`python -m shmgan_tpu_torch.cli --mode serve` on the trained bundle as
+    a subprocess (batch 8, a 20 ms window): /healthz within a deadline; PNGs
+    made by the port's encoder from seeded scenes POSTed at size=256 with
+    each output=, at size=native, and resized from 612x816; each response's
+    pixels within one level of an in-process engine's on the same decoded
+    input; 16 concurrent requests in fewer device calls than requests;
+    request ms and requests/s; the server's own kernel launches (/stats).
+    The server is terminated in any case."""
+    import base64
+    import socket
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shmgan_tpu_torch.cli import serving_models
+    from shmgan_tpu_torch.config import Config
+    from shmgan_tpu_torch.data.codecs import decode, encode_png, resize_bilinear
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+    from shmgan_tpu_torch.serve_http import HTTP_OUTPUTS, _decode_request_image
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--mode", "serve", "--serve_weights_bundle", os.path.join(ROOT, BUNDLE),
+            "--serve_host", "127.0.0.1", "--serve_port", str(port),
+            "--serve_batch_size", "8", "--serve_batch_window_ms", "20"]
+    url = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(4)
+    u8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)  # noqa: E731
+    square = u8(scenes(1, 256, 256, rng)[0])
+    photo = u8(scenes(1, 300, 452, rng)[0])
+    big = u8(scenes(1, 612, 816, rng)[0])
+    burst = [encode_png(u8(x)) for x in scenes(16, 256, 256, rng)]
+
+    # host codec costs, per image
+    for label, img in (("256x256", square), ("612x816", big)):
+        png = encode_png(img)
+        enc = [_timed_ms(lambda: encode_png(img)) for _ in range(5)]
+        dec = [_timed_ms(lambda: decode(png)) for _ in range(5)]
+        say(f"host PNG {label}: encode {np.median(enc):.2f} ms, decode (filter 0) "
+            f"{np.median(dec):.2f} ms, {len(png)} bytes")
+    res = [_timed_ms(lambda: resize_bilinear(big, (256, 256))) for _ in range(5)]
+    say(f"host resize 612x816 -> 256x256 (Pillow's bilinear): {np.median(res):.2f} ms")
+
+    cfg = Config.from_args(argv)
+    gen, specseg = serving_models(cfg)
+    engines = {256: BatchInferenceEngine(cfg, gen, specseg, batch_size=8, outputs=HTTP_OUTPUTS),
+               "native": BatchInferenceEngine(cfg, gen, specseg, batch_size=8,
+                                              outputs=HTTP_OUTPUTS, native_resolution=True)}
+
+    def local(body, size):
+        rgb = _decode_request_image(body, size)
+        if size == "native":
+            return engines[size].process_images_native([rgb[0]])[0]
+        return {k: v[0] for k, v in engines[size].process_images(rgb).items()}
+
+    with tempfile.TemporaryFile() as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "shmgan_tpu_torch.cli", *argv],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.perf_counter() + 300
+            while True:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"the server exited with {proc.returncode}")
+                try:
+                    health = json.loads(_http(url + "/healthz", timeout=5)[2])
+                    break
+                except OSError:
+                    if time.perf_counter() > deadline:
+                        raise RuntimeError("the server did not answer /healthz in 300 s")
+                    time.sleep(0.5)
+            say(f"server up in {time.perf_counter() - t0:.1f} s: /healthz {health}")
+            before = json.loads(_http(url + "/stats")[2])
+
+            checks = [("size=256", "image", square), ("size=256", "composited", square),
+                      ("size=256", "mask", square), ("size=256", "json", square),
+                      ("size=native", "image", photo), ("size=native", "mask", photo),
+                      ("size=256", "image", big)]
+            worst = 0
+            for query, output, img in checks:
+                body = encode_png(img)
+                size = "native" if query == "size=native" else 256
+                status, ctype, reply = _http(f"{url}/v1/specfree?{query}&output={output}", body)
+                ref = local(body, size)
+                if output == "json":
+                    payload = json.loads(reply)
+                    got = decode(base64.b64decode(payload["image_png_b64"]))
+                    want = u8(ref["gen_rgb_calibrated"])
+                    if abs(payload["mask_coverage"] - float(ref["mask"].mean())) > 1e-3:
+                        raise AssertionError(f"json mask_coverage {payload['mask_coverage']}")
+                else:
+                    got = decode(reply)
+                    want = u8({"image": ref["gen_rgb_calibrated"],
+                               "composited": ref["gen_rgb_composited"],
+                               "mask": np.repeat(ref["mask"], 3, axis=-1)}[output])
+                diff = int(np.abs(got.astype(int) - want).max()) if got.shape == want.shape else -1
+                say(f"POST {query} output={output} ({img.shape[0]}x{img.shape[1]} in): {status} "
+                    f"{ctype}, {got.shape}, max |server - in-process| = {diff} levels, "
+                    f"{float((got != want).mean()) if diff >= 0 else 1.0:.2e} of values differ")
+                if status != 200 or not 0 <= diff <= 1:
+                    raise AssertionError(f"POST {query} output={output}: status {status}, "
+                                         f"difference {diff}")
+                worst = max(worst, diff)
+
+            calls0 = json.loads(_http(url + "/stats")[2])["device_calls"]
+
+            def one(body):
+                t = time.perf_counter()
+                status, _, reply = _http(url + "/v1/specfree?size=256", body)
+                return status, decode(reply).shape, (time.perf_counter() - t) * 1e3
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=16) as ex:
+                results = list(ex.map(one, burst))
+            wall = time.perf_counter() - t1
+            after = json.loads(_http(url + "/stats")[2])
+            calls = after["device_calls"] - calls0
+            lat = [r[2] for r in results]
+            say(f"16 concurrent size=256 requests: {calls} device calls, {16 / wall:.2f} "
+                f"requests/s, request ms median {np.median(lat):.2f} p90 "
+                f"{np.percentile(lat, 90):.2f}")
+            if any(r[:2] != (200, (256, 256, 3)) for r in results) or not calls < 16:
+                raise AssertionError(f"concurrent requests: {[r[:2] for r in results]}, "
+                                     f"{calls} device calls")
+            seq = [one(burst[i])[2] for i in range(10)]
+            say(f"10 sequential size=256 requests: request ms median {np.median(seq):.2f} "
+                f"p90 {np.percentile(seq, 90):.2f} ({1e3 / np.median(seq):.2f} requests/s)")
+            after = json.loads(_http(url + "/stats")[2])
+            counts = {k: after["kernel_launches"][k] - before["kernel_launches"][k]
+                      for k in before["kernel_launches"]}
+            n = after["device_calls"] - before["device_calls"]
+            want = {**{k: 0 for k in counts}, _in_name(torch.bfloat16): 18 * n,
+                    "fused_standardize_yuv": n}
+            say(f"server: {after['requests']} requests, {after['errors']} errors, {n} device "
+                f"calls, kernel launches {counts}")
+            if counts != want or after["errors"]:
+                raise AssertionError(f"server launches {counts}, expected {want}; errors "
+                                     f"{after['errors']}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.seek(0)
+            for line in log.read().decode(errors="replace").splitlines()[-8:]:
+                say(f"  server: {line}")
+    for eng in engines.values():
+        eng.close()
+    return counts
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _timed_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def serve_folder_phase(bundle):
+    """10 PNGs (five 256x256, five 300x452) through process_folder and
+    watch_folder(max_iterations=3), square (256) and native, bf16 on the
+    trained bundle: the files written (names, shapes), the square job's
+    pixels against the same engine's process_images, watch_folder's files
+    against process_folder's, and the launches of the four jobs."""
+    import tempfile
+
+    from shmgan_tpu_torch.data.codecs import decode, encode_png
+    from shmgan_tpu_torch.data.loader import decode_resize
+    from shmgan_tpu_torch.profile_serve import serving_config
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+
+    cfg = serving_config("bfloat16")
+    gen, specseg = bundle_models(cfg, bundle)
+    rng = np.random.default_rng(5)
+    imgs = list(scenes(5, 256, 256, rng)) + list(scenes(5, 300, 452, rng))
+    kw = dict(batch_size=8, outputs=("gen_rgb_calibrated", "mask"))
+    engines = {"square": BatchInferenceEngine(cfg, gen, specseg, **kw),
+               "native": BatchInferenceEngine(cfg, gen, specseg, native_resolution=True, **kw)}
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = os.path.join(tmp, "in")
+        os.makedirs(in_dir)
+        names = [f"photo{i:02d}" for i in range(len(imgs))]
+        for name, img in zip(names, imgs):
+            with open(os.path.join(in_dir, name + ".png"), "wb") as f:
+                f.write(encode_png((img * 255).astype(np.uint8)))
+        for eng in engines.values():
+            eng.warmup()
+        _launch_counts(reset=True)
+        written = {}
+        for kind, eng in engines.items():
+            for job in ("process_folder", "watch_folder"):
+                out_dir = os.path.join(tmp, f"{kind}_{job}")
+                t0 = time.perf_counter()
+                if job == "process_folder":
+                    n = eng.process_folder(in_dir, out_dir)
+                else:
+                    eng.watch_folder(in_dir, out_dir, poll_s=0.05, max_iterations=3)
+                    n = len(names)
+                secs = time.perf_counter() - t0
+                files = sorted(os.listdir(out_dir))
+                want = sorted(f"{b}_{s}.png" for b in names for s in ("specfree", "mask"))
+                written[kind, job] = {f: _read(os.path.join(out_dir, f)) for f in files}
+                shapes = [decode(written[kind, job][f"{b}_specfree.png"]).shape[:2]
+                          for b in names]
+                sizes = [(256, 256) if kind == "square" else img.shape[:2] for img in imgs]
+                say(f"{kind} {job}: {n} images in {secs:.3f} s, {len(files)} files")
+                if n != len(names) or files != want or shapes != sizes:
+                    raise AssertionError(f"{kind} {job}: {n} images, files {files}, shapes "
+                                         f"{shapes}")
+        counts = _launch_counts(reset=True)
+        want = {**{k: 0 for k in counts}, _in_name(torch.bfloat16): 18 * 8,
+                "fused_standardize_yuv": 8}
+        say(f"serve_folder launches {counts} (two device calls a job)")
+        if counts != want:
+            raise AssertionError(f"serve_folder launches {counts}, expected {want}")
+        for kind in engines:
+            if written[kind, "process_folder"] != written[kind, "watch_folder"]:
+                raise AssertionError(f"{kind}: watch_folder wrote other files than "
+                                     f"process_folder")
+        direct = engines["square"].process_images(
+            np.stack([decode_resize(os.path.join(in_dir, b + ".png"), 256) for b in names]))
+        _launch_counts(reset=True)
+        for j, b in enumerate(names):
+            got = decode(written["square", "process_folder"][f"{b}_specfree.png"])
+            if not np.array_equal(got, (np.clip(direct["gen_rgb_calibrated"][j], 0, 1) * 255)
+                                  .astype(np.uint8)):
+                raise AssertionError(f"{b}_specfree.png differs from process_images' output")
+        say("square files equal process_images' outputs, truncated to 8 bits")
+    for eng in engines.values():
+        eng.close()
+    return counts
 
 
 def _launch_counts(reset: bool = False):
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.ops.kernels import launch_counts
     from shmgan_tpu_torch.ops.kernels import preprocess as pre
 
-    counts = {**{ink.kernel_name(*k): n for k, n in ink.launches.items()},
-              "fused_standardize_yuv": pre.launches}
+    counts = launch_counts()
     if reset:
         ink.launches.update(dict.fromkeys(ink.launches, 0))
         pre.launches = 0
@@ -951,6 +1448,15 @@ def main() -> int:
         current = "serve_bf16"
         by_path["serve_bf16"], _ = phase("serve_bf16", serve_phase, "bfloat16", f32_outputs)
         del f32_outputs
+        current = "bundle"
+        by_path["bundle"], bundle = phase("bundle", bundle_phase)
+        current = "serve_native"
+        by_path["serve_native"] = phase("serve_native", serve_native_phase, bundle)
+        current = "serve_http"
+        by_path["serve_http"] = phase("serve_http", serve_http_phase)
+        current = "serve_folder"
+        by_path["serve_folder"] = phase("serve_folder", serve_folder_phase, bundle)
+        del bundle
         current = "train"
         by_path["train"] = phase("train", train_phase)
         current = "train_bf16"

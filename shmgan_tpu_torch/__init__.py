@@ -1,10 +1,12 @@
-"""PyTorch / CUDA port of shmgan_tpu: single-RGB inference and the fused train step.
+"""PyTorch / CUDA port of shmgan_tpu: single-RGB inference and serving, and the
+fused train step.
 
 Imports torch, numpy and the standard library only. The JAX package
 (shmgan_tpu) is the reference that the port's tests hold it against.
 """
 
-from shmgan_tpu_torch.config import (Config, DataConfig, EvalConfig, ModelConfig,
-                                     TrainConfig)
+from shmgan_tpu_torch.config import (Config, DataConfig, EvalConfig, MeshConfig,
+                                     ModelConfig, ServeConfig, TrainConfig)
 
-__all__ = ["Config", "DataConfig", "EvalConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["Config", "DataConfig", "EvalConfig", "MeshConfig", "ModelConfig", "ServeConfig",
+           "TrainConfig"]

@@ -2,7 +2,8 @@
 as `shmgan_tpu.checkpoint.load_inference_bundle` or a flax `.init` returns
 them) and the port's modules: `load_flax` fills a module from a tree,
 `to_flax` lays named tensors of a module (its parameters, their gradients or
-optimizer moments) out as the tree they came from.
+optimizer moments) out as the tree they came from, and `flax_tree` lays a
+module's own parameters and buffers out as its flax variables.
 
 Layouts:
   conv kernel            (kh, kw, in, out) -> weight (out, in, kh, kw)
@@ -19,7 +20,7 @@ raises.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,9 @@ _LEAF_NAMES = {
     nn.BatchNorm2d: {"scale": "weight", "bias": "bias", "mean": "running_mean",
                      "var": "running_var"},
 }
+
+
+_FLAX_NAMES = {cls: {t: f for f, t in names.items()} for cls, names in _LEAF_NAMES.items()}
 
 
 def _torch_layout(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
@@ -115,6 +119,30 @@ def to_flax(module: nn.Module, template: Mapping,
             node = node.setdefault(p, {})
         node[key] = np.ascontiguousarray(_flax_layout(owner, leaf, value))
     return out
+
+
+def flax_tree(module: nn.Module) -> Tuple[Dict, Dict]:
+    """(params, batch_stats): every parameter and buffer of `module` as the
+    nested dicts of numpy arrays its flax counterpart holds, keys sorted at
+    every level, as a JAX tree map leaves a dict. The inverse of `load_flax`."""
+    params: Dict = {}
+    batch_stats: Dict = {}
+    tensors = list(module.named_parameters()) + [
+        (n, b) for n, b in module.named_buffers() if not n.endswith("num_batches_tracked")]
+    for name, tensor in tensors:
+        owner_path, _, torch_leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_path)
+        leaf = _FLAX_NAMES.get(type(owner), {}).get(torch_leaf, torch_leaf)
+        node = batch_stats if torch_leaf.startswith("running_") else params
+        for part in owner_path.split(".") if owner_path else []:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(
+            _flax_layout(owner, leaf, tensor.detach().cpu().float().numpy()))
+    return _sorted(params), _sorted(batch_stats)
+
+
+def _sorted(tree: Dict) -> Dict:
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
 
 
 def load_inference_weights(gen: nn.Module, specseg: nn.Module, g_params: Mapping,

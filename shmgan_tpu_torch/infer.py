@@ -9,13 +9,18 @@ colour conversions compute in float32, since a bfloat16 tensor meeting a
 float32 one promotes to float32 in both frameworks. So `gen_y` comes back in
 the compute dtype, as the JAX function returns it, and every other output in
 float32. TF32 is off for the float32 convolutions while the function runs.
+
+Also here: native-resolution inference (`bucket_shape`, `pad_to_bucket`,
+`make_native_infer_fn`) and SpecSeg alone (`make_mask_fn`).
 """
 
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -94,7 +99,20 @@ def _specseg_mask(specseg, net_in: torch.Tensor, tta: bool) -> torch.Tensor:
     return sum(parts) / float(len(views))
 
 
-def make_infer_fn(cfg: Config, with_cyclic: bool = False
+def _check_outputs(outputs, with_cyclic: bool):
+    """`outputs` as a tuple (None stays None); unknown keys raise, with the
+    JAX package's message."""
+    known = set(OUTPUTS) | ({"cyc_rgb"} if with_cyclic else set())
+    if outputs is None:
+        return None
+    outputs = tuple(outputs)
+    unknown = set(outputs) - known
+    if unknown:
+        raise ValueError(f"unknown infer outputs {sorted(unknown)}; known: {sorted(known)}")
+    return outputs
+
+
+def make_infer_fn(cfg: Config, with_cyclic: bool = False, outputs=None
                   ) -> Callable[..., Dict[str, torch.Tensor]]:
     """fn(gen, specseg, rgb) -> dict of outputs, on rgb's device.
 
@@ -108,13 +126,24 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False
       mask               (B, H, W, 1) specular mask
       gen_y              (B, H, W, 1) generated Y
       cyc_rgb            (c_dim, B, H, W, 3) cyclic reconstructions, with_cyclic
+
+    `outputs` (an iterable of those keys, in the order wanted) returns only
+    those, and computes only what they need: ("mask",) runs no G, and
+    without gen_rgb_denorm, the composite or the cyclic pass none of them
+    runs. None returns every output.
     """
     c_dim = cfg.model.c_dim
+    outputs = _check_outputs(outputs, with_cyclic)
+    order = outputs if outputs is not None else OUTPUTS + (("cyc_rgb",) if with_cyclic else ())
+
+    def wanted(*keys) -> bool:
+        return any(k in order for k in keys)
 
     @torch.no_grad()
     def infer(gen, specseg, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
         with ieee_f32():
-            return _infer(gen, specseg, rgb)
+            out = _infer(gen, specseg, rgb)
+        return {k: out[k] for k in order}
 
     def _infer(gen, specseg, rgb):
         b, h, w, _ = rgb.shape
@@ -126,6 +155,9 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False
         mask = _specseg_mask(specseg, net_in, cfg.eval.mask_tta)
         if cfg.eval.mask_chroma_prior:
             mask = fuse_mask_prior(mask, chroma_prior(rgb))
+        out = {"mask": mask}
+        if not wanted(*(set(order) - {"mask"})):
+            return out
 
         zeros = rgb.new_zeros((b, h, w, 1))
         labels = rgb.new_zeros((b, h, w, c_dim))
@@ -134,26 +166,27 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False
 
         gen_y = gen(gen_input, mask)
         gen_yuv = torch.cat([gen_y, cbcr], dim=-1)
+        out["gen_y"] = gen_y
         gen_rgb = yuv_to_rgb(gen_yuv)
+        out["gen_rgb"] = gen_rgb
         scale = scale.view(-1, 1, 1, 1)
-        denorm = yuv_to_rgb(gen_yuv * scale * 255.0)
+        if wanted("gen_rgb_denorm"):
+            out["gen_rgb_denorm"] = yuv_to_rgb(gen_yuv * scale * 255.0)
 
-        # 5x5 dilation (SAME, -inf padding), then 5x5 box softening (SAME,
-        # zero padding, / 25)
-        m = F.max_pool2d(mask.permute(0, 3, 1, 2), 5, stride=1, padding=2)
-        m = F.avg_pool2d(m, 5, stride=1, padding=2, count_include_pad=True)
-        m = m.permute(0, 2, 3, 1)
+        if wanted("gen_rgb_calibrated", "gen_rgb_composited"):
+            # 5x5 dilation (SAME, -inf padding), then 5x5 box softening (SAME,
+            # zero padding, / 25)
+            m = F.max_pool2d(mask.permute(0, 3, 1, 2), 5, stride=1, padding=2)
+            m = F.avg_pool2d(m, 5, stride=1, padding=2, count_include_pad=True)
+            m = m.permute(0, 2, 3, 1)
 
-        a_fit, b_fit = fit_affine_luma(gen_y, y, torch.clamp(1.0 - m, 0.0, 1.0))
-        cal_yuv = torch.cat([a_fit * gen_y + b_fit, cbcr], dim=-1)
-        calibrated = torch.clamp(yuv_to_rgb(cal_yuv * scale), 0.0, 1.0)
-        composited = m * calibrated + (1.0 - m) * rgb
+            a_fit, b_fit = fit_affine_luma(gen_y, y, torch.clamp(1.0 - m, 0.0, 1.0))
+            cal_yuv = torch.cat([a_fit * gen_y + b_fit, cbcr], dim=-1)
+            calibrated = torch.clamp(yuv_to_rgb(cal_yuv * scale), 0.0, 1.0)
+            out["gen_rgb_calibrated"] = calibrated
+            out["gen_rgb_composited"] = m * calibrated + (1.0 - m) * rgb
 
-        out = {"gen_rgb": gen_rgb, "gen_rgb_denorm": denorm,
-               "gen_rgb_calibrated": calibrated, "gen_rgb_composited": composited,
-               "mask": mask, "gen_y": gen_y}
-
-        if with_cyclic:
+        if with_cyclic and wanted("cyc_rgb"):
             # every non-target plane carries gen_rgb's own Y, the target plane
             # is zero; the c_dim passes run as one (c_dim * B) G call
             orig_y = gen_rgb[..., 0:1]
@@ -171,3 +204,72 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False
         return out
 
     return infer
+
+
+def bucket_shape(h: int, w: int, multiple: int = 16, bucket: int = 64) -> Tuple[int, int]:
+    """(h, w) rounded up to a multiple of `bucket` (at least `bucket`), which
+    must itself be a multiple of `multiple`: SpecSeg pools 2x2 four times, so
+    the extents must divide by 16, and the bucket keeps the set of shapes the
+    engines see small."""
+    if bucket % multiple != 0:
+        raise ValueError(f"bucket {bucket} must be a multiple of {multiple}")
+    return (max(bucket, math.ceil(h / bucket) * bucket),
+            max(bucket, math.ceil(w / bucket) * bucket))
+
+
+def pad_to_bucket(rgb, multiple: int = 16, bucket: int = 64):
+    """Reflect-pad (B, h, w, 3) up to its bucket shape: (padded float32
+    array, (h, w)). Reflection keeps the per-image standardisation's
+    statistics representative; where the padding is not smaller than the
+    image (a tiny image in a large bucket) the edge is repeated instead."""
+    rgb = np.asarray(rgb, np.float32)
+    _, h, w, _ = rgb.shape
+    ph, pw = bucket_shape(h, w, multiple=multiple, bucket=bucket)
+    if (ph, pw) == (h, w):
+        return rgb, (h, w)
+    mode = "reflect" if (ph - h) < h and (pw - w) < w else "edge"
+    return np.pad(rgb, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)), mode=mode), (h, w)
+
+
+def _device_of(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def make_native_infer_fn(cfg: Config, with_cyclic: bool = False, multiple: int = 16,
+                         bucket: int = 64, outputs=None
+                         ) -> Callable[..., Dict[str, np.ndarray]]:
+    """Inference at any (h, w): fn(gen, specseg, rgb) with rgb a (B, h, w, 3)
+    float32 array, reflect-padded to its bucket (pad_to_bucket) on the host,
+    run on the models' device, every output cropped back to (h, w) there and
+    returned as float32 numpy arrays. A batch shares one (h, w)."""
+    infer = make_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs)
+
+    def run(gen, specseg, rgb) -> Dict[str, np.ndarray]:
+        rgb_p, (h, w) = pad_to_bucket(rgb, multiple=multiple, bucket=bucket)
+        out = infer(gen, specseg, torch.from_numpy(rgb_p).to(_device_of(gen)))
+        # the spatial axes are the two before the channel axis, in (B, H, W, C)
+        # and in cyc_rgb's (c_dim, B, H, W, C)
+        return {k: v[..., :h, :w, :].float().cpu().numpy() for k, v in out.items()}
+
+    return run
+
+
+def make_mask_fn(cfg: Config, tta: bool = False, prior: Optional[bool] = None
+                 ) -> Callable[..., torch.Tensor]:
+    """SpecSeg alone: fn(specseg, rgb) -> (B, H, W, 1) specular mask. tta
+    averages over the dihedral views; prior fuses the chroma prior
+    (default: cfg.eval.mask_chroma_prior)."""
+    if prior is None:
+        prior = cfg.eval.mask_chroma_prior
+
+    @torch.no_grad()
+    def mask_fn(specseg, rgb: torch.Tensor) -> torch.Tensor:
+        with ieee_f32():
+            yuv, _ = preprocess.fused_standardize_yuv(rgb)
+            net_in = specseg_net_input(yuv[..., 0:1], rgb, cfg.model.specseg_in_channels)
+            mask = _specseg_mask(specseg, net_in, tta)
+            if prior:
+                mask = fuse_mask_prior(mask, chroma_prior(rgb))
+        return mask
+
+    return mask_fn

@@ -1,10 +1,12 @@
 """Serving measurement of the port on one CUDA card.
 
     python -m shmgan_tpu_torch.profile_serve [--compute_dtype bfloat16|float32]
+        [--batch 8] [--size 256]
 
 Builds BatchInferenceEngine at full width on weights from seed 0 (the
-committed 256-px bundle's hyperparameters, batch 8, 256 px) computing in
-the given dtype (default bfloat16, the JAX package's default), then:
+committed 256-px bundle's hyperparameters; batch 8 and 256 px unless given)
+computing in the given dtype (default bfloat16, the JAX package's default),
+then:
   1. times full-batch requests end to end (numpy in, numpy out): first a run
      through the kernels alone, then through the kernels and through their
      plain versions in turns (kernel, plain, plain, kernel, ...), and reports
@@ -117,14 +119,17 @@ def device_split(fn):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--size", type=int, default=SIZE)
     args = ap.parse_args()
+    batch, size = args.batch, args.size
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
 
     cfg = serving_config(args.compute_dtype)
     gen, _, specseg = build_models(cfg, device="cuda", seed=0)
-    engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=BATCH, device="cuda")
-    rgb = np.random.default_rng(0).random((BATCH, SIZE, SIZE, 3), np.float32)
+    engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch, device="cuda")
+    rgb = np.random.default_rng(0).random((batch, size, size, 3), np.float32)
     for _ in range(2):  # warm-up of the kernel path
         engine.process_images(rgb)
     alone = [_timed(engine, rgb) for _ in range(REQUESTS)]
@@ -146,7 +151,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "compute_dtype": args.compute_dtype, "batch": BATCH, "size": SIZE,
+              "compute_dtype": args.compute_dtype, "batch": batch, "size": size,
               "requests_per_path": REQUESTS}
     for path, ts in (("kernels_alone", alone), *times.items()):
         result[f"{path}_request_ms_in_order"] = [round(t * 1e3, 2) for t in ts]
@@ -154,7 +159,7 @@ def main() -> None:
         result[path] = {"median_request_ms": statistics.median(ts) * 1e3,
                         "p90_request_ms": ts[int(0.9 * (len(ts) - 1))] * 1e3,
                         "min_request_ms": ts[0] * 1e3,
-                        "images_per_s_at_median": BATCH / statistics.median(ts)}
+                        "images_per_s_at_median": batch / statistics.median(ts)}
     result["kernels_won_pairs"] = sum(k < p for k, p in zip(times["kernels"], times["plain"]))
     result["profile"] = device_split(lambda: engine.process_images(rgb))
     print(json.dumps(result))

@@ -1,7 +1,8 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
 lacks: no import of jax, flax, optax, orbax, msgpack, PIL or shmgan_tpu, by
-reading the sources and by running the port (serving, and one train step)
-where those modules cannot be imported."""
+reading the sources and by running the port (serving, a bundle and a PNG
+read and written, and one train step) where those modules cannot be
+imported."""
 
 import ast
 import os
@@ -67,6 +68,17 @@ def test_port_runs_with_banned_modules_blocked():
         out = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, device="cpu"
                                    ).process_images(np.full((1, 32, 32, 3), 0.5, np.float32))
         assert np.isfinite(out["gen_rgb_calibrated"]).all()
+
+        # serving's own I/O: a bundle, a PNG, the HTTP front end and the CLI
+        import shmgan_tpu_torch.cli  # noqa: F401
+        import shmgan_tpu_torch.serve_http  # noqa: F401
+        from shmgan_tpu_torch.checkpoint import load_inference_bundle
+        from shmgan_tpu_torch.data.codecs import decode, encode_png
+
+        _, _, header = load_inference_bundle("artifacts/shmgan_infer.msgpack")
+        assert header["image_size"] == 128
+        img = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
+        assert (decode(encode_png(img)) == img).all()
 
         import torch
         import shmgan_tpu_torch.profile_train  # noqa: F401

@@ -1,0 +1,290 @@
+"""The port's HTTP front end (serve_http.py) and CLI (cli.py, config.py's
+from_args) on the CPU: a live server answers each endpoint and status code
+as tests/test_serve_http.py expects of the JAX package's, the batching window
+joins concurrent requests, and the CLI parses the JAX flag set into the same
+fields. Every socket call has a timeout; every server is shut down in a
+finally or a fixture's teardown."""
+
+import base64
+import dataclasses
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from shmgan_tpu.config import Config as JConfig
+from shmgan_tpu_torch import Config
+from shmgan_tpu_torch import cli
+from shmgan_tpu_torch.checkpoint import export_inference_bundle
+from shmgan_tpu_torch.models import build_models
+from shmgan_tpu_torch.serve import BatchInferenceEngine
+from shmgan_tpu_torch.serve_http import HTTP_OUTPUTS, _decode_request_image, make_server
+
+TIMEOUT = 60
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_cfg(native=False):
+    cfg = Config()
+    cfg.model = dataclasses.replace(cfg.model, image_size=32, filter_size=8,
+                                    specseg_base_filters=4, compute_dtype="float32")
+    cfg.eval.native_resolution = native
+    return cfg
+
+
+def png_bytes(h=32, w=32, seed=0):
+    arr = (np.random.default_rng(seed).uniform(0, 1, (h, w, 3)) * 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "image/png"})
+    return urllib.request.urlopen(req, timeout=TIMEOUT)
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=TIMEOUT) as r:
+        return json.loads(r.read())
+
+
+def _image(body):
+    with Image.open(io.BytesIO(body)) as im:
+        return np.asarray(im)
+
+
+class _Running:
+    """A server on a free port, served by a thread; shut down on exit."""
+
+    def __init__(self, cfg, **kw):
+        gen, _, specseg = build_models(cfg, device="cpu", seed=0)
+        self.models = (gen, specseg)
+        self.srv = make_server(cfg, gen, specseg, device="cpu", **kw)
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=TIMEOUT)
+        assert not self.thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def running():
+    run = _Running(tiny_cfg())
+    with run as url:
+        yield url, run
+
+
+@pytest.fixture(scope="module")
+def server(running):
+    return running[0]
+
+
+def test_healthz(server):
+    payload = _get_json(server + "/healthz")
+    assert payload["status"] == "ok" and payload["backend"] == "cpu"
+    assert payload["devices"] >= 1
+
+
+def test_specfree_image_equals_the_engine(running):
+    """The default response is the calibrated output of the same decoded
+    input, truncated to 8 bits."""
+    url, run = running
+    body = png_bytes(seed=1)
+    with _post(url + "/v1/specfree", body) as r:
+        assert r.status == 200 and r.headers["Content-Type"] == "image/png"
+        got = _image(r.read())
+    eng = BatchInferenceEngine(tiny_cfg(), *run.models, batch_size=1, outputs=HTTP_OUTPUTS,
+                               device="cpu")
+    want = eng.process_images(_decode_request_image(body, 32))["gen_rgb_calibrated"][0]
+    eng.close()
+    np.testing.assert_array_equal(got, (np.clip(want, 0, 1) * 255).astype(np.uint8))
+
+
+def test_specfree_mask_composited_and_json(server):
+    with _post(server + "/v1/specfree?output=mask", png_bytes(seed=2)) as r:
+        assert _image(r.read()).shape == (32, 32)
+    with _post(server + "/v1/specfree?output=composited", png_bytes(seed=2)) as r:
+        assert _image(r.read()).shape == (32, 32, 3)
+    with _post(server + "/v1/specfree?output=json", png_bytes(seed=3)) as r:
+        assert r.headers["Content-Type"] == "application/json"
+        payload = json.loads(r.read())
+    assert 0.0 <= payload["mask_coverage"] <= 1.0 and payload["size"] == 32
+    assert _image(base64.b64decode(payload["image_png_b64"])).shape == (32, 32, 3)
+    assert _image(base64.b64decode(payload["mask_png_b64"])).shape == (32, 32)
+
+
+@pytest.mark.parametrize("query,body", [
+    ("", b"this is not an image"), ("", b""), ("?size=17", None), ("?size=8", None),
+    ("?size=4096", None), ("?size=-32", None), ("?size=narive", None), ("?output=gif", None),
+    ("?size=native", "wide")])
+def test_bad_requests_are_400(server, query, body):
+    if body is None:
+        body = png_bytes()
+    elif body == "wide":
+        body = png_bytes(16, 2064, seed=4)
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        _post(server + "/v1/specfree" + query, body)
+    assert exc.value.code == 400
+    assert "error" in json.loads(exc.value.read())
+
+
+def test_jpeg_is_400_with_a_reason(server):
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, format="JPEG")
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        _post(server + "/v1/specfree", buf.getvalue())
+    assert exc.value.code == 400 and "JPEG" in json.loads(exc.value.read())["error"]
+
+
+@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/v2/specfree")])
+def test_unknown_path_404(server, method, path):
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        if method == "GET":
+            urllib.request.urlopen(server + path, timeout=TIMEOUT)
+        else:
+            _post(server + path, png_bytes())
+    assert exc.value.code == 404
+
+
+def test_stats_counts(server):
+    with _post(server + "/v1/specfree", png_bytes(seed=5)) as r:
+        assert r.status == 200
+    payload = _get_json(server + "/stats")
+    assert payload["requests"] >= 1 and payload["latency_ema_ms"] > 0
+    assert payload["device_calls"] >= payload["requests"]
+    assert payload["native_shape_budget"] == 8
+    assert 0 <= payload["native_shapes"] <= payload["native_shape_budget"]
+    # on the CPU the wrappers run the plain versions: no kernel launches
+    assert set(payload["kernel_launches"]) >= {"instance_norm", "fused_standardize_yuv"}
+    assert not any(payload["kernel_launches"].values())
+
+
+def test_engine_pool_second_size_and_native(server):
+    with _post(server + "/v1/specfree?size=16", png_bytes(48, 48, seed=6)) as r:
+        assert _image(r.read()).shape == (16, 16, 3)
+    with _post(server + "/v1/specfree?size=native", png_bytes(40, 56, seed=7)) as r:
+        assert _image(r.read()).shape == (40, 56, 3)
+    with _post(server + "/v1/specfree?size=native&output=mask", png_bytes(40, 56, seed=8)) as r:
+        assert _image(r.read()).shape == (40, 56)
+    sizes = _get_json(server + "/healthz")["compiled_sizes"]
+    assert 16 in sizes and 32 in sizes and "native" in sizes
+
+
+def test_native_default_via_config():
+    with _Running(tiny_cfg(native=True)) as url:
+        with _post(url + "/v1/specfree", png_bytes(24, 48, seed=9)) as r:
+            assert _image(r.read()).shape == (24, 48, 3)
+        with _post(url + "/v1/specfree?size=32", png_bytes(seed=10)) as r:
+            assert _image(r.read()).shape == (32, 32, 3)
+
+
+def test_native_shape_budget():
+    """The second distinct bucket is refused with 400 at max_native_shapes=1;
+    the first stays served."""
+    with _Running(tiny_cfg(), max_native_shapes=1) as url:
+        with _post(url + "/v1/specfree?size=native", png_bytes(40, 56, seed=11)) as r:
+            assert r.status == 200
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            _post(url + "/v1/specfree?size=native", png_bytes(100, 130, seed=12))
+        assert exc.value.code == 400
+        with _post(url + "/v1/specfree?size=native", png_bytes(30, 60, seed=13)) as r:
+            assert r.status == 200   # same 64x64 bucket
+        assert _get_json(url + "/stats")["native_shapes"] == 1
+
+
+def test_batching_window_joins_concurrent_requests():
+    with _Running(tiny_cfg(), batch_size=4, batch_window_ms=200.0) as url:
+        with _post(url + "/v1/specfree", png_bytes(seed=14)) as r:
+            assert r.status == 200
+        before = _get_json(url + "/stats")["device_calls"]
+
+        def one(i):
+            with _post(url + "/v1/specfree", png_bytes(seed=100 + i)) as r:
+                return _image(r.read()).shape
+
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            shapes = list(ex.map(one, range(8)))
+        assert shapes == [(32, 32, 3)] * 8
+        calls = _get_json(url + "/stats")["device_calls"] - before
+        assert 2 <= calls < 8
+
+
+def test_warm_sizes_build_engines_before_traffic():
+    with _Running(tiny_cfg(), warm_sizes=(16, "native"), warm_native_buckets=[(40, 56)]) as url:
+        assert sorted(_get_json(url + "/healthz")["compiled_sizes"], key=str) == [16, "native"]
+        assert _get_json(url + "/stats")["native_shapes"] == 1
+
+
+# -- the CLI -------------------------------------------------------------------
+
+ARGVS = [
+    [],
+    ["--mode", "serve", "--serve_weights_bundle", "b.msgpack", "--serve_port", "9001",
+     "--serve_batch_size", "8", "--serve_batch_window_ms", "20", "--serve_warm_sizes",
+     "native, 128", "--native_resolution", "true", "--compute_dtype", "float32",
+     "--mask_chroma_prior", "yes", "--serve_watch_dir", "in", "--result_dir", "out"],
+    ["--mode", "train", "--image_size", "256", "--batch_size", "4", "--filter_size", "32",
+     "--g_lr", "1e-4", "--remat", "gen", "--seed", "3", "--flip", "false", "--psd_naming", "1",
+     "--data_parallel", "2", "--upsample_mode", "resize_conv", "--specseg_in_channels", "2",
+     "--export_dtype", "float16", "--checkpoint_step", "7", "--use_ema", "false"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "serve", "train"])
+def test_cli_parses_the_jax_flag_set(argv):
+    got, want = Config.from_args(argv), JConfig.from_args(argv)
+    assert got.mode == want.mode
+    for section in ("model", "train", "data", "mesh", "eval", "serve"):
+        for f in dataclasses.fields(getattr(got, section)):
+            assert getattr(getattr(got, section), f.name) == \
+                getattr(getattr(want, section), f.name), f"{section}.{f.name}"
+    assert set(got.describe().splitlines()) <= set(want.describe().splitlines())
+
+
+@pytest.mark.parametrize("mode", ["train", "test", "export", "bench"])
+def test_cli_modes_not_ported_raise(mode):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--mode", mode], device="cpu")
+
+
+def test_cli_serve_needs_a_bundle():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        cli.main(["--mode", "serve"], device="cpu")
+
+
+def test_cli_loads_the_bundle_and_its_header(tmp_path):
+    cfg = tiny_cfg()
+    cfg.model = dataclasses.replace(cfg.model, specseg_in_channels=2,
+                                    upsample_mode="resize_conv")
+    gen, _, specseg = build_models(cfg, device="cpu", seed=1)
+    path = str(tmp_path / "b.msgpack")
+    export_inference_bundle(gen, specseg, cfg, path, 3)
+    served = Config.from_args(["--mode", "serve", "--serve_weights_bundle", path])
+    g2, s2 = cli.serving_models(served, device="cpu")
+    assert (served.model.filter_size, served.model.specseg_in_channels,
+            served.model.upsample_mode) == (8, 2, "resize_conv")
+    for a, b in ((gen, g2), (specseg, s2)):
+        for (n, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
+            assert torch.equal(x, y), n
