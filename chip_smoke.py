@@ -69,7 +69,23 @@ Phases (each prints its name before it starts and its seconds after):
   train_bf16  the same step in bf16: through the kernels against the plain
               versions, G's and D's gradients and the losses no further apart
               than the plain bf16 step is from the f32 step on the same
-              weights and draws; the launches of a step; ten timed steps.
+              weights and draws; the launches of a step; ten timed steps;
+  train_loop  train.loop.train in f32 on a 16-scene synthetic tree, 2 epochs
+              of 2 steps, from one set of seeded models, through the kernels
+              and through the plain versions: launches (exactly 4 steps'),
+              every batch the feed handed a step against the dataset's,
+              bit for bit, every parameter within 8 lr and every metrics row
+              (step 1 within LOSS_RTOL; later rows by the gap rule against
+              the plain loop from weights moved by lr);
+  train_cli   the command line in bf16 on a 40-scene tree: --mode train (10
+              steps, launches, loop step ms beside train_bf16's bare step),
+              a resume to epoch 3 (the restored state against checkpoint 10
+              bit for bit), SIGTERM to a --mode train subprocess after its
+              first metrics row (exit 0, a checkpoint at the step reached,
+              max_to_keep), --mode export (the bundle against the
+              checkpoint), --mode test with metrics on 8 camera images of
+              the tree (24 PNGs, one preprocess launch), and serving_models
+              without a bundle answering one request.
 The card against the CPU is compared in f32 only: bf16 rounds at other places
 there, and bf16 convolutions at full width are slow on a CPU.
 The last lines are the card's nvidia-smi line, one JSON line of kernel
@@ -82,10 +98,15 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from contextlib import nullcontext
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1431,7 +1452,395 @@ def train_bf16_phase():
     want = {k: 10 * n for k, n in step_launches(torch.bfloat16).items()}
     if counts != want:
         raise AssertionError(f"10 bf16 train steps launched {counts}, expected {want}")
-    return {k: step_counts[k] + counts[k] for k in counts}
+    return {k: step_counts[k] + counts[k] for k in counts}, dict(median_ms=med * 1e3,
+                                                                 images_per_s=b / med)
+
+
+# the loop phases' trees: 16 scenes make 2 batches of 8 an epoch (train_loop:
+# 2 epochs, 4 steps), 40 make 5 (train_cli: 2 epochs, 10 steps, checkpoints
+# at steps 5 and 10, then a third epoch on resume)
+LOOP_SCENES, CLI_SCENES = 16, 40
+# train_loop, kernels vs plain after 4 steps: each parameter within 4 x the
+# step test's 2 lr a step (tests/test_torch_train_step.py: Adam moves an
+# element by about lr a step whatever the sign of a near-zero gradient, and
+# rounding may flip that sign). The metrics row of step 1 (the same weights
+# in both runs) within LOSS_RTOL, each loss. A row after updates comes from
+# weights that may differ by those lr-sized moves, so it is held by the gap
+# rule instead: ||kernels - plain|| <= GAP_C ||perturbed - plain|| over the
+# row (each loss scaled by the plain run's), where `perturbed` is the plain
+# loop from the same models with every G and D parameter moved by lr, in a
+# seeded random direction. (4 x LOSS_RTOL, the first choice, read 5.5e-4 at
+# D1_cls of step 3 on an H100: one update's sign flips move a loss by more
+# than rounding does.)
+LOOP_PARAM_ATOL_LRS = 8
+SIGTERM_DEADLINE_S = 300
+
+
+class _StepSpy:
+    """Stands in for the loop's make_train_step: records the host time at
+    each step's start and, with keep_views, a device copy of each step's
+    views (made on the step's stream, so after the feed's copy event); after
+    the `steps`-th step it waits for the device and records the end."""
+
+    def __init__(self, steps: int, keep_views: bool = False):
+        from shmgan_tpu_torch.train.step import make_train_step
+
+        self._make, self.steps, self.keep_views = make_train_step, steps, keep_views
+        self.starts, self.views, self.end = [], [], None
+
+    def _wrapped(self, cfg, debug_grads=False):
+        inner = self._make(cfg, debug_grads)
+
+        def step(state, views, draws, epoch):
+            self.starts.append(time.perf_counter())
+            if self.keep_views:
+                self.views.append(views.clone())
+            out = inner(state, views, draws, epoch)
+            if len(self.starts) == self.steps:
+                torch.cuda.synchronize()
+                self.end = time.perf_counter()
+            return out
+
+        return step
+
+    def patched(self):
+        return mock.patch("shmgan_tpu_torch.train.loop.make_train_step", self._wrapped)
+
+    def step_ms(self):
+        """ms of each step on the host's clock: from its start to the next
+        step's, the last to the device's end. Steps overlap the device's
+        work on the previous ones; the medians compare with the bare step's,
+        timed alone between two synchronisations."""
+        t = self.starts + [self.end]
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+
+def _loop_config(cfg, root, tree, epochs):
+    cfg.data.data_dir = tree
+    cfg.train.num_epochs = epochs
+    cfg.train.checkpoint_save_step = 1
+    for name in ("checkpoint_save_dir", "log_dir", "model_save_dir", "result_dir"):
+        setattr(cfg.train, name, os.path.join(root, name))
+    return cfg
+
+
+def _rows(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _leaves_equal(got, want, label):
+    """Two flax-layout trees of arrays, bit for bit."""
+    g, w = dict(_paths(got)), dict(_paths(want))
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{label}: leaves {sorted(set(g) ^ set(w))} differ")
+    bad = [k for k in w if not (np.asarray(g[k]).dtype == np.asarray(w[k]).dtype
+                                and np.array_equal(g[k], w[k]))]
+    if bad:
+        k = bad[0]
+        say(f"  {label}: {k}: {np.asarray(g[k]).ravel()[:4]} vs {np.asarray(w[k]).ravel()[:4]}")
+        raise AssertionError(f"{label}: {len(bad)} of {len(w)} leaves differ, e.g. {bad[:3]}")
+    say(f"  {label}: {len(w)} leaves equal bit for bit")
+
+
+def train_loop_phase():
+    """train.loop.train at full width in f32 on a 16-scene tree, 2 epochs of 2
+    steps, from one set of seeded models: through the kernels (launches
+    counted: exactly 4 steps' worth), then inside plain_versions() (none),
+    and inside plain_versions() from those models moved by lr (the gap
+    rule's reference, LOOP_PARAM_ATOL_LRS). Every batch the feed handed a
+    step against the dataset's numpy batch, bit for bit; every parameter and
+    every metrics.jsonl row of the kernels' run against the plain run's."""
+    from shmgan_tpu_torch.data.loader import PolarimetricDataset
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.loop import train
+
+    with tempfile.TemporaryDirectory() as root:
+        tree = os.path.join(root, "tree")
+        t0 = time.perf_counter()
+        write_fixture_tree(tree, LOOP_SCENES, 128, seed=0)
+        say(f"wrote {LOOP_SCENES} 128-px scenes in {time.perf_counter() - t0:.2f} s")
+        models = build_models(training_config("float32"), device="cuda", seed=0)
+        lr = training_config("float32").train.g_lr
+        perturbed = copy.deepcopy(models)
+        dev = next(models[0].parameters()).device
+        noise = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for p in [*perturbed[0].parameters(), *perturbed[1].parameters()]:
+                sign = torch.randint(0, 2, p.shape, device=dev, generator=noise) * 2 - 1
+                p.add_(lr * sign)
+        runs = {}
+        for path in ("kernels", "plain", "perturbed"):
+            cfg = _loop_config(training_config("float32"), os.path.join(root, path), tree, 2)
+            spy = _StepSpy(4, keep_views=path == "kernels")
+            _launch_counts(reset=True)
+            t0 = time.perf_counter()
+            with spy.patched(), nullcontext() if path == "kernels" else plain_versions():
+                state = train(cfg, verbose=False, models=copy.deepcopy(
+                    perturbed if path == "perturbed" else models))
+            wall = time.perf_counter() - t0
+            runs[path] = (cfg, state, spy, _launch_counts(reset=True))
+            ms = spy.step_ms()
+            say(f"{path}: 4 loop steps, step ms {[round(x, 2) for x in ms]}, train() "
+                f"{wall:.2f} s; launches {runs[path][3]}")
+        cfg, state, spy, counts = runs["kernels"]
+        want = {k: 4 * n for k, n in step_launches(torch.float32).items()}
+        if counts != want:
+            raise AssertionError(f"4 loop steps launched {counts}, expected {want}")
+        if any(runs["plain"][3].values()) or any(runs["perturbed"][3].values()):
+            raise AssertionError("a plain loop launched a kernel")
+
+        ds = PolarimetricDataset(cfg.data, cfg.model.image_size, cfg.train.batch_size)
+        batches = [b for _ in range(2) for b in ds.iter_epoch()]
+        if len(spy.views) != len(batches) or not all(
+                np.array_equal(v.cpu().numpy(), b) for v, b in zip(spy.views, batches)):
+            raise AssertionError("a batch the feed handed the step differs from the dataset's")
+        say(f"  the {len(batches)} batches the steps took equal the dataset's, bit for bit")
+
+        plain = runs["plain"][1]
+        atol = LOOP_PARAM_ATOL_LRS * lr
+        for net in ("gen", "disc"):
+            pairs = list(zip(getattr(state, net).named_parameters(),
+                             getattr(plain, net).parameters()))
+            worst, name = max((float((p - q).detach().abs().max()), n) for (n, p), q in pairs)
+            say(f"  kernels vs plain, {net} after 4 steps ({len(pairs)} leaves): worst max|diff|"
+                f" {worst:.3e} at {name} (tol {atol:.1e} = {LOOP_PARAM_ATOL_LRS} lr)")
+            if worst > atol:
+                raise AssertionError(f"{net}: {name} differs by {worst} after 4 steps")
+        rows, plain_rows, moved_rows = (_rows(runs[p][0].train.log_dir)
+                                        for p in ("kernels", "plain", "perturbed"))
+        if not [r["step"] for r in rows] == [r["step"] for r in plain_rows] == \
+                [r["step"] for r in moved_rows] == [1, 3]:
+            raise AssertionError(f"metrics rows at steps {[r['step'] for r in rows]}")
+        for row, ref, moved in zip(rows, plain_rows, moved_rows):
+            keys = sorted(set(ref) - {"step", "time"})
+            if sorted(set(row) - {"step", "time"}) != keys:
+                raise AssertionError(f"metrics keys differ at step {row['step']}")
+            rel = {k: abs(row[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in keys}
+            k = max(rel, key=rel.get)
+            d_kp = float(np.sqrt(sum(r * r for r in rel.values())))
+            d_mp = float(np.sqrt(sum(((moved[k] - ref[k]) / max(abs(ref[k]), 1e-30)) ** 2
+                                     for k in keys)))
+            say(f"  metrics row of step {row['step']} ({len(keys)} values): worst relative "
+                f"difference {rel[k]:.3e} at {k}; ||kernels - plain||={d_kp:.3e}, "
+                f"||perturbed - plain||={d_mp:.3e} (relative L2), ratio "
+                f"{d_kp / max(d_mp, 1e-300):.3f}")
+            if row["step"] == 1 and rel[k] > LOSS_RTOL:
+                raise AssertionError(f"metrics at step 1: {k} differs by {rel[k]} > {LOSS_RTOL}")
+            if row["step"] > 1 and not d_kp <= GAP_C * d_mp:
+                raise AssertionError(f"metrics at step {row['step']}: kernels vs plain {d_kp} > "
+                                     f"{GAP_C} x perturbed vs plain {d_mp}")
+    return counts
+
+
+def _wait_for_rows(path, n_before, proc, deadline, log_path):
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"the training subprocess exited early ({proc.returncode}); "
+                                 f"its log ends:\n{tail}")
+        if os.path.exists(path):
+            with open(path) as f:
+                if len(f.readlines()) > n_before:
+                    return
+        time.sleep(0.2)
+    raise AssertionError("no metrics row from the training subprocess by its deadline")
+
+
+def train_cli_phase(bare):
+    """The command line on the card in bf16 (the default) at full width:
+    --mode train (2 epochs, counted launches, step times beside the bare
+    step's), a resume to epoch 3 (the restored tensors against the saved
+    ones), a SIGTERM to a training subprocess, --mode export (against the
+    checkpoint), --mode test with metrics on 8 camera images of the tree,
+    and serving_models without a bundle answering one request."""
+    import shmgan_tpu_torch.train.loop as loop
+    from shmgan_tpu_torch import Config, cli
+    from shmgan_tpu_torch.checkpoint import CheckpointManager, load_inference_bundle
+    from shmgan_tpu_torch.convert import from_flax
+    from shmgan_tpu_torch.data.codecs import decode, encode_png
+    from shmgan_tpu_torch.data.synthetic import synth_eval_set, write_fixture_tree
+    from shmgan_tpu_torch.runtime import flax_msgpack
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+    from shmgan_tpu_torch.train.state import state_payload
+
+    with tempfile.TemporaryDirectory() as root:
+        tree = os.path.join(root, "tree")
+        write_fixture_tree(tree, CLI_SCENES, 128, seed=1)
+        d = {k: os.path.join(root, k) for k in ("ckpt", "logs", "models", "results")}
+
+        def argv(mode, *extra):
+            return ["--mode", mode, "--data_dir", tree, "--batch_size", "8",
+                    "--checkpoint_save_step", "1", "--checkpoint_save_dir", d["ckpt"],
+                    "--log_dir", d["logs"], "--model_save_dir", d["models"],
+                    "--result_dir", d["results"], *extra]
+
+        def step_file(step):
+            with open(os.path.join(d["ckpt"], str(step), "state.msgpack"), "rb") as f:
+                return flax_msgpack.loads(f.read())
+
+        finals = []
+        real_train = loop.train
+
+        def keep_final(*a, **k):
+            finals.append(real_train(*a, **k))
+            return finals[-1]
+
+        # 1. --mode train: 2 epochs, 10 steps
+        spy = _StepSpy(10)
+        _launch_counts(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with spy.patched(), mock.patch.object(loop, "train", keep_final):
+            cli.main(argv("train", "--num_epochs", "2"))
+        wall = time.perf_counter() - t0
+        counts = _launch_counts(reset=True)
+        want = {k: 10 * n for k, n in step_launches(torch.bfloat16).items()}
+        if counts != want:
+            raise AssertionError(f"--mode train launched {counts}, expected {want}")
+        ms = spy.step_ms()
+        med, b = float(np.median(ms)), 8
+        say(f"--mode train, bf16: 10 loop steps in {wall:.2f} s of cli.main (tree decode, "
+            f"models, checkpoints at steps 5 and 10 included); loop step ms "
+            f"{[round(x, 2) for x in ms]}; median {med:.2f} ms ({b / med * 1e3:.2f} images/s) "
+            f"against the bare step's median {bare['median_ms']:.2f} ms "
+            f"({bare['images_per_s']:.2f} images/s) in train_bf16; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        ckpt = CheckpointManager(d["ckpt"])
+        if ckpt.all_steps() != [5, 10] or finals[0].step != 10:
+            raise AssertionError(f"checkpoints {ckpt.all_steps()}, final step {finals[0].step}")
+        saved = step_file(10)
+        _leaves_equal(saved, state_payload(finals[0]), "checkpoint 10 vs the final state")
+
+        # 2. resume: epoch 3 of 3
+        restored = []
+        real_restore = CheckpointManager.restore
+
+        def snapshot(self, template, *a, **k):
+            t = time.perf_counter()
+            out = real_restore(self, template, *a, **k)
+            restored.append((time.perf_counter() - t, out and state_payload(out)))
+            return out
+
+        t0 = time.perf_counter()
+        with mock.patch.object(CheckpointManager, "restore", snapshot), \
+                mock.patch.object(loop, "train", keep_final):
+            cli.main(argv("train", "--num_epochs", "3"))
+        say(f"resume to epoch 3: {time.perf_counter() - t0:.2f} s of cli.main, the restore "
+            f"{restored[0][0] * 1e3:.1f} ms")
+        _leaves_equal(restored[0][1], saved, "restored state vs checkpoint 10")
+        if finals[1].step != 15 or ckpt.all_steps() != [5, 10, 15]:
+            raise AssertionError(f"resume ended at {finals[1].step}, {ckpt.all_steps()}")
+        resumed = _launch_counts(reset=True)
+        want5 = {k: 5 * n for k, n in step_launches(torch.bfloat16).items()}
+        if resumed != want5:
+            raise AssertionError(f"the resumed epoch launched {resumed}, expected {want5}")
+        counts = _sum_counts(counts, resumed)
+
+        # 3. SIGTERM to a training subprocess after its first metrics row
+        rows_path = os.path.join(d["logs"], "metrics.jsonl")
+        n_rows = len(_rows(d["logs"]))
+        log_path = os.path.join(root, "sigterm.log")
+        # the card is shared with the subprocess: give back what this
+        # process's allocator keeps cached
+        torch.cuda.empty_cache()
+        say(f"device memory before the subprocess: {torch.cuda.memory_reserved() / 2**30:.2f} "
+            f"GiB reserved here, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "shmgan_tpu_torch.cli",
+                                     *argv("train", "--num_epochs", "50")], cwd=ROOT,
+                                    stdout=log, stderr=subprocess.STDOUT)
+            try:
+                _wait_for_rows(rows_path, n_rows, proc, time.monotonic() + SIGTERM_DEADLINE_S,
+                               log_path)
+                t0 = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=SIGTERM_DEADLINE_S)
+                stop_s = time.perf_counter() - t0
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            out = f.read()
+        saves = [int(m) for m in re.findall(r"\[ckpt\] saved step (\d+)", out)]
+        if rc != 0 or "[preempt] signal received" not in out or not saves:
+            raise AssertionError(f"SIGTERM: exit {rc}, log tail {out[-2000:]}")
+        reached = saves[-1]
+        steps = ckpt.all_steps()
+        say(f"SIGTERM after the first metrics row: exit {rc} {stop_s:.2f} s later, checkpoint "
+            f"at step {reached}; kept {steps}")
+        if reached <= 15 or steps != [10, 15, reached]:
+            raise AssertionError(f"after SIGTERM: saved {saves}, kept {steps}")
+
+        # 4. --mode export: the bundle against the checkpoint (no EMA: raw G)
+        t0 = time.perf_counter()
+        cli.main(argv("export"))
+        export_s = time.perf_counter() - t0
+        g_params, specseg_vars, header = load_inference_bundle(
+            os.path.join(d["models"], "shmgan_infer.msgpack"))
+        latest = step_file(reached)
+        say(f"--mode export: {export_s:.2f} s of cli.main, bundle step {header['step']}")
+        if header["step"] != reached:
+            raise AssertionError(f"bundle of step {header['step']}, expected {reached}")
+        _leaves_equal(g_params, latest["g_params"], "bundle G vs checkpoint")
+        _leaves_equal(specseg_vars, latest["specseg_vars"], "bundle SpecSeg vs checkpoint")
+
+        # 5. --mode test with metrics: the tree's first 8 scenes as a camera
+        # sees them, against their diffuse truth
+        inputs, truth, _ = synth_eval_set(8, 128, seed=1)
+        for name, images in (("test", inputs), ("diffuse", truth)):
+            os.makedirs(os.path.join(root, name))
+            for i, img in enumerate(images):
+                with open(os.path.join(root, name, f"img_{i:05d}.png"), "wb") as f:
+                    f.write(encode_png((np.clip(img, 0, 1) * 255).astype(np.uint8)))
+        t0 = time.perf_counter()
+        cli.main(argv("test", "--test_dir", os.path.join(root, "test"), "--diffuse_dir",
+                      os.path.join(root, "diffuse"), "--calc_metrics", "true"))
+        test_s = time.perf_counter() - t0
+        tested = _launch_counts(reset=True)
+        if tested["fused_standardize_yuv"] != 1 or tested[_in_name(torch.bfloat16)] != 18:
+            raise AssertionError(f"--mode test on one batch launched {tested}")
+        pngs = sorted(f for f in os.listdir(d["results"]) if f.endswith(".png"))
+        with open(os.path.join(d["results"], "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        values = [v for r in rows for k, v in r.get("mean", r).items() if k != "image"]
+        shapes = {decode(_read(os.path.join(d["results"], p))).shape for p in pngs}
+        say(f"--mode test: {test_s:.2f} s of cli.main, {len(pngs)} PNGs of shapes {shapes}, "
+            f"{len(rows)} metrics rows, mean {rows[-1]['mean']}; launches {tested}")
+        if len(pngs) != 24 or len(rows) != 9 or not np.isfinite(values).all():
+            raise AssertionError(f"--mode test wrote {len(pngs)} PNGs and {len(rows)} rows")
+        counts = _sum_counts(counts, tested)
+
+        # 6. serving without a bundle restores the checkpoint
+        cfg = Config.from_args(argv("serve"))
+        gen, specseg = cli.serving_models(cfg)
+        want_g = from_flax(gen, latest["g_params"])
+        if not all(np.array_equal(p.detach().cpu().numpy(), want_g[n])
+                   for n, p in gen.named_parameters()):
+            raise AssertionError("serving_models' G differs from the checkpoint's")
+        out = BatchInferenceEngine(cfg, gen, specseg, batch_size=8,
+                                   device="cuda").process_images(inputs)
+        served = _launch_counts(reset=True)
+        cal = out["gen_rgb_calibrated"]
+        say(f"serving_models without a bundle: step {reached}'s G; one request of 8, "
+            f"{cal.shape}, launches {served}")
+        if cal.shape != (8, 128, 128, 3) or not np.isfinite(cal).all() \
+                or served["fused_standardize_yuv"] != 1:
+            raise AssertionError("the request on the restored weights failed")
+        return _sum_counts(counts, served)
 
 
 def main() -> int:
@@ -1460,7 +1869,11 @@ def main() -> int:
         current = "train"
         by_path["train"] = phase("train", train_phase)
         current = "train_bf16"
-        by_path["train_bf16"] = phase("train_bf16", train_bf16_phase)
+        by_path["train_bf16"], bare_bf16 = phase("train_bf16", train_bf16_phase)
+        current = "train_loop"
+        by_path["train_loop"] = phase("train_loop", train_loop_phase)
+        current = "train_cli"
+        by_path["train_cli"] = phase("train_cli", train_cli_phase, bare_bf16)
     except Exception:
         traceback.print_exc()
         say(f"chip_smoke FAILED in phase {current}")

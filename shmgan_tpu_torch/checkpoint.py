@@ -1,6 +1,16 @@
-"""Inference bundles: the counterpart of shmgan_tpu/checkpoint.py's
+"""Train checkpoints and inference bundles: the counterpart of
+shmgan_tpu/checkpoint.py's `CheckpointManager`, `load_specseg_weights`,
 `load_inference_bundle`, `export_inference_bundle` and
-`specseg_in_channels_of`, without flax or msgpack.
+`specseg_in_channels_of`, without flax, msgpack or Orbax.
+
+A train checkpoint is one directory per step, `<dir>/<step>/state.msgpack`:
+the flax msgpack (runtime/flax_msgpack.py) of `train.state.state_payload`,
+the tree `flax.serialization.to_state_dict` gives for the JAX package's
+Orbax payload, so `flax.serialization.from_bytes` restores it onto that
+payload. A save writes a temporary directory and renames it into place, so a
+step directory is whole or absent; the newest `max_to_keep` steps are kept.
+The JAX package's own Orbax checkpoints are not read (ROADMAP Queue 1 item
+10): a step directory that holds one raises.
 
 A bundle is two files: `<path>`, the flax msgpack of
 {"g_params": G's params, "specseg_vars": {"params", "batch_stats"}}
@@ -19,7 +29,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Mapping, Optional, Tuple
+import shutil
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +88,7 @@ def export_inference_bundle(gen: torch.nn.Module, specseg: torch.nn.Module, cfg:
     the header fields the JAX package writes."""
     if store_dtype is not None and store_dtype not in STORE_DTYPES:
         raise ValueError(f"store_dtype must be one of {STORE_DTYPES} or None, got "
-                         f"{store_dtype!r}")
+                         f"{store_dtype!r} (a bfloat16 bundle: ROADMAP Queue 1 item 1)")
     params, batch_stats = flax_tree(specseg)
     # keys sorted at every level, as the JAX package's export leaves them
     payload = {"g_params": flax_tree(gen)[0],
@@ -95,3 +106,112 @@ def export_inference_bundle(gen: torch.nn.Module, specseg: torch.nn.Module, cfg:
         header["store_dtype"] = str(store_dtype)
     with open(path + ".json", "w") as f:
         json.dump(header, f, indent=1)
+
+
+# -- train checkpoints ------------------------------------------------------
+
+STATE_FILE = "state.msgpack"
+# what an Orbax step directory of the JAX package holds
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "default", "_METADATA")
+
+
+class CheckpointManager:
+    """Keeps the newest `max_to_keep` train checkpoints under `directory`."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)), STATE_FILE)
+
+    def all_steps(self) -> List[int]:
+        """The saved steps, oldest first. An Orbax step directory raises."""
+        steps = []
+        for name in os.listdir(self.directory):
+            step_dir = os.path.join(self.directory, name)
+            if not (name.isdigit() and os.path.isdir(step_dir)):
+                continue
+            if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
+                steps.append(int(name))
+            elif any(os.path.exists(os.path.join(step_dir, m)) for m in _ORBAX_MARKERS):
+                raise NotImplementedError(
+                    f"{step_dir} holds an Orbax checkpoint of the JAX package; the port "
+                    f"reads its own {STATE_FILE} checkpoints only (reading Orbax: ROADMAP "
+                    "Queue 1 item 10)")
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, state, step: Optional[int] = None) -> int:
+        """Write `state` (a train.state.TrainState) at `step` (default: its
+        own); a step already saved is left as it is."""
+        from shmgan_tpu_torch.train.state import state_payload
+
+        step = int(state.step) if step is None else int(step)
+        if step in self.all_steps():
+            return step
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+            f.write(flax_msgpack.dumps(state_payload(state)))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(self.directory, str(step)))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+        return step
+
+    def _load(self, step: int) -> Dict:
+        with open(self._path(step), "rb") as f:
+            return flax_msgpack.loads(f.read())
+
+    def has_key(self, step: int, key: str) -> bool:
+        """Whether the checkpoint at `step` holds the top-level entry `key`
+        (e.g. "ema_g_params"); False when there is no such step."""
+        if not os.path.isfile(self._path(step)):
+            return False
+        return key in self._load(step)
+
+    def restore(self, template, step: Optional[int] = None, include_ema: bool = False):
+        """Fill `template` (a freshly created TrainState) in place from the
+        checkpoint at `step` (default: the latest) and return it; None when
+        there is none. The EMA: a template without one ignores the
+        checkpoint's, unless include_ema; a template with one over a
+        checkpoint without one starts it from the restored G."""
+        from shmgan_tpu_torch.train.state import load_state_payload
+
+        step = self.latest_step() if step is None else int(step)
+        if step is None:
+            return None
+        if not os.path.isfile(self._path(step)):
+            raise FileNotFoundError(f"no checkpoint at step {step} under {self.directory}")
+        payload = self._load(step)
+        want_ema = template.ema_g is not None or (include_ema and "ema_g_params" in payload)
+        return load_state_payload(template, payload, with_ema=want_ema)
+
+    def close(self) -> None:
+        """Saves are synchronous; nothing is left to wait for."""
+
+
+def load_specseg_weights(path: str, base_filters: int = 16, image_size: int = 128) -> Dict:
+    """A SpecSeg variable tree {"params", "batch_stats"} (nested dicts of
+    float32 arrays) from a `.msgpack` file of the JAX package's
+    `save_specseg_msgpack`. The reference's keras `.h5` needs h5py, which the
+    port does not use: it raises (ROADMAP Queue 1 item 10). base_filters and
+    image_size are the JAX signature's; the tree's own shapes decide, and
+    loading it into a SpecSeg checks them."""
+    del base_filters, image_size
+    if not path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the port reads SpecSeg weights from .msgpack only; the keras h5 "
+            "converter needs h5py (ROADMAP Queue 1 item 10)")
+    with open(path, "rb") as f:
+        tree = flax_msgpack.loads(f.read())
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: expected a SpecSeg variable tree with params")
+    return _map_floats(tree, lambda x: np.asarray(x, np.float32))

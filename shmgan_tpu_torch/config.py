@@ -2,7 +2,7 @@
 ModelConfig, TrainConfig, DataConfig, MeshConfig, EvalConfig and ServeConfig,
 with the same defaults, and of `Config.from_args`, the CLI surface, with the
 same flag names and defaults. The port keeps the fields that inference, the
-train step, serving and the CLI read or set.
+train step and its loop, serving and the CLI read or set.
 
 `model.compute_dtype` is the models' compute dtype, as in the JAX package:
 "bfloat16" (its default) or "float32". Parameters are float32 at either; each
@@ -24,6 +24,15 @@ from typing import Optional
 import torch
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises,
+    rather than run on the CPU: the CPU is taken only when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to run on the CPU")
+    return device
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -83,8 +92,11 @@ class TrainConfig:
     delete_old_checkpoints: bool = False
     checkpoint_save_dir: str = "./checkpoints"
     model_save_dir: str = "./models"
-    result_dir: str = "./results"  # serve --serve_watch_dir writes here
+    result_dir: str = "./results"  # test mode and serve --serve_watch_dir write here
     log_dir: str = "./logs/train"
+    checkpoint_max_to_keep: int = 3
+    # per-epoch shuffle derived from (seed, epoch); off = the reference's file order
+    shuffle: bool = False
     # one drop pattern shared by the batch (reference parity) or one per sample
     scalar_channel_dropout: bool = True
     # quality-mode flags (defaults are reference parity; see the JAX config)
@@ -96,6 +108,8 @@ class TrainConfig:
     # torch.utils.checkpoint (recomputed in the backward)
     remat: str = "none"
     g_ema: float = 0.0             # EMA decay of G's params; 0 = off
+    # restore the latest checkpoint when training starts
+    auto_resume: bool = True
 
 
 @dataclass
@@ -105,14 +119,31 @@ class DataConfig:
     diffuse_dir: str = "./data/test_diffuse"
     est_diffuse: bool = True       # synthesize ED from the 4 views when folder absent
     flip: bool = True              # per-step paired random up/down flip
+    # sub-folder names of the five aligned views, in the two naming schemes
+    view_dirs: tuple = ("I0", "I45", "I90", "I135", "ED")
+    psd_view_dirs: tuple = ("I0", "I60", "I90", "I150", "ED")
     use_psd_naming: bool = False
+    prefetch: int = 4              # host -> device prefetch depth
+    num_workers: int = 4           # decode / resize worker threads
+    cache_in_memory: bool = True   # cache the decoded float32 views in RAM
 
 
 @dataclass
 class MeshConfig:
-    # -1 means "all remaining devices"; serving on the port takes 1 card
+    # -1 means "all remaining devices"; the port runs on one card, so -1 and 1
+    # are the only values it takes (check_single_device)
     data_parallel: int = -1
     model_parallel: int = 1
+
+    def check_single_device(self) -> None:
+        """Raise unless the layout is the one card the port runs on: a data
+        parallel degree other than -1 or 1 needs parallel/mesh.py, ROADMAP
+        Queue 1 item 11, and is not silently run on one device."""
+        if self.data_parallel not in (-1, 1) or self.model_parallel != 1:
+            raise NotImplementedError(
+                f"data_parallel={self.data_parallel}, model_parallel={self.model_parallel}: "
+                "the port runs on one device; a mesh is ROADMAP Queue 1 item 11 "
+                "(parallel/mesh.py)")
 
 
 @dataclass

@@ -76,30 +76,42 @@ def _resolve(module: nn.Module, path: str):
     return owner, leaf, f"{owner_path}.{name}" if owner_path else name
 
 
+def from_flax(module: nn.Module, tree: Mapping) -> Dict[str, np.ndarray]:
+    """The leaves of a flax tree of `module` (its params or batch_stats, or
+    tensors laid out like them, e.g. optimizer moments) by torch name, as
+    float32 arrays in torch layout. The inverse of `to_flax`."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in _walk(tree):
+        owner, leaf, target = _resolve(module, path)
+        if target in out:
+            raise KeyError(f"flax leaf {path} fills {target} twice")
+        out[target] = np.array(_torch_layout(owner, leaf, np.asarray(value, np.float32)),
+                               order="C")
+    return out
+
+
 def load_flax(module: nn.Module, params: Mapping,
               batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Fill `module` in place from flax `params` (and `batch_stats`)."""
     targets: Dict[str, torch.Tensor] = dict(module.named_parameters())
     targets.update((n, b) for n, b in module.named_buffers()
                    if not n.endswith("num_batches_tracked"))
-    filled = set()
-    leaves = list(_walk(params)) + list(_walk(batch_stats or {}))
+    arrays = from_flax(module, params)
+    for name, arr in from_flax(module, batch_stats or {}).items():
+        if name in arrays:
+            raise KeyError(f"{name} is both a param and a batch stat")
+        arrays[name] = arr
     with torch.no_grad():
-        for path, value in leaves:
-            owner, leaf, target = _resolve(module, path)
-            if target not in targets:
-                raise KeyError(f"flax leaf {path} has no counterpart {target} in "
+        for name, arr in arrays.items():
+            if name not in targets:
+                raise KeyError(f"flax leaf for {name} has no counterpart in "
                                f"{type(module).__name__}")
-            if target in filled:
-                raise KeyError(f"flax leaf {path} fills {target} twice")
-            arr = _torch_layout(owner, leaf, np.asarray(value, np.float32))
-            dst = targets[target]
+            dst = targets[name]
             if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"{path}: flax shape {np.shape(value)} does not "
-                                 f"fit {target} of shape {tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(arr.copy()))
-            filled.add(target)
-    missing = sorted(set(targets) - filled)
+                raise ValueError(f"{name}: flax leaf of torch shape {arr.shape} does not "
+                                 f"fit {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(arr))
+    missing = sorted(set(targets) - set(arrays))
     if missing:
         raise KeyError(f"no flax leaf for {missing}")
     return module
@@ -108,7 +120,8 @@ def load_flax(module: nn.Module, params: Mapping,
 def to_flax(module: nn.Module, template: Mapping,
             named: Mapping[str, torch.Tensor]) -> Dict:
     """`named` (torch name -> tensor of `module`, e.g. its gradients) as a
-    nested dict of numpy arrays shaped like the flax tree `template`."""
+    nested dict of numpy arrays shaped like the flax tree `template`: copies,
+    never views of the tensors (on the CPU a view would change with them)."""
     out: Dict = {}
     for path, _ in _walk(template):
         owner, leaf, target = _resolve(module, path)
@@ -117,14 +130,15 @@ def to_flax(module: nn.Module, template: Mapping,
         *parents, key = path.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        node[key] = np.ascontiguousarray(_flax_layout(owner, leaf, value))
+        node[key] = np.array(_flax_layout(owner, leaf, value), order="C")
     return out
 
 
 def flax_tree(module: nn.Module) -> Tuple[Dict, Dict]:
     """(params, batch_stats): every parameter and buffer of `module` as the
     nested dicts of numpy arrays its flax counterpart holds, keys sorted at
-    every level, as a JAX tree map leaves a dict. The inverse of `load_flax`."""
+    every level, as a JAX tree map leaves a dict; copies, never views. The
+    inverse of `load_flax`."""
     params: Dict = {}
     batch_stats: Dict = {}
     tensors = list(module.named_parameters()) + [
@@ -136,8 +150,8 @@ def flax_tree(module: nn.Module) -> Tuple[Dict, Dict]:
         node = batch_stats if torch_leaf.startswith("running_") else params
         for part in owner_path.split(".") if owner_path else []:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(
-            _flax_layout(owner, leaf, tensor.detach().cpu().float().numpy()))
+        node[leaf] = np.array(
+            _flax_layout(owner, leaf, tensor.detach().cpu().float().numpy()), order="C")
     return _sorted(params), _sorted(batch_stats)
 
 

@@ -1,14 +1,29 @@
-"""Image files in: the counterpart of shmgan_tpu/data/loader.py's
-`list_images`, `decode_resize` and `decode_original`, decoding through
-data/codecs.py instead of PIL, to the same float32 arrays."""
+"""Image files in: the counterpart of shmgan_tpu/data/loader.py, decoding
+through data/codecs.py instead of PIL, to the same float32 arrays.
+
+  list_images, decode_resize, decode_original   one file, or a folder listed
+  decode_resize_batch    a list of files through a thread pool
+  PolarimetricDataset    the five aligned views (I0, I45, I90, I135, ED, or
+                         the PSD naming), batches of (V, B, H, W, 3)
+  SingleFolderDataset    one flat RGB folder for inference, (B, H, W, 3)
+
+The five view folders are listed once and aligned by sorted file name; the
+decoded views are cached in RAM as float32; the ED view is the channel-wise
+minimum of the four polarised views when its folder is missing and
+`est_diffuse` is set. The order of an epoch and each process's share of a
+batch are the JAX package's. (Its native C++ batch decoder, host code, is
+not ported: ROADMAP Queue 1 item 9.)
+"""
 
 from __future__ import annotations
 
 import os
-from typing import List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional
 
 import numpy as np
 
+from shmgan_tpu_torch.config import DataConfig
 from shmgan_tpu_torch.data.codecs import decode, resize_bilinear
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".gif")
@@ -57,3 +72,119 @@ def decode_original(path: str) -> np.ndarray:
     """Decode to RGB in [0, 1] at the file's own resolution: (H, W, 3)
     float32."""
     return to_unit(_read(path))
+
+
+def decode_resize_batch(paths: List[str], image_size: int, num_workers: int = 4
+                        ) -> np.ndarray:
+    """Decode and resize a list of files on `num_workers` threads: (N, S, S, 3)
+    float32 in [0, 1]."""
+    with ThreadPoolExecutor(max_workers=num_workers) as ex:
+        return np.stack(list(ex.map(lambda p: decode_resize(p, image_size), paths)))
+
+
+def _with_ed(views: np.ndarray) -> np.ndarray:
+    """(4 or 5, N, H, W, 3) -> 5 views, ED the channel-wise min of the four."""
+    if views.shape[0] == 4:
+        views = np.concatenate([views, views.min(axis=0, keepdims=True)], axis=0)
+    return views
+
+
+class PolarimetricDataset:
+    """Aligned 5-view dataset yielding (V, B, H, W, 3) float32 batches in a
+    deterministic order, shuffled per epoch when given a seed."""
+
+    def __init__(self, cfg: DataConfig, image_size: int, batch_size: int,
+                 num_workers: Optional[int] = None):
+        self.cfg = cfg
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.num_workers = num_workers or cfg.num_workers
+
+        names = cfg.psd_view_dirs if cfg.use_psd_naming else cfg.view_dirs
+        self.view_names = list(names)
+        paths = [os.path.join(cfg.data_dir, d) for d in self.view_names]
+
+        self.has_ed_folder = os.path.isdir(paths[4])
+        if not self.has_ed_folder and not cfg.est_diffuse:
+            raise FileNotFoundError(f"ED folder {paths[4]} missing and est_diffuse=False")
+
+        self.files: List[List[str]] = []
+        for p in paths[:5 if self.has_ed_folder else 4]:
+            fs = list_images(p)
+            if not fs:
+                raise FileNotFoundError(f"no images under {p}")
+            self.files.append(fs)
+        n = min(len(f) for f in self.files)
+        self.files = [f[:n] for f in self.files]
+        self.length = n
+
+        self._cache: Optional[np.ndarray] = None
+        if cfg.cache_in_memory:
+            self._cache = self._decode(list(range(n)))
+
+    def _decode(self, idx) -> np.ndarray:
+        return _with_ed(np.stack([
+            decode_resize_batch([fs[i] for i in idx], self.image_size, self.num_workers)
+            for fs in self.files]))
+
+    def _load_indices(self, idx: np.ndarray) -> np.ndarray:
+        if self._cache is not None:
+            return self._cache[:, idx]
+        return self._decode(idx)
+
+    def __len__(self) -> int:
+        return self.length
+
+    @property
+    def batches_per_epoch(self) -> int:
+        return self.length // self.batch_size
+
+    def iter_epoch(self, shuffle_seed: Optional[int] = None, process_index: int = 0,
+                   process_count: int = 1) -> Iterator[np.ndarray]:
+        """(V, B_local, H, W, 3) batches. Every process walks the same global
+        order (from `shuffle_seed`) and takes its contiguous block
+        [p B/P, (p+1) B/P) of each global batch."""
+        if self.batch_size % process_count != 0:
+            raise ValueError(f"global batch {self.batch_size} not divisible by "
+                             f"{process_count} processes")
+        local = self.batch_size // process_count
+        order = np.arange(self.length)
+        if shuffle_seed is not None:
+            np.random.default_rng(shuffle_seed).shuffle(order)
+        for b in range(self.batches_per_epoch):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield self._load_indices(idx[process_index * local:(process_index + 1) * local])
+
+
+class SingleFolderDataset:
+    """A flat RGB folder for inference: (B, H, W, 3) batches in sorted file
+    order, resized to image_size; image_size None keeps each file's own
+    resolution, one file a batch."""
+
+    def __init__(self, directory: str, image_size: Optional[int], batch_size: int = 1,
+                 num_workers: int = 4, cache: bool = True):
+        self.files = list_images(directory)
+        if not self.files:
+            raise FileNotFoundError(f"no images under {directory}")
+        self.image_size = image_size
+        self.batch_size = batch_size if image_size is not None else 1
+        self.num_workers = num_workers
+        self._cache: Optional[np.ndarray] = None
+        if cache and image_size is not None:
+            self._cache = decode_resize_batch(self.files, image_size, num_workers)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        n = len(self.files)
+        if self.image_size is None:
+            for f in self.files:
+                yield decode_original(f)[None]
+            return
+        for b in range(0, n, self.batch_size):
+            idx = list(range(b, min(b + self.batch_size, n)))
+            if self._cache is not None:
+                yield self._cache[idx]
+            else:
+                yield np.stack([decode_resize(self.files[i], self.image_size) for i in idx])

@@ -1,11 +1,13 @@
-"""SSIM with tf.image.ssim's semantics (the counterpart of
-shmgan_tpu/ops/ssim.py): an 11-tap Gaussian window with sigma 1.5 as two
-depthwise VALID convolutions, k1 = 0.01, k2 = 0.03, and the per-image score
-the mean over window positions and channels."""
+"""SSIM, PSNR and MSE with tf.image.ssim's, tf.image.psnr's and keras
+MeanSquaredError's semantics (the counterpart of shmgan_tpu/ops/ssim.py).
+SSIM: an 11-tap Gaussian window with sigma 1.5 as two depthwise VALID
+convolutions, k1 = 0.01, k2 = 0.03, and the per-image score the mean over
+window positions and channels."""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -47,3 +49,15 @@ def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float, filter_size: int = 11
     luminance = (2.0 * mu_a * mu_b + c1) / (mu_a * mu_a + mu_b * mu_b + c1)
     cs = (2.0 * cov + c2) / (var_a + var_b + c2)
     return (luminance * cs).mean(dim=(1, 2, 3))
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float) -> torch.Tensor:
+    """Per-image PSNR in dB, (B, ...) -> (B,)."""
+    a, b = a.float(), b.float()
+    mse_ = ((a - b) ** 2).mean(dim=tuple(range(1, a.dim())))
+    return 10.0 / math.log(10.0) * torch.log((max_val ** 2) / mse_)
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The mean squared difference over every element: a scalar."""
+    return ((a.float() - b.float()) ** 2).mean()

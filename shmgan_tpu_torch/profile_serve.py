@@ -41,7 +41,7 @@ from shmgan_tpu_torch.serve import BatchInferenceEngine
 
 # device kernel names of the port's kernels, by the key of their share
 OUR_KERNELS = {"instance_norm_ms": ("instance_norm_kernel",),
-               "instance_norm_backward_ms": ("instance_norm_bwd_kernel", "channel_sums_kernel"),
+               "instance_norm_backward_ms": ("instance_norm_bwd_", "channel_sums_kernel"),
                "preprocess_ms": ("standardize_yuv",)}
 CONV_MARKERS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "winograd", "fft")
 BATCH, SIZE, REQUESTS = 8, 256, 20
@@ -77,15 +77,25 @@ def _timed(engine, rgb) -> float:
     return time.perf_counter() - t0
 
 
+PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]
+
+
 def device_split(fn):
     """Device time by category for one call of fn, from torch.profiler."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return split_profile(prof, wall_ms)
+
+
+def split_profile(prof, wall_ms: float):
+    """A finished profile's device time by category (convolutions, each of
+    the port's kernels, copies, the rest), busy ms and idle share of
+    `wall_ms`, and the ten largest device kernels."""
     split = {"conv_ms": 0.0, **{k: 0.0 for k in OUR_KERNELS}, "copy_ms": 0.0,
              "other_ms": 0.0}
     top = []

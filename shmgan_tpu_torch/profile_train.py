@@ -1,6 +1,7 @@
 """Train-step measurement of the port on one CUDA card.
 
     python -m shmgan_tpu_torch.profile_train [--compute_dtype bfloat16|float32]
+        [--loop]
 
 Builds the train state at full width on weights from seed 0 (the JAX
 package's default model: 128 px, filter 64, c_dim 5, SpecSeg base 16, batch
@@ -13,6 +14,11 @@ bfloat16, the JAX package's default), then:
   2. traces one step with torch.profiler and splits its device time into
      convolutions, each of the port's kernels, copies and everything else,
      with the device's idle share of the step's wall time.
+With --loop it measures the steps of the training driver instead
+(`train.loop.train` on a tree of synthetic scenes, fed by its
+DevicePrefetcher): the host time of every loop step, and a trace of steps
+4-8 of the epoch, split as above, from a synchronisation before step 4 to
+one after step 8.
 Prints one JSON line. Needs a CUDA card.
 """
 
@@ -20,16 +26,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
+from unittest import mock
 
 import torch
 
 from shmgan_tpu_torch import Config
 from shmgan_tpu_torch.config import COMPUTE_DTYPES
 from shmgan_tpu_torch.models import build_models
-from shmgan_tpu_torch.profile_serve import device_split, plain_versions
+from shmgan_tpu_torch.profile_serve import (PROFILER_ACTIVITIES, device_split,
+                                            plain_versions, split_profile)
 from shmgan_tpu_torch.train.state import create_train_state
 from shmgan_tpu_torch.train.step import make_train_step, sample_draws
 
@@ -45,13 +55,72 @@ def training_config(compute_dtype: str) -> Config:
     return cfg
 
 
+LOOP_STEPS = (3, 8)   # steps 4-8 (counted from 1) of a 10-step epoch are traced
+
+
+def loop_profile(cfg: Config) -> dict:
+    """Host ms of each step of one 10-step epoch of train.loop.train, and a
+    profile of steps 4-8 (split_profile)."""
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+    from shmgan_tpu_torch.train import loop
+
+    make = loop.make_train_step
+    starts, out = [], {}
+
+    def spied(c, debug_grads=False):
+        inner = make(c, debug_grads)
+
+        def step(state, views, draws, epoch):
+            n = len(starts)
+            if n == LOOP_STEPS[0]:
+                torch.cuda.synchronize()
+                out["prof"] = torch.profiler.profile(activities=PROFILER_ACTIVITIES)
+                out["prof"].__enter__()
+                out["t0"] = time.perf_counter()
+            starts.append(time.perf_counter())
+            result = inner(state, views, draws, epoch)
+            if n + 1 == LOOP_STEPS[1]:
+                torch.cuda.synchronize()
+                out["wall_ms"] = (time.perf_counter() - out["t0"]) * 1e3
+                out["prof"].__exit__(None, None, None)
+            return result
+
+        return step
+
+    b = cfg.train.batch_size
+    with tempfile.TemporaryDirectory() as root:
+        write_fixture_tree(os.path.join(root, "tree"), 10 * b, cfg.model.image_size)
+        cfg.data.data_dir = os.path.join(root, "tree")
+        cfg.train.num_epochs, cfg.train.checkpoint_save_step = 1, 1
+        for name in ("checkpoint_save_dir", "log_dir", "model_save_dir"):
+            setattr(cfg.train, name, os.path.join(root, name))
+        with mock.patch.object(loop, "make_train_step", spied):
+            loop.train(cfg, verbose=False)
+    step_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(starts, starts[1:])]
+    return {"loop_step_ms_in_order": [round(t, 2) for t in step_ms],
+            "loop_median_step_ms": statistics.median(step_ms),
+            "loop_images_per_s_at_median": b / statistics.median(step_ms) * 1e3,
+            "profile_steps": f"{LOOP_STEPS[0] + 1}-{LOOP_STEPS[1]}",
+            "profile": split_profile(out["prof"], out["wall_ms"])}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
+    ap.add_argument("--loop", action="store_true",
+                    help="measure train.loop.train's steps instead of the bare step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     cfg = training_config(args.compute_dtype)
+    if args.loop:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                          "compute_dtype": args.compute_dtype,
+                          "batch": cfg.train.batch_size, **loop_profile(cfg)}))
+        return
     v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
     state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
     step = make_train_step(cfg)

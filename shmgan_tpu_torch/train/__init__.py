@@ -1,1 +1,2 @@
-"""The fused train step of the port: losses, state and optimizer, step."""
+"""Training in the port: losses, state and optimizer, the fused step, and the
+epoch loop around it."""

@@ -5,17 +5,24 @@ shmgan_tpu/train/state.py).
 The port updates the modules' parameters, the optimizer moments and the EMA
 in place, where the JAX package returns a new tree; `copy.deepcopy` of a
 state copies all of them together.
+
+`state_payload` lays a state out as the tree the JAX package checkpoints
+(`flax.serialization.to_state_dict` of its Orbax payload), and
+`load_state_payload` fills a state from such a tree (checkpoint.py writes and
+reads it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from shmgan_tpu_torch.config import Config
+from shmgan_tpu_torch.convert import flax_tree, from_flax, load_flax, to_flax
 from shmgan_tpu_torch.models import SHMDiscriminator, SHMGenerator, SpecSeg
 
 
@@ -94,3 +101,81 @@ def create_train_state(cfg: Config, models: Tuple[SHMGenerator, SHMDiscriminator
                       g_opt=make_optimizer(g_params, cfg.train.g_lr, cfg),
                       d_opt=make_optimizer(dict(disc.named_parameters()), cfg.train.d_lr, cfg),
                       ema_g=ema)
+
+
+def param_count(tree: Mapping) -> int:
+    """Number of elements in a tree of arrays (a flax-layout tree)."""
+    return sum(param_count(v) if isinstance(v, Mapping) else int(np.size(v))
+               for v in tree.values())
+
+
+def _opt_payload(module: nn.Module, template: Mapping, opt: ClipAdamDecay) -> Dict:
+    """optax's chain state (clip, scale_by_adam, scale_by_learning_rate) as
+    flax's state dict: {"0": {}, "1": {"count", "mu", "nu"}, "2": {"count"}},
+    both counts the optimizer's."""
+    mu, nu = opt.moments()
+    count = np.asarray(opt.count, np.int32)
+    return {"0": {}, "1": {"count": count, "mu": to_flax(module, template, mu),
+                           "nu": to_flax(module, template, nu)},
+            "2": {"count": count.copy()}}
+
+
+def state_payload(state: TrainState) -> Dict[str, Any]:
+    """The state as the JAX package's checkpoint tree, numpy on the host:
+    step, g_params, d_params, specseg_vars {params, batch_stats},
+    g_opt_state, d_opt_state, and ema_g_params when the EMA is on."""
+    g_params, d_params = flax_tree(state.gen)[0], flax_tree(state.disc)[0]
+    ss_params, ss_stats = flax_tree(state.specseg)
+    payload = {"step": np.asarray(state.step, np.int32), "g_params": g_params,
+               "d_params": d_params,
+               "specseg_vars": {"params": ss_params, "batch_stats": ss_stats},
+               "g_opt_state": _opt_payload(state.gen, g_params, state.g_opt),
+               "d_opt_state": _opt_payload(state.disc, d_params, state.d_opt)}
+    if state.ema_g is not None:
+        payload["ema_g_params"] = to_flax(state.gen, g_params, state.ema_g)
+    return payload
+
+
+def _named_tensors(module: nn.Module, tree: Mapping, names: List[str],
+                   like: torch.Tensor) -> Dict[str, torch.Tensor]:
+    arrays = from_flax(module, tree)
+    if set(arrays) != set(names):
+        raise KeyError(f"{type(module).__name__}: the tree's leaves "
+                       f"{sorted(set(arrays) ^ set(names))} do not match")
+    return {k: torch.from_numpy(arrays[k]).to(like.device) for k in names}
+
+
+def _load_opt(module: nn.Module, payload: Mapping, opt: ClipAdamDecay) -> None:
+    adam = payload["1"]
+    counts = (int(adam["count"]), int(payload["2"]["count"]))
+    if counts[0] != counts[1]:
+        raise ValueError(f"optimizer counts differ: adam {counts[0]}, schedule {counts[1]}")
+    like = opt.params[0]
+    for moments, tree in ((opt.mu, adam["mu"]), (opt.nu, adam["nu"])):
+        named = _named_tensors(module, tree, opt.names, like)
+        with torch.no_grad():
+            for dst, name in zip(moments, opt.names):
+                dst.copy_(named[name])
+    opt.count = counts[0]
+
+
+def load_state_payload(state: TrainState, payload: Mapping, with_ema: bool) -> TrainState:
+    """Fill `state` in place from a `state_payload` tree. with_ema: the
+    state keeps an EMA afterwards, the payload's or, where it has none, a
+    copy of the restored G; without it the state has none."""
+    load_flax(state.gen, payload["g_params"])
+    load_flax(state.disc, payload["d_params"])
+    ss = payload["specseg_vars"]
+    load_flax(state.specseg, ss["params"], ss.get("batch_stats"))
+    _load_opt(state.gen, payload["g_opt_state"], state.g_opt)
+    _load_opt(state.disc, payload["d_opt_state"], state.d_opt)
+    state.step = int(payload["step"])
+    state.ema_g = None
+    if with_ema:
+        g_named = dict(state.gen.named_parameters())
+        if "ema_g_params" in payload:
+            state.ema_g = _named_tensors(state.gen, payload["ema_g_params"], list(g_named),
+                                         next(iter(g_named.values())))
+        else:
+            state.ema_g = {k: p.detach().clone() for k, p in g_named.items()}
+    return state

@@ -1,8 +1,9 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
-lacks: no import of jax, flax, optax, orbax, msgpack, PIL or shmgan_tpu, by
-reading the sources and by running the port (serving, a bundle and a PNG
-read and written, and one train step) where those modules cannot be
-imported."""
+lacks: no import of jax, flax, optax, orbax, msgpack, PIL, h5py, tabulate,
+tensorboard or shmgan_tpu, by reading the sources and by running the port
+(serving, a bundle and a PNG read and written, one train step, and the
+command line's train, export and test modes on a tiny tree) where those
+modules cannot be imported."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "shmgan_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "h5py", "tabulate",
+          "tensorboard", "shmgan_tpu")
 
 
 def _port_sources():
@@ -92,6 +94,30 @@ def test_port_runs_with_banned_modules_blocked():
         state, m = make_train_step(cfg)(state, torch.rand((5, 1, 64, 64, 3), generator=g),
                                         sample_draws(cfg, g, 5, 1, 64, 64), 0)
         assert state.step == 1 and all(torch.isfinite(v).all() for v in m.values())
+
+        # the command line: train two epochs, export, test with metrics
+        import os, shutil, tempfile
+        from shmgan_tpu_torch import cli
+        from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+
+        root = tempfile.mkdtemp()
+        write_fixture_tree(os.path.join(root, "tree"), 4, 32)
+        common = ["--image_size", "32", "--filter_size", "4", "--batch_size", "2",
+                  "--data_dir", os.path.join(root, "tree"),
+                  "--checkpoint_save_dir", os.path.join(root, "ckpt"),
+                  "--log_dir", os.path.join(root, "logs"),
+                  "--model_save_dir", os.path.join(root, "models"),
+                  "--result_dir", os.path.join(root, "results")]
+        cli.main(["--mode", "train", "--num_epochs", "2", "--checkpoint_save_step", "1"]
+                 + common, device="cpu")
+        cli.main(["--mode", "export"] + common, device="cpu")
+        assert os.path.getsize(os.path.join(root, "models", "shmgan_infer.msgpack")) > 0
+        cli.main(["--mode", "test", "--calc_metrics", "true",
+                  "--test_dir", os.path.join(root, "tree", "I0"),
+                  "--diffuse_dir", os.path.join(root, "tree", "ED")] + common, device="cpu")
+        with open(os.path.join(root, "results", "metrics.jsonl")) as f:
+            assert len(f.readlines()) == 5
+        shutil.rmtree(root)
         print("OK", sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
