@@ -1,7 +1,9 @@
 """Train checkpoints and inference bundles: the counterpart of
-shmgan_tpu/checkpoint.py's `CheckpointManager`, `load_specseg_weights`,
-`load_inference_bundle`, `export_inference_bundle` and
-`specseg_in_channels_of`, without flax, msgpack or Orbax.
+shmgan_tpu/checkpoint.py's `CheckpointManager`, the SpecSeg files
+(`save_specseg_msgpack`, `load_specseg_msgpack`, `load_specseg_weights`,
+`specseg_msgpack_in_channels`, `specseg_in_channels_of`),
+`load_inference_bundle` and `export_inference_bundle`, without flax,
+msgpack or Orbax.
 
 A train checkpoint is one directory per step, `<dir>/<step>/state.msgpack`:
 the flax msgpack (runtime/flax_msgpack.py) of `train.state.state_payload`,
@@ -16,7 +18,8 @@ A bundle is two files: `<path>`, the flax msgpack of
 {"g_params": G's params, "specseg_vars": {"params", "batch_stats"}}
 (runtime/flax_msgpack.py reads and writes it), and `<path>.json`, the model
 hyperparameters the weights were built with. A bundle whose header has a
-`store_dtype` stores its floats in that dtype; they load as float32.
+`store_dtype` (float16, bfloat16) stores its floats in that dtype; they load
+as float32.
 
     g_params, specseg_vars, header = load_inference_bundle(path)
     cfg.model = model_config(cfg.model, header)
@@ -39,8 +42,8 @@ from shmgan_tpu_torch.config import Config, ModelConfig
 from shmgan_tpu_torch.convert import flax_tree
 from shmgan_tpu_torch.runtime import flax_msgpack
 
-# store dtypes the port's writer takes (numpy has no bfloat16)
-STORE_DTYPES = ("float16", "float32")
+# store dtypes of a bundle's floats (bfloat16 through torch: numpy has none)
+STORE_DTYPES = ("float16", "float32", "bfloat16")
 
 
 def _map_floats(tree, fn):
@@ -49,6 +52,19 @@ def _map_floats(tree, fn):
     if np.issubdtype(np.asarray(tree).dtype, np.floating):
         return fn(tree)
     return tree
+
+
+def _to_bfloat16(x: np.ndarray) -> flax_msgpack.BFloat16Array:
+    """float32 -> bfloat16 rounded to nearest even (torch's cast, as
+    ml_dtypes' astype), kept as its top 16 bits."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+    return flax_msgpack.BFloat16Array(t.view(torch.int16).numpy().view(np.uint16))
+
+
+def _cast_floats(tree, store_dtype: str):
+    if store_dtype == "bfloat16":
+        return _map_floats(tree, _to_bfloat16)
+    return _map_floats(tree, lambda x: x.astype(store_dtype))
 
 
 def load_inference_bundle(path: str) -> Tuple[Dict, Dict, Dict]:
@@ -88,13 +104,13 @@ def export_inference_bundle(gen: torch.nn.Module, specseg: torch.nn.Module, cfg:
     the header fields the JAX package writes."""
     if store_dtype is not None and store_dtype not in STORE_DTYPES:
         raise ValueError(f"store_dtype must be one of {STORE_DTYPES} or None, got "
-                         f"{store_dtype!r} (a bfloat16 bundle: ROADMAP Queue 1 item 1)")
+                         f"{store_dtype!r}")
     params, batch_stats = flax_tree(specseg)
     # keys sorted at every level, as the JAX package's export leaves them
     payload = {"g_params": flax_tree(gen)[0],
                "specseg_vars": {"batch_stats": batch_stats, "params": params}}
     if store_dtype is not None:
-        payload = _map_floats(payload, lambda x: x.astype(store_dtype))
+        payload = _cast_floats(payload, store_dtype)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(flax_msgpack.dumps(payload))
@@ -198,20 +214,57 @@ class CheckpointManager:
         """Saves are synchronous; nothing is left to wait for."""
 
 
-def load_specseg_weights(path: str, base_filters: int = 16, image_size: int = 128) -> Dict:
-    """A SpecSeg variable tree {"params", "batch_stats"} (nested dicts of
-    float32 arrays) from a `.msgpack` file of the JAX package's
-    `save_specseg_msgpack`. The reference's keras `.h5` needs h5py, which the
-    port does not use: it raises (ROADMAP Queue 1 item 10). base_filters and
-    image_size are the JAX signature's; the tree's own shapes decide, and
-    loading it into a SpecSeg checks them."""
-    del base_filters, image_size
-    if not path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the port reads SpecSeg weights from .msgpack only; the keras h5 "
-            "converter needs h5py (ROADMAP Queue 1 item 10)")
+def save_specseg_msgpack(specseg_vars: Mapping, path: str) -> None:
+    """Write a SpecSeg variable tree {"params", "batch_stats"} (nested dicts
+    of numpy arrays, e.g. `convert.flax_tree`'s) as the bytes
+    `flax.serialization.to_bytes` writes for it: keys sorted at every level,
+    as a JAX tree map leaves them."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(flax_msgpack.dumps(_sorted_tree(specseg_vars)))
+
+
+def _sorted_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return np.asarray(tree)
+
+
+def _read_specseg(path: str) -> Dict:
     with open(path, "rb") as f:
         tree = flax_msgpack.loads(f.read())
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError(f"{path}: expected a SpecSeg variable tree with params")
+    return tree
+
+
+def specseg_msgpack_in_channels(path: str) -> int:
+    """Input channels a saved SpecSeg was trained with (reads the file)."""
+    return specseg_in_channels_of(_read_specseg(path))
+
+
+def load_specseg_msgpack(path: str, base_filters: int = 16, image_size: int = 128,
+                         in_channels: Optional[int] = None) -> Dict:
+    """A SpecSeg variable tree {"params", "batch_stats"} (nested dicts of
+    float32 arrays) from a file of `save_specseg_msgpack` (the JAX package's
+    or the port's), read once. in_channels None: the file's own count;
+    given, it must match the file. base_filters and image_size are the JAX
+    signature's: the tree's own shapes decide, and loading it into a SpecSeg
+    checks them."""
+    del base_filters, image_size
+    tree = _read_specseg(path)
+    found = specseg_in_channels_of(tree)
+    if in_channels is not None and in_channels != found:
+        raise ValueError(f"{path}: a SpecSeg of {found} input channels, not {in_channels}")
     return _map_floats(tree, lambda x: np.asarray(x, np.float32))
+
+
+def load_specseg_weights(path: str, base_filters: int = 16, image_size: int = 128) -> Dict:
+    """A SpecSeg variable tree from a `.msgpack` file (`load_specseg_msgpack`,
+    in-channel count detected). The reference's keras `.h5` needs h5py,
+    which the port does not use: it raises (ROADMAP Queue 1 item 10)."""
+    if not path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the port reads SpecSeg weights from .msgpack only; the keras h5 "
+            "converter needs h5py (ROADMAP Queue 1 item 10)")
+    return load_specseg_msgpack(path, base_filters=base_filters, image_size=image_size)

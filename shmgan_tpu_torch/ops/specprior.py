@@ -3,20 +3,41 @@ shmgan_tpu/ops/specprior.py): a soft per-pixel score from the min-channel
 excess over a robust per-image baseline, united with "bright and
 desaturated". No parameters.
 
-`jnp.median` averages the two middle values of an even count where
-`torch.median` returns the lower one, so medians are `torch.quantile(.., 0.5)`;
-`jnp.quantile` and `torch.quantile` both interpolate linearly.
+Medians and quantiles sort each image's row (`torch.sort`, any length) and
+read it as `jnp.quantile` does: the position q * (n - 1) in float32, the
+two values either side of it blended linearly, and a median (`jnp.median`)
+as the mean of those two, so an even count averages its middle pair.
+`torch.quantile` is not used: it refuses rows of more than 2^24 elements.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def _per_image_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
-    """Quantile over everything but the batch axis of (B, H, W, 1) -> (B, 1, 1, 1)."""
+def _per_image_quantile(x: torch.Tensor, q: float, midpoint: bool = False) -> torch.Tensor:
+    """Quantile over everything but the batch axis of (B, H, W, 1) -> (B, 1, 1, 1).
+    midpoint: the mean of the two values either side of q * (n - 1), as
+    `jnp.median` reads q = 0.5; else their linear blend (`jnp.quantile`)."""
     b = x.shape[0]
-    return torch.quantile(x.reshape(b, -1), q, dim=1).view(b, 1, 1, 1)
+    flat = x.reshape(b, -1)
+    n = flat.shape[1]
+    pos = np.float32(q) * np.float32(n - 1)
+    lo_pos = np.floor(pos)
+    hi_w = np.float32(pos - lo_pos)
+    lo, hi = min(int(lo_pos), n - 1), min(int(np.ceil(pos)), n - 1)
+    srt = torch.sort(flat, dim=1).values
+    lo_v, hi_v = srt[:, lo], srt[:, hi]
+    if midpoint:
+        out = (lo_v + hi_v) * 0.5
+    else:
+        out = lo_v * float(np.float32(1.0) - hi_w) + hi_v * float(hi_w)
+    return out.view(b, 1, 1, 1)
+
+
+def _per_image_median(x: torch.Tensor) -> torch.Tensor:
+    return _per_image_quantile(x, 0.5, midpoint=True)
 
 
 def chroma_prior(rgb: torch.Tensor) -> torch.Tensor:
@@ -27,8 +48,8 @@ def chroma_prior(rgb: torch.Tensor) -> torch.Tensor:
     sat = (mx - mn) / torch.clamp(mx, min=1e-3)
 
     # min-channel excess over the per-image median, in units of the MAD
-    med = _per_image_quantile(mn, 0.5)
-    mad = _per_image_quantile((mn - med).abs(), 0.5) + 1e-3
+    med = _per_image_median(mn)
+    mad = _per_image_median((mn - med).abs()) + 1e-3
     p_minc = torch.sigmoid(((mn - med) / mad - 6.0) / 2.0)
 
     # bright (above the image's 90th percentile and an absolute floor) and

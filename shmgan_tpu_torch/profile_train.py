@@ -1,7 +1,7 @@
 """Train-step measurement of the port on one CUDA card.
 
     python -m shmgan_tpu_torch.profile_train [--compute_dtype bfloat16|float32]
-        [--loop]
+        [--loop | --specseg]
 
 Builds the train state at full width on weights from seed 0 (the JAX
 package's default model: 128 px, filter 64, c_dim 5, SpecSeg base 16, batch
@@ -19,6 +19,12 @@ With --loop it measures the steps of the training driver instead
 DevicePrefetcher): the host time of every loop step, and a trace of steps
 4-8 of the epoch, split as above, from a synchronisation before step 4 to
 one after step 8.
+With --specseg it measures phase A's SpecSeg step at the flagship trainer's
+width (128 px, batch 32, SpecSeg base 16, float32), for the dr2 recipe at 2
+input channels and the base recipe at 1: the host ms of 20 steps (a batch
+rendered on the card, then make_specseg_train_step), each between two
+synchronisations, and traces of 10 steps, of 10 renders alone and of 10
+train steps alone on one batch, split as above.
 Prints one JSON line. Needs a CUDA card.
 """
 
@@ -104,22 +110,77 @@ def loop_profile(cfg: Config) -> dict:
             "profile": split_profile(out["prof"], out["wall_ms"])}
 
 
+SPECSEG_RECIPES = (("dr2", 2), ("base", 1))
+
+
+def specseg_profile() -> dict:
+    """Host ms and device splits of phase A's step, per recipe."""
+    from shmgan_tpu_torch import quality_train as qt
+    from shmgan_tpu_torch.train.specseg_train import (create_specseg_state,
+                                                      make_specseg_train_step)
+
+    out = {}
+    for curriculum, channels in SPECSEG_RECIPES:
+        a = qt.parse_args(["--phase", "specseg", "--specseg_curriculum", curriculum,
+                           "--specseg_in_channels", str(channels)])
+        cfg = qt.build_cfg(a)
+        cfg.train.g_lr = a.specseg_lr
+        state = create_specseg_state(cfg, torch.Generator().manual_seed(0), "cuda")
+        step, batch_fn = make_specseg_train_step(cfg), qt.specseg_batch_fn(a)
+        b, s = a.specseg_batch, a.image_size
+
+        def render(i):
+            gen = qt.stream(a.seed, i, "cuda")
+            return gen, batch_fn(gen, b, s, s)
+
+        def train(i, batch=None):
+            nonlocal state
+            gen, (img, msk) = batch or render(i)
+            state, _ = step(state, img, msk, state.net.sample_keep(gen, b, s, s))
+
+        for i in range(5):
+            train(i)
+        times = []
+        for i in range(5, 25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fixed = render(99)
+        med = statistics.median(times)
+        out[f"{curriculum}_{channels}ch"] = {
+            "step_ms_in_order": [round(t, 2) for t in times], "median_step_ms": med,
+            "images_per_s_at_median": b / med * 1e3,
+            "profile_10_steps": device_split(lambda: [train(i) for i in range(100, 110)]),
+            "profile_10_renders": device_split(lambda: [render(i) for i in range(110, 120)]),
+            "profile_10_steps_one_batch": device_split(
+                lambda: [train(i, fixed) for i in range(10)])}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
-    ap.add_argument("--loop", action="store_true",
-                    help="measure train.loop.train's steps instead of the bare step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--loop", action="store_true",
+                      help="measure train.loop.train's steps instead of the bare step")
+    mode.add_argument("--specseg", action="store_true",
+                      help="measure phase A's SpecSeg step instead of the GAN's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     cfg = training_config(args.compute_dtype)
-    if args.loop:
+    if args.loop or args.specseg:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip()
-        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                          "compute_dtype": args.compute_dtype,
-                          "batch": cfg.train.batch_size, **loop_profile(cfg)}))
+        head = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+        if args.specseg:
+            print(json.dumps({**head, "compute_dtype": "float32", **specseg_profile()}))
+        else:
+            print(json.dumps({**head, "compute_dtype": args.compute_dtype,
+                              "batch": cfg.train.batch_size, **loop_profile(cfg)}))
         return
     v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
     state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))

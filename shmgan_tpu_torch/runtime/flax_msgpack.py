@@ -13,7 +13,8 @@ the map {"__msgpack_chunked_array__": True, "shape": {"0": d0, ...},
 "chunks": {"0": flat chunk, ...}} and read back as one array.
 
 A "bfloat16" ndarray (which numpy cannot hold) is read as float32, widened
-exactly. The writer takes numpy dtypes only.
+exactly, and written from a `BFloat16Array` (its 16-bit patterns); the writer
+takes numpy dtypes otherwise.
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ MAX_CHUNK_SIZE = 2 ** 30
 
 
 # -- writer -------------------------------------------------------------------
+
+class BFloat16Array:
+    """A bfloat16 array for `dumps`: its bit patterns as a uint16 array,
+    written as flax writes an ml_dtypes bfloat16 ndarray."""
+
+    def __init__(self, bits: np.ndarray):
+        if bits.dtype != np.uint16:
+            raise ValueError(f"bfloat16 bits must be uint16, got {bits.dtype}")
+        self.bits = bits
+
 
 def _pack_len(out: List[bytes], n: int, fix: int, fix_max: int, codes: Tuple[int, ...]) -> None:
     """A length-prefixed header: a fix form up to fix_max, else the
@@ -94,7 +105,12 @@ def _chunk(arr: np.ndarray) -> dict:
 
 
 def _pack(out: List[bytes], obj: Any) -> None:
-    if isinstance(obj, np.ndarray):
+    if isinstance(obj, BFloat16Array):
+        bits = np.ascontiguousarray(obj.bits, "<u2")
+        if bits.nbytes > MAX_CHUNK_SIZE:
+            raise ValueError("msgpack: a bfloat16 array above MAX_CHUNK_SIZE bytes")
+        _pack_ext(out, EXT_NDARRAY, dumps([list(bits.shape), "bfloat16", bits.tobytes("C")]))
+    elif isinstance(obj, np.ndarray):
         if obj.size * obj.dtype.itemsize > MAX_CHUNK_SIZE:
             _pack(out, _chunk(obj))
         else:

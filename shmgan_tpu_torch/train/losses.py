@@ -11,7 +11,8 @@ by term with the reference's weights and exclusions:
   NST content + style
 
 All reductions are means over whole tensors, batch included. The SpecSeg
-trainer's dice and focal losses are not ported yet.
+trainer's objective (train/specseg_train.py) is dice + focal on its
+probabilities: `dice_loss`, `binary_focal_loss`, `specseg_loss`.
 """
 
 from __future__ import annotations
@@ -139,3 +140,26 @@ def shmgan_losses(inp: GanLossInputs, image_size: int, style_weight: float = 100
         "NST": nst["nst"], "content": nst["content"], "style": nst["style"],
         "ssim_mean": torch.stack(ssim_raw).mean(),
     }
+
+
+# -- the SpecSeg trainer's objective ------------------------------------------
+
+def dice_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Soft dice loss of probabilities against a binary mask."""
+    num = 2.0 * (pred * target).sum() + eps
+    den = pred.sum() + target.sum() + eps
+    return 1.0 - num / den
+
+
+def binary_focal_loss(pred: torch.Tensor, target: torch.Tensor, gamma: float = 2.0,
+                      alpha: float = 0.25, eps: float = 1e-7) -> torch.Tensor:
+    """Focal loss on probabilities, clipped to [eps, 1 - eps] before the logs."""
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    pos = -alpha * (1.0 - p) ** gamma * target * torch.log(p)
+    neg = -(1.0 - alpha) * p ** gamma * (1.0 - target) * torch.log(1.0 - p)
+    return (pos + neg).mean()
+
+
+def specseg_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """dice + focal, weight 1 each."""
+    return dice_loss(pred, target) + binary_focal_loss(pred, target)

@@ -15,7 +15,7 @@ reads it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,13 @@ import torch.nn as nn
 from shmgan_tpu_torch.config import Config
 from shmgan_tpu_torch.convert import flax_tree, from_flax, load_flax, to_flax
 from shmgan_tpu_torch.models import SHMDiscriminator, SHMGenerator, SpecSeg
+
+
+def lr_schedule(initial_lr: float, decay_steps: int = 10000,
+                decay_rate: float = 0.95) -> Callable[[int], float]:
+    """optax.exponential_decay(staircase=False): count -> the learning rate
+    initial_lr * decay_rate^(count / decay_steps)."""
+    return lambda count: initial_lr * decay_rate ** (count / decay_steps)
 
 
 class ClipAdamDecay:
@@ -44,7 +51,7 @@ class ClipAdamDecay:
         self.params = [params[k] for k in self.names]
         self.lr, self.clip = lr, t.grad_clip
         self.b1, self.b2, self.eps = t.beta1, t.beta2, t.adam_eps
-        self.decay_steps, self.decay_rate = t.lr_decay_steps, t.lr_decay_rate
+        self.schedule = lr_schedule(lr, t.lr_decay_steps, t.lr_decay_rate)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
@@ -65,7 +72,7 @@ class ClipAdamDecay:
         denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1.0 - self.b2 ** n))
         torch._foreach_add_(denom, self.eps)
         u = torch._foreach_div(torch._foreach_div(self.mu, 1.0 - self.b1 ** n), denom)
-        lr = self.lr * self.decay_rate ** (self.count / self.decay_steps)
+        lr = self.schedule(self.count)
         torch._foreach_add_(self.params, torch._foreach_mul(u, -lr))
         self.count = n
 

@@ -156,8 +156,11 @@ def test_truncated_bundle_raises(cut):
 
 
 def test_store_dtype_the_writer_cannot_write_raises(tmp_path):
+    """Floats are stored as float32, float16 or bfloat16 only (bfloat16
+    bytes: tests/test_torch_cli_train.py); any other store dtype raises."""
     cfg = Config()
     cfg.model = dataclasses.replace(cfg.model, filter_size=8, specseg_base_filters=4)
     gen, _, specseg = build_models(cfg, device="cpu", seed=0)
-    with pytest.raises(ValueError):
-        export_inference_bundle(gen, specseg, cfg, str(tmp_path / "b"), 0, "bfloat16")
+    with pytest.raises(ValueError, match="store_dtype"):
+        export_inference_bundle(gen, specseg, cfg, str(tmp_path / "b"), 0, "int8")
+    assert not (tmp_path / "b").exists()

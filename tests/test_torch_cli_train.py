@@ -35,7 +35,7 @@ from shmgan_tpu.checkpoint import CheckpointManager as JCheckpointManager
 from shmgan_tpu.checkpoint import export_inference_bundle as j_export_inference_bundle
 from shmgan_tpu.config import Config as JConfig
 from shmgan_tpu_torch import cli
-from shmgan_tpu_torch.checkpoint import CheckpointManager
+from shmgan_tpu_torch.checkpoint import CheckpointManager, load_inference_bundle
 from shmgan_tpu_torch.config import Config
 from shmgan_tpu_torch.convert import from_flax, load_flax
 from shmgan_tpu_torch.data.codecs import decode, encode_png
@@ -147,9 +147,26 @@ def test_export_writes_jax_bundle_bytes(setup, export_dtype):
 
 
 def test_export_bfloat16_raises(setup):
-    with pytest.raises(ValueError, match="Queue 1 item 1"):
-        cli.main(_argv(os.path.join(setup["root"], "port"), "export", "--export_dtype",
-                       "bfloat16"), device="cpu")
+    """--export_dtype bfloat16 (the port rounds through torch to nearest
+    even) writes the bytes of JAX's export_inference_bundle(store_dtype=
+    "bfloat16") of the same state, as the f32 and float16 cases; the
+    port's reader widens them back."""
+    root, jstate = setup["root"], setup["jstate"]
+    extra = ["--checkpoint_step", "7", "--export_dtype", "bfloat16"]
+    cli.main(_argv(os.path.join(root, "port"), "export", *extra), device="cpu")
+    jcfg = JConfig.from_args(_argv(os.path.join(root, "jax"), "export", *extra))
+    path = os.path.join(root, "jax_bf16.msgpack")
+    j_export_inference_bundle(jstate.replace(g_params=jstate.ema_g_params, ema_g_params=None),
+                              jcfg, path, store_dtype="bfloat16")
+    ours = os.path.join(root, "port", "models", "shmgan_infer.msgpack")
+    with open(ours, "rb") as a, open(path, "rb") as b:
+        assert a.read() == b.read()
+    with open(ours + ".json") as a, open(path + ".json") as b:
+        assert json.load(a) == json.load(b)
+    g_params, _, header = load_inference_bundle(ours)
+    assert header["store_dtype"] == "bfloat16"
+    assert all(v.dtype == np.float32
+               for v in flax.traverse_util.flatten_dict(g_params).values())
 
 
 @pytest.fixture(scope="module", params=["fixed", "native"])

@@ -1,9 +1,9 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
 lacks: no import of jax, flax, optax, orbax, msgpack, PIL, h5py, tabulate,
 tensorboard or shmgan_tpu, by reading the sources and by running the port
-(serving, a bundle and a PNG read and written, one train step, and the
-command line's train, export and test modes on a tiny tree) where those
-modules cannot be imported."""
+(serving, a bundle and a PNG read and written, one train step, the command
+line's train, export and test modes on a tiny tree, and two SpecSeg steps of
+the flagship trainer's phase A) where those modules cannot be imported."""
 
 import ast
 import os
@@ -117,6 +117,15 @@ def test_port_runs_with_banned_modules_blocked():
                   "--diffuse_dir", os.path.join(root, "tree", "ED")] + common, device="cpu")
         with open(os.path.join(root, "results", "metrics.jsonl")) as f:
             assert len(f.readlines()) == 5
+
+        # the flagship trainer's phase A: 2 SpecSeg steps on device-made DR scenes
+        from shmgan_tpu_torch import quality_train
+        summary = quality_train.main(
+            ["--cpu", "--phase", "specseg", "--image_size", "32", "--specseg_base_filters",
+             "4", "--specseg_batch", "2", "--specseg_steps", "2", "--chunk", "1",
+             "--specseg_curriculum", "dr3", "--specseg_in_channels", "2",
+             "--out", os.path.join(root, "quality")])
+        assert os.path.getsize(summary["specseg"]["weights"]) > 0
         shutil.rmtree(root)
         print("OK", sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
     """)
