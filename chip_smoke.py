@@ -102,7 +102,23 @@ Phases (each prints its name before it starts and its seconds after):
               probe (above it), no kernel launched; the dr2 export reloaded
               with its channels read from the file and served through
               make_mask_fn (one preprocess launch); cli --mode train for 2
-              steps on it (exactly 2 x (46, 28, 1) launches).
+              steps on it (exactly 2 x (46, 28, 1) launches);
+  quality_gan the flagship trainer's phase B at the trained 256-px bundle's
+              recipe (bf16, batch 10, the DR curriculum, resize_conv, G's
+              EMA at 0.999, 2-channel SpecSeg): one step at 256 px, b10,
+              through the kernels against the plain versions by the gap
+              rule, and one in f32 at b2 by the train step's rule (the IN
+              backward's streaming variant in both dtypes); one oracle chunk
+              (8 images, f32) on the card against the CPU; then
+              quality_train.main --phase gan warm-started from the bundle
+              (its SpecSeg written as the frozen net's file) for QG_STEPS
+              steps with two evals of 3 draws of 64 images: launches exactly
+              QG_STEPS x (46, 46, 1) in training (G1 is live in this recipe,
+              so its 18 IN sites have a backward too) and draws x 8 x (18, 1)
+              f32 an eval, the backward's streaming launches counted; step
+              ms, images/s, peak memory, seconds an eval and in its FIDs; the
+              first eval beats the identity; best_bundle.msgpack reloaded and
+              serving one request.
 The card against the CPU is compared in f32 only: bf16 rounds at other places
 there, and bf16 convolutions at full width are slow on a CPU.
 The last lines are the card's nvidia-smi line, one JSON line of kernel
@@ -1274,11 +1290,11 @@ def _compare_grads(a, r, label, norm_rtol=GRAD_NORM_RTOL) -> bool:
         (x - y).abs().max() <= GRAD_LEAF_RTOL * y.abs().max() for _, x, y in pairs)
 
 
-def _compare_step(got, ref, label):
+def _compare_step(got, ref, label, norm_rtol=GRAD_NORM_RTOL):
     """Gradients and losses of two runs of one train step (see GRAD_NORM_RTOL)."""
     for net in ("G", "D"):
         name = f"{label} {net} gradients"
-        if not _compare_grads(got["_grads"][net], ref["_grads"][net], name):
+        if not _compare_grads(got["_grads"][net], ref["_grads"][net], name, norm_rtol):
             raise AssertionError(f"{name} differ")
     keys = [k for k in ref if not k.startswith("_")]
     rel = {k: abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-30) for k in keys}
@@ -2176,6 +2192,330 @@ def specseg_train_phase():
     return _sum_counts(served, gan)
 
 
+# quality_gan: phase B at the trained 256-px bundle's recipe
+# (benchmarks/quality_r5_dr256/quality_summary.json's args)
+QG_SIZE, QG_BATCH, QG_CHUNK = 256, 10, 50
+# about 30 s of training at the 192.4 ms a step an H100 80GB HBM3 (700 W)
+# read; evals at half of it (the first after 100 steps) and at the end
+QG_STEPS, QG_EVAL_EVERY = 150, 75
+QG_EVAL_N, QG_FID_DRAWS, QG_SMALL_BATCH = 64, 3, 2
+QG_RECIPE = ("--phase", "gan", "--image_size", str(QG_SIZE), "--batch", str(QG_BATCH),
+             "--gan_curriculum", "dr", "--upsample_mode", "resize_conv", "--g_ema", "0.999",
+             "--specseg_in_channels", "2")
+# the f32 step at b2, kernels vs plain: each leaf by GRAD_LEAF_RTOL, each
+# net by LOOP_MOMENT_RTOL, as train_loop's tree batch: the DR views hold
+# near-constant IN planes, where the kernel's one-pass moments (the TPU
+# kernel's arithmetic) part from the plain version's two-pass ones (an H100
+# read D 2.007e-3 here against the train step's 2e-3, and 2.95e-3 on the
+# tree's batch with cuDNN's choice fixed: profile_train.py --loop-gap)
+# one oracle chunk, card vs CPU, f32 on the bundle's weights: each image's
+# PSNR within QG_PSNR_ATOL dB and SSIM within QG_SSIM_ATOL, the calibrated
+# output and the mask within SERVE_ATOL, the features within QG_FEAT_RTOL of
+# their largest (convolutions and means summed in another order)
+QG_PSNR_ATOL, QG_SSIM_ATOL, QG_FEAT_RTOL = 1e-2, 1e-4, 1e-4
+
+
+def gan_step_launches(dtype):
+    """Launches of one phase-B step: G1 is live (live_g1), so all 46 IN
+    sites have a backward."""
+    return {**step_launches(dtype), _in_name(dtype, "backward"): 46}
+
+
+class _BwdVariants:
+    """Counts the IN backward's launches by (variant, activation dtype)."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def patched(self):
+        from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+        real = ink._launch_backward
+
+        def launch(x, gamma, mean, rstd, g, plan):
+            key = f"{plan.variant}/{'bf16' if x.dtype == torch.bfloat16 else 'f32'}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return real(x, gamma, mean, rstd, g, plan)
+
+        return mock.patch.object(ink, "_launch_backward", launch)
+
+
+def _qg_cfg(dtype):
+    from shmgan_tpu_torch import quality_train as qt
+
+    return qt.build_cfg(qt.parse_args(list(QG_RECIPE) + ["--dtype", dtype]))
+
+
+def _qg_step(cfg, bundle, views, draws, plain):
+    """One phase-B step (debug_grads) from the bundle's G and SpecSeg and a
+    seeded D: its metrics on the host, its launches, its backward variants."""
+    from shmgan_tpu_torch.convert import load_inference_weights
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step
+
+    gen, disc, specseg = build_models(cfg, device="cpu", seed=0)
+    load_inference_weights(gen, specseg, bundle[0], bundle[1])
+    state = create_train_state(cfg, (gen.cuda(), disc.cuda(), specseg.cuda()))
+    variants = _BwdVariants()
+    _launch_counts(reset=True)
+    with plain_versions() if plain else nullcontext(), variants.patched():
+        _, m = make_train_step(cfg, debug_grads=True)(state, views, draws, 1)
+    torch.cuda.synchronize()
+    counts = _launch_counts(reset=True)
+    host = {k: {net: {n: g.cpu() for n, g in grads.items()} for net, grads in v.items()}
+            if k == "_grads" else v.cpu() for k, v in m.items()}
+    del state, m
+    torch.cuda.empty_cache()
+    return host, counts, variants.counts
+
+
+def _qg_step_checks(bundle):
+    """Phase B's step at 256 px through the kernels against the plain
+    versions: bf16 at b10 by the gap rule (the f32 step on the same weights,
+    views and draws as the yardstick), f32 at b2 by the train step's rule.
+    Returns one bf16 step's backward variants."""
+    from shmgan_tpu_torch import quality_train as qt
+    from shmgan_tpu_torch.train.step import sample_draws
+
+    s, v = QG_SIZE, 5
+    out = {}
+    # (batch, dtypes, the dtype held kernels vs plain): the f32 step at b10 is
+    # the bf16 gap rule's yardstick, run once
+    for b, dtypes, held in ((QG_BATCH, ("float32", "bfloat16"), "bfloat16"),
+                            (QG_SMALL_BATCH, ("float32",), "float32")):
+        gen = qt.stream(25, qt.GAN_STREAM + b, "cuda")
+        views = qt.sdr.synth_views_batch_dr(gen, b, s, s, ed_mode="diffuse",
+                                            camera_swap_prob=0.25)
+        draws = sample_draws(_qg_cfg("float32"), gen, v, b, s, s)
+        runs = {}
+        for dtype in dtypes:
+            cfg = _qg_cfg(dtype)
+            torch.cuda.reset_peak_memory_stats()
+            for path in ("kernels", "plain") if dtype == held else ("kernels",):
+                runs[dtype, path] = _qg_step(cfg, bundle, views, draws, path == "plain")
+                m, counts, variants = runs[dtype, path]
+                want = gan_step_launches(getattr(torch, dtype)) if path == "kernels" else {
+                    k: 0 for k in counts}
+                say(f"phase-B step {dtype}, b{b}, {s} px, {path}: launches {counts}, backward "
+                    f"variants {variants}; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+                if counts != want:
+                    raise AssertionError(f"phase-B step {dtype} b{b} {path}: launches {counts}, "
+                                         f"expected {want}")
+        if held == "bfloat16":
+            _compare_step_gap(runs["bfloat16", "kernels"][0], runs["bfloat16", "plain"][0],
+                              runs["float32", "kernels"][0],
+                              f"phase-B step kernels vs plain, bf16, b{b}, {s} px:")
+            out["bf16_variants"] = runs["bfloat16", "kernels"][2]
+        else:
+            _compare_step(runs["float32", "kernels"][0], runs["float32", "plain"][0],
+                          f"phase-B step kernels vs plain, f32, b{b}, {s} px:",
+                          LOOP_MOMENT_RTOL)
+            out["f32_variants"] = runs["float32", "kernels"][2]
+        del runs
+        torch.cuda.empty_cache()
+    for key, dtype in (("bf16_variants", "bf16"), ("f32_variants", "f32")):
+        if not out[key].get(f"streaming/{dtype}"):
+            raise AssertionError(f"no streaming IN backward in the {dtype} step: {out[key]}")
+    return out["bf16_variants"]
+
+
+def _qg_oracle_check(bundle):
+    """One oracle chunk (draw 0, 8 images, f32) on the card against the CPU."""
+    from shmgan_tpu_torch import Config
+    from shmgan_tpu_torch import quality_train as qt
+    from shmgan_tpu_torch.data.synthetic import synth_eval_set
+    from shmgan_tpu_torch.infer import make_infer_fn
+
+    ins, gts, _ = synth_eval_set(8, QG_SIZE, seed=qt.EVAL_DRAW_SEEDS[0])
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg = Config()
+        cfg.model.compute_dtype = "float32"
+        gen, specseg = bundle_models(cfg, bundle, dev)
+        infer = make_infer_fn(cfg, outputs=("gen_rgb_calibrated", "mask"))
+        t0 = time.perf_counter()
+        out = qt.oracle_chunk(infer, gen, specseg, torch.from_numpy(ins).to(dev),
+                              torch.from_numpy(gts).to(dev))
+        out = [[x.cpu().numpy() for x in o] if isinstance(o, tuple) else o.cpu().numpy()
+               for o in out]
+        res[dev] = (out, time.perf_counter() - t0)
+        del gen, specseg
+    (card, card_s), (cpu, cpu_s) = res["cuda"], res["cpu"]
+    _launch_counts(reset=True)
+    errs = {"psnr": max(np.abs(card[i][0] - cpu[i][0]).max() for i in (0, 1)),
+            "ssim": max(np.abs(card[i][1] - cpu[i][1]).max() for i in (0, 1)),
+            "features": max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in
+                            ((card[0][2], cpu[0][2]), (card[1][2], cpu[1][2]),
+                             (card[2], cpu[2]))),
+            "calibrated": float(np.abs(card[3] - cpu[3]).max()),
+            "mask": float(np.abs(card[4] - cpu[4]).max())}
+    say(f"one oracle chunk (8 images, {QG_SIZE} px, f32), card vs CPU: max|diff| PSNR "
+        f"{errs['psnr']:.3e} dB (tol {QG_PSNR_ATOL}), SSIM {errs['ssim']:.3e} (tol "
+        f"{QG_SSIM_ATOL}), features {errs['features']:.3e} of scale (tol {QG_FEAT_RTOL}), "
+        f"calibrated {errs['calibrated']:.3e}, mask {errs['mask']:.3e} (tol {SERVE_ATOL}); "
+        f"gen PSNR card {card[0][0].mean():.3f} dB, input {card[1][0].mean():.3f}; card "
+        f"{card_s * 1e3:.1f} ms (first call), CPU {cpu_s:.2f} s")
+    if errs["psnr"] > QG_PSNR_ATOL or errs["ssim"] > QG_SSIM_ATOL \
+            or errs["features"] > QG_FEAT_RTOL or errs["calibrated"] > SERVE_ATOL \
+            or errs["mask"] > SERVE_ATOL:
+        raise AssertionError(f"the oracle chunk on the card differs from the CPU's: {errs}")
+
+
+class _GanSpy:
+    """Stands in for quality_train's make_train_step, make_oracle and
+    frechet_distance: a synchronisation and a host time at each chunk's
+    first step and at each eval's start and end, the launches of each eval,
+    the seconds in its FIDs."""
+
+    def __init__(self, chunk: int):
+        from shmgan_tpu_torch import quality_train as qt
+
+        self._qt, self.chunk = qt, chunk
+        self._real = {"make_train_step": qt.make_train_step, "make_oracle": qt.make_oracle,
+                      "frechet_distance": qt.frechet_distance}
+        self.steps, self.chunk_starts, self.evals = 0, [], []
+        self._fid_s = 0.0
+
+    def _make_step(self, cfg, debug_grads=False):
+        inner = self._real["make_train_step"](cfg, debug_grads)
+
+        def step(*args):
+            if self.steps % self.chunk == 0:
+                torch.cuda.synchronize()
+                self.chunk_starts.append(time.perf_counter())
+            self.steps += 1
+            return inner(*args)
+
+        return step
+
+    def _make_oracle(self, *args):
+        oracle = self._real["make_oracle"](*args)
+
+        def timed():
+            torch.cuda.synchronize()
+            before, t0, self._fid_s = _launch_counts(), time.perf_counter(), 0.0
+            out = oracle()
+            torch.cuda.synchronize()
+            after = _launch_counts()
+            self.evals.append(dict(start=t0, secs=time.perf_counter() - t0, fid_s=self._fid_s,
+                                   at_step=self.steps,
+                                   launches={k: after[k] - before[k] for k in after}))
+            return out
+
+        timed.gallery_inputs = oracle.gallery_inputs
+        timed.eval_gen, timed.eval_specseg = oracle.eval_gen, oracle.eval_specseg
+        return timed
+
+    def _fid(self, a, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._real["frechet_distance"](a, b)
+        float(out)
+        self._fid_s += time.perf_counter() - t0
+        return out
+
+    def patched(self):
+        from contextlib import ExitStack
+
+        stack = ExitStack()
+        for name, fn in (("make_train_step", self._make_step), ("make_oracle", self._make_oracle),
+                         ("frechet_distance", self._fid)):
+            stack.enter_context(mock.patch.object(self._qt, name, fn))
+        return stack
+
+    def chunk_secs(self):
+        """Each chunk's seconds: from its first step to the next chunk's, or
+        to the eval that follows it."""
+        marks = sorted(self.chunk_starts[1:] + [e["start"] for e in self.evals])
+        return [min(m for m in marks if m > t) - t for t in self.chunk_starts]
+
+
+def quality_gan_phase():
+    """Phase B on the card at the 256-px recipe: the step and an oracle chunk
+    checked, then quality_train.main warm-started from the trained bundle."""
+    from shmgan_tpu_torch import Config
+    from shmgan_tpu_torch import quality_train as qt
+    from shmgan_tpu_torch.checkpoint import load_inference_bundle, save_specseg_msgpack
+    from shmgan_tpu_torch.data.synthetic import synth_eval_set
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+
+    bundle = load_inference_bundle(os.path.join(ROOT, BUNDLE))
+    per_step_variants = _qg_step_checks(bundle)
+    _qg_oracle_check(bundle)
+    with tempfile.TemporaryDirectory() as root:
+        ss_path = os.path.join(root, "specseg.msgpack")
+        save_specseg_msgpack(bundle[1], ss_path)
+        out = os.path.join(root, "gan")
+        argv = list(QG_RECIPE) + [
+            "--dtype", "bfloat16", "--chunk", str(QG_CHUNK), "--gan_steps", str(QG_STEPS),
+            "--eval_every", str(QG_EVAL_EVERY), "--eval_n", str(QG_EVAL_N), "--fid_draws",
+            str(QG_FID_DRAWS), "--init_from_bundle", os.path.join(ROOT, BUNDLE),
+            "--specseg_out", ss_path, "--out", out]
+        del bundle
+        torch.cuda.empty_cache()
+        spy, variants = _GanSpy(QG_CHUNK), _BwdVariants()
+        _launch_counts(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with spy.patched(), variants.patched():
+            summary = qt.main(argv)["gan"]
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _launch_counts(reset=True)
+
+        chunk_s = spy.chunk_secs()
+        steady = float(np.median(chunk_s[1:] if len(chunk_s) > 1 else chunk_s))
+        step_ms = steady / QG_CHUNK * 1e3
+        hist = summary["history"]
+        say(f"quality_train --phase gan ({QG_SIZE} px, b{QG_BATCH}, bf16, dr, resize_conv, "
+            f"g_ema 0.999, from {BUNDLE}): {QG_STEPS} steps, {wall:.2f} s of main; chunks of "
+            f"{QG_CHUNK} steps {[round(c, 3) for c in chunk_s]} s; step {step_ms:.2f} ms "
+            f"(chunks after the first), {QG_BATCH / step_ms * 1e3:.1f} images/s; peak device "
+            f"memory {peak:.3f} GiB")
+        for e, row in zip(spy.evals, hist):
+            say(f"  eval @{row['step']}: {e['secs']:.3f} s ({QG_FID_DRAWS} draws x "
+                f"{QG_EVAL_N} images), of which FID {e['fid_s']:.3f} s; gen PSNR "
+                f"{row['gen_psnr']} SSIM {row['gen_ssim']} FID {row['gen_fid']} (draws "
+                f"{row.get('gen_fid_draws')}); input PSNR {row['input_psnr']} SSIM "
+                f"{row['input_ssim']} FID {row['input_fid']}; beats identity "
+                f"{row['beats_identity']}; launches {e['launches']}")
+        oracle_total = _sum_counts(*(e["launches"] for e in spy.evals))
+        train = {k: counts[k] - oracle_total[k] for k in counts}
+        want_train = {k: QG_STEPS * n for k, n in gan_step_launches(torch.bfloat16).items()}
+        chunks = QG_FID_DRAWS * (QG_EVAL_N // 8)
+        want_eval = {**{k: 0 for k in counts}, _in_name(torch.float32): 18 * chunks,
+                     "fused_standardize_yuv": chunks}
+        want_variants = {k: QG_STEPS * n for k, n in per_step_variants.items()}
+        say(f"  launches: training {train} (expected {want_train}); each eval expected "
+            f"{want_eval}; IN backward by variant {variants.counts} (expected "
+            f"{want_variants}: {QG_STEPS} x one step's)")
+        if train != want_train or any(e["launches"] != want_eval for e in spy.evals) \
+                or variants.counts != want_variants:
+            raise AssertionError("phase B launched other kernels than predicted")
+        if len(hist) != 2 or len(spy.evals) != 2 or not hist[0]["beats_identity"]:
+            raise AssertionError(f"phase B's evals {hist}: the first must beat the identity")
+
+        # the best bundle reloaded and serving one request
+        best = load_inference_bundle(os.path.join(out, "best_bundle.msgpack"))
+        cfg = Config()
+        gen, specseg = bundle_models(cfg, best)
+        rgb = synth_eval_set(8, QG_SIZE, seed=4)[0]
+        _launch_counts(reset=True)
+        served = BatchInferenceEngine(cfg, gen, specseg, batch_size=8,
+                                      device="cuda").process_images(rgb)
+        served_counts = _launch_counts(reset=True)
+        cal = served["gen_rgb_calibrated"]
+        say(f"  best_bundle.msgpack (step {best[2]['step']}, {best[2]['store_dtype']}) served "
+            f"8 images: {cal.shape}, launches {served_counts}")
+        if cal.shape != (8, QG_SIZE, QG_SIZE, 3) or not np.isfinite(cal).all() \
+                or served_counts["fused_standardize_yuv"] != 1:
+            raise AssertionError("serving the best bundle failed")
+    return counts
+
+
 def main() -> int:
     current = "device"
     try:
@@ -2209,6 +2549,8 @@ def main() -> int:
         by_path["train_cli"] = phase("train_cli", train_cli_phase, bare_bf16)
         current = "specseg_train"
         by_path["specseg_train"] = phase("specseg_train", specseg_train_phase)
+        current = "quality_gan"
+        by_path["quality_gan"] = phase("quality_gan", quality_gan_phase)
     except Exception:
         traceback.print_exc()
         say(f"chip_smoke FAILED in phase {current}")

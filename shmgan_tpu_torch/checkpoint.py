@@ -2,8 +2,8 @@
 shmgan_tpu/checkpoint.py's `CheckpointManager`, the SpecSeg files
 (`save_specseg_msgpack`, `load_specseg_msgpack`, `load_specseg_weights`,
 `specseg_msgpack_in_channels`, `specseg_in_channels_of`),
-`load_inference_bundle` and `export_inference_bundle`, without flax,
-msgpack or Orbax.
+`load_inference_bundle`, `export_inference_bundle` and
+`transfer_matching_params`, without flax, msgpack or Orbax.
 
 A train checkpoint is one directory per step, `<dir>/<step>/state.msgpack`:
 the flax msgpack (runtime/flax_msgpack.py) of `train.state.state_payload`,
@@ -268,3 +268,34 @@ def load_specseg_weights(path: str, base_filters: int = 16, image_size: int = 12
             f"{path}: the port reads SpecSeg weights from .msgpack only; the keras h5 "
             "converter needs h5py (ROADMAP Queue 1 item 10)")
     return load_specseg_msgpack(path, base_filters=base_filters, image_size=image_size)
+
+
+def transfer_matching_params(dst_tree: Mapping, src_tree: Mapping) -> Tuple[Dict, int, int]:
+    """Copy each leaf of `src_tree` into `dst_tree` where its path exists in
+    both with the same shape and dtype; keep dst's leaf elsewhere. Trees are
+    flax-layout nested dicts of arrays (`convert.flax_tree`'s). Returns
+    (merged tree, leaves kept from src, leaves left fresh).
+
+    Warm starts across image sizes: G and SpecSeg are fully convolutional,
+    and so is D but for its Flatten->Dense class head, the one leaf whose
+    shape follows the input's extent."""
+    counts = {"kept": 0, "fresh": 0}
+
+    def merge(dst: Mapping, src) -> Dict:
+        out = {}
+        for k, new in dst.items():
+            old = src.get(k) if isinstance(src, Mapping) else None
+            if isinstance(new, Mapping):
+                out[k] = merge(new, old)
+            elif old is not None and not isinstance(old, Mapping) \
+                    and np.shape(old) == np.shape(new) \
+                    and np.asarray(old).dtype == np.asarray(new).dtype:
+                counts["kept"] += 1
+                out[k] = old
+            else:
+                counts["fresh"] += 1
+                out[k] = new
+        return out
+
+    merged = merge(dst_tree, src_tree)
+    return merged, counts["kept"], counts["fresh"]

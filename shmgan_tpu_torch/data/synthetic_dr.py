@@ -24,8 +24,12 @@ renders each texture family only for the scenes that drew it.
 round otherwise than XLA's FFT; the min-max normalisation that follows keeps
 the texture within 1e-5 of JAX's (tests/test_torch_synthetic_device.py).
 
-`synth_scene_views_dr` and `synth_views_batch_dr`, the GAN phase's DR views,
-are not ported yet: they raise.
+The GAN phase's DR curriculum (`--gan_curriculum dr`): `synth_scene_views_dr`
+lays a DR scene out as a polarimetric stack (Malus's gains over the four
+polariser angles, sensor noise drawn for each view and for the camera), and
+`synth_views_batch_dr` mixes floor(batch * base_mix) base-curriculum stacks
+(data/synthetic_device.synth_views_batch) with DR ones, the base stacks first
+along the batch axis.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from shmgan_tpu_torch.data.synthetic_device import (
-    MAX_LOBES, RGBDraws, grid, noise_draws, randint, smooth_noise,
-    standardized_luma, synth_specseg_rgb_batch_draws, synth_specseg_rgb_batch_render, take,
+    MAX_LOBES, VIEW_ANGLES_RAD, RGBDraws, ViewsDraws, grid, noise_draws, randint, smooth_noise,
+    standardized_luma, swap_camera, synth_specseg_rgb_batch_draws,
+    synth_specseg_rgb_batch_render, synth_views_batch_draws, synth_views_batch_render, take,
     uniform)
 from shmgan_tpu_torch.ops.specprior import specseg_net_input
 
@@ -46,10 +51,6 @@ N_VORONOI = 16        # Voronoi seeds a scene
 MAX_GLINTS = 56       # dr2: micro-glints a scene, 0..56 active
 N_GLINT_CLUSTERS = 4
 _FLT_MIN = torch.finfo(torch.float32).tiny  # the smallest normal float32
-
-_GAN_PHASE = ("the GAN phase's DR views are not ported yet (ROADMAP Queue 1 item 12, "
-              "phase B of the flagship trainer)")
-
 
 def _col(t: torch.Tensor) -> torch.Tensor:
     """(B,) or (B, K) -> broadcastable against (B, [K,] h, w)."""
@@ -408,12 +409,85 @@ def synth_scene_dr(d: SceneDRDraws, h: int, w: int) -> Tuple[torch.Tensor, torch
     return camera, (spec > 0.25).float()[..., None]
 
 
-def synth_scene_views_dr(*args, **kwargs):
-    raise NotImplementedError(f"synth_scene_views_dr: {_GAN_PHASE}")
+# -- the GAN phase's DR views -------------------------------------------------------
+
+class SceneViewsDRDraws(NamedTuple):
+    scene: SceneDRDraws      # photo off; its `noise` is the camera image's noise
+    phi: torch.Tensor        # (B,) polariser phase, in [0, pi)
+    pol_frac: torch.Tensor   # (B,) in [0.6, 0.95)
+    view_noise: torch.Tensor  # (B, 4, h, w, 3) standard normal, one field a view
 
 
-def synth_views_batch_dr(*args, **kwargs):
-    raise NotImplementedError(f"synth_views_batch_dr: {_GAN_PHASE}")
+def synth_scene_views_dr_draws(gen: torch.Generator, batch: int, h: int, w: int,
+                               glints: bool = True) -> SceneViewsDRDraws:
+    return SceneViewsDRDraws(
+        scene=synth_scene_dr_draws(gen, batch, h, w, glints),
+        phi=uniform(gen, (batch,), 0.0, math.pi), pol_frac=uniform(gen, (batch,), 0.6, 0.95),
+        view_noise=torch.randn((batch, 4, h, w, 3), generator=gen, device=gen.device))
+
+
+def synth_scene_views_dr(d: SceneViewsDRDraws, h: int, w: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (views (B, 4, h, w, 3), diffuse (B, h, w, 3), mask (B, h, w, 1),
+    camera (B, h, w, 3)): the DR scene's diffuse layer shared by the views,
+    its tinted specular through each view's Malus gain, each view and the
+    camera image (the specular at its strongest view) with their own sensor
+    noise, clipped; the mask is the specular field > 0.25."""
+    diffuse, spec, tint = scene_dr_parts(d.scene, h, w)
+    angles = torch.tensor(VIEW_ANGLES_RAD, device=spec.device)
+    pol = d.pol_frac[:, None]
+    gains = (1 - pol) * 0.5 + pol * torch.cos(angles[None, :] - d.phi[:, None]) ** 2  # (B, 4)
+    spec_rgb = spec[..., None] * tint[:, None, None, :]
+    nsig = d.scene.nsig[:, None, None, None]
+    views = diffuse[:, None] + spec_rgb[:, None] * gains[:, :, None, None, None]
+    views = torch.clamp(views + nsig[:, None] * d.view_noise, 0.0, 1.0)
+    camera = diffuse + spec_rgb * gains.amax(dim=1)[:, None, None, None]
+    camera = torch.clamp(camera + nsig * d.scene.noise, 0.0, 1.0)
+    return views, diffuse, (spec > 0.25).float()[..., None], camera
+
+
+class ViewsBatchDRDraws(NamedTuple):
+    base: Optional[ViewsDraws]         # floor(batch * base_mix) base-curriculum stacks
+    dr: Optional[SceneViewsDRDraws]    # the rest
+    swap_u: Optional[torch.Tensor]     # (n_dr,) the DR stacks' camera swap, as ViewsDraws'
+    swap_slot: Optional[torch.Tensor]
+
+
+def synth_views_batch_dr_draws(gen: torch.Generator, batch: int, h: int, w: int,
+                               base_mix: float = 0.5, glints: bool = True) -> ViewsBatchDRDraws:
+    n_base = int(batch * base_mix)
+    n_dr = batch - n_base
+    base = synth_views_batch_draws(gen, n_base, h, w) if n_base > 0 else None
+    if n_dr == 0:
+        return ViewsBatchDRDraws(base, None, None, None)
+    return ViewsBatchDRDraws(base, synth_scene_views_dr_draws(gen, n_dr, h, w, glints),
+                             uniform(gen, (n_dr,)), randint(gen, (n_dr,), 0, 4))
+
+
+def synth_views_batch_dr_render(d: ViewsBatchDRDraws, h: int, w: int, ed_mode: str = "min",
+                                camera_swap_prob: float = 0.0) -> torch.Tensor:
+    """(5, B, h, w, 3): the base stacks, then the DR stacks, each the 4 views
+    (a camera image in place of one view with probability camera_swap_prob)
+    and ED, the views' channel-wise min ("min") or the diffuse layer
+    ("diffuse")."""
+    parts = []
+    if d.base is not None:
+        parts.append(synth_views_batch_render(d.base, h, w, ed_mode, camera_swap_prob))
+    if d.dr is not None:
+        views, diffuse, _, camera = synth_scene_views_dr(d.dr, h, w)
+        views = swap_camera(views.movedim(1, 0), camera, d.swap_u, d.swap_slot,
+                            camera_swap_prob)
+        ed = diffuse if ed_mode == "diffuse" else views.amin(dim=0)
+        parts.append(torch.cat([views, ed[None]], dim=0))
+    return torch.cat(parts, dim=1)
+
+
+def synth_views_batch_dr(gen: torch.Generator, batch: int, h: int, w: int,
+                         ed_mode: str = "min", camera_swap_prob: float = 0.0,
+                         base_mix: float = 0.5, glints: bool = True) -> torch.Tensor:
+    return synth_views_batch_dr_render(
+        synth_views_batch_dr_draws(gen, batch, h, w, base_mix, glints), h, w, ed_mode,
+        camera_swap_prob)
 
 
 # -- SpecSeg batches ------------------------------------------------------------------

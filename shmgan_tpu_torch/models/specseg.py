@@ -132,13 +132,7 @@ class SpecSeg(nn.Module):
                 stats[name] = {"bn": new}
             return h
 
-        x = x.permute(0, 3, 1, 2).contiguous()
-        skips = []
-        for i in range(self.levels):
-            x = block(f"down{i}", x)
-            skips.append(x)
-            x = F.max_pool2d(x, 2)
-        x = block("bottom", x)
+        x, skips = self._encode(x.permute(0, 3, 1, 2).contiguous(), block)
         for j in range(self.levels):
             x = conv_transpose(getattr(self, f"up{j}_t"), x, self.dtype)
             x = torch.cat([x, skips[-(j + 1)]], dim=1)
@@ -146,6 +140,23 @@ class SpecSeg(nn.Module):
         y = torch.sigmoid(conv(self.head, x, self.dtype).float())
         y = y.permute(0, 2, 3, 1).contiguous()
         return (y, stats) if train else y
+
+    def _encode(self, x: torch.Tensor, block) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The contracting path and the bottom block of NCHW x: (the bottom
+        block's output, the skips)."""
+        skips = []
+        for i in range(self.levels):
+            x = block(f"down{i}", x)
+            skips.append(x)
+            x = F.max_pool2d(x, 2)
+        return block("bottom", x), skips
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The bottom block's output in eval mode, (B, 16 base, H/16, W/16)
+        NCHW in the compute dtype, from (B, H, W, in_channels): the encoder
+        features flax's `capture_intermediates` reads at "bottom"."""
+        return self._encode(x.permute(0, 3, 1, 2).contiguous(),
+                            lambda name, h: getattr(self, name)(h)[0])[0]
 
     @torch.no_grad()
     def load_batch_stats(self, stats: Dict) -> None:

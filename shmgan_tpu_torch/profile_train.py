@@ -1,7 +1,7 @@
 """Train-step measurement of the port on one CUDA card.
 
     python -m shmgan_tpu_torch.profile_train [--compute_dtype bfloat16|float32]
-        [--loop | --specseg]
+        [--loop | --specseg | --gan | --loop-gap]
 
 Builds the train state at full width on weights from seed 0 (the JAX
 package's default model: 128 px, filter 64, c_dim 5, SpecSeg base 16, batch
@@ -25,12 +25,32 @@ input channels and the base recipe at 1: the host ms of 20 steps (a batch
 rendered on the card, then make_specseg_train_step), each between two
 synchronisations, and traces of 10 steps, of 10 renders alone and of 10
 train steps alone on one batch, split as above.
+With --gan it measures phase B's step at the flagship trainer's recipe of
+the trained 256-px bundle (bf16, 256 px, batch 10, the DR curriculum,
+resize_conv, G's EMA, 2-channel SpecSeg; seeded weights): the host ms of
+10 steps (the DR views rendered on the card, then the step), each between
+two synchronisations, and a trace of 5 steps, split as above.
+With --loop-gap it asks why the training driver's first-step gradients,
+through the kernels and through the plain versions, part further than the
+bare step's on random inputs (float32, 128 px, batch 8, the weights and
+first draws of chip_smoke.py's train_loop phase): the relative L2 distance
+of G's and D's gradients between two runs of one step, for the loop's first
+batch of a 16-scene synthetic tree and for a random batch, kernels against
+plain, plain against plain and kernels against kernels, with cuDNN's
+algorithm choice as it is and fixed (cudnn.deterministic); with cuDNN's
+choice fixed, also the plain version computing its moments in one pass,
+E[x^2] - E[x]^2, as the kernel (and the TPU kernel) does, and instance
+norms that mix the two (`MIXES`: the forward's output, the statistics the
+backward takes, the backward), each against the plain version and against
+the kernels; and the instance-norm planes' largest rstd and the count of
+planes whose variance is under 1e-4, for each batch.
 Prints one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -159,6 +179,179 @@ def specseg_profile() -> dict:
     return out
 
 
+GAN_RECIPE = ("--phase", "gan", "--image_size", "256", "--batch", "10", "--gan_curriculum",
+              "dr", "--upsample_mode", "resize_conv", "--g_ema", "0.999",
+              "--specseg_in_channels", "2")
+
+
+def gan_profile() -> dict:
+    """Host ms and a device split of phase B's step (views and step)."""
+    from shmgan_tpu_torch import quality_train as qt
+
+    a = qt.parse_args(list(GAN_RECIPE))
+    cfg = qt.build_cfg(a)
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    step = make_train_step(cfg)
+    v, b, s = cfg.model.c_dim, a.batch, a.image_size
+
+    def train(i):
+        nonlocal state
+        gen = qt.stream(a.seed, qt.GAN_STREAM + i, "cuda")
+        views = qt.sdr.synth_views_batch_dr(gen, b, s, s, ed_mode=a.ed_mode,
+                                            camera_swap_prob=a.camera_swap_prob)
+        state, _ = step(state, views, sample_draws(cfg, gen, v, b, s, s), 1)
+
+    for i in range(3):
+        train(i)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3, 13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    return {"recipe": " ".join(GAN_RECIPE), "step_ms_in_order": [round(t, 2) for t in times],
+            "median_step_ms": med, "images_per_s_at_median": b / med * 1e3,
+            "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "profile_5_steps": device_split(lambda: [train(i) for i in range(13, 18)])}
+
+
+LOOP_GAP_SCENES = 16
+# (forward output, statistics saved for the backward, backward): "kernel" is
+# the CUDA kernel (its one-pass statistics); "two_pass" the mean and
+# variance of the JAX package's custom VJP `_fwd`, which the TPU kernel's
+# output does not give; "plain" the plain version's output, or the
+# backward's plain version (the JAX package's `_bwd`)
+MIXES = (("kernel", "two_pass", "kernel"), ("kernel", "kernel", "plain"),
+         ("plain", "two_pass", "kernel"), ("plain", "two_pass", "plain"))
+
+
+class _MixedInstanceNorm(torch.autograd.Function):
+    """An instance norm whose forward output, saved statistics and backward
+    each come from the kernel or the plain arithmetic (`MIXES`)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, mix):
+        from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+        fwd, stats, bwd = mix
+        y, mean, rstd = ink._forward(x, gamma, beta, eps, with_stats=True)
+        if fwd == "plain":
+            y = ink.instance_norm_plain(x, gamma, beta, eps)
+        if stats == "two_pass":
+            xf = x.float()
+            mean = xf.mean(dim=(2, 3))
+            var = (xf - mean[..., None, None]).square().mean(dim=(2, 3))
+            rstd = torch.rsqrt(var + eps)
+        ctx.bwd = bwd
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+        x, gamma, mean, rstd = ctx.saved_tensors
+        fn = ink.instance_norm_backward if ctx.bwd == "kernel" else \
+            ink.instance_norm_backward_plain
+        dx, dgamma, dbeta = fn(x, gamma, mean, rstd, g.contiguous())
+        return dx, dgamma, dbeta, None, None
+
+
+def _grad_gap(a: dict, b: dict) -> dict:
+    """Relative L2 distance of two runs' gradients, each network as one
+    vector: ||a - b|| / ||b||."""
+    out = {}
+    for net in ("G", "D"):
+        ga, gb = a["_grads"][net], b["_grads"][net]
+        diff = sum(float((ga[k].double() - gb[k].double()).square().sum()) for k in gb)
+        norm = sum(float(gb[k].double().square().sum()) for k in gb)
+        out[net] = (diff / norm) ** 0.5
+    return out
+
+
+def loop_gap_probe(device="cuda") -> dict:
+    """The bare step's gradient gaps on the loop's first batch and on a
+    random one (see the module's docstring)."""
+    import copy
+
+    from shmgan_tpu_torch.data.loader import PolarimetricDataset
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.train.loop import draw_source
+
+    cfg = training_config("float32")
+    v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    with tempfile.TemporaryDirectory() as root:
+        write_fixture_tree(os.path.join(root, "tree"), LOOP_GAP_SCENES, s, seed=0)
+        cfg.data.data_dir = os.path.join(root, "tree")
+        ds = PolarimetricDataset(cfg.data, s, b)
+        tree_batch = torch.from_numpy(next(iter(ds.iter_epoch()))).to(device)
+    batches = {"tree": tree_batch,
+               "random": torch.rand(tree_batch.shape, device=device,
+                                    generator=torch.Generator(device=device).manual_seed(0))}
+    models = build_models(cfg, device=device, seed=0)
+    draws = draw_source(cfg, device, 0)(0, tree_batch.shape)
+    step = make_train_step(cfg, debug_grads=True)
+    real_plain = ink.instance_norm_plain
+    planes = {}
+
+    def one_pass(x, gamma, beta, eps=1e-6):
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp(xf.square().mean(dim=(2, 3), keepdim=True) - mean.square(), min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        return (y * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)).to(x.dtype)
+
+    def run(views, plain: bool, record: str = "", moments=None):
+        state = create_train_state(cfg, copy.deepcopy(models))
+
+        def recorded(x, gamma, beta, eps=1e-6):
+            var = x.detach().float().var(dim=(2, 3), unbiased=False)
+            planes.setdefault(record, []).append(var.flatten())
+            return real_plain(x, gamma, beta, eps)
+
+        with (plain_versions() if plain else contextlib.nullcontext()), \
+                (mock.patch.object(ink, "instance_norm", recorded) if record
+                 else contextlib.nullcontext()), \
+                (mock.patch.object(ink, "instance_norm", moments) if moments
+                 else contextlib.nullcontext()):
+            _, metrics = step(state, views, draws, 0)
+        return {"_grads": {net: {k: g.detach().clone() for k, g in metrics["_grads"][net].items()}
+                           for net in ("G", "D")}}
+
+    out = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        for fixed in (False, True):
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = fixed, False
+            for name, views in batches.items():
+                k1, p1 = run(views, False), run(views, True, record=name if not fixed else "")
+                k2, p2 = run(views, False), run(views, True)
+                row = out[f"{name}{'_cudnn_fixed' if fixed else ''}"] = {
+                    "kernels_vs_plain": _grad_gap(k1, p1), "plain_vs_plain": _grad_gap(p2, p1),
+                    "kernels_vs_kernels": _grad_gap(k2, k1)}
+                if fixed:
+                    row["kernels_vs_plain_one_pass"] = _grad_gap(
+                        k1, run(views, True, moments=one_pass))
+                    for mix in MIXES:
+                        got = run(views, False, moments=lambda x, gamma, beta, eps=1e-6, m=mix:
+                                  _MixedInstanceNorm.apply(x, gamma, beta, eps, m))
+                        row["/".join(mix)] = {"vs_plain": _grad_gap(got, p1),
+                                              "vs_kernels": _grad_gap(got, k1)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    eps = cfg.model.instance_norm_eps
+    for name, var in planes.items():
+        var = torch.cat(var)
+        out[name]["in_planes"] = int(var.numel())
+        out[name]["in_max_rstd"] = float(torch.rsqrt(var.min() + eps))
+        out[name]["in_planes_var_under_1e-4"] = int((var < 1e-4).sum())
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
@@ -167,16 +360,24 @@ def main() -> None:
                       help="measure train.loop.train's steps instead of the bare step")
     mode.add_argument("--specseg", action="store_true",
                       help="measure phase A's SpecSeg step instead of the GAN's")
+    mode.add_argument("--gan", action="store_true",
+                      help="measure phase B's step at the 256-px recipe, bf16")
+    mode.add_argument("--loop-gap", action="store_true",
+                      help="the step's gradient gaps on the loop's first batch, float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     cfg = training_config(args.compute_dtype)
-    if args.loop or args.specseg:
+    if args.loop or args.specseg or args.gan or args.loop_gap:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip()
         head = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-        if args.specseg:
+        if args.loop_gap:
+            print(json.dumps({**head, "compute_dtype": "float32", **loop_gap_probe()}))
+        elif args.gan:
+            print(json.dumps({**head, "compute_dtype": "bfloat16", **gan_profile()}))
+        elif args.specseg:
             print(json.dumps({**head, "compute_dtype": "float32", **specseg_profile()}))
         else:
             print(json.dumps({**head, "compute_dtype": args.compute_dtype,

@@ -1,27 +1,59 @@
-"""The flagship trainer's phase A on the port: the counterpart of
-examples/quality_train.py's SpecSeg phase. It trains the SpecSeg mask U-Net
-on a curriculum made on the device (data/synthetic_device.py,
-data/synthetic_dr.py), keeps the best of {live, EMA} by a held-out probe,
-and exports it as a `.msgpack` (checkpoint.save_specseg_msgpack) that
-`cli --specseg_weights`, `load_specseg_weights` and `make_mask_fn` read.
+"""The flagship trainer on the port: the counterpart of
+examples/quality_train.py. Two phases:
+
+  Phase A  (`--phase specseg`) trains the SpecSeg mask U-Net on a curriculum
+           made on the device (data/synthetic_device.py, data/synthetic_dr.py),
+           keeps the best of {live, EMA} by a held-out probe, and exports it as
+           a `.msgpack` (checkpoint.save_specseg_msgpack) that
+           `cli --specseg_weights`, `load_specseg_weights` and `make_mask_fn`
+           read.
+  Phase B  (`--phase gan`) trains the GAN with that frozen mask net and the
+           quality flags (live G1, G1 reconstruction, single-input draws,
+           consistent domains; build_cfg), on the base or the DR polarimetric
+           curriculum made on the device, and evaluates every `--eval_every`
+           steps on held-out camera/diffuse pairs of the host's numpy
+           curriculum (data/synthetic.synth_eval_set, another code path and
+           other seeds): PSNR/SSIM of the calibrated output and of the input
+           against the diffuse truth, and the SpecSeg-feature FID of each
+           (eval/fid.py), per draw. It keeps the best checkpoint by PSNR
+           under an FID gate (is_better_checkpoint), exports it as
+           `best_bundle.msgpack` (float16), and writes galleries.
+`--phase both` (the default) runs A, then B on A's net.
 
     python -m shmgan_tpu_torch.quality_train --phase specseg \\
         --specseg_curriculum dr2 --specseg_in_channels 2 --specseg_steps 8000 \\
         --out runs/specseg                   # the card
+    python -m shmgan_tpu_torch.quality_train --phase gan --image_size 256 \\
+        --batch 10 --gan_curriculum dr --upsample_mode resize_conv --g_ema 0.999 \\
+        --specseg_in_channels 2 --specseg_out runs/specseg/specseg_synth.msgpack \\
+        --out runs/gan                       # the card
     ... --cpu                                # the CPU
 
-Flags keep the JAX script's names, choices and defaults. Phase B (the GAN,
-`--phase gan`, and `--phase both`, the default) is not ported yet and raises
-before any work, as does `--data_parallel` above 1.
+Flags keep the JAX script's names, choices and defaults. `--max_segment`,
+`--segment_budget_s` and `--pallas_in` have no effect: the port runs each
+chunk as it is and always takes its CUDA instance-norm kernel on the card.
+`--data_parallel` above 1 raises.
 
-Step s draws its batch and its dropout masks from a generator seeded from
-(seed, s), as the JAX script keys step s by `fold_in(k_data, s)`; the probes
-come from the streams 2_000_000_000 (the base curriculum, 64 scenes; a
-2-channel net's base probe shows it the same scenes) and 2_000_000_001 (the
-DR curriculum's own mix), which no training step reaches. `--chunk` steps
-run between host synchronisations; the probe runs every max(5 chunk, 500)
-steps and after the last. Writes `<out>/specseg_synth.msgpack` (or
-`--specseg_out`) and `<out>/quality_summary.json`.
+Random streams: stream i of run `seed` is a generator seeded from
+seed * 2^32 + i (`stream`), on the run's device.
+  i = s                        phase A's step s: its batch and dropout masks
+  i = GAN_STREAM + s           phase B's step s: its views, then its Draws
+                               (flip, label, channel drop, D noise, D dropout)
+  i = 2_000_000_000, ..001     phase A's base and DR probes
+GAN_STREAM is 10^9, so the streams stay apart while phase A runs fewer than
+10^9 steps and phase B fewer than 10^9; a resumed phase B draws what an
+uninterrupted one would. The oracle's draws are numpy's, seeds 1234, 5678,
+9012, 13141, 17181 (the first `--fid_draws`); the probes' OOD set seed 777.
+
+Phase A: `--chunk` steps run between host synchronisations; the probe runs
+every max(5 chunk, 500) steps and after the last. Writes
+`<out>/specseg_synth.msgpack` (or `--specseg_out`).
+Phase B: `--chunk` steps between synchronisations, a log line every 10
+chunks, the oracle when a chunk crosses a multiple of `--eval_every` and
+after the last step (unless that step was just evaluated). Writes
+`quality_live.json` after every eval, the checkpoints (`--ckpt_dir`, default
+`<out>/ckpt`, the newest 3), `best_bundle.msgpack`, and
+`sample_{best,final}_{i}.png`. Both write `<out>/quality_summary.json`.
 """
 
 from __future__ import annotations
@@ -32,33 +64,42 @@ import functools
 import json
 import os
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from shmgan_tpu_torch.checkpoint import save_specseg_msgpack
+from shmgan_tpu_torch.checkpoint import (CheckpointManager, export_inference_bundle,
+                                         load_inference_bundle, load_specseg_weights,
+                                         save_specseg_msgpack, transfer_matching_params)
 from shmgan_tpu_torch.config import Config, MeshConfig, torch_device
-from shmgan_tpu_torch.convert import flax_tree
+from shmgan_tpu_torch.convert import flax_tree, load_flax
 from shmgan_tpu_torch.data import synthetic_device as sd
 from shmgan_tpu_torch.data import synthetic_dr as sdr
 from shmgan_tpu_torch.data.ood import synth_ood_set
-from shmgan_tpu_torch.infer import ieee_f32
+from shmgan_tpu_torch.data.synthetic import synth_eval_set
+from shmgan_tpu_torch.eval.fid import frechet_distance, specseg_features
+from shmgan_tpu_torch.infer import ieee_f32, make_infer_fn
+from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.models.specseg import SpecSeg
 from shmgan_tpu_torch.ops.specprior import specseg_net_input
+from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
 from shmgan_tpu_torch.train.specseg_train import (create_specseg_state, iou,
                                                   make_specseg_train_step)
+from shmgan_tpu_torch.train.state import TrainState, create_train_state
+from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+from shmgan_tpu_torch.utils.viz import image_grid
 
 PROBE_SCENES = 64
 BASE_PROBE_STREAM = 2_000_000_000
 DR_PROBE_STREAM = 2_000_000_001
 OOD_PROBE_SEED = 777
-_PHASE_B = ("phase B (the GAN) of the flagship trainer is not ported yet: ROADMAP Queue 1 "
-            "item 12; run --phase specseg")
+GAN_STREAM = 1_000_000_000
+EVAL_DRAW_SEEDS = (1234, 5678, 9012, 13141, 17181)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="SpecSeg -> GAN quality training (phase A on "
-                                            "the port)")
+    p = argparse.ArgumentParser(description="SpecSeg -> GAN quality training on the port")
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
     p.add_argument("--image_size", type=int, default=128)
     p.add_argument("--filter_size", type=int, default=64)
@@ -90,10 +131,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--specseg_ema", type=float, default=0.999,
                    help="EMA decay of the params (0 = off); the export is the best of "
                         "{live, EMA} by the probe")
-    # Phase B (not ported yet: parsed so the command lines stay JAX's)
+    # Phase B
     p.add_argument("--gan_steps", type=int, default=200000)
-    p.add_argument("--gan_curriculum", choices=["base", "dr"], default="base")
-    p.add_argument("--gan_base_mix", type=float, default=0.5)
+    p.add_argument("--gan_curriculum", choices=["base", "dr"], default="base",
+                   help="dr mixes domain-randomised polarimetric stacks "
+                        "(synthetic_dr.synth_views_batch_dr) into the GAN's batches")
+    p.add_argument("--gan_base_mix", type=float, default=0.5,
+                   help="share of each dr batch from the base curriculum")
     p.add_argument("--g_lr", type=float, default=2e-4)
     p.add_argument("--d_lr", type=float, default=1e-4)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
@@ -102,23 +146,34 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="JAX's Pallas instance norm; the port always takes its CUDA kernel")
     p.add_argument("--upsample_mode", choices=["conv_transpose", "resize_conv"],
                    default="conv_transpose")
-    p.add_argument("--g_ema", type=float, default=0.0)
+    p.add_argument("--g_ema", type=float, default=0.0,
+                   help="EMA decay of G's params (0 = off); the oracle, the galleries and "
+                        "the best bundle take the EMA")
     p.add_argument("--g1_recon_weight", type=float, default=10.0)
     p.add_argument("--single_input_prob", type=float, default=0.5)
     p.add_argument("--camera_swap_prob", type=float, default=0.25)
     p.add_argument("--ed_mode", choices=["diffuse", "min"], default="diffuse")
     p.add_argument("--eval_every", type=int, default=5000)
     p.add_argument("--eval_n", type=int, default=64)
-    p.add_argument("--fid_draws", type=int, default=3)
-    p.add_argument("--fid_tol_rel", type=float, default=4.0)
+    p.add_argument("--fid_draws", type=int, default=3,
+                   help="held-out scene draws an eval; FID is their mean")
+    p.add_argument("--fid_tol_rel", type=float, default=4.0,
+                   help="best-checkpoint gate: FID within rel x the lowest seen + abs")
     p.add_argument("--fid_tol_abs", type=float, default=2.0)
-    p.add_argument("--plateau_evals", type=int, default=0)
-    p.add_argument("--max_hours", type=float, default=6.0)
+    p.add_argument("--plateau_evals", type=int, default=0,
+                   help="stop after this many evals without a new best (0 = off)")
+    p.add_argument("--max_hours", type=float, default=6.0,
+                   help="wall-clock budget from the start; phase B stops at it")
     p.add_argument("--out", type=str, default="benchmarks/quality_r2")
     p.add_argument("--ckpt_dir", type=str, default="")
-    p.add_argument("--init_from", type=str, default="")
-    p.add_argument("--init_from_image_size", type=int, default=128)
-    p.add_argument("--init_from_bundle", type=str, default="")
+    p.add_argument("--init_from", type=str, default="",
+                   help="a checkpoint directory of this trainer to warm-start G and D "
+                        "from (leaves of matching path, shape and dtype)")
+    p.add_argument("--init_from_image_size", type=int, default=128,
+                   help="the image size --init_from was trained at")
+    p.add_argument("--init_from_bundle", type=str, default="",
+                   help="an inference bundle to warm-start G from; D and the optimizers "
+                        "start fresh")
     p.add_argument("--seed", type=int, default=25)
     p.add_argument("--data_parallel", type=int, default=1)
     return p.parse_args(argv)
@@ -126,6 +181,53 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def log(msg: str) -> None:
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def resolve_segment(max_segment: int, image_size: int) -> int:
+    """JAX's device-program length of a chunk (0 = the whole chunk): -1 is
+    50 steps at image_size >= 256 and off below. The port runs each chunk as
+    it is; it only reports the value."""
+    if max_segment < 0:
+        return 50 if image_size >= 256 else 0
+    return max_segment
+
+
+def is_better_checkpoint(best: Dict, psnr: float, fid: float, min_fid: float,
+                         fid_tol_rel: float = 4.0, fid_tol_abs: float = 2.0) -> bool:
+    """The best-checkpoint gate: PSNR above the best so far, and FID within
+    min_fid * fid_tol_rel + fid_tol_abs of the lowest FID of the earlier
+    evals (min_fid inf before the first eval, which passes the FID gate)."""
+    if psnr <= best.get("psnr", -1.0):
+        return False
+    if min_fid == float("inf"):
+        return True
+    return fid <= min_fid * fid_tol_rel + fid_tol_abs
+
+
+def seed_gate_from_live(live_path: str, resume_step: int, history: List, best: Dict,
+                        min_fid: float) -> Tuple[List, Dict, float]:
+    """The gate's state (history, best, min_fid) from an earlier run's
+    quality_live.json on resume, so the first eval after a resume is held
+    to the earlier evals. Entries past the restored step are dropped; an
+    unreadable file leaves the state as it is."""
+    if not os.path.exists(live_path):
+        return history, best, min_fid
+    try:
+        with open(live_path) as f:
+            prior = json.load(f)
+        history = [e for e in prior.get("history", []) if e.get("step", 0) <= resume_step]
+        for e in history:
+            if "gen_fid" in e:
+                min_fid = min(min_fid, float(e["gen_fid"]))
+        pb = prior.get("best") or {}
+        if pb.get("psnr", -1.0) > 0 and pb.get("step", 0) <= resume_step:
+            best = dict(pb)
+        log(f"[gan] resume: seeded gate from {live_path} ({len(history)} prior evals, best "
+            f"PSNR {best.get('psnr', -1.0):.2f} @ {best.get('step', '-')}, min FID "
+            f"{min_fid:.3f})")
+    except (ValueError, KeyError, OSError) as e:
+        log(f"[gan] resume: could not seed gate from {live_path}: {e}")
+    return history, best, min_fid
 
 
 def build_cfg(a: argparse.Namespace) -> Config:
@@ -270,18 +372,294 @@ def run_specseg_phase(a: argparse.Namespace, cfg: Config, device="cuda") -> Tupl
     return best["vars"], summary
 
 
+# -- phase B: the GAN ---------------------------------------------------------------
+
+def check_warm_start(a: argparse.Namespace) -> None:
+    """Refuse, before any work, what phase B would refuse when it starts:
+    both warm starts at once, an --init_from without a checkpoint, and a
+    bundle trained with another upsample_mode (both modes share one
+    parameter tree, so it would load and then run through the wrong op)."""
+    if a.phase not in ("gan", "both"):
+        return
+    if a.init_from and a.init_from_bundle:
+        raise SystemExit("phase B: --init_from and --init_from_bundle are mutually exclusive")
+    if a.init_from and (not os.path.isdir(a.init_from)
+                        or CheckpointManager(a.init_from).latest_step() is None):
+        raise SystemExit(f"phase B: --init_from {a.init_from}: no checkpoint found")
+    if a.init_from_bundle:
+        with open(a.init_from_bundle + ".json") as f:
+            mode = json.load(f).get("upsample_mode", "conv_transpose")
+        if mode != a.upsample_mode:
+            raise SystemExit(f"phase B: --init_from_bundle was trained with upsample_mode="
+                             f"{mode}; pass --upsample_mode to match")
+
+
+def _ema_from_gen(state: TrainState) -> None:
+    """The EMA (when on) restarts from G's current parameters."""
+    if state.ema_g is not None:
+        state.ema_g = {k: p.detach().clone() for k, p in state.gen.named_parameters()}
+
+
+def _warm_start(a: argparse.Namespace, cfg: Config, state: TrainState,
+                specseg_vars: Optional[Dict], device) -> None:
+    """--init_from: G and D from a checkpoint of a run at
+    --init_from_image_size, leaf by leaf where path, shape and dtype match
+    (transfer_matching_params); --init_from_bundle: G from an inference
+    bundle. The optimizers start fresh, the EMA from the merged G."""
+    if a.init_from:
+        cfg_src = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, image_size=a.init_from_image_size))
+        models = build_models(cfg_src, device=device, seed=a.seed)
+        if specseg_vars is not None:
+            load_flax(models[2], specseg_vars["params"], specseg_vars.get("batch_stats"))
+        src = CheckpointManager(a.init_from, max_to_keep=3).restore(
+            create_train_state(cfg_src, models))
+        if src is None:
+            raise SystemExit(f"phase B: --init_from {a.init_from}: no checkpoint found")
+        kept = fresh = 0
+        for name in ("gen", "disc"):
+            merged, k, f = transfer_matching_params(flax_tree(getattr(state, name))[0],
+                                                    flax_tree(getattr(src, name))[0])
+            load_flax(getattr(state, name), merged)
+            kept, fresh = kept + k, fresh + f
+        _ema_from_gen(state)
+        log(f"[gan] init_from {a.init_from} (step {src.step}, {a.init_from_image_size}px): "
+            f"{kept} leaves transferred, {fresh} fresh")
+        del src, models  # a whole state at the source size: free it for the run
+    if a.init_from_bundle:
+        bundle_g, _, hdr = load_inference_bundle(a.init_from_bundle)
+        merged, kept, fresh = transfer_matching_params(flax_tree(state.gen)[0], bundle_g)
+        load_flax(state.gen, merged)
+        _ema_from_gen(state)
+        log(f"[gan] init_from_bundle {a.init_from_bundle} (step {hdr.get('step')}, "
+            f"{hdr.get('image_size')}px, store_dtype={hdr.get('store_dtype', 'float32')}): "
+            f"{kept} G leaves transferred, {fresh} fresh")
+
+
+def oracle_chunk(infer: Callable, gen, specseg: SpecSeg, ins: torch.Tensor,
+                 gts: torch.Tensor) -> Tuple:
+    """One chunk of the held-out eval: -> (the output's (PSNR, SSIM,
+    features), the input's (PSNR, SSIM, features), the truth's features,
+    the calibrated output, the mask), per image. PSNR and SSIM against the
+    diffuse truth `gts`; `infer` is make_infer_fn's with
+    `gen_rgb_calibrated` and `mask`."""
+    out = infer(gen, specseg, ins)
+    calibrated = out["gen_rgb_calibrated"]
+
+    def per_image(x: torch.Tensor):
+        mse = ((x - gts) ** 2).mean(dim=(1, 2, 3))
+        psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+        return psnr, ssim_fn(x, gts, max_val=1.0), specseg_features(specseg, x)
+
+    return (per_image(calibrated), per_image(ins), specseg_features(specseg, gts), calibrated,
+            out["mask"])
+
+
+def make_oracle(a: argparse.Namespace, cfg: Config, state: TrainState, device) -> Callable:
+    """oracle() -> (gen PSNR, gen SSIM, gen FID, input PSNR, input SSIM,
+    input FID, 4 generated images, their 4 masks, gen FID per draw): the
+    held-out eval of the state's G (its EMA when on) in float32.
+
+    The draws stay numpy on the host; the oracle moves min(8, eval_n)
+    images at a time to the device, runs inference (`gen_rgb_calibrated`,
+    `mask`), and keeps each image's PSNR and SSIM against the diffuse truth
+    and the SpecSeg features of the output, the input and the truth. Means
+    run over every draw's images; FID is computed per draw, of the output's
+    and of the input's features against the truth's, and averaged."""
+    draws = [synth_eval_set(a.eval_n, a.image_size, seed=ds)[:2]
+             for ds in EVAL_DRAW_SEEDS[:max(1, a.fid_draws)]]
+    eval_bs = min(8, a.eval_n)
+    if a.eval_n % eval_bs != 0:
+        raise ValueError("eval_n must be a multiple of 8 (or < 8)")
+    eval_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    eval_gen, _, eval_ss = build_models(eval_cfg, device=device)
+    eval_ss.load_state_dict(state.specseg.state_dict())
+    infer = make_infer_fn(eval_cfg, outputs=("gen_rgb_calibrated", "mask"))
+
+    def oracle():
+        eval_params = state.ema_g if state.ema_g is not None else dict(
+            state.gen.named_parameters())
+        with torch.no_grad():
+            for name, p in eval_gen.named_parameters():
+                p.copy_(eval_params[name])
+        gen4 = mask4 = None
+        sums = {k: [] for k in ("g_psnr", "g_ssim", "i_psnr", "i_ssim")}
+        g_fids, i_fids = [], []
+        for d_ins, d_gts in draws:
+            feats = {"g": [], "i": [], "gt": []}
+            for i in range(0, a.eval_n, eval_bs):
+                g_m, i_m, f_gt, gen, mask = oracle_chunk(
+                    infer, eval_gen, eval_ss, torch.from_numpy(d_ins[i:i + eval_bs]).to(device),
+                    torch.from_numpy(d_gts[i:i + eval_bs]).to(device))
+                for tag, (psnr, ssim, feat) in (("g", g_m), ("i", i_m)):
+                    sums[f"{tag}_psnr"].append(psnr.cpu().numpy())
+                    sums[f"{tag}_ssim"].append(ssim.cpu().numpy())
+                    feats[tag].append(feat)
+                feats["gt"].append(f_gt)
+                if gen4 is None:
+                    gen4, mask4 = gen[:4].cpu().numpy(), mask[:4].cpu().numpy()
+            gt = torch.cat(feats["gt"])
+            g_fids.append(float(frechet_distance(torch.cat(feats["g"]), gt)))
+            i_fids.append(float(frechet_distance(torch.cat(feats["i"]), gt)))
+        gp, gs, ip, is_ = (float(np.mean(np.concatenate(sums[k])))
+                           for k in ("g_psnr", "g_ssim", "i_psnr", "i_ssim"))
+        return (gp, gs, float(np.mean(g_fids)), ip, is_, float(np.mean(i_fids)), gen4, mask4,
+                g_fids)
+
+    oracle.gallery_inputs = draws[0]
+    oracle.eval_gen, oracle.eval_specseg = eval_gen, eval_ss
+    return oracle
+
+
+def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dict],
+                  deadline: float, device="cuda") -> Dict:
+    """Train the GAN for --gan_steps (or until the deadline or a plateau),
+    evaluating every --eval_every steps: -> {"final", "best", "history",
+    "train_steps", "wall_s"}, as the JAX script returns."""
+    device = torch_device(device)
+    h = w = a.image_size
+    b, v = a.batch, cfg.model.c_dim
+    if a.gan_curriculum == "dr":
+        views_fn = functools.partial(sdr.synth_views_batch_dr, base_mix=a.gan_base_mix)
+        log(f"[gan] DR curriculum (base_mix={a.gan_base_mix})")
+    else:
+        views_fn = sd.synth_views_batch
+
+    models = build_models(cfg, device=device, seed=a.seed)
+    if specseg_vars is not None:
+        load_flax(models[2], specseg_vars["params"], specseg_vars.get("batch_stats"))
+    state = create_train_state(cfg, models)
+    _warm_start(a, cfg, state, specseg_vars, device)
+
+    ckpt = CheckpointManager(a.ckpt_dir or os.path.join(a.out, "ckpt"), max_to_keep=3)
+    if ckpt.restore(state) is not None:
+        log(f"[gan] resumed from step {state.step}")
+    step_fn = make_train_step(cfg)
+    oracle = make_oracle(a, cfg, state, device)
+    ins_np, gts_np = oracle.gallery_inputs
+
+    os.makedirs(a.out, exist_ok=True)
+    live_path = os.path.join(a.out, "quality_live.json")
+    history: List[Dict] = []
+    best: Dict = {"psnr": -1.0}
+    min_fid = float("inf")   # the lowest FID of the evals so far: the gate's anchor
+    last_eval_step = -1      # the final eval is skipped when the last chunk ran one
+    if state.step > 0:
+        history, best, min_fid = seed_gate_from_live(live_path, state.step, history, best,
+                                                     min_fid)
+
+    def record(step_i, gp, gs, gf, ip, is_, if_, rate, g_fids=None) -> Dict:
+        entry = {"step": step_i, "gen_psnr": round(gp, 4), "gen_ssim": round(gs, 4),
+                 "gen_fid": round(gf, 5), "input_psnr": round(ip, 4),
+                 "input_ssim": round(is_, 4), "input_fid": round(if_, 5),
+                 "beats_identity": bool(gp > ip and gs > is_),
+                 "images_per_sec": round(rate, 1)}
+        if g_fids is not None and len(g_fids) > 1:
+            entry["gen_fid_draws"] = [round(x, 5) for x in g_fids]
+        history.append(entry)
+        with open(live_path, "w") as f:
+            json.dump({"config": dict(vars(a)), "history": history, "best": best}, f, indent=1)
+        log(f"[gan eval @{step_i}] gen PSNR {gp:.2f} SSIM {gs:.4f} FID {gf:.4f} | input PSNR "
+            f"{ip:.2f} SSIM {is_:.4f} FID {if_:.4f} | "
+            f"{'BEATS' if entry['beats_identity'] else 'trails'} identity | {rate:.0f} img/s")
+        return entry
+
+    def save_gallery(gen4, mask4, tag: str) -> None:
+        """A row of: the camera input, the mask, the generated image, the diffuse truth."""
+        for i in range(gen4.shape[0]):
+            image_grid([ins_np[i], mask4[i][..., 0], gen4[i], gts_np[i]],
+                       path=os.path.join(a.out, f"sample_{tag}_{i}.png"))
+
+    # evals since the best checkpoint, from the resumed history
+    evals_since_best = sum(1 for e in history if e.get("step", 0) > best.get("step", 0)) \
+        if best.get("psnr", -1.0) > 0 else 0
+    seg = str(a.max_segment).strip().lower()
+    log(f"[gan] chunks of {a.chunk} steps run as they are (--max_segment {seg}: "
+        f"{seg if seg == 'auto' else resolve_segment(int(seg), a.image_size)} in JAX, no "
+        f"effect here)")
+    done = state.step
+    t0 = chunk_t0 = time.perf_counter()
+    last_rate = 0.0
+    while done < a.gan_steps and time.time() < deadline:
+        k = min(a.chunk, a.gan_steps - done)
+        for s in range(done, done + k):
+            gen = stream(a.seed, GAN_STREAM + s, device)
+            views = views_fn(gen, b, h, w, ed_mode=a.ed_mode,
+                             camera_swap_prob=a.camera_swap_prob)
+            state, metrics = step_fn(state, views, sample_draws(cfg, gen, v, b, h, w), 1)
+        tg = float(metrics["total_G"])  # the chunk's synchronisation
+        now = time.perf_counter()
+        last_rate = k * b / (now - chunk_t0)
+        chunk_t0 = now
+        prev_done, done = done, done + k
+        if done % (a.chunk * 10) < a.chunk:
+            g1 = float(metrics["G1_L1"]) if "G1_L1" in metrics else float("nan")
+            log(f"[gan {done}/{a.gan_steps}] total_G={tg:.2f} G1_L1={g1:.4f} "
+                f"({last_rate:.0f} img/s)")
+        if done // a.eval_every > prev_done // a.eval_every:
+            gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
+            is_best = is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel,
+                                           a.fid_tol_abs)
+            if is_best:  # before record(), so the live file's best is current
+                best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
+            min_fid = min(min_fid, gf)
+            record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
+            ckpt.save(state, step=done)
+            if is_best:
+                save_gallery(gen4, mask4, "best")
+                evals_since_best = 0
+                # the eval tree (the EMA when on) survives the checkpoints' rotation
+                export_inference_bundle(oracle.eval_gen, oracle.eval_specseg, cfg,
+                                        os.path.join(a.out, "best_bundle.msgpack"),
+                                        step=state.step, store_dtype="float16")
+            else:
+                evals_since_best += 1
+            last_eval_step = done
+            if a.plateau_evals > 0 and evals_since_best >= a.plateau_evals:
+                log(f"[gan] plateau stop: {evals_since_best} consecutive evals without a new "
+                    f"best (best PSNR {best['psnr']:.2f} @ step {best.get('step', '-')})")
+                break
+
+    if history and last_eval_step == done:
+        entry = history[-1]
+        save_gallery(gen4, mask4, "final")
+    else:
+        gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
+        if is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel, a.fid_tol_abs):
+            best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
+        min_fid = min(min_fid, gf)
+        entry = record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
+        ckpt.save(state, step=done)
+        save_gallery(gen4, mask4, "final")
+    wall = time.perf_counter() - t0
+    log(f"[gan] finished at step {done} ({wall:.0f}s this run); best PSNR "
+        f"{best['psnr']:.2f} @ step {best.get('step', done)}")
+    return {"final": entry, "best": best, "history": history, "train_steps": done,
+            "wall_s": round(wall, 1)}
+
+
 def main(argv=None) -> Dict:
     a = parse_args(argv)
-    if a.phase != "specseg":
-        raise NotImplementedError(f"--phase {a.phase}: {_PHASE_B}")
     MeshConfig(data_parallel=a.data_parallel).check_single_device()
+    check_warm_start(a)
     device = torch_device("cpu" if a.cpu else "cuda")
     os.makedirs(a.out, exist_ok=True)
     log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
 
     cfg = build_cfg(a)
+    deadline = time.time() + a.max_hours * 3600.0
+    specseg_vars = None
     summary = {"args": dict(vars(a))}
-    _, summary["specseg"] = run_specseg_phase(a, cfg, device)
+    if a.phase in ("both", "specseg"):
+        specseg_vars, summary["specseg"] = run_specseg_phase(a, cfg, device)
+    elif a.specseg_out and os.path.exists(a.specseg_out):
+        specseg_vars = load_specseg_weights(a.specseg_out,
+                                            base_filters=cfg.model.specseg_base_filters,
+                                            image_size=a.image_size)
+        log(f"[gan] loaded frozen SpecSeg from {a.specseg_out}")
+    if a.phase in ("both", "gan"):
+        summary["gan"] = run_gan_phase(a, cfg, specseg_vars, deadline, device)
     out_path = os.path.join(a.out, "quality_summary.json")
     with open(out_path, "w") as f:
         json.dump(summary, f, indent=1)

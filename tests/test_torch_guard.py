@@ -1,9 +1,11 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
-lacks: no import of jax, flax, optax, orbax, msgpack, PIL, h5py, tabulate,
-tensorboard or shmgan_tpu, by reading the sources and by running the port
-(serving, a bundle and a PNG read and written, one train step, the command
-line's train, export and test modes on a tiny tree, and two SpecSeg steps of
-the flagship trainer's phase A) where those modules cannot be imported."""
+lacks: no import of jax, flax, optax, orbax, msgpack, PIL, matplotlib, h5py,
+tabulate, tensorboard or shmgan_tpu, by reading the sources and by running the
+port (serving, a bundle and a PNG read and written, one train step, the
+command line's train, export and test modes on a tiny tree, two SpecSeg steps
+of the flagship trainer's phase A, and two GAN steps of its phase B on the DR
+curriculum with an eval, galleries and the best bundle) where those modules
+cannot be imported."""
 
 import ast
 import os
@@ -12,8 +14,8 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "h5py", "tabulate",
-          "tensorboard", "shmgan_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "matplotlib", "h5py",
+          "tabulate", "tensorboard", "shmgan_tpu")
 
 
 def _port_sources():
@@ -126,6 +128,18 @@ def test_port_runs_with_banned_modules_blocked():
              "--specseg_curriculum", "dr3", "--specseg_in_channels", "2",
              "--out", os.path.join(root, "quality")])
         assert os.path.getsize(summary["specseg"]["weights"]) > 0
+
+        # its phase B on that net: 2 GAN steps (DR views), an eval, galleries, a bundle
+        gan = quality_train.main(
+            ["--cpu", "--phase", "gan", "--image_size", "32", "--filter_size", "4",
+             "--specseg_base_filters", "4", "--specseg_in_channels", "2", "--batch", "2",
+             "--gan_steps", "2", "--chunk", "1", "--eval_every", "2", "--eval_n", "2",
+             "--fid_draws", "1", "--gan_curriculum", "dr", "--dtype", "float32",
+             "--specseg_out", summary["specseg"]["weights"],
+             "--out", os.path.join(root, "quality")])["gan"]
+        assert [r["step"] for r in gan["history"]] == [2]
+        for name in ("best_bundle.msgpack", "sample_best_0.png", "sample_final_1.png"):
+            assert os.path.getsize(os.path.join(root, "quality", name)) > 0
         shutil.rmtree(root)
         print("OK", sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
     """)

@@ -426,12 +426,26 @@ def test_phase_a_exports_the_best_of_live_and_ema(tmp_path, monkeypatch, scores,
     assert differs == (kind == "ema")
 
 
-@pytest.mark.parametrize("argv,match", [([], "phase B"), (["--phase", "gan"], "phase B"),
-                                        (["--phase", "both"], "phase B"),
-                                        (["--phase", "specseg", "--data_parallel", "2"],
-                                         "item 11")])
+BUNDLE_256 = os.path.join(REPO, "artifacts", "shmgan_infer_256.msgpack")  # resize_conv
+
+
+@pytest.mark.parametrize("argv,match", [
+    pytest.param(["--init_from", "ckpt", "--init_from_bundle", BUNDLE_256],
+                 "mutually exclusive", id="argv0-phase B"),
+    pytest.param(["--phase", "gan", "--init_from_bundle", BUNDLE_256],
+                 "upsample_mode=resize_conv; pass --upsample_mode", id="argv1-phase B"),
+    pytest.param(["--phase", "both", "--init_from", "empty"], "no checkpoint found",
+                 id="argv2-phase B"),
+    pytest.param(["--phase", "specseg", "--data_parallel", "2"], "item 11",
+                 id="argv3-item 11")])
 def test_phase_a_refusals(tmp_path, argv, match):
+    """What the trainer refuses before any work: both warm starts at once, a
+    bundle of another upsample_mode, an --init_from without a checkpoint
+    (phase B, also under --phase both), and data parallelism."""
     out = tmp_path / "never"
-    with pytest.raises(NotImplementedError, match=match):
+    (tmp_path / "empty").mkdir()
+    argv = [str(tmp_path / a) if a in ("ckpt", "empty") else a for a in argv]
+    error = NotImplementedError if "item 11" in match else SystemExit
+    with pytest.raises(error, match=match):
         quality_train.main(argv + ["--cpu", "--out", str(out)])
     assert not out.exists()

@@ -409,9 +409,27 @@ def test_synth_specseg_batch_dr_on_jax_draws(jdr, base_mix, chroma):
 
 
 def test_gan_phase_dr_views_raise():
-    for fn in (DR.synth_scene_views_dr, DR.synth_views_batch_dr):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            fn(torch.Generator(), 2, H, W)
+    """The GAN phase's DR views on the port's own draws (held against JAX's
+    renders in tests/test_torch_quality_gan.py): floor(batch * base_mix)
+    base stacks first, each the base curriculum's render of its draws; ED
+    the views' min or the diffuse layer; every DR view within the sensor
+    noise of the diffuse layer plus its Malus-gained specular."""
+    g = torch.Generator().manual_seed(3)
+    d = DR.synth_views_batch_dr_draws(g, 5, H, W, base_mix=0.5)
+    assert d.base.swap_u.shape == (2,) and d.dr.phi.shape == d.swap_u.shape == (3,)
+    views = {m: DR.synth_views_batch_dr_render(d, H, W, m, 0.0) for m in ("min", "diffuse")}
+    assert views["min"].shape == (5, 5, H, W, 3)
+    assert torch.equal(views["min"][:, :2], S.synth_views_batch_render(d.base, H, W, "min"))
+    assert torch.equal(views["min"][4], views["min"][:4].amin(dim=0))
+    four, diffuse, _, _ = DR.synth_scene_views_dr(d.dr, H, W)
+    assert torch.equal(views["diffuse"][4, 2:], diffuse)
+    assert torch.equal(views["diffuse"][:4, 2:], four.movedim(1, 0))
+    clean = torch.clamp(four - d.dr.scene.nsig[:, None, None, None, None] * d.dr.view_noise,
+                        0.0, 1.0)
+    assert (clean >= diffuse[:, None] - 1e-6).all()
+    assert views["diffuse"].min() >= 0.0 and views["diffuse"].max() <= 1.0
+    all_base = DR.synth_views_batch_dr_draws(g, 4, H, W, base_mix=1.0)
+    assert all_base.dr is None and all_base.swap_u is None
 
 
 # -- the port's own draws, in distribution ------------------------------------------
