@@ -49,17 +49,31 @@ Phases (each prints its name before it starts and its seconds after):
               kernel's streaming variant, recorded launch by launch), f32 and
               bf16: launches, each output against the plain versions, ms per
               shape;
+  formats     every committed codec fixture (tests/data/torch_codecs/: JPEG
+              baseline, progressive, subsampled, restart, greyscale, odd
+              sizes and two photos; GIF; 16-bit and Adam7 PNG; 16-bit and
+              maxval-100 P6; palette and RLE8 BMP) decoded on the host
+              against PIL's pixels (the PNG beside it), exactly, with the
+              decode ms of each beside the PNG decode of the same pixels;
+              the 612x816 and 2048x1536 JPEG photos through
+              process_images_native on the bundle in f32 and bf16
+              (launches, each output against the plain versions, the
+              612x816 bucket's streaming preprocess, ms);
   serve_http  `python -m shmgan_tpu_torch.cli --mode serve` on the bundle as a
               subprocess (batch 8, a 20 ms window): /healthz by a deadline,
               PNGs at size=256 with each output=, at size=native, resized
-              from 612x816, each within one level of an in-process engine's
-              pixels; 16 concurrent requests in fewer device calls than
-              requests; request ms and requests/s; the server's kernel
+              from 612x816, the 612x816 JPEG fixture at size=256 and
+              size=native and a GIF fixture, each within one level of an
+              in-process engine's pixels (of PIL's pixels for a JPEG or
+              GIF); host decode ms of the JPEG and GIF bodies; 16
+              concurrent requests in fewer device calls than requests;
+              request ms and requests/s; the server's kernel
               launches from /stats; host PNG and resize ms. The server is
               terminated in any case;
   serve_folder process_folder and watch_folder(max_iterations=3), square and
-              native, on ten PNGs: the files written, their shapes, the
-              square job's pixels against process_images', launches;
+              native, on ten PNGs and every JPEG, GIF, 16-bit PNG and BMP
+              fixture: the files written, their shapes, the square job's
+              pixels against process_images', launches;
   train       the fused train step at full width in f32 (the JAX package's
               default model: 128 px, filter 64, batch 8) on seeded weights: one
               step through the kernels against the same step through the plain
@@ -67,10 +81,17 @@ Phases (each prints its name before it starts and its seconds after):
               each kernel in a step, ten more steps (median step ms, images/s,
               peak device memory), one K = 3 make_scan_train_steps call, and
               the card against the CPU on one step at batch 2;
-  train_bf16  the same step in bf16: through the kernels against the plain
-              versions, G's and D's gradients and the losses no further apart
-              than the plain bf16 step is from the f32 step on the same
-              weights and draws; the launches of a step; ten timed steps;
+  train_bf16  the same step in bf16 on four random batches: through the
+              kernels against the plain versions, G's and D's gradients and
+              the losses no further apart, over the four, than the plain
+              bf16 step is from the f32 step on the same weights and draws;
+              the launches of a step; ten timed steps;
+  triplets    a triplet tree at 128 px (write_triplet_fixture_tree,
+              TripletDataset): specseg_pairs card vs CPU, one SpecSeg step at
+              b32 on the pairs card vs CPU, one GAN step at the JAX defaults
+              on triplet_to_views' stack in bf16 on four batches and in f32
+              on one (launches exactly (46, 28, 1) each; f32 kernels vs
+              plain by LOOP_MOMENT_RTOL; bf16 by the gap rule);
   train_loop  train.loop.train in f32 on a 16-scene synthetic tree, 2 epochs
               of 2 steps, from one set of seeded models, through the kernels
               and through the plain versions: launches (exactly 4 steps'),
@@ -86,8 +107,9 @@ Phases (each prints its name before it starts and its seconds after):
               first metrics row (exit 0, a checkpoint at the step reached,
               max_to_keep), --mode export (the bundle against the
               checkpoint), --mode test with metrics on 8 camera images of
-              the tree (24 PNGs, one preprocess launch), and serving_models
-              without a bundle answering one request;
+              the tree (24 PNGs, one preprocess launch), --mode test on a
+              folder of every JPEG and GIF fixture (three PNGs each), and
+              serving_models without a bundle answering one request;
   specseg_train the flagship trainer's phase A, f32: one SpecSeg train step
               on the card against one on the CPU (dr2 at 2 channels, batch
               32, 128 px, base 16; the optimizer's first moment, batch
@@ -178,6 +200,14 @@ BUNDLE = "artifacts/shmgan_infer_256.msgpack"   # the trained 256-px weights
 # (640x832) is too large for a cluster's shared memory (the streaming variant)
 NATIVE_SHAPES = [(256, 256), (300, 452), (612, 816)]
 
+# the committed codec fixtures (tests/data/torch_codecs/): each file beside
+# <name>.png, the pixels PIL's convert("RGB") gives for it
+CODEC_DIR = os.path.join(ROOT, "tests", "data", "torch_codecs")
+CODEC_FIXTURES = 26
+FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg")
+# serve_folder's extra inputs: every JPEG and GIF fixture, the 16-bit PNGs, the BMPs
+FOLDER_FORMATS = (".jpg", ".gif", "16.png", ".bmp")
+
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
 PRE_TRAIN_SHAPE = (40, 128, 128, 3)   # the train step's 5 views of 8 images
@@ -196,6 +226,12 @@ IN_PARAM_TOL_BF16 = dict(rtol=1e-3, atol=1e-3)  # dgamma, dbeta (f32) of bf16 ac
 # an IN backward whose dx is 1.01 times too large reads 1.09 on G's
 # gradients (shmgan_tpu_torch/plant_faults.py)
 GAP_C = 1.0
+# a bf16 train step's gap, its losses above all, is held over this many
+# batches at once. One batch is one draw of bf16 rounding noise that the
+# nets amplify: one build of the kernels read the losses' ratio at 1.265,
+# 0.600, 0.785 and 0.894 on four random batches (H100); a kernel fault
+# moves every batch alike, so pooling keeps it as large
+STEP_GAP_BATCHES = 4
 PRE_TOL = dict(rtol=1e-5, atol=1e-5)  # same arithmetic, other sum order
 SERVE_ATOL = 1e-3                     # kernel path vs plain path, whole engine
 # train step, kernel path vs plain path and card vs CPU: G's and D's gradients
@@ -938,15 +974,15 @@ def outputs_timing(bundle):
         eng.close()
 
 
-def serve_native_phase(bundle):
-    """process_images_native on the trained bundle at NATIVE_SHAPES, two
-    images each (batch 2), in f32 and bf16: launches counted, the preprocess
-    variant of each launch recorded (the largest bucket must stream), every
-    output against the plain versions (f32 within SERVE_ATOL, bf16 by the
-    gap to the f32 outputs), and ms per shape."""
-    from unittest import mock
-
-    from shmgan_tpu_torch.infer import bucket_shape
+def _native_runs(bundle, images, batch_size, calls, label, after):
+    """process_images_native on the trained bundle over `images` (batch
+    `batch_size`, `calls` device calls), in f32, then in bf16: launches
+    counted (18 IN forwards and one preprocess a call), the preprocess
+    variant of each launch recorded, every output finite at its image's
+    shape and held against the same run through the plain versions (f32
+    within SERVE_ATOL, bf16 by the gap to the f32 outputs); then
+    after(engine, compute_dtype, [(launch shape, variant)]). Returns the
+    launches of both runs, summed."""
     from shmgan_tpu_torch.ops.kernels import preprocess as pre
     from shmgan_tpu_torch.profile_serve import plain_versions, serving_config
     from shmgan_tpu_torch.serve import BatchInferenceEngine
@@ -956,9 +992,8 @@ def serve_native_phase(bundle):
         dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         cfg = serving_config(compute_dtype)
         gen, specseg = bundle_models(cfg, bundle)
-        eng = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, native_resolution=True)
-        rng = np.random.default_rng(2)
-        images = [img for h, w in NATIVE_SHAPES for img in scenes(2, h, w, rng)]
+        eng = BatchInferenceEngine(cfg, gen, specseg, batch_size=batch_size,
+                                   native_resolution=True)
         eng.process_images_native(images)  # warm-up
         torch.cuda.synchronize()
         plans, launch = [], pre._launch
@@ -970,32 +1005,50 @@ def serve_native_phase(bundle):
         _launch_counts(reset=True)
         with mock.patch.object(pre, "_launch", spy):
             outs = eng.process_images_native(images)
+        torch.cuda.synchronize()
         counts = _launch_counts(reset=True)
-        want = {**{k: 0 for k in counts}, _in_name(dtype): 18 * len(NATIVE_SHAPES),
-                "fused_standardize_yuv": len(NATIVE_SHAPES)}
-        say(f"serve_native {compute_dtype}: launches {counts}; preprocess launches {plans}")
+        want = {**{k: 0 for k in counts}, _in_name(dtype): 18 * calls,
+                "fused_standardize_yuv": calls}
+        say(f"{label} {compute_dtype}: launches {counts}; preprocess launches {plans}")
         if counts != want:
-            raise AssertionError(f"serve_native launches {counts}, expected {want}")
-        streamed = [s for s, v in plans if v == "streaming"]
-        big = (2,) + bucket_shape(*NATIVE_SHAPES[-1]) + (3,)
-        if streamed != [big]:
-            raise AssertionError(f"expected exactly {big} to take the streaming variant: {plans}")
+            raise AssertionError(f"{label} launches {counts}, expected {want}")
         for img, out in zip(images, outs):
             for k, v in out.items():
                 if v.shape[:2] != img.shape[:2] or not np.isfinite(v).all():
-                    raise AssertionError(f"serve_native {k}: shape {v.shape} for an image of "
+                    raise AssertionError(f"{label} {k}: shape {v.shape} for an image of "
                                          f"{img.shape}, or non-finite values")
         with plain_versions():
             plain = eng.process_images_native(images)
         if any(_launch_counts(reset=True).values()):
-            raise AssertionError("the plain native run launched a kernel")
+            raise AssertionError(f"the plain {label} run launched a kernel")
         for i, (img, out, ref) in enumerate(zip(images, outs, plain)):
-            label = f"kernels vs plain, native {img.shape[0]}x{img.shape[1]} #{i % 2}"
+            tag = f"kernels vs plain, {label} {img.shape[0]}x{img.shape[1]} #{i}"
             if f32_outs is None:
-                _compare(out, ref, label + ":")
+                _compare(out, ref, tag + ":")
             else:
                 for k in ref:
-                    _gap_check(f"{label}: {k}", out[k], ref[k], f32_outs[i][k])
+                    _gap_check(f"{tag}: {k}", out[k], ref[k], f32_outs[i][k])
+        after(eng, compute_dtype, plans)
+        _launch_counts(reset=True)
+        eng.close()
+        totals.append(counts)
+        f32_outs = outs
+    return _sum_counts(*totals)
+
+
+def serve_native_phase(bundle):
+    """_native_runs at NATIVE_SHAPES, two images each (batch 2): the largest
+    bucket, and it alone, takes the streaming preprocess; ms per shape."""
+    from shmgan_tpu_torch.infer import bucket_shape
+
+    rng = np.random.default_rng(2)
+    images = [img for h, w in NATIVE_SHAPES for img in scenes(2, h, w, rng)]
+    big = (2,) + bucket_shape(*NATIVE_SHAPES[-1]) + (3,)
+
+    def after(eng, compute_dtype, plans):
+        streamed = [s for s, v in plans if v == "streaming"]
+        if streamed != [big]:
+            raise AssertionError(f"expected exactly {big} to take the streaming variant: {plans}")
         for j, (h, w) in enumerate(NATIVE_SHAPES):
             pair = images[2 * j:2 * j + 2]
             ts = []
@@ -1007,11 +1060,68 @@ def serve_native_phase(bundle):
             say(f"serve_native {compute_dtype} {h}x{w} (bucket {bucket_shape(h, w)}), batch 2: "
                 f"median {np.median(ts):.2f} ms ({2e3 / np.median(ts):.2f} images/s), min "
                 f"{min(ts):.2f} ms over {len(ts)}")
-        _launch_counts(reset=True)
-        eng.close()
-        totals.append(counts)
-        f32_outs = outs
-    return _sum_counts(*totals)
+
+    return _native_runs(bundle, images, 2, len(NATIVE_SHAPES), "native", after)
+
+
+def codec_fixtures():
+    """{name: (the fixture's bytes, the bytes of the PNG of PIL's pixels)},
+    sorted by name."""
+    names = sorted(f for f in os.listdir(CODEC_DIR)
+                   if os.path.isfile(os.path.join(CODEC_DIR, f + ".png")))
+    if len(names) != CODEC_FIXTURES:
+        raise AssertionError(f"{len(names)} codec fixtures, expected {CODEC_FIXTURES}")
+    return {n: (_read(os.path.join(CODEC_DIR, n)), _read(os.path.join(CODEC_DIR, n + ".png")))
+            for n in names}
+
+
+def formats_phase(bundle):
+    """Every committed codec fixture decoded on the host by data/codecs.py
+    against PIL's pixels (its PNG, read by the port's PNG decoder), exactly;
+    decode ms of each beside the PNG decode of the same pixels; then the two
+    largest photos, one a call, through process_images_native on the
+    trained bundle in f32 and in bf16 (_native_runs: launches, outputs held
+    against the plain versions), the 612x816 photo's preprocess streaming;
+    ms each."""
+    from shmgan_tpu_torch.data.codecs import decode
+    from shmgan_tpu_torch.data.loader import to_unit
+
+    decoded, wrong = {}, []
+    for name, (data, ref) in codec_fixtures().items():
+        reps = 2 if len(data) > 100_000 else 5
+        got, want = decode(data), decode(ref)
+        dec = [_timed_ms(lambda: decode(data)) for _ in range(reps)]
+        png = [_timed_ms(lambda: decode(ref)) for _ in range(reps)]
+        same = got.shape == want.shape and np.array_equal(got, want)
+        diff = "" if same else (
+            f"; DIFFERS: max {int(np.abs(got.astype(int) - want).max())} levels at "
+            f"{float((got != want).mean()):.2e} of values" if got.shape == want.shape
+            else f"; DIFFERS: shape {got.shape} vs {want.shape}")
+        say(f"decode {name} ({len(data)} bytes, {got.shape[0]}x{got.shape[1]}): median "
+            f"{np.median(dec):.2f} ms over {reps}; the PNG of the same pixels ({len(ref)} "
+            f"bytes) {np.median(png):.2f} ms; {'equal to PIL' if same else ''}{diff}")
+        if not same:
+            wrong.append(name)
+        decoded[name] = got
+    if wrong:
+        raise AssertionError(f"fixtures decoded otherwise than PIL: {wrong}")
+
+    images = [to_unit(decoded[n]) for n in FORMAT_PHOTOS]
+
+    def after(eng, compute_dtype, plans):
+        if plans[0] != ((1, 640, 832, 3), "streaming"):
+            raise AssertionError(f"the 612x816 photo took {plans[0]}, not the streaming variant")
+        for name, img in zip(FORMAT_PHOTOS, images):
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.process_images_native([img])
+                ts.append((time.perf_counter() - t0) * 1e3)
+            say(f"formats {name} {compute_dtype}: process_images_native median "
+                f"{np.median(ts):.2f} ms over 3")
+
+    return _native_runs(bundle, images, 1, len(images), "formats", after)
 
 
 def _http(url, body=None, timeout=120):
@@ -1026,14 +1136,17 @@ def serve_http_phase():
     """`python -m shmgan_tpu_torch.cli --mode serve` on the trained bundle as
     a subprocess (batch 8, a 20 ms window): /healthz within a deadline; PNGs
     made by the port's encoder from seeded scenes POSTed at size=256 with
-    each output=, at size=native, and resized from 612x816; each response's
-    pixels within one level of an in-process engine's on the same decoded
-    input; 16 concurrent requests in fewer device calls than requests;
+    each output=, at size=native, and resized from 612x816, and the 612x816
+    JPEG fixture (at size=256 and size=native) and a GIF fixture; each
+    response's pixels within one level of an in-process engine's on the
+    same decoded input (for a JPEG or GIF, PIL's pixels); the host decode
+    ms of the JPEG and GIF bodies; 16 concurrent requests in fewer device calls than requests;
     request ms and requests/s; the server's own kernel launches (/stats).
     The server is terminated in any case."""
     import base64
     import socket
     import tempfile
+    import urllib.error
     from concurrent.futures import ThreadPoolExecutor
 
     from shmgan_tpu_torch.cli import serving_models
@@ -1066,6 +1179,13 @@ def serve_http_phase():
     res = [_timed_ms(lambda: resize_bilinear(big, (256, 256))) for _ in range(5)]
     say(f"host resize 612x816 -> 256x256 (Pillow's bilinear): {np.median(res):.2f} ms")
 
+    fixtures = codec_fixtures()
+    jpeg, gif = fixtures["photo_612x816.jpg"], fixtures["palette.gif"]
+    for label, (data, _) in (("JPEG 612x816", jpeg), ("GIF 256x256", gif)):
+        dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
+        say(f"host decode of the {label} body ({len(data)} bytes): median "
+            f"{np.median(dec):.2f} ms over 5")
+
     cfg = Config.from_args(argv)
     gen, specseg = serving_models(cfg)
     engines = {256: BatchInferenceEngine(cfg, gen, specseg, batch_size=8, outputs=HTTP_OUTPUTS),
@@ -1078,6 +1198,10 @@ def serve_http_phase():
             return engines[size].process_images_native([rgb[0]])[0]
         return {k: v[0] for k, v in engines[size].process_images(rgb).items()}
 
+    # the server shares the card: hand back what earlier phases left cached
+    torch.cuda.empty_cache()
+    say(f"device memory before the server: {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved by this process")
     with tempfile.TemporaryFile() as log:
         t0 = time.perf_counter()
         proc = subprocess.Popen([sys.executable, "-m", "shmgan_tpu_torch.cli", *argv],
@@ -1097,16 +1221,28 @@ def serve_http_phase():
             say(f"server up in {time.perf_counter() - t0:.1f} s: /healthz {health}")
             before = json.loads(_http(url + "/stats")[2])
 
-            checks = [("size=256", "image", square), ("size=256", "composited", square),
-                      ("size=256", "mask", square), ("size=256", "json", square),
-                      ("size=native", "image", photo), ("size=native", "mask", photo),
-                      ("size=256", "image", big)]
+            # (query, output, label, body, the PNG of its decoded pixels): the
+            # in-process engine reads the PNG of PIL's pixels of a JPEG or GIF body
+            pngs = [(q, o, f"{img.shape[0]}x{img.shape[1]} PNG", encode_png(img))
+                    for q, o, img in (
+                        ("size=256", "image", square), ("size=256", "composited", square),
+                        ("size=256", "mask", square), ("size=256", "json", square),
+                        ("size=native", "image", photo), ("size=native", "mask", photo),
+                        ("size=256", "image", big))]
+            checks = [(q, o, label, body, body) for q, o, label, body in pngs] + [
+                ("size=256", "image", "612x816 JPEG", *jpeg),
+                ("size=native", "image", "612x816 JPEG", *jpeg),
+                ("size=256", "image", "256x256 GIF", *gif)]
             worst = 0
-            for query, output, img in checks:
-                body = encode_png(img)
+            for query, output, label, body, ref_body in checks:
                 size = "native" if query == "size=native" else 256
-                status, ctype, reply = _http(f"{url}/v1/specfree?{query}&output={output}", body)
-                ref = local(body, size)
+                try:
+                    status, ctype, reply = _http(f"{url}/v1/specfree?{query}&output={output}",
+                                                 body)
+                except urllib.error.HTTPError as e:
+                    raise AssertionError(f"POST {query} output={output} ({label} in): "
+                                         f"{e.code} {e.read()[:2000]!r}") from None
+                ref = local(ref_body, size)
                 if output == "json":
                     payload = json.loads(reply)
                     got = decode(base64.b64decode(payload["image_png_b64"]))
@@ -1119,7 +1255,7 @@ def serve_http_phase():
                                "composited": ref["gen_rgb_composited"],
                                "mask": np.repeat(ref["mask"], 3, axis=-1)}[output])
                 diff = int(np.abs(got.astype(int) - want).max()) if got.shape == want.shape else -1
-                say(f"POST {query} output={output} ({img.shape[0]}x{img.shape[1]} in): {status} "
+                say(f"POST {query} output={output} ({label} in): {status} "
                     f"{ctype}, {got.shape}, max |server - in-process| = {diff} levels, "
                     f"{float((got != want).mean()) if diff >= 0 else 1.0:.2e} of values differ")
                 if status != 200 or not 0 <= diff <= 1:
@@ -1188,32 +1324,45 @@ def _timed_ms(fn):
 
 
 def serve_folder_phase(bundle):
-    """10 PNGs (five 256x256, five 300x452) through process_folder and
-    watch_folder(max_iterations=3), square (256) and native, bf16 on the
-    trained bundle: the files written (names, shapes), the square job's
-    pixels against the same engine's process_images, watch_folder's files
-    against process_folder's, and the launches of the four jobs."""
+    """10 PNGs (five 256x256, five 300x452) and the codec fixtures of
+    FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs) through
+    process_folder and watch_folder(max_iterations=3), square (256) and
+    native, bf16 on the trained bundle: the files written (names, shapes),
+    the square job's pixels against the same engine's process_images,
+    watch_folder's files against process_folder's, and the launches of the
+    four jobs (18 IN forwards and one preprocess a device call: a square job
+    calls once a batch of 8, a native one once a batch of 8 of one size)."""
     import tempfile
 
     from shmgan_tpu_torch.data.codecs import decode, encode_png
-    from shmgan_tpu_torch.data.loader import decode_resize
+    from shmgan_tpu_torch.data.loader import decode_resize, list_images
     from shmgan_tpu_torch.profile_serve import serving_config
     from shmgan_tpu_torch.serve import BatchInferenceEngine
 
     cfg = serving_config("bfloat16")
     gen, specseg = bundle_models(cfg, bundle)
     rng = np.random.default_rng(5)
-    imgs = list(scenes(5, 256, 256, rng)) + list(scenes(5, 300, 452, rng))
+    inputs = {f"photo{i:02d}.png": encode_png((img * 255).astype(np.uint8)) for i, img in
+              enumerate(list(scenes(5, 256, 256, rng)) + list(scenes(5, 300, 452, rng)))}
+    # fixtures as fx_<name>_<ext>.<ext>: palette.gif and palette.bmp write distinct outputs
+    inputs.update({"fx_" + n.replace(".", "_") + os.path.splitext(n)[1]: data
+                   for n, (data, _) in codec_fixtures().items() if n.endswith(FOLDER_FORMATS)})
+    file_of = {os.path.splitext(n)[0]: n for n in inputs}
+    names = sorted(file_of)
+    native_sizes = {b: decode(inputs[n]).shape[:2] for b, n in file_of.items()}
+    by_size = {}
+    for hw in native_sizes.values():
+        by_size[hw] = by_size.get(hw, 0) + 1
+    calls = 2 * (-(-len(inputs) // 8) + sum(-(-n // 8) for n in by_size.values()))
     kw = dict(batch_size=8, outputs=("gen_rgb_calibrated", "mask"))
     engines = {"square": BatchInferenceEngine(cfg, gen, specseg, **kw),
                "native": BatchInferenceEngine(cfg, gen, specseg, native_resolution=True, **kw)}
     with tempfile.TemporaryDirectory() as tmp:
         in_dir = os.path.join(tmp, "in")
         os.makedirs(in_dir)
-        names = [f"photo{i:02d}" for i in range(len(imgs))]
-        for name, img in zip(names, imgs):
-            with open(os.path.join(in_dir, name + ".png"), "wb") as f:
-                f.write(encode_png((img * 255).astype(np.uint8)))
+        for name, data in inputs.items():
+            with open(os.path.join(in_dir, name), "wb") as f:
+                f.write(data)
         for eng in engines.values():
             eng.warmup()
         _launch_counts(reset=True)
@@ -1233,25 +1382,27 @@ def serve_folder_phase(bundle):
                 written[kind, job] = {f: _read(os.path.join(out_dir, f)) for f in files}
                 shapes = [decode(written[kind, job][f"{b}_specfree.png"]).shape[:2]
                           for b in names]
-                sizes = [(256, 256) if kind == "square" else img.shape[:2] for img in imgs]
+                sizes = [(256, 256) if kind == "square" else native_sizes[b] for b in names]
                 say(f"{kind} {job}: {n} images in {secs:.3f} s, {len(files)} files")
                 if n != len(names) or files != want or shapes != sizes:
                     raise AssertionError(f"{kind} {job}: {n} images, files {files}, shapes "
                                          f"{shapes}")
         counts = _launch_counts(reset=True)
-        want = {**{k: 0 for k in counts}, _in_name(torch.bfloat16): 18 * 8,
-                "fused_standardize_yuv": 8}
-        say(f"serve_folder launches {counts} (two device calls a job)")
+        want = {**{k: 0 for k in counts}, _in_name(torch.bfloat16): 18 * calls,
+                "fused_standardize_yuv": calls}
+        say(f"serve_folder launches {counts} ({calls} device calls in four jobs on "
+            f"{len(inputs)} files, {len(by_size)} native sizes)")
         if counts != want:
             raise AssertionError(f"serve_folder launches {counts}, expected {want}")
         for kind in engines:
             if written[kind, "process_folder"] != written[kind, "watch_folder"]:
                 raise AssertionError(f"{kind}: watch_folder wrote other files than "
                                      f"process_folder")
+        listed = list_images(in_dir)       # the folder job's order, so its batches
         direct = engines["square"].process_images(
-            np.stack([decode_resize(os.path.join(in_dir, b + ".png"), 256) for b in names]))
+            np.stack([decode_resize(p, 256) for p in listed]))
         _launch_counts(reset=True)
-        for j, b in enumerate(names):
+        for j, b in enumerate(os.path.splitext(os.path.basename(p))[0] for p in listed):
             got = decode(written["square", "process_folder"][f"{b}_specfree.png"])
             if not np.array_equal(got, (np.clip(direct["gen_rgb_calibrated"][j], 0, 1) * 255)
                                   .astype(np.uint8)):
@@ -1410,29 +1561,81 @@ def train_phase():
     return totals
 
 
-def _compare_step_gap(got, plain, f32, label):
-    """A bf16 step through the kernels against the same step through the
-    plain versions (_gap_check): G's and D's gradients, each network as one
-    vector, and the losses as one vector, each loss scaled by its f32 value."""
+def _compare_step_gap(steps, label):
+    """bf16 steps through the kernels against the same steps through the
+    plain versions, `steps` a list of (kernels, plain, f32) metrics, one
+    batch each: G's and D's gradients, each network as one vector, and the
+    losses as one vector, each loss scaled by its f32 value, held by
+    _gap_check over all the batches at once (STEP_GAP_BATCHES), each
+    batch's ratio printed beside."""
     def flat(m, net):
         return torch.cat([m["_grads"][net][k].double().flatten().cpu()
                           for k in sorted(m["_grads"][net])]).numpy()
 
-    for net in ("G", "D"):
-        _gap_check(f"{label} {net} gradients", *(flat(m, net) for m in (got, plain, f32)))
-    keys = sorted(k for k in f32 if not k.startswith("_") and k != "target_label")
-    _gap_check(f"{label} losses ({len(keys)}, each scaled by its f32 value)",
-               *([float(m[k]) / max(abs(float(f32[k])), 1e-30) for k in keys]
-                 for m in (got, plain, f32)))
+    keys = sorted(k for k in steps[0][2] if not k.startswith("_") and k != "target_label")
+
+    def scaled(m, f32):
+        return np.array([float(m[k]) / max(abs(float(f32[k])), 1e-30) for k in keys])
+
+    parts = {f"{net} gradients": [tuple(flat(m, net) for m in step) for step in steps]
+             for net in ("G", "D")}
+    parts[f"losses ({len(keys)}, each scaled by its f32 value)"] = [
+        tuple(scaled(m, step[2]) for m in step) for step in steps]
+    for i, (k_, p_, f_) in enumerate(parts[f"losses ({len(keys)}, each scaled by its f32 value)"]):
+        say(f"  {label} batch {i}, each loss, (kernels - plain, plain - f32) / |f32|: "
+            + ", ".join(f"{k} {a - b:+.2e} {b - c:+.2e}" for k, a, b, c in zip(keys, k_, p_, f_)))
+    for name, per in parts.items():
+        if len(per) > 1:
+            say(f"  {label} {name}, ratio of each batch (read): " + ", ".join(
+                f"{np.linalg.norm(k - p) / max(np.linalg.norm(p - f), 1e-300):.3f}"
+                for k, p, f in per))
+        _gap_check(f"{label} {name}" + (f", {len(per)} batches" if len(per) > 1 else ""),
+                   *(np.concatenate(x) for x in zip(*per)))
+
+
+def _bf16_step_check(cfg, f32_cfg, state, batches, what):
+    """One bf16 train step (seed-0 weights in `state`) through the kernels
+    on each (views, draws) of `batches`: its launches, exactly
+    step_launches'; against the same step through the plain versions by
+    the gap to the same step in f32 on the card (_compare_step_gap).
+    Returns the state stepped on the first batch and the launches."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step
+
+    checked = make_train_step(cfg, debug_grads=True)
+    start, stepped, counts, steps = copy.deepcopy(state), None, [], []
+    want = step_launches(torch.bfloat16)
+    for views, draws in batches:
+        # the same step in f32 on the same weights (seed 0), views and draws
+        f32_state = create_train_state(f32_cfg, build_models(f32_cfg, device="cuda", seed=0))
+        _, in_f32 = make_train_step(f32_cfg, debug_grads=True)(f32_state, views, draws, 0)
+        del f32_state
+        _launch_counts(reset=True)
+        state, through_kernels = checked(copy.deepcopy(start), views, draws, 0)
+        torch.cuda.synchronize()
+        counts.append(_launch_counts(reset=True))
+        if stepped is None:
+            stepped = state
+        say(f"one bf16 train step{what}: launches {counts[-1]} (expected {want})")
+        if counts[-1] != want:
+            raise AssertionError(f"bf16 train step{what} launches {counts[-1]}, expected {want}")
+        with plain_versions():
+            _, through_plain = checked(copy.deepcopy(start), views, draws, 0)
+        if any(_launch_counts(reset=True).values()):
+            raise AssertionError("the plain train step launched a kernel")
+        steps.append((through_kernels, through_plain, in_f32))
+    _compare_step_gap(steps, f"kernels vs plain, bf16{what}:")
+    return stepped, _sum_counts(*counts)
 
 
 def train_bf16_phase():
     """The train step at full width computing in bf16: one step through the
-    kernels against the same step through the plain versions, by the gap to
-    the same step in f32 on the card; launches of each kernel a step; ten
-    timed steps."""
+    kernels on each of STEP_GAP_BATCHES random batches against the same
+    step through the plain versions, by the gap to the same step in f32 on
+    the card; launches of each kernel a step; ten timed steps."""
     from shmgan_tpu_torch.models import build_models
-    from shmgan_tpu_torch.profile_serve import plain_versions
     from shmgan_tpu_torch.profile_train import training_config
     from shmgan_tpu_torch.train.state import create_train_state
     from shmgan_tpu_torch.train.step import make_train_step, sample_draws
@@ -1447,31 +1650,12 @@ def train_bf16_phase():
     def batch():
         return torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
 
-    checked, fast = make_train_step(cfg, debug_grads=True), make_train_step(cfg)
-    views, draws = batch(), sample_draws(cfg, gen, v, b, size, size)
-    fast(copy.deepcopy(state), views, draws, 0)  # warm-up: cuDNN's choices, allocator
+    fast = make_train_step(cfg)
+    batches = [(batch(), sample_draws(cfg, gen, v, b, size, size))
+               for _ in range(STEP_GAP_BATCHES)]
+    fast(copy.deepcopy(state), *batches[0], 0)  # warm-up: cuDNN's choices, allocator
     torch.cuda.synchronize()
-
-    # the same step in f32 on the same weights (seed 0), views and draws
-    f32_state = create_train_state(f32_cfg, build_models(f32_cfg, device="cuda", seed=0))
-    _, in_f32 = make_train_step(f32_cfg, debug_grads=True)(f32_state, views, draws, 0)
-    del f32_state
-
-    plain_state = copy.deepcopy(state)
-    _launch_counts(reset=True)
-    state, through_kernels = checked(state, views, draws, 0)
-    torch.cuda.synchronize()
-    step_counts = _launch_counts(reset=True)
-    want = step_launches(torch.bfloat16)
-    say(f"one bf16 train step: launches {step_counts} (expected {want})")
-    if step_counts != want:
-        raise AssertionError(f"bf16 train step launches {step_counts}, expected {want}")
-    with plain_versions():
-        plain_state, through_plain = checked(plain_state, views, draws, 0)
-    if any(_launch_counts(reset=True).values()):
-        raise AssertionError("the plain train step launched a kernel")
-    _compare_step_gap(through_kernels, through_plain, in_f32, "kernels vs plain, bf16:")
-    del plain_state, through_plain, through_kernels, in_f32
+    state, step_counts = _bf16_step_check(cfg, f32_cfg, state, batches, "")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1497,6 +1681,90 @@ def train_bf16_phase():
         raise AssertionError(f"10 bf16 train steps launched {counts}, expected {want}")
     return {k: step_counts[k] + counts[k] for k in counts}, dict(median_ms=med * 1e3,
                                                                  images_per_s=b / med)
+
+
+# triplets: a SHIQ-style tree of TRIPLET_SCENES triplets at SS_SIZE px; one
+# SpecSeg step at SS_BATCH on its pairs, one GAN step on the first batch's views
+TRIPLET_SCENES = 32
+
+
+def triplets_phase():
+    """The triplet adapter on the card: write_triplet_fixture_tree at 128 px,
+    TripletDataset; specseg_pairs on the card against the CPU (within
+    SS_STD_RTOL of each image's scale); one SpecSeg step at b32, 1 channel,
+    base 16 on the pairs, card vs CPU (_ss_step_check); one GAN step at the
+    JAX defaults (128 px, b8, filter 64) on triplet_to_views' stack of the
+    b32 batch's triplets, 8 at a time, in bf16 on STEP_GAP_BATCHES batches
+    and in f32 on the first: launches exactly step_launches' in each; f32
+    through the kernels against the plain versions by LOOP_MOMENT_RTOL;
+    bf16 by the gap rule. The four view slots hold one image, so many
+    instance-norm planes are near constant, where one-pass moments in f32
+    cancel (csrc/instance_norm.cu keeps them from it)."""
+    from shmgan_tpu_torch.data.synthetic import write_triplet_fixture_tree
+    from shmgan_tpu_torch.data.triplets import TripletDataset, specseg_pairs, triplet_to_views
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_triplet_fixture_tree(root, TRIPLET_SCENES, SS_SIZE, seed=7)
+        t1 = time.perf_counter()
+        ds = TripletDataset(root, SS_SIZE, batch_size=SS_BATCH)
+        t2 = time.perf_counter()
+        batch = next(ds.iter_epoch(shuffle_seed=0))
+    say(f"triplet tree: {TRIPLET_SCENES} triplets at {SS_SIZE} px written in {t1 - t0:.2f} s, "
+        f"read in {t2 - t1:.2f} s; mask coverage {float(batch['mask'].mean()):.4f}")
+    y_card, m_card = specseg_pairs(batch, "cuda")
+    y_cpu, m_cpu = specseg_pairs(batch, "cpu")
+    scale = y_cpu.flatten(1).abs().amax(1)
+    err = float(((y_card.cpu() - y_cpu).flatten(1).abs().amax(1) / scale).max())
+    say(f"specseg_pairs card vs CPU: max|diff| / image scale {err:.3e} (tol {SS_STD_RTOL}); "
+        f"masks equal {torch.equal(m_card.cpu(), m_cpu)}")
+    if err > SS_STD_RTOL or not torch.equal(m_card.cpu(), m_cpu) \
+            or y_card.device.type != "cuda":
+        raise AssertionError("specseg_pairs on the card differs from the CPU's")
+    _launch_counts(reset=True)
+    _ss_step_check("triplet pairs, 1 channel", y_cpu, m_cpu)
+    if any(_launch_counts(reset=True).values()):
+        raise AssertionError("the SpecSeg step launched a kernel")
+
+    cfg, f32_cfg = training_config("bfloat16"), training_config("float32")
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # the SpecSeg batch's triplets, b at a time, as the GAN's batches
+    batches = [(torch.from_numpy(triplet_to_views(
+        {k: a[i * b:(i + 1) * b] for k, a in batch.items()})).cuda(),
+        sample_draws(cfg, gen, v, b, size, size)) for i in range(STEP_GAP_BATCHES)]
+    views, draws = batches[0]
+    if tuple(views.shape) != (v, b, size, size, 3):
+        raise AssertionError(f"triplet views {tuple(views.shape)}")
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    make_train_step(cfg)(copy.deepcopy(state), views, draws, 0)  # warm-up
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    _, counts = _bf16_step_check(cfg, f32_cfg, state, batches, " on triplet views")
+    del state
+
+    f32_state = create_train_state(f32_cfg, build_models(f32_cfg, device="cuda", seed=0))
+    plain_state = copy.deepcopy(f32_state)
+    checked = make_train_step(f32_cfg, debug_grads=True)
+    _launch_counts(reset=True)
+    _, through_kernels = checked(f32_state, views, draws, 0)
+    torch.cuda.synchronize()
+    f32_counts = _launch_counts(reset=True)
+    say(f"one f32 train step on triplet views: launches {f32_counts}")
+    if f32_counts != step_launches(torch.float32):
+        raise AssertionError(f"f32 triplet step launches {f32_counts}")
+    with plain_versions():
+        _, through_plain = checked(plain_state, views, draws, 0)
+    if any(_launch_counts(reset=True).values()):
+        raise AssertionError("the plain train step launched a kernel")
+    _compare_step(through_kernels, through_plain, "kernels vs plain, f32 on triplet views:",
+                  LOOP_MOMENT_RTOL)
+    return _sum_counts(counts, f32_counts)
 
 
 # the loop phases' trees: 16 scenes make 2 batches of 8 an epoch (train_loop:
@@ -1738,8 +2006,9 @@ def train_cli_phase(bare):
     --mode train (2 epochs, counted launches, step times beside the bare
     step's), a resume to epoch 3 (the restored tensors against the saved
     ones), a SIGTERM to a training subprocess, --mode export (against the
-    checkpoint), --mode test with metrics on 8 camera images of the tree,
-    and serving_models without a bundle answering one request."""
+    checkpoint), --mode test with metrics on 8 camera images of the tree
+    and on a folder of every JPEG and GIF fixture, and serving_models
+    without a bundle answering one request."""
     import shmgan_tpu_torch.train.loop as loop
     from shmgan_tpu_torch import Config, cli
     from shmgan_tpu_torch.checkpoint import CheckpointManager, load_inference_bundle
@@ -1898,6 +2167,33 @@ def train_cli_phase(bare):
             raise AssertionError(f"--mode test wrote {len(pngs)} PNGs and {len(rows)} rows")
         counts = _sum_counts(counts, tested)
 
+        # 5b. --mode test on a folder of every JPEG and GIF fixture, without metrics
+        photos = os.path.join(root, "photos")
+        os.makedirs(photos)
+        fixtures = [n for n in codec_fixtures() if n.endswith((".jpg", ".gif"))]
+        for n in fixtures:
+            with open(os.path.join(photos, n), "wb") as f:
+                f.write(_read(os.path.join(CODEC_DIR, n)))
+        out_dir = os.path.join(root, "results_photos")
+        t0 = time.perf_counter()
+        cli.main(argv("test", "--test_dir", photos, "--result_dir", out_dir))
+        photo_s = time.perf_counter() - t0
+        on_photos = _launch_counts(reset=True)
+        calls = -(-len(fixtures) // 8)
+        want = {**{k: 0 for k in on_photos}, _in_name(torch.bfloat16): 18 * calls,
+                "fused_standardize_yuv": calls}
+        written = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        expected = sorted(f"result_{i:05d}{suffix}.png" for i in range(len(fixtures))
+                          for suffix in ("", "_mask", "_composited"))
+        shapes = {decode(_read(os.path.join(out_dir, p))).shape[:2] for p in written}
+        say(f"--mode test on {len(fixtures)} JPEG and GIF fixtures: {photo_s:.2f} s of cli.main, "
+            f"{len(written)} PNGs of shapes {shapes}, launches {on_photos}")
+        if written != expected or on_photos != want or shapes != {(128, 128)}:
+            raise AssertionError(f"--mode test on the JPEG folder: {len(written)} PNGs "
+                                 f"(expected {len(expected)}), shapes {shapes}, launches "
+                                 f"{on_photos}")
+        counts = _sum_counts(counts, on_photos)
+
         # 6. serving without a bundle restores the checkpoint
         cfg = Config.from_args(argv("serve"))
         gen, specseg = cli.serving_models(cfg)
@@ -1957,19 +2253,21 @@ def _ss_cfg(in_channels):
     return cfg
 
 
-def _ss_step_check():
-    """One make_specseg_train_step on the card against one on the CPU (the
-    dr2 recipe at 2 channels, batch and keep masks drawn on the CPU): the
-    optimizer's first moment (the step's gradients), the new running
-    statistics and the metrics."""
+def _ss_step_check(what="dr2, 2 channels", img=None, msk=None):
+    """One make_specseg_train_step on the card against one on the CPU, from
+    the same weights, batch and keep masks (by default the dr2 recipe at 2
+    channels, its batch drawn on the CPU; else the CPU batch `img`, `msk` at
+    its channel count): the optimizer's first moment (the step's
+    gradients), the new running statistics and the metrics."""
     from shmgan_tpu_torch.data.synthetic_dr import synth_specseg_batch_dr_chroma
     from shmgan_tpu_torch.train.specseg_train import (create_specseg_state,
                                                       make_specseg_train_step,
                                                       specseg_vars_from_state)
 
-    cfg = _ss_cfg(2)
-    g = torch.Generator().manual_seed(3)
-    img, msk = synth_specseg_batch_dr_chroma(g, SS_BATCH, SS_SIZE, SS_SIZE, glints=True)
+    if img is None:
+        g = torch.Generator().manual_seed(3)
+        img, msk = synth_specseg_batch_dr_chroma(g, SS_BATCH, SS_SIZE, SS_SIZE, glints=True)
+    cfg = _ss_cfg(img.shape[-1])
     out = {}
     for dev in ("cpu", "cuda"):
         state = create_specseg_state(cfg, torch.Generator().manual_seed(4), dev)
@@ -1983,7 +2281,7 @@ def _ss_step_check():
         stats = dict(_paths(specseg_vars_from_state(state)["batch_stats"]))
         out[dev] = (mu, stats, {k: float(v) for k, v in m.items()}, secs)
     (g_mu, g_st, gm, gs), (c_mu, c_st, cm, cs) = out["cuda"], out["cpu"]
-    label = (f"one SpecSeg step (dr2, 2 channels, b{SS_BATCH}, {SS_SIZE} px, base {SS_BASE}), "
+    label = (f"one SpecSeg step ({what}, b{SS_BATCH}, {SS_SIZE} px, base {SS_BASE}), "
              f"card vs CPU: first moment")
     mu_ok = _compare_grads(g_mu, c_mu, label)
     s_err = max(float(np.abs(g_st[k] - c_st[k]).max() / np.abs(c_st[k]).max()) for k in c_st)
@@ -2305,8 +2603,8 @@ def _qg_step_checks(bundle):
                     raise AssertionError(f"phase-B step {dtype} b{b} {path}: launches {counts}, "
                                          f"expected {want}")
         if held == "bfloat16":
-            _compare_step_gap(runs["bfloat16", "kernels"][0], runs["bfloat16", "plain"][0],
-                              runs["float32", "kernels"][0],
+            _compare_step_gap([(runs["bfloat16", "kernels"][0], runs["bfloat16", "plain"][0],
+                                runs["float32", "kernels"][0])],
                               f"phase-B step kernels vs plain, bf16, b{b}, {s} px:")
             out["bf16_variants"] = runs["bfloat16", "kernels"][2]
         else:
@@ -2534,6 +2832,8 @@ def main() -> int:
         by_path["bundle"], bundle = phase("bundle", bundle_phase)
         current = "serve_native"
         by_path["serve_native"] = phase("serve_native", serve_native_phase, bundle)
+        current = "formats"
+        by_path["formats"] = phase("formats", formats_phase, bundle)
         current = "serve_http"
         by_path["serve_http"] = phase("serve_http", serve_http_phase)
         current = "serve_folder"
@@ -2543,6 +2843,8 @@ def main() -> int:
         by_path["train"] = phase("train", train_phase)
         current = "train_bf16"
         by_path["train_bf16"], bare_bf16 = phase("train_bf16", train_bf16_phase)
+        current = "triplets"
+        by_path["triplets"] = phase("triplets", triplets_phase)
         current = "train_loop"
         by_path["train_loop"] = phase("train_loop", train_loop_phase)
         current = "train_cli"

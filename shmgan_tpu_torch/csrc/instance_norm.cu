@@ -1,10 +1,19 @@
 // Instance normalisation, NCHW, forward and backward, for float32 and
 // bfloat16 activations.
 //
-// Forward: y = x * scale[b,c] + shift[b,c] with
-//   mean = E[x], var = max(E[x^2] - mean^2, 0) over one (b, c) plane of H*W,
-//   scale = gamma[c] * rsqrt(var + eps), shift = beta[c] - mean * scale;
+// Forward: y = (x - mean[b,c]) * scale[b,c] + beta[c] with
+//   mean = E[x], var = E[(x - mean)^2] over one (b, c) plane of H*W,
+//   scale = gamma[c] * rsqrt(var + eps);
 // on request it also writes each plane's mean and rstd = rsqrt(var + eps).
+// The moments are taken in one pass, as the TPU kernel takes them, but not
+// as E[x^2] - mean^2: each thread keeps a count, mean and sum of squared
+// deviations, folding in one 16-byte load at a time, and the block merges
+// the threads' (Chan et al.'s pairwise update). x - mean is formed before
+// the affine, where the TPU kernel writes x * scale + (beta - mean * scale).
+// In f32 E[x^2] - mean^2 loses the variance of a plane whose mean is large
+// against its spread (a flat image region), more so over the 3072-long
+// per-thread sums of a 2048x1536 plane, and the two large products of the
+// TPU kernel's affine lose its output.
 //
 // Backward, from the saved mean and rstd, with xhat = (x - mean) * rstd:
 //   dgamma[c] = sum over (b, h, w) of g * xhat,  dbeta[c] = sum of g,
@@ -25,15 +34,15 @@
 // reduction inside a plane except within one thread-block cluster, and no
 // atomics.
 //
-// Bound: memory. The forward does ~5 flops against 8 bytes per element in
-// f32 (one read, one write) and 4 in bf16, the backward ~10 against 12 in f32
-// (x and g read, dx written) and 6 in bf16, far below the card's ~20
-// flops/byte balance point in f32. Loads and stores are 16 bytes a thread
-// (4 floats or 8 bf16) when H*W allows it; when a base is not 16-byte
-// aligned the same 16 bytes move one element at a time.
+// Bound: memory. The forward does ~8 flops (and a division a 16-byte load)
+// against 8 bytes per element in f32 (one read, one write) and 4 in bf16,
+// the backward ~10 against 12 in f32 (x and g read, dx written) and 6 in
+// bf16, far below the card's ~20 flops/byte balance point in f32. Loads and
+// stores are 16 bytes a thread (4 floats or 8 bf16) when H*W allows it; when
+// a base is not 16-byte aligned the same 16 bytes move one element at a time.
 //
 // Forward: one 256-thread block per plane, two passes over it: pass 1
-// reduces (sum, sum of squares) with warp shuffles, then shared memory
+// merges the threads' moments with warp shuffles, then shared memory
 // across warps; pass 2 reads again and writes. The second read hits L2 only
 // while the planes in flight fit the 50 MB L2.
 //
@@ -145,6 +154,60 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
+// Running moments: count, mean, and sum of squared deviations (M2).
+struct Moments {
+  float n, mean, m2;
+};
+
+// Folds moments b into a (Chan et al.): exact in the counts, and no
+// cancellation between large sums whatever the mean.
+__device__ __forceinline__ void merge(Moments& a, float nb, float mb, float m2b) {
+  const float n = a.n + nb;
+  if (n == 0.f) return;
+  const float w = __fdividef(nb, n);  // within 2 ulp: a weight, not a result
+  const float delta = mb - a.mean;
+  a.mean = fmaf(delta, w, a.mean);
+  a.m2 += m2b + delta * delta * a.n * w;
+  a.n = n;
+}
+
+// Folds k values (one 16-byte load) into a.
+template <int k>
+__device__ __forceinline__ void fold(Moments& a, const float (&v)[k]) {
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < k; ++j) sum += v[j];
+  const float mean = sum * (1.f / k);
+  float m2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < k; ++j) m2 = fmaf(v[j] - mean, v[j] - mean, m2);
+  merge(a, static_cast<float>(k), mean, m2);
+}
+
+// Merges the moments over the block, in the same order in every thread,
+// which gets the totals.
+__device__ __forceinline__ void block_moments(Moments& a) {
+  __shared__ float sn[kThreads / 32], sm[kThreads / 32], sq[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float n = __shfl_xor_sync(0xffffffffu, a.n, o);
+    const float m = __shfl_xor_sync(0xffffffffu, a.mean, o);
+    const float q = __shfl_xor_sync(0xffffffffu, a.m2, o);
+    merge(a, n, m, q);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    sn[warp] = a.n;
+    sm[warp] = a.mean;
+    sq[warp] = a.m2;
+  }
+  __syncthreads();
+  a = Moments{0.f, 0.f, 0.f};
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) merge(a, sn[w], sm[w], sq[w]);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -160,40 +223,36 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   // hands over tensors from the caching allocator, whose bases are aligned.
   const bool vec = (hw % kVec == 0) && aligned16(x) && aligned16(y);
 
-  float s = 0.f, s2 = 0.f;
+  Moments acc{0.f, 0.f, 0.f};
   if (vec) {
     if constexpr (std::is_same_v<T, float>) {
       const float4* xv = reinterpret_cast<const float4*>(xp);
       for (long long i = threadIdx.x; i < hw / 4; i += kThreads) {
         const float4 v = xv[i];
-        s += (v.x + v.y) + (v.z + v.w);
-        s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+        const float w[4] = {v.x, v.y, v.z, v.w};
+        fold<4>(acc, w);
       }
     } else {
       const uint4* xv = reinterpret_cast<const uint4*>(xp);
       for (long long i = threadIdx.x; i < hw / 8; i += kThreads) {
         float v[8];
         unpack8(xv[i], v);
-        s += ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
-        s2 += ((v[0] * v[0] + v[1] * v[1]) + (v[2] * v[2] + v[3] * v[3])) +
-              ((v[4] * v[4] + v[5] * v[5]) + (v[6] * v[6] + v[7] * v[7]));
+        fold<8>(acc, v);
       }
     }
   } else {
     for (long long i = threadIdx.x; i < hw; i += kThreads) {
-      const float v = to_f32(xp[i]);
-      s += v;
-      s2 += v * v;
+      const float w[1] = {to_f32(xp[i])};
+      fold<1>(acc, w);
     }
   }
-  block_sum2(s, s2);
+  block_moments(acc);
 
-  const float inv_n = 1.f / static_cast<float>(hw);
-  const float mean = s * inv_n;
-  const float var = fmaxf(s2 * inv_n - mean * mean, 0.f);
+  const float mean = acc.mean;
+  const float var = fmaxf(acc.m2 / static_cast<float>(hw), 0.f);
   const float rstd = rsqrtf(var + eps);
   const float scale = gamma[c] * rstd;
-  const float shift = beta[c] - mean * scale;
+  const float bias = beta[c];
   if (mean_out != nullptr && threadIdx.x == 0) {
     mean_out[plane] = mean;
     rstd_out[plane] = rstd;
@@ -205,10 +264,10 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       float4* yv = reinterpret_cast<float4*>(yp);
       for (long long i = threadIdx.x; i < hw / 4; i += kThreads) {
         float4 v = xv[i];
-        v.x = fmaf(v.x, scale, shift);
-        v.y = fmaf(v.y, scale, shift);
-        v.z = fmaf(v.z, scale, shift);
-        v.w = fmaf(v.w, scale, shift);
+        v.x = fmaf(v.x - mean, scale, bias);
+        v.y = fmaf(v.y - mean, scale, bias);
+        v.z = fmaf(v.z - mean, scale, bias);
+        v.w = fmaf(v.w - mean, scale, bias);
         yv[i] = v;
       }
     } else {
@@ -218,13 +277,13 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         float v[8];
         unpack8(xv[i], v);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = fmaf(v[k], scale, shift);
+        for (int k = 0; k < 8; ++k) v[k] = fmaf(v[k] - mean, scale, bias);
         yv[i] = pack8(v);
       }
     }
   } else {
     for (long long i = threadIdx.x; i < hw; i += kThreads) {
-      yp[i] = from_f32<T>(fmaf(to_f32(xp[i]), scale, shift));
+      yp[i] = from_f32<T>(fmaf(to_f32(xp[i]) - mean, scale, bias));
     }
   }
 }

@@ -6,12 +6,30 @@ native/loader.cc (`encode_png`).
     rgb = resize_bilinear(rgb, (256, 256))    # Pillow's BILINEAR, exactly
     data = encode_png(u8)                     # (H, W) or (H, W, 1|3) uint8
 
-Decoded: PNG at 8 bits (colour types 0, 2, 3, 4, 6; types 0 and 3 also at
-1, 2 and 4 bits), not interlaced, every row filter; binary PPM (P6) and PGM
-(P5) with maxval up to 255; uncompressed 24-bit BMP. Colour follows PIL's
-`convert("RGB")`: grey is replicated, alpha is dropped, a palette is looked
-up; transparency chunks are ignored. Anything else, JPEG and GIF among it,
-raises ValueError.
+`decode` dispatches on the file's signature and reads what PIL 12 reads of
+these formats, to PIL's `convert("RGB")` pixels:
+
+  - JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1 or
+    3 components (data/jpeg.py);
+  - GIF: the first frame, global or local colour table, interlaced or not
+    (data/gif.py);
+  - PNG: every colour type at every bit depth, 16 bits included, Adam7
+    interlaced or not, every row filter;
+  - PPM (P6) and PGM (P5) at every maxval, 16-bit samples included;
+  - BMP: 1-, 4- and 8-bit palettes, 16-bit 555 and 565, 24-bit, 32-bit, the
+    BITFIELDS layouts PIL knows, RLE8 and RLE4, bottom-up or top-down, the
+    Windows headers and OS/2's BITMAPCOREHEADER.
+
+Colour follows PIL's `convert("RGB")`, which does not scale every format
+the same way: grey is replicated, alpha and transparency are dropped, a
+palette is looked up (zeros past its end); a 16-bit grey PNG and a PGM of
+maxval above 255 clip at 255 (PIL's modes I;16 and I), a 16-bit RGB or
+grey+alpha PNG keeps the high byte, a PPM of maxval other than 255 is
+scaled by round(v / maxval * 255). What PIL does not decode either, JPEG's
+arithmetic coding, 12-bit, lossless, hierarchical and CMYK files among it,
+raises ValueError, as does input that is truncated, corrupt or not an
+image, and, from its header before anything is allocated, an image of more
+pixels than PIL opens (`check_size`).
 """
 
 from __future__ import annotations
@@ -23,15 +41,33 @@ from typing import Tuple
 
 import numpy as np
 
+# PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses an image of more than twice
+# this many pixels (DecompressionBombError) before it decodes any of it
+MAX_IMAGE_PIXELS = 89478485
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_PNG_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
 # Pillow's fixed-point resampling: coefficients in 22 fractional bits
 _PRECISION_BITS = 32 - 8 - 2
 
 
+def check_size(kind: str, w: int, h: int) -> None:
+    """Refuse, as PIL does and before anything is allocated, an image whose
+    header claims more than 2 * MAX_IMAGE_PIXELS pixels."""
+    pixels = max(1, w) * max(1, h)
+    if pixels > 2 * MAX_IMAGE_PIXELS:
+        raise ValueError(f"{kind}: {w}x{h} is {pixels} pixels, more than the "
+                         f"{2 * MAX_IMAGE_PIXELS} PIL opens")
+
+
 def decode(data: bytes) -> np.ndarray:
     """Encoded image bytes -> (H, W, 3) uint8 RGB."""
+    from shmgan_tpu_torch.data.gif import decode_gif     # both import check_size
+    from shmgan_tpu_torch.data.jpeg import decode_jpeg
+
     data = bytes(data)
     if data.startswith(PNG_SIGNATURE):
         return _decode_png(data)
@@ -40,10 +76,11 @@ def decode(data: bytes) -> np.ndarray:
     if data[:2] == b"BM":
         return _decode_bmp(data)
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG is not decoded by the port (no decoder without PIL)")
+        return decode_jpeg(data)
     if data[:6] in (b"GIF87a", b"GIF89a"):
-        raise ValueError("GIF is not decoded by the port (no decoder without PIL)")
-    raise ValueError("unrecognised image format: the port decodes PNG, PPM/PGM and BMP")
+        return decode_gif(data)
+    raise ValueError("unrecognised image format: the port decodes PNG, JPEG, GIF, "
+                     "PPM/PGM (P5, P6) and BMP")
 
 
 # -- PNG ------------------------------------------------------------------------
@@ -95,13 +132,27 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:, 1:].reshape(h, rowbytes).astype(np.uint8)
 
 
+def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines (h, row bytes) -> (h, w, channels) samples:
+    uint16 at 16 bits (big-endian), else uint8 (packed depths unpacked,
+    most significant first)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows[:, :2 * w * channels].copy().view(">u2").astype(np.uint16).reshape(
+            h, w, channels)
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)
+    return rows[:, :w * channels].reshape(h, w, channels)
+
+
 def _decode_png(data: bytes) -> np.ndarray:
     header, palette, idat = None, None, []
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
@@ -110,29 +161,42 @@ def _decode_png(data: bytes) -> np.ndarray:
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"PNG: unknown colour type {ctype}")
     if depth not in _PNG_DEPTHS[ctype]:
-        raise ValueError(f"PNG: {depth}-bit colour type {ctype} is not decoded by the port")
-    if interlace:
-        raise ValueError("PNG: interlaced images are not decoded by the port")
+        raise ValueError(f"PNG: bit depth {depth} is not valid for colour type {ctype}")
+    if interlace > 1:
+        raise ValueError(f"PNG: unknown interlace method {interlace}")
     if w == 0 or h == 0:
         raise ValueError("PNG: empty image")
+    check_size("PNG", w, h)
     channels = _PNG_CHANNELS[ctype]
-    rowbytes = math.ceil(w * channels * depth / 8)
+    # (first row, first column, row step, column step, width, height, row
+    # bytes) of each pass that has pixels (a pass with none has no scanlines)
+    passes = [(y0, x0, dy, dx, pw, ph, math.ceil(pw * channels * depth / 8))
+              for y0, x0, dy, dx in (_ADAM7 if interlace else ((0, 0, 1, 1),))
+              for pw, ph in [(-(-(w - x0) // dx), -(-(h - y0) // dy))] if pw > 0 and ph > 0]
+    need = sum(ph * (rowbytes + 1) for *_, ph, rowbytes in passes)
     inflate = zlib.decompressobj()
-    try:
-        raw = inflate.decompress(b"".join(idat))
+    try:   # no more than the scanlines need: extra data inflates no further
+        raw = inflate.decompress(b"".join(idat), need + 1)
     except zlib.error as e:
         raise ValueError(f"PNG: corrupt image data ({e})") from None
-    if not inflate.eof or len(raw) < h * (rowbytes + 1):
+    if len(raw) < need or (len(raw) == need and not inflate.eof):
         raise ValueError("PNG: truncated image data")
-    rows = np.frombuffer(raw, np.uint8, count=h * (rowbytes + 1)).reshape(h, rowbytes + 1)
-    px = _unfilter(rows, max(1, channels * depth // 8))
-    if depth < 8:
-        # pack 8 // depth samples a byte, most significant first
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        px = ((px[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
-        if ctype == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
-    px = px.reshape(h, w, channels)
+    px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx, pw, ph, rowbytes in passes:
+        n = ph * (rowbytes + 1)
+        rows = np.frombuffer(raw, np.uint8, count=n, offset=pos).reshape(ph, rowbytes + 1)
+        pos += n
+        unfiltered = _unfilter(rows, max(1, channels * depth // 8))
+        px[y0::dy, x0::dx] = _samples(unfiltered, pw, channels, depth)
+    if depth == 16:
+        if ctype == 0:                  # PIL's I;16, whose convert("RGB") clips
+            px = np.minimum(px, 255)
+        else:                           # RGB;16B, LA;16B, RGBA;16B: the high byte
+            px = px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8 and ctype == 0:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if ctype == 3:
         if palette is None:
             raise ValueError("PNG: palette image without a PLTE chunk")
@@ -172,9 +236,13 @@ def encode_png(img_u8: np.ndarray, level: int = 1) -> bytes:
 # -- PPM / PGM ------------------------------------------------------------------
 
 def _decode_pnm(data: bytes) -> np.ndarray:
-    """Binary P6 (RGB) or P5 (grey); header tokens separated by whitespace,
-    `#` comments to the end of the line, one whitespace byte before the
-    raster. A maxval under 255 is scaled as PIL scales it."""
+    """Binary P6 (RGB) or P5 (grey) at any maxval below 65536; header tokens
+    separated by whitespace, `#` comments to the end of the line, one
+    whitespace byte before the raster; samples of two bytes, big-endian,
+    past maxval 255. As PIL reads them: maxval 255 as stored, P5 at 65535 as
+    stored (mode I), any other maxval through PIL's PpmDecoder, round(v /
+    maxval * 255) (P6, P5 up to 255) or * 65535 (P5 past 255, mode I);
+    `convert("RGB")` then clips mode I at 255."""
     pos, tokens = 2, []
     while len(tokens) < 3:
         token = b""
@@ -191,43 +259,198 @@ def _decode_pnm(data: bytes) -> np.ndarray:
                 token += ch
         if not token:
             raise ValueError("PNM: truncated header")
+        if not token.isdigit():
+            raise ValueError(f"PNM: bad header token {token[:16]!r}")
         tokens.append(int(token))
     w, h, maxval = tokens
-    if not 0 < maxval <= 255:
-        raise ValueError(f"PNM: maxval {maxval} (16-bit samples) is not decoded by the port")
+    if not 0 < maxval < 65536:
+        raise ValueError(f"PNM: maxval {maxval} is outside (0, 65536)")
     bands = 3 if data[:2] == b"P6" else 1
+    size = 1 if maxval < 256 else 2
     n = w * h * bands
-    if w <= 0 or h <= 0 or len(data) - pos < n:
+    check_size("PNM", w, h)
+    if w <= 0 or h <= 0 or len(data) - pos < n * size:
         raise ValueError("PNM: truncated raster")
-    px = np.frombuffer(data, np.uint8, count=n, offset=pos).reshape(h, w, bands)
-    if maxval != 255:
-        px = np.minimum(255, np.round(px / maxval * 255)).astype(np.uint8)
-    return np.repeat(px, 3, axis=-1) if bands == 1 else px.copy()
+    px = np.frombuffer(data, np.uint8 if size == 1 else ">u2", count=n, offset=pos)
+    px = px.reshape(h, w, bands).astype(np.int64)
+    out_max = 65535 if bands == 1 and maxval > 255 else 255
+    if maxval != out_max:
+        px = np.minimum(out_max, np.round(px / maxval * out_max).astype(np.int64))
+    px = np.minimum(px, 255).astype(np.uint8)
+    return np.repeat(px, 3, axis=-1) if bands == 1 else px
 
 
 # -- BMP ------------------------------------------------------------------------
 
+# BITFIELDS masks PIL knows -> the byte offsets of R, G, B in a 32-bit pixel
+_BMP_MASKS32 = {
+    (0xFF0000, 0xFF00, 0xFF, 0x0): (2, 1, 0),            # BGRX
+    (0xFF000000, 0xFF0000, 0xFF00, 0x0): (3, 2, 1),      # XBGR
+    (0xFF000000, 0xFF00, 0xFF, 0x0): (3, 1, 0),          # BGXR
+    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1),     # ABGR
+    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2),     # RGBA
+    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0),     # BGRA
+    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0),     # BGAR
+    (0x0, 0x0, 0x0, 0x0): (2, 1, 0),                     # BGRA
+}
+_BMP_MASKS16 = {(0xF800, 0x7E0, 0x1F): 6, (0x7C00, 0x3E0, 0x1F): 5}   # green bits
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
+    """PIL's BmpRleDecoder, step for step (its delta escape reads two bytes
+    more than it uses, as PIL's does): (h * w) indices in file row order."""
+    out = bytearray()
+    x, n = 0, w * h
+    while len(out) < n:
+        if pos + 2 > len(data):
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            count = max(0, w - x) if x + count > w else count
+            if rle4:
+                pair = (byte >> 4, byte & 15)
+                out += bytes(pair[i % 2] for i in range(count))
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:                 # end of line
+            out += bytes((-len(out)) % w)
+            x = 0
+        elif byte == 1:                 # end of bitmap
+            break
+        elif byte == 2:                 # delta
+            if pos + 2 > len(data):
+                break
+            pos += 2
+            if pos + 2 > len(data):
+                raise ValueError("BMP: truncated RLE delta")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:                           # absolute run
+            got = data[pos:pos + (byte // 2 if rle4 else byte)]
+            pos += len(got)
+            if rle4:
+                out += bytes(v for b in got for v in (b >> 4, b & 15))
+            else:
+                out += got
+            if len(got) < (byte // 2 if rle4 else byte):
+                break
+            x += byte
+            pos += pos % 2              # PIL aligns to the file's 16-bit words
+    if len(out) < n:
+        raise ValueError("BMP: truncated RLE data")
+    return np.frombuffer(bytes(out[:n]), np.uint8).reshape(h, w)
+
+
 def _decode_bmp(data: bytes) -> np.ndarray:
-    """Uncompressed 24-bit BMP (BITMAPINFOHEADER or later), bottom-up or
-    top-down."""
-    if len(data) < 54:
+    """BMP as PIL's BmpImagePlugin reads it: the header kinds, bit depths,
+    BITFIELDS layouts and RLE of its tables, and nothing else."""
+    if len(data) < 18:
         raise ValueError("BMP: truncated header")
-    (offset,) = struct.unpack("<I", data[10:14])
-    size, w, h, _, bits, compression = struct.unpack("<IiiHHI", data[14:34])
-    if size < 40:
-        raise ValueError("BMP: only BITMAPINFOHEADER (or later) files are decoded by the port")
-    if bits != 24 or compression != 0:
-        raise ValueError(f"BMP: {bits}-bit, compression {compression}: only uncompressed "
-                         f"24-bit BMP is decoded by the port")
-    if w <= 0 or h == 0:
+    offset, hsize = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
+    hd = data[18:14 + hsize]
+    if hsize < 12 or len(hd) < hsize - 4:
+        raise ValueError("BMP: truncated header")
+    pos = 14 + hsize
+    masks = None
+    if hsize == 12:                     # OS/2 BITMAPCOREHEADER
+        w, h, _, bits = struct.unpack("<HHHH", hd[:8])
+        compression, colors, pal_pad, bottom_up = 0, 0, 3, True
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        bottom_up = hd[7] != 0xFF
+        w, h = struct.unpack("<II", hd[:8])
+        if not bottom_up:
+            h = 2 ** 32 - h
+        bits, compression = struct.unpack("<HI", hd[10:16])
+        (colors,) = struct.unpack("<I", hd[28:32])
+        pal_pad = 4
+        if compression == 3:
+            if len(hd) >= 48:
+                masks = struct.unpack("<III", hd[36:48]) + (
+                    struct.unpack("<I", hd[48:52]) if len(hd) >= 52 else (0,))
+            else:
+                if len(data) < pos + 12:
+                    raise ValueError("BMP: truncated header")
+                masks = struct.unpack("<III", data[pos:pos + 12]) + (0,)
+                pos += 12
+    else:
+        raise ValueError(f"BMP: header size {hsize} is not one PIL reads")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP: {bits} bits a pixel is not one PIL reads")
+    if w == 0 or h == 0:
         raise ValueError("BMP: empty image")
-    stride = (w * 3 + 3) // 4 * 4
-    rows = abs(h)
-    if len(data) < offset + stride * rows:
-        raise ValueError("BMP: truncated pixel data")
-    px = np.frombuffer(data, np.uint8, count=stride * rows, offset=offset)
-    px = px.reshape(rows, stride)[:, :w * 3].reshape(rows, w, 3)[..., ::-1]
-    return np.ascontiguousarray(px[::-1] if h > 0 else px)
+    check_size("BMP", w, h)
+    if compression == 3:
+        if bits == 32 and masks in _BMP_MASKS32:
+            layout = _BMP_MASKS32[masks]
+        elif bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF):
+            layout = None
+        elif bits == 16 and masks[:3] in _BMP_MASKS16:
+            layout = _BMP_MASKS16[masks[:3]]
+        else:
+            raise ValueError(f"BMP: BITFIELDS layout {masks} is not one PIL reads")
+    elif compression == 0:
+        layout = 5 if bits == 16 else (2, 1, 0) if bits == 32 else None
+    elif compression in (1, 2):
+        layout = None
+    else:
+        raise ValueError(f"BMP: compression {compression} is not one PIL reads")
+
+    palette, mode = None, "RGB"
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"BMP: palette of {colors} colours")
+        raw = data[pos:pos + pal_pad * colors]
+        grey = all(raw[i * pal_pad:i * pal_pad + 3] == bytes([v]) * 3 for i, v in
+                   enumerate((0, 255) if colors == 2 else range(colors)))
+        if grey:
+            mode = "1" if colors == 2 else "L"
+        else:
+            mode = "P"
+            entries = np.frombuffer(raw[:len(raw) // pal_pad * pal_pad], np.uint8)
+            entries = entries.reshape(-1, pal_pad)[:256, 2::-1]        # BGR(X) -> RGB
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:len(entries)] = entries
+
+    if compression in (1, 2):
+        idx = _bmp_rle(data, offset, w, h, compression == 2)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if len(data) < offset + stride * h:
+            raise ValueError("BMP: truncated pixel data")
+        rows = np.frombuffer(data, np.uint8, count=stride * h, offset=offset).reshape(h, stride)
+        unpack = {"1": 1, "L": 8}.get(mode, bits)      # PIL's raw modes "1" and "L"
+        if unpack < 8:
+            shifts = np.arange(8 - unpack, -1, -unpack, dtype=np.uint8)
+            idx = ((rows[:, :, None] >> shifts) & ((1 << unpack) - 1)).reshape(h, -1)[:, :w]
+        elif bits <= 8:
+            idx = rows[:, :w]
+        elif bits == 16:
+            p = rows[:, :2 * w].copy().view("<u2").astype(np.int64)
+            gbits = layout
+            r = ((p >> (5 + gbits)) & 31) * 255 // 31
+            g = ((p >> 5) & ((1 << gbits) - 1)) * 255 // ((1 << gbits) - 1)
+            b = (p & 31) * 255 // 31
+            idx = np.stack([r, g, b], -1).astype(np.uint8)
+        else:
+            nb = bits // 8
+            px = rows[:, :nb * w].reshape(h, w, nb)
+            idx = px[..., list(layout)] if layout else px[..., ::-1]
+    if bottom_up:
+        idx = idx[::-1]
+    if mode == "1":
+        return np.repeat(np.where(idx[..., None] != 0, 255, 0).astype(np.uint8), 3, -1)
+    if mode == "L":
+        return np.repeat(np.ascontiguousarray(idx)[..., None], 3, -1)
+    if mode == "P":
+        return palette[idx]
+    return np.ascontiguousarray(idx)
 
 
 # -- resize -----------------------------------------------------------------------

@@ -1,5 +1,8 @@
 """Image files in: the counterpart of shmgan_tpu/data/loader.py, decoding
-through data/codecs.py instead of PIL, to the same float32 arrays.
+through data/codecs.py instead of PIL, to the same float32 arrays, for every
+format the JAX package reads (PNG, JPEG, GIF, PPM/PGM and BMP; the
+extensions of `list_images`). A batch from a JPEG tree equals JAX's bit for
+bit: the decoded pixels are PIL's and the resize is Pillow's BILINEAR.
 
   list_images, decode_resize, decode_original   one file, or a folder listed
   decode_resize_batch    a list of files through a thread pool
@@ -12,7 +15,9 @@ decoded views are cached in RAM as float32; the ED view is the channel-wise
 minimum of the four polarised views when its folder is missing and
 `est_diffuse` is set. The order of an epoch and each process's share of a
 batch are the JAX package's. (Its native C++ batch decoder, host code, is
-not ported: ROADMAP Queue 1 item 9.)
+not ported: ROADMAP Queue 1 item 9. That decoder copies the samples of a
+PNM of maxval below 255 unscaled where PIL scales them; the port follows
+PIL.)
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Synthetic polarimetric scenes: a numpy copy of shmgan_tpu/data/synthetic.py's
-`synth_polar_scene`, `camera_image`, `synth_eval_set` and `write_fixture_tree`.
-For the same seed the arrays are bit for bit the JAX package's; the fixture
-tree's PNGs are written through data/codecs.py instead of PIL and decode to
-the same pixels.
+`synth_polar_scene`, `camera_image`, `synth_eval_set`, `synth_polar_batch`,
+`write_fixture_tree` and `write_triplet_fixture_tree`. For the same seed the
+arrays are bit for bit the JAX package's; the fixture trees' PNGs are
+written through data/codecs.py instead of PIL and decode to the same pixels.
 
 A scene is a textured random diffuse image plus view-dependent specular
 highlights: the polarised specular part varies with the polariser angle as
@@ -136,6 +136,54 @@ def synth_eval_set(n: int, image_size: int, seed: int = 0
     return np.stack(ins), np.stack(gts), np.stack(masks)
 
 
+def synth_polar_batch(batch: int, image_size: int, seed: int = 0,
+                      include_ed: bool = True) -> np.ndarray:
+    """(V, B, H, W, 3) float32 in [0, 1]: the four views of `batch` scenes,
+    and with `include_ed` a fifth, their channel-wise minimum."""
+    rng = np.random.default_rng(seed)
+    v4 = np.stack([synth_polar_scene(rng, image_size, image_size)[0]
+                   for _ in range(batch)], axis=1)
+    if not include_ed:
+        return v4
+    return np.concatenate([v4, v4.min(axis=0, keepdims=True)], axis=0)
+
+
+def _save_png(arr: np.ndarray, path: str) -> None:
+    """An image in [0, 1] as an 8-bit PNG, truncated as
+    `(np.clip(a, 0, 1) * 255).astype(np.uint8)` truncates."""
+    with open(path, "wb") as f:
+        f.write(encode_png((np.clip(arr, 0, 1) * 255).astype(np.uint8)))
+
+
+def write_triplet_fixture_tree(root: str, n_images: int, image_size: int,
+                               seed: int = 0, layout: str = "folder",
+                               with_mask: bool = True) -> None:
+    """An (image, diffuse[, mask/specular]) triplet tree for data/triplets.py:
+    layout "folder": root/image/*.png, root/diffuse/*.png [, root/mask/*.png];
+    layout "shiq": root/<stem>_A.png, <stem>_T.png [, <stem>_S.png]."""
+    rng = np.random.default_rng(seed)
+    if layout == "folder":
+        for d in ["image", "diffuse"] + (["mask"] if with_mask else []):
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+    else:
+        os.makedirs(root, exist_ok=True)
+    for i in range(n_images):
+        views, diffuse, mask = synth_polar_scene(rng, image_size, image_size)
+        img = camera_image(diffuse, views)
+        if layout == "folder":
+            _save_png(img, os.path.join(root, "image", f"img_{i:05d}.png"))
+            _save_png(diffuse, os.path.join(root, "diffuse", f"img_{i:05d}.png"))
+            if with_mask:
+                _save_png(np.repeat(mask, 3, axis=-1),
+                          os.path.join(root, "mask", f"img_{i:05d}.png"))
+        else:
+            _save_png(img, os.path.join(root, f"img{i:05d}_A.png"))
+            _save_png(diffuse, os.path.join(root, f"img{i:05d}_T.png"))
+            if with_mask:
+                _save_png(np.clip(img - diffuse, 0, 1),
+                          os.path.join(root, f"img{i:05d}_S.png"))
+
+
 def write_fixture_tree(root: str, n_images: int, image_size: int, seed: int = 0,
                        view_dirs: Sequence[str] = ("I0", "I45", "I90", "I135", "ED"),
                        write_ed: bool = True, fmt: str = "png",
@@ -158,6 +206,4 @@ def write_fixture_tree(root: str, n_images: int, image_size: int, seed: int = 0,
         ed = diffuse if ed_mode == "diffuse" else views.min(axis=0)
         imgs = list(views) + ([ed] if write_ed else [])
         for d, img in zip(dirs, imgs):
-            arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-            with open(os.path.join(root, d, f"img_{i:05d}.{fmt}"), "wb") as f:
-                f.write(encode_png(arr))
+            _save_png(img, os.path.join(root, d, f"img_{i:05d}.{fmt}"))

@@ -10,8 +10,10 @@ otherwise the forward kernel alone. There is no other fallback.
 
 The kernels replace the TPU kernel `shmgan_tpu/ops/pallas/instance_norm.py`
 (`instance_norm_pallas`) and its custom VJP (`_fwd` / `_bwd`). The forward
-kernel takes one-pass moments, the plain version two-pass ones, as the JAX
-package's `instance_norm_reference` does, so the two agree to rounding.
+kernel takes one-pass moments of x less the plane's first element and
+forms x - mean before the affine, so that a flat plane cancels in neither;
+the plain version takes two-pass moments, as the JAX package's
+`instance_norm_reference` does; the two agree to rounding.
 `instance_norm_backward_plain` transcribes `_bwd`.
 
 Dtypes follow the TPU kernel's: the activations x, y, g and dx are all

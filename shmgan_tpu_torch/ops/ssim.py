@@ -1,5 +1,6 @@
 """SSIM, PSNR and MSE with tf.image.ssim's, tf.image.psnr's and keras
-MeanSquaredError's semantics (the counterpart of shmgan_tpu/ops/ssim.py).
+MeanSquaredError's semantics, and the cyclic SSIM loss transform (the
+counterpart of shmgan_tpu/ops/ssim.py).
 SSIM: an 11-tap Gaussian window with sigma 1.5 as two depthwise VALID
 convolutions, k1 = 0.01, k2 = 0.03, and the per-image score the mean over
 window positions and channels."""
@@ -56,6 +57,11 @@ def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float) -> torch.Tensor:
     a, b = a.float(), b.float()
     mse_ = ((a - b) ** 2).mean(dim=tuple(range(1, a.dim())))
     return 10.0 / math.log(10.0) * torch.log((max_val ** 2) / mse_)
+
+
+def ssim_log_loss(s: torch.Tensor) -> torch.Tensor:
+    """-log((1 + ssim) / 2), the cyclic SSIM loss transform."""
+    return -torch.log((1.0 + s) / 2.0)
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

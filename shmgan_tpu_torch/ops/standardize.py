@@ -7,7 +7,8 @@ shmgan_tpu/ops/standardize.py):
     num_pixels = 65536, so the floor is rsqrt(65536) even at 128 px);
   - NO mean subtraction.
 
-and the per-image min-max rescale the train step's SSIM losses take.
+and the min-max rescales: over the whole tensor, and per image (the one the
+train step's SSIM losses take).
 """
 
 from __future__ import annotations
@@ -34,6 +35,13 @@ def per_image_standardization(image: torch.Tensor) -> Tuple[torch.Tensor, ImageS
     scale = torch.clamp(torch.sqrt(variance), min=MIN_STDDEV)
     out = x / scale.view((-1,) + (1,) * (x.dim() - 1))
     return out, ImageStats(mean=mean, stddev=scale, variance=variance)
+
+
+def rescale_01(x: torch.Tensor) -> torch.Tensor:
+    """Min-max rescale to [0, 1] over the whole tensor; a constant tensor
+    becomes zeros (tf divide_no_nan)."""
+    denom = x.max() - x.min()
+    return torch.where(denom == 0, torch.zeros_like(x), (x - x.min()) / denom)
 
 
 def rescale_01_per_image(x: torch.Tensor) -> torch.Tensor:

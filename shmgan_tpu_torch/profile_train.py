@@ -1,12 +1,12 @@
 """Train-step measurement of the port on one CUDA card.
 
     python -m shmgan_tpu_torch.profile_train [--compute_dtype bfloat16|float32]
-        [--loop | --specseg | --gan | --loop-gap]
+        [--loop | --specseg | --gan | --loop-gap [--gap_views tree|triplets]]
 
 Builds the train state at full width on weights from seed 0 (the JAX
 package's default model: 128 px, filter 64, c_dim 5, SpecSeg base 16, batch
 8, flip on, reference-parity flags) computing in the given dtype (default
-bfloat16, the JAX package's default), then:
+bfloat16, the JAX package's default; float32 with --loop-gap), then:
   1. times steps through the kernels and through their plain versions in
      turns (kernels, plain, plain, kernels, ...), each on a fresh batch and
      fresh draws, and reports the median step ms and images/s (B images a
@@ -30,20 +30,24 @@ the trained 256-px bundle (bf16, 256 px, batch 10, the DR curriculum,
 resize_conv, G's EMA, 2-channel SpecSeg; seeded weights): the host ms of
 10 steps (the DR views rendered on the card, then the step), each between
 two synchronisations, and a trace of 5 steps, split as above.
-With --loop-gap it asks why the training driver's first-step gradients,
-through the kernels and through the plain versions, part further than the
-bare step's on random inputs (float32, 128 px, batch 8, the weights and
-first draws of chip_smoke.py's train_loop phase): the relative L2 distance
-of G's and D's gradients between two runs of one step, for the loop's first
-batch of a 16-scene synthetic tree and for a random batch, kernels against
-plain, plain against plain and kernels against kernels, with cuDNN's
-algorithm choice as it is and fixed (cudnn.deterministic); with cuDNN's
-choice fixed, also the plain version computing its moments in one pass,
-E[x^2] - E[x]^2, as the kernel (and the TPU kernel) does, and instance
-norms that mix the two (`MIXES`: the forward's output, the statistics the
-backward takes, the backward), each against the plain version and against
-the kernels; and the instance-norm planes' largest rstd and the count of
-planes whose variance is under 1e-4, for each batch.
+With --loop-gap it asks why one step's gradients, through the kernels and
+through the plain versions, part further on a batch of chip_smoke.py's
+than on random inputs (128 px, batch 8, weights from seed 0):
+--gap_views tree (the default) takes train_loop's first batch of a
+16-scene synthetic tree and its first draws, triplets the `triplets`
+phase's views (the first 8 triplets of a 32-triplet tree through
+triplet_to_views, where the four view slots hold one image) and draws.
+For that batch and for a random one, with cuDNN's algorithm choice as it
+is and fixed (cudnn.deterministic): the relative L2 distance of G's and
+D's gradients between two runs of one step, kernels against plain, plain
+against plain and kernels against kernels, and in bf16 each path against
+the plain f32 step; with cuDNN's choice fixed, also the plain version
+computing its moments in one pass, E[x^2] - E[x]^2, as the kernel (and
+the TPU kernel) does, and instance norms that mix the two (`MIXES`: the
+forward's output, the statistics the backward takes, the backward), each
+against the plain version and against the kernels; and the
+instance-norm planes' largest rstd and the count of planes whose variance
+is under 1e-4, for each batch.
 Prints one JSON line. Needs a CUDA card.
 """
 
@@ -272,29 +276,43 @@ def _grad_gap(a: dict, b: dict) -> dict:
     return out
 
 
-def loop_gap_probe(device="cuda") -> dict:
-    """The bare step's gradient gaps on the loop's first batch and on a
-    random one (see the module's docstring)."""
-    import copy
-
+def _gap_batch(cfg: Config, views: str, device: str):
+    """(views, draws) of one step of chip_smoke.py's train_loop phase
+    ("tree") or triplets phase ("triplets") at `cfg`'s size."""
     from shmgan_tpu_torch.data.loader import PolarimetricDataset
-    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
-    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree, write_triplet_fixture_tree
+    from shmgan_tpu_torch.data.triplets import TripletDataset, triplet_to_views
     from shmgan_tpu_torch.train.loop import draw_source
 
-    cfg = training_config("float32")
     v, b, s = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
     with tempfile.TemporaryDirectory() as root:
-        write_fixture_tree(os.path.join(root, "tree"), LOOP_GAP_SCENES, s, seed=0)
-        cfg.data.data_dir = os.path.join(root, "tree")
-        ds = PolarimetricDataset(cfg.data, s, b)
-        tree_batch = torch.from_numpy(next(iter(ds.iter_epoch()))).to(device)
-    batches = {"tree": tree_batch,
-               "random": torch.rand(tree_batch.shape, device=device,
+        if views == "tree":
+            write_fixture_tree(os.path.join(root, "tree"), LOOP_GAP_SCENES, s, seed=0)
+            cfg.data.data_dir = os.path.join(root, "tree")
+            batch = next(iter(PolarimetricDataset(cfg.data, s, b).iter_epoch()))
+            batch = torch.from_numpy(batch).to(device)
+            return batch, draw_source(cfg, device, 0)(0, batch.shape)
+        write_triplet_fixture_tree(root, 32, s, seed=7)
+        triplets = next(TripletDataset(root, s, batch_size=32).iter_epoch(shuffle_seed=0))
+    batch = torch.from_numpy(triplet_to_views({k: a[:b] for k, a in triplets.items()}))
+    return batch.to(device), sample_draws(cfg, torch.Generator(device=device).manual_seed(1),
+                                          v, b, s, s)
+
+
+def loop_gap_probe(device="cuda", views="tree", dtype="float32") -> dict:
+    """The bare step's gradient gaps on one batch of chip_smoke.py's and on
+    a random one (see the module's docstring)."""
+    import copy
+
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    cfgs = {d: training_config(d) for d in {dtype, "float32"}}
+    batch, draws = _gap_batch(cfgs[dtype], views, device)
+    batches = {views: batch,
+               "random": torch.rand(batch.shape, device=device,
                                     generator=torch.Generator(device=device).manual_seed(0))}
-    models = build_models(cfg, device=device, seed=0)
-    draws = draw_source(cfg, device, 0)(0, tree_batch.shape)
-    step = make_train_step(cfg, debug_grads=True)
+    models = {d: build_models(c, device=device, seed=0) for d, c in cfgs.items()}
+    steps = {d: make_train_step(c, debug_grads=True) for d, c in cfgs.items()}
     real_plain = ink.instance_norm_plain
     planes = {}
 
@@ -305,8 +323,8 @@ def loop_gap_probe(device="cuda") -> dict:
         y = (xf - mean) * torch.rsqrt(var + eps)
         return (y * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)).to(x.dtype)
 
-    def run(views, plain: bool, record: str = "", moments=None):
-        state = create_train_state(cfg, copy.deepcopy(models))
+    def run(x, plain: bool, record: str = "", moments=None, in_dtype=dtype):
+        state = create_train_state(cfgs[in_dtype], copy.deepcopy(models[in_dtype]))
 
         def recorded(x, gamma, beta, eps=1e-6):
             var = x.detach().float().var(dim=(2, 3), unbiased=False)
@@ -318,7 +336,7 @@ def loop_gap_probe(device="cuda") -> dict:
                  else contextlib.nullcontext()), \
                 (mock.patch.object(ink, "instance_norm", moments) if moments
                  else contextlib.nullcontext()):
-            _, metrics = step(state, views, draws, 0)
+            _, metrics = steps[in_dtype](state, x, draws, 0)
         return {"_grads": {net: {k: g.detach().clone() for k, g in metrics["_grads"][net].items()}
                            for net in ("G", "D")}}
 
@@ -327,23 +345,27 @@ def loop_gap_probe(device="cuda") -> dict:
     try:
         for fixed in (False, True):
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = fixed, False
-            for name, views in batches.items():
-                k1, p1 = run(views, False), run(views, True, record=name if not fixed else "")
-                k2, p2 = run(views, False), run(views, True)
+            for name, x in batches.items():
+                k1, p1 = run(x, False), run(x, True, record=name if not fixed else "")
+                k2, p2 = run(x, False), run(x, True)
                 row = out[f"{name}{'_cudnn_fixed' if fixed else ''}"] = {
                     "kernels_vs_plain": _grad_gap(k1, p1), "plain_vs_plain": _grad_gap(p2, p1),
                     "kernels_vs_kernels": _grad_gap(k2, k1)}
+                if dtype != "float32":
+                    f32 = run(x, True, in_dtype="float32")
+                    row["kernels_vs_f32"], row["plain_vs_f32"] = (_grad_gap(k1, f32),
+                                                                  _grad_gap(p1, f32))
                 if fixed:
                     row["kernels_vs_plain_one_pass"] = _grad_gap(
-                        k1, run(views, True, moments=one_pass))
+                        k1, run(x, True, moments=one_pass))
                     for mix in MIXES:
-                        got = run(views, False, moments=lambda x, gamma, beta, eps=1e-6, m=mix:
+                        got = run(x, False, moments=lambda x, gamma, beta, eps=1e-6, m=mix:
                                   _MixedInstanceNorm.apply(x, gamma, beta, eps, m))
                         row["/".join(mix)] = {"vs_plain": _grad_gap(got, p1),
                                               "vs_kernels": _grad_gap(got, k1)}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-    eps = cfg.model.instance_norm_eps
+    eps = cfgs[dtype].model.instance_norm_eps
     for name, var in planes.items():
         var = torch.cat(var)
         out[name]["in_planes"] = int(var.numel())
@@ -354,7 +376,8 @@ def loop_gap_probe(device="cuda") -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="bfloat16")
+    ap.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default=None,
+                    help="bfloat16 by default; float32 by default with --loop-gap")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--loop", action="store_true",
                       help="measure train.loop.train's steps instead of the bare step")
@@ -363,10 +386,13 @@ def main() -> None:
     mode.add_argument("--gan", action="store_true",
                       help="measure phase B's step at the 256-px recipe, bf16")
     mode.add_argument("--loop-gap", action="store_true",
-                      help="the step's gradient gaps on the loop's first batch, float32")
+                      help="the step's gradient gaps on one of chip_smoke.py's batches")
+    ap.add_argument("--gap_views", choices=("tree", "triplets"), default="tree",
+                    help="--loop-gap's batch: train_loop's first, or the triplets phase's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
+    args.compute_dtype = args.compute_dtype or ("float32" if args.loop_gap else "bfloat16")
     cfg = training_config(args.compute_dtype)
     if args.loop or args.specseg or args.gan or args.loop_gap:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,7 +400,9 @@ def main() -> None:
                              timeout=60).stdout.strip()
         head = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
         if args.loop_gap:
-            print(json.dumps({**head, "compute_dtype": "float32", **loop_gap_probe()}))
+            print(json.dumps({**head, "compute_dtype": args.compute_dtype,
+                              "views": args.gap_views,
+                              **loop_gap_probe(views=args.gap_views, dtype=args.compute_dtype)}))
         elif args.gan:
             print(json.dumps({**head, "compute_dtype": "bfloat16", **gan_profile()}))
         elif args.specseg:

@@ -161,13 +161,13 @@ class BatchInferenceEngine:
 
     def _try_decode(self, path: str) -> Optional[np.ndarray]:
         """The decoded image, or None for a file that cannot be read or
-        decoded yet (mid-write, corrupt, or a format the port lacks), which
-        a later poll retries."""
+        decoded yet (mid-write, truncated or corrupt, or too large for the
+        host's memory now), which a later poll retries."""
         try:
             if self.native_resolution:
                 return decode_original(path)
             return decode_resize(path, self.image_size)
-        except (OSError, ValueError):
+        except (OSError, ValueError, MemoryError):
             return None
 
     def _process_files(self, files, out_dir: str, save_mask: bool) -> list:

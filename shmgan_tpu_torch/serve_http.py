@@ -18,9 +18,9 @@ Endpoints:
                                   the calibrated PNG (default), the
                                   mask-composited PNG, the mask PNG, or JSON
                                   with both PNGs base64-encoded
-  400 for a bad request (body, size, output, an image the port cannot
-  decode, the native-shape budget spent), 404 for an unknown path, 500 when
-  inference fails.
+  400 for a bad request (body, size, output, an image that is truncated,
+  corrupt or of a kind PIL does not read either, the native-shape budget
+  spent), 404 for an unknown path, 500 when inference fails.
 
 One device, many request threads: decode and encode run on the request
 threads, every device call (warm-ups included) under EnginePool.device_lock.

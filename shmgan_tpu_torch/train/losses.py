@@ -23,6 +23,7 @@ import torch
 
 from shmgan_tpu_torch.ops.polar import gram_matrix
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
+from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
 
 
@@ -112,7 +113,7 @@ def shmgan_losses(inp: GanLossInputs, image_size: int, style_weight: float = 100
         s = ssim_fn(rescale_01_per_image(inp.cyc_yuv[i]),
                     rescale_01_per_image(inp.ds_yuv[i]), max_val=5.0)
         ssim_raw.append(s.mean())
-        term = -torch.log((1.0 + s) / 2.0)
+        term = ssim_log_loss(s)
         ssim_losses.append(torch.where(drop[:, i] > 0.5, torch.zeros_like(term), term).mean())
     # the ED term x10 inside the / 5, as the reference has it
     ssim_total = (ssim_losses[0] + ssim_losses[1] + ssim_losses[2]

@@ -38,6 +38,7 @@ from shmgan_tpu_torch.ops.color import yuv_to_rgb
 from shmgan_tpu_torch.ops.kernels import preprocess
 from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
+from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
 from shmgan_tpu_torch.train.losses import GanLossInputs, lsgan_to_target, shmgan_losses
 from shmgan_tpu_torch.train.state import TrainState
@@ -215,7 +216,7 @@ def make_train_step(cfg: Config, debug_grads: bool = False
             g1_l1 = (gen_rgb - ed_cmp).abs().mean()
             s = ssim_fn(rescale_01_per_image(gen_yuv), rescale_01_per_image(ds_yuv[v - 1]),
                         max_val=5.0)
-            g1_ssim = (-torch.log((1.0 + s) / 2.0)).mean()
+            g1_ssim = ssim_log_loss(s).mean()
             loss_g = loss_g + g1_recon_weight * (g1_l1 + g1_ssim)
             L["G1_L1"], L["G1_SSIM_loss"] = g1_l1, g1_ssim
 

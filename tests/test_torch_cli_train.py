@@ -1,6 +1,7 @@
 """The port's command line on a train checkpoint, against the JAX package's,
 on the CPU: `--mode export` writes JAX's bundle bytes, `--mode test` (fixed
-size and native resolution) writes JAX's PNGs and metrics, serving without a
+size, native resolution, and a folder of JPEG photos) writes JAX's PNGs and
+metrics, serving without a
 bundle restores the checkpoint, and `--mode train` runs.
 
 One train state (the shape of JAX's `create_train_state`, each leaf drawn
@@ -28,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import shmgan_tpu.train.state as j_state_mod
 from shmgan_tpu import cli as j_cli
@@ -119,6 +121,10 @@ def setup(tmp_path_factory):
         for i, img in enumerate(images):
             with open(os.path.join(root, name, f"img_{i:05d}.png"), "wb") as f:
                 f.write(encode_png((np.clip(img, 0, 1) * 255).astype(np.uint8)))
+    os.makedirs(os.path.join(root, "test_jpeg"))
+    for i, img in enumerate(inputs):      # the same inputs as JPEG photos, as PIL writes them
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(root, "test_jpeg", f"img_{i:05d}.jpg"), quality=90)
     return dict(root=root, jstate=jstate, shapes=shapes)
 
 
@@ -169,12 +175,14 @@ def test_export_bfloat16_raises(setup):
                for v in flax.traverse_util.flatten_dict(g_params).values())
 
 
-@pytest.fixture(scope="module", params=["fixed", "native"])
+@pytest.fixture(scope="module", params=["fixed", "native", "jpeg"])
 def mode_runs(request, setup):
     """JAX's --mode test on its Orbax checkpoint and the port's on its own,
-    both at step 7, with metrics against the diffuse truth."""
+    both at step 7, with metrics against the diffuse truth; "jpeg" reads a
+    folder of JPEG photos at the fixed size."""
     root = setup["root"]
-    extra = ["--test_dir", os.path.join(root, "test"),
+    test_dir = "test_jpeg" if request.param == "jpeg" else "test"
+    extra = ["--test_dir", os.path.join(root, test_dir),
              "--diffuse_dir", os.path.join(root, "diffuse"), "--calc_metrics", "true",
              "--checkpoint_step", "7", "--native_resolution",
              str(request.param == "native").lower()]

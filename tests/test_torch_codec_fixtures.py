@@ -1,0 +1,48 @@
+"""The committed codec fixtures (tests/data/torch_codecs/), on the CPU: PIL
+still decodes every fixture to its committed PNG, the port decodes every
+fixture to the same pixels, exactly, and the directory says how it was
+written."""
+
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from shmgan_tpu_torch.data import codecs
+
+HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_codecs")
+# a fixture is a file with its pixels beside it as <name>.png
+FIXTURES = sorted(f for f in os.listdir(HERE) if os.path.isfile(os.path.join(HERE, f + ".png")))
+
+
+def _pil_rgb(path):
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def test_every_fixture_has_its_pixels_and_the_set_is_whole():
+    assert len(FIXTURES) == 26
+    assert len(os.listdir(HERE)) == 2 * 26 + 2          # and the README and the writer
+    assert sum(os.path.getsize(os.path.join(HERE, f)) for f in os.listdir(HERE)) < 2_000_000
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_pil_still_decodes_the_fixture_to_its_png(name):
+    np.testing.assert_array_equal(_pil_rgb(os.path.join(HERE, name)),
+                                  _pil_rgb(os.path.join(HERE, name + ".png")))
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_the_port_decodes_the_fixture_to_pils_pixels(name):
+    with open(os.path.join(HERE, name), "rb") as f:
+        got = codecs.decode(f.read())
+    np.testing.assert_array_equal(got, _pil_rgb(os.path.join(HERE, name + ".png")))
+
+
+def test_readme_says_how_the_fixtures_were_written():
+    with open(os.path.join(HERE, "README.md")) as f:
+        readme = f.read()
+    assert "make_fixtures.py" in readme and "convert(\"RGB\")" in readme
+    for kind in ("JPEG", "GIF", "PNG", "P6", "BMP"):
+        assert kind in readme

@@ -1,9 +1,11 @@
-"""The port's image codecs (data/codecs.py) and loader (data/loader.py)
-against PIL and the JAX package's loader, on the CPU: decoded pixels equal
-PIL's `convert("RGB")` for every PNG colour type with every row filter, for
-PPM, PGM and BMP; `decode_resize` equals JAX's (Pillow's BILINEAR) exactly
-at up- and downscales; PNGs the port writes read back under PIL; what the
-port does not decode raises ValueError."""
+"""The port's image codecs (data/codecs.py, data/gif.py) and loader
+(data/loader.py) against PIL and the JAX package's loader, on the CPU:
+decoded pixels equal PIL's `convert("RGB")` for every PNG colour type with
+every row filter, 16-bit and Adam7-interlaced PNGs, PPM and PGM at every
+maxval, the BMP variants PIL reads and GIF; `decode_resize` equals JAX's
+(Pillow's BILINEAR) exactly at up- and downscales; PNGs the port writes read
+back under PIL; what neither decodes, and input that is truncated or
+corrupt, raises ValueError. (JPEG has its own file, test_torch_jpeg.py.)"""
 
 import io
 import struct
@@ -152,29 +154,333 @@ def test_encode_png_reads_back_under_pil(shape):
     np.testing.assert_array_equal(codecs.decode(data)[..., 0], img.reshape(shape[:2] + (-1,))[..., 0])
 
 
-def _unsupported():
+def _formerly_refused():
+    """The inputs the port refused before it read JPEG, GIF, 16-bit and
+    interlaced PNG, 16-bit PNM and palette BMP."""
     img = Image.fromarray(_photo(16, 16, seed=9))
-    png = _pil_bytes(img, "PNG")
     return {
         "jpeg": _pil_bytes(img, "JPEG"),
         "gif": _pil_bytes(img, "GIF"),
         "16-bit png": _pil_bytes(Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8)
                                                  * 1000), "PNG"),
-        "interlaced png": _filtered_png(np.zeros((4, 4, 3), np.uint8), 2, interlace=1),
-        "truncated png": png[:len(png) // 2],
-        "bad crc": png[:40] + bytes([png[40] ^ 1]) + png[41:],
-        "16-bit ppm": b"P6\n2 2\n65535\n" + bytes(24),
-        "truncated ppm": b"P6\n4 4\n255\n" + bytes(10),
+        "interlaced png": _png(_photo(11, 13, seed=9), 2, 8, interlace=1),
+        "16-bit ppm": b"P6\n2 2\n65535\n" + bytes(range(0, 240, 10)),
         "8-bit bmp": _pil_bytes(img.convert("L"), "BMP"),
-        "garbage": b"this is not an image",
-        "empty": b"",
     }
 
 
-@pytest.mark.parametrize("case", list(_unsupported()))
-def test_unsupported_input_raises(case):
-    with pytest.raises(ValueError):
-        codecs.decode(_unsupported()[case])
+@pytest.mark.parametrize("case", ["jpeg", "gif", "16-bit png", "interlaced png", "16-bit ppm",
+                                  "8-bit bmp"])
+def test_formerly_refused_input_decodes_like_pil(case):
+    data = _formerly_refused()[case]
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+# -- PNG at 16 bits and Adam7 -------------------------------------------------------
+
+def _pack(samples, depth):
+    """(h, w, c) samples -> (h, row bytes) uint8 at `depth` bits."""
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    n = flat.shape[1]
+    pad = np.zeros((h, -(-n // per) * per), np.uint8)
+    pad[:, :n] = flat
+    groups = pad.reshape(h, -1, per).astype(np.uint8)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return (groups << shifts).sum(-1).astype(np.uint8)
+
+
+def _filter_rows(packed, bpp, first_filter=0):
+    """Filter each row with filter (r + first_filter) % 5."""
+    rows = packed.astype(np.int32)
+    out = []
+    for r in range(rows.shape[0]):
+        x = rows[r]
+        up = rows[r - 1] if r else np.zeros_like(x)
+        left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        f = (r + first_filter) % 5
+        pred = [0, left, up, (left + up) // 2, paeth][f]
+        out.append(bytes([f]) + ((x - pred) % 256).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _png(samples, ctype, depth, interlace=0, palette=None):
+    """A PNG of `samples` (h, w, channels) at `depth` bits, Adam7 when
+    `interlace`, each pass's rows cycling through the five filters."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b""
+    for i, (y0, x0, dy, dx) in enumerate(passes):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += _filter_rows(_pack(sub, depth), bpp, first_filter=i)
+    out = PNG_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        out += _chunk(b"PLTE", palette.tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("ctype", [0, 2, 4, 6])
+def test_png_16_bit_is_pils(ctype):
+    """16-bit grey clips at 255 (PIL's I;16); RGB, grey+alpha and RGBA keep
+    the high byte."""
+    rng = np.random.default_rng(10 + ctype)
+    c = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    px = rng.integers(0, 65536, (13, 11, c)).astype(np.uint16)
+    px[0, :4, 0] = [0x1234, 0x00FF, 0x0100, 0xFF80]
+    px[1, :4, 0] = [0, 1, 254, 255]
+    data = _png(px, ctype, 16)
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+@pytest.mark.parametrize("ctype,depth,shape", [
+    (2, 8, (13, 11)), (6, 8, (9, 17)), (0, 8, (1, 1)), (0, 1, (11, 13)), (0, 2, (5, 3)),
+    (0, 4, (8, 9)), (3, 8, (10, 10)), (3, 2, (3, 9)), (2, 16, (7, 5)), (4, 16, (4, 4)),
+    (0, 16, (2, 9))])
+def test_png_adam7_is_pils(ctype, depth, shape):
+    rng = np.random.default_rng(depth * 7 + ctype)
+    c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    palette = None
+    if ctype == 3:
+        palette = rng.integers(0, 256, (1 << depth, 3)).astype(np.uint8)
+    px = rng.integers(0, 1 << depth, shape + (c,)).astype(np.uint16 if depth == 16 else np.uint8)
+    data = _png(px, ctype, depth, interlace=1, palette=palette)
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+def test_png_index_past_the_palette_is_black():
+    px = np.array([[[0], [1], [5], [200]]], np.uint8)
+    data = _png(px, 3, 8, palette=np.array([[10, 20, 30], [40, 50, 60]], np.uint8))
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+# -- PNM at every maxval ------------------------------------------------------------
+
+@pytest.mark.parametrize("magic", [b"P5", b"P6"])
+@pytest.mark.parametrize("maxval", [1, 100, 254, 255, 256, 1000, 65534, 65535])
+def test_pnm_every_maxval_is_pils(magic, maxval):
+    bands = 3 if magic == b"P6" else 1
+    rng = np.random.default_rng(maxval)
+    px = rng.integers(0, maxval + 1, (6, 7, bands))
+    px.flat[:4] = [0, maxval, maxval // 2, (maxval + 1) // 2]
+    raster = px.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+    data = magic + b"\n7 6\n%d\n" % maxval + raster
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+def test_pnm_below_255_follows_pil_not_the_native_loader(tmp_path):
+    """JAX's decode_resize_batch sends PPM batches through native/loader.cc
+    when it builds, which copies a maxval-100 raster unscaled; PIL (JAX's
+    other path) scales it. The port keeps one decoder and follows PIL."""
+    from shmgan_tpu.data.loader import decode_resize_batch as j_decode_resize_batch
+    from shmgan_tpu.runtime.native_loader import native_available
+    from shmgan_tpu_torch.data.loader import decode_resize_batch
+
+    px = np.random.default_rng(12).integers(0, 101, (20, 24, 3)).astype(np.uint8)
+    path = str(tmp_path / "m100.ppm")
+    with open(path, "wb") as f:
+        f.write(b"P6\n24 20\n100\n" + px.tobytes())
+    got = decode_resize_batch([path], 16, num_workers=1)
+    via_pil, used_native = j_decode_resize_batch([path], 16, num_workers=1, allow_native=False)
+    assert not used_native
+    np.testing.assert_array_equal(got, via_pil)
+    if native_available():
+        via_native, used_native = j_decode_resize_batch([path], 16, num_workers=1)
+        assert used_native and np.abs(via_native - got).max() > 0.3   # 100 read as 100/255
+
+
+# -- BMP variants -------------------------------------------------------------------
+
+def _bmp(w, h, bits, pixels, palette=None, hsize=40, compression=0, masks=None,
+         top_down=False, colors=0):
+    """A BMP: file header, a `hsize`-byte info header (12: OS/2 core),
+    BITFIELDS masks (inside a V4/V5 header, else after the 40-byte one),
+    the palette, then `pixels` as given."""
+    if hsize == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", hsize, w, -h if top_down else h, 1, bits,
+                           compression, len(pixels), 2835, 2835, colors, 0)
+        extra = b""
+        if masks is not None and hsize >= 56:
+            extra = struct.pack("<IIII", *masks)
+        elif masks is not None and hsize == 52:
+            extra = struct.pack("<III", *masks[:3])
+        info += (extra + bytes(hsize))[:hsize - 40]
+        if masks is not None and hsize == 40:
+            info += struct.pack("<III", *masks[:3])
+    pal = palette or b""
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info + pal + pixels
+
+
+def _rows(h, w, bits, seed):
+    """Random row data at `bits` a pixel, each row padded to 4 bytes."""
+    stride = ((w * bits + 31) >> 3) & ~3
+    return np.random.default_rng(seed).integers(0, 256, h * stride).astype(np.uint8).tobytes()
+
+
+def _bgrx_palette(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, n * 4).astype(np.uint8).tobytes()
+
+
+def _rle8():
+    """RLE8 rows of 7: runs, absolute runs (odd length, padded), a delta,
+    end of line, end of bitmap."""
+    return bytes([3, 5, 2, 9, 0, 3, 1, 2, 3, 0, 2, 7, 0, 0,
+                  0, 2, 0, 0, 1, 1, 7, 4, 0, 0,
+                  7, 200, 0, 0, 0, 5, 9, 8, 7, 6, 5, 0, 0, 0, 0, 1])
+
+
+def _rle4():
+    return bytes([5, 0x12, 0, 4, 0x34, 0x56, 2, 0xF0, 0, 0,
+                  7, 0xAB, 0, 0, 0, 1])
+
+
+_BMPS = {
+    "1-bit": lambda: _bmp(13, 5, 1, _rows(5, 13, 1, 1), palette=_bgrx_palette(2, 1)),
+    "4-bit": lambda: _bmp(13, 5, 4, _rows(5, 13, 4, 2), palette=_bgrx_palette(16, 2)),
+    "4-bit short palette": lambda: _bmp(9, 4, 4, _rows(4, 9, 4, 3),
+                                        palette=_bgrx_palette(5, 3), colors=5),
+    "8-bit": lambda: _bmp(9, 6, 8, _rows(6, 9, 8, 4), palette=_bgrx_palette(256, 4)),
+    "8-bit grey": lambda: _bmp(9, 6, 8, _rows(6, 9, 8, 5),
+                               palette=b"".join(bytes([i, i, i, 0]) for i in range(256))),
+    "16-bit 555": lambda: _bmp(7, 5, 16, _rows(5, 7, 16, 6)),
+    "16-bit 565": lambda: _bmp(7, 5, 16, _rows(5, 7, 16, 7), compression=3,
+                               masks=(0xF800, 0x7E0, 0x1F, 0)),
+    "16-bit 555 bitfields v4": lambda: _bmp(7, 5, 16, _rows(5, 7, 16, 8), hsize=108,
+                                            compression=3, masks=(0x7C00, 0x3E0, 0x1F, 0)),
+    "24-bit top-down": lambda: _bmp(7, 5, 24, _rows(5, 7, 24, 9), top_down=True),
+    "32-bit": lambda: _bmp(6, 4, 32, _rows(4, 6, 32, 10)),
+    "32-bit bitfields bgrx": lambda: _bmp(6, 4, 32, _rows(4, 6, 32, 11), compression=3,
+                                          masks=(0xFF0000, 0xFF00, 0xFF, 0)),
+    "32-bit bitfields xbgr v5": lambda: _bmp(6, 4, 32, _rows(4, 6, 32, 12), hsize=124,
+                                             compression=3,
+                                             masks=(0xFF000000, 0xFF0000, 0xFF00, 0)),
+    "32-bit bitfields rgba v4": lambda: _bmp(6, 4, 32, _rows(4, 6, 32, 13), hsize=108,
+                                             compression=3,
+                                             masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+    "rle8": lambda: _bmp(7, 4, 8, _rle8(), palette=_bgrx_palette(256, 14), compression=1),
+    "rle8 top-down": lambda: _bmp(7, 4, 8, _rle8(), palette=_bgrx_palette(256, 15),
+                                  compression=1, top_down=True),
+    "rle4": lambda: _bmp(8, 2, 4, _rle4(), palette=_bgrx_palette(16, 16), compression=2),
+    "os2 24-bit": lambda: _bmp(7, 5, 24, _rows(5, 7, 24, 17), hsize=12),
+    "os2 8-bit": lambda: _bmp(9, 3, 8, _rows(3, 9, 8, 18), hsize=12,
+                              palette=np.random.default_rng(18).integers(
+                                  0, 256, 768).astype(np.uint8).tobytes()),
+}
+
+
+@pytest.mark.parametrize("case", list(_BMPS))
+def test_bmp_variants_are_pils(case):
+    data = _BMPS[case]()
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+# -- GIF ------------------------------------------------------------------------------
+
+def _lzw_literal(indices, min_bits):
+    """GIF LZW of `indices` as literal codes only, a clear code whenever the
+    decoder's table would widen the codes."""
+    clear = 1 << min_bits
+    size, codes, table, prev = min_bits + 1, [clear], clear + 2, False
+    for v in indices:
+        if prev and table + 1 == (1 << size):
+            codes.append(clear)
+            table, prev = clear + 2, False
+        codes.append(int(v))
+        table += prev
+        prev = True
+    codes.append(clear + 1)
+    acc = nacc = 0
+    out = bytearray()
+    for c in codes:
+        acc |= c << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif(screen, frame, idx, global_pal=None, local_pal=None, transparency=None,
+         interlace=False, min_bits=8):
+    """A one-frame GIF: screen (w, h), frame (x0, y0, w, h), indices (h, w)."""
+    def table(p):
+        bits = max(1, int(np.ceil(np.log2(len(p)))))
+        full = np.zeros((1 << bits, 3), np.uint8)
+        full[:len(p)] = p
+        return 0x80 | (bits - 1), full.tobytes()
+    out = b"GIF89a" + struct.pack("<HH", *screen)
+    flags, gt = table(global_pal) if global_pal is not None else (0, b"")
+    out += bytes([flags, 0, 0]) + gt
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes([1, 0, 0, transparency, 0])
+    out += b"\x21\xfe\x05hello\x00"                       # a comment extension
+    flags, lt = table(local_pal) if local_pal is not None else (0, b"")
+    rows = idx
+    if interlace:
+        flags |= 0x40
+        order = np.concatenate([np.arange(s, idx.shape[0], st)
+                                for s, st in ((0, 8), (4, 8), (2, 4), (1, 2))])
+        rows = idx[order]
+    out += b"\x2c" + struct.pack("<HHHH", *frame) + bytes([flags]) + lt + bytes([min_bits])
+    stream = _lzw_literal(rows.ravel(), min_bits)
+    for i in range(0, len(stream), 255):
+        out += bytes([len(stream[i:i + 255])]) + stream[i:i + 255]
+    return out + b"\x00\x3b"
+
+
+def _gifs():
+    rng = np.random.default_rng(19)
+    pal = rng.integers(0, 256, (200, 3)).astype(np.uint8)
+    idx = rng.integers(0, 200, (19, 23)).astype(np.uint8)
+    img = Image.fromarray(_photo(37, 41, seed=20))
+    return {
+        "pil": lambda: _pil_bytes(img.quantize(100), "GIF", interlace=0),
+        "pil interlaced": lambda: _pil_bytes(img.quantize(100), "GIF"),
+        "pil grey": lambda: _pil_bytes(img.convert("L"), "GIF"),
+        "pil transparency": lambda: _pil_bytes(img.quantize(60), "GIF", transparency=5),
+        "global table": lambda: _gif((23, 19), (0, 0, 23, 19), idx, global_pal=pal),
+        "local table": lambda: _gif((23, 19), (0, 0, 23, 19), idx, global_pal=pal[::-1],
+                                    local_pal=pal),
+        "interlaced": lambda: _gif((23, 19), (0, 0, 23, 19), idx, global_pal=pal,
+                                   interlace=True),
+        "small frame": lambda: _gif((30, 25), (3, 4, 23, 19), idx, global_pal=pal),
+        "small frame transparent": lambda: _gif((30, 25), (3, 4, 23, 19), idx,
+                                                global_pal=pal, transparency=7),
+        "no table": lambda: _gif((23, 19), (0, 0, 23, 19), idx),
+        "index past the table": lambda: _gif((23, 19), (0, 0, 23, 19), idx,
+                                             global_pal=pal[:4]),
+        "2-bit codes": lambda: _gif((23, 19), (0, 0, 23, 19), idx % 4, global_pal=pal[:4],
+                                    min_bits=2),
+    }
+
+
+@pytest.mark.parametrize("case", list(_gifs()))
+def test_gif_is_pils(case):
+    data = _gifs()[case]()
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
 
 
 def test_list_images_equals_jax(tmp_path):
@@ -184,3 +490,90 @@ def test_list_images_equals_jax(tmp_path):
         p.write_bytes(b"x")
     assert list_images(str(tmp_path)) == j_list_images(str(tmp_path))
     assert list_images(str(tmp_path / "missing")) == []
+
+
+def _jpeg_with(patch):
+    data = bytearray(_pil_bytes(Image.fromarray(_photo(16, 16, seed=9)), "JPEG"))
+    sof = data.index(b"\xff\xc0")
+    return bytes(patch(data, sof))
+
+
+def _unsupported():
+    img = Image.fromarray(_photo(16, 16, seed=9))
+    png = _pil_bytes(img, "PNG")
+    jpeg = _pil_bytes(img, "JPEG")
+    gif = _pil_bytes(img, "GIF")
+    bmp = _pil_bytes(img, "BMP")
+    return {
+        "truncated png": png[:len(png) // 2],
+        "bad crc": png[:40] + bytes([png[40] ^ 1]) + png[41:],
+        "truncated ppm": b"P6\n4 4\n255\n" + bytes(10),
+        "truncated 16-bit pgm": b"P5\n4 4\n1000\n" + bytes(30),
+        "maxval 0": b"P5\n1 1\n0\n" + bytes(1),
+        "garbage": b"this is not an image",
+        "empty": b"",
+        "truncated jpeg": jpeg[:len(jpeg) // 2],
+        "jpeg without eoi": jpeg[:-2],
+        "arithmetic jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc9" + d[i + 2:]),
+        "12-bit jpeg": _jpeg_with(lambda d, i: d[:i + 4] + b"\x0c" + d[i + 5:]),
+        "lossless jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc3" + d[i + 2:]),
+        "hierarchical jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc5" + d[i + 2:]),
+        "cmyk jpeg": _pil_bytes(img.convert("CMYK"), "JPEG"),
+        "truncated gif": gif[:len(gif) * 2 // 3],
+        "truncated bmp": bmp[:len(bmp) - 20],
+        "bmp bad bitfields": _bmp(2, 2, 32, bytes(16), compression=3,
+                                  masks=(0xF00, 0xF0, 0xF, 0)),
+        "bmp jpeg compression": _bmp(2, 2, 24, bytes(16), compression=4),
+        "bmp 2-bit": _bmp(2, 2, 2, bytes(8), palette=bytes(16)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_unsupported()))
+def test_unsupported_input_raises(case):
+    with pytest.raises(ValueError):
+        codecs.decode(_unsupported()[case])
+
+
+def _bombs():
+    """Small files whose headers claim 65535 x 65535 pixels (a GIF: its frame
+    at an offset, 131070 x 131070 in all), past the 2 * 89478485 PIL opens."""
+    big = 65535
+    gif_head = b"GIF89a" + struct.pack("<HHBBB", 1, 1, 0, 0, 0)
+    gif_tail = b"\x02\x02\x4c\x01\x00\x3b"
+    ihdr = codecs._png_chunk(b"IHDR", struct.pack(">IIBBBBB", big, big, 8, 2, 0, 0, 0))
+    return {
+        "jpeg": _jpeg_with(lambda d, i: d[:i + 5] + struct.pack(">HH", big, big) + d[i + 9:]),
+        "gif screen": b"GIF89a" + struct.pack("<HHBBB", big, big, 0, 0, 0)
+                      + b"\x2c" + struct.pack("<HHHHB", 0, 0, 1, 1, 0) + gif_tail,
+        "gif frame": gif_head + b"\x2c" + struct.pack("<HHHHB", big, big, big, big, 0)
+                     + gif_tail,
+        "png": codecs.PNG_SIGNATURE + ihdr + codecs._png_chunk(b"IDAT", zlib.compress(b""))
+               + codecs._png_chunk(b"IEND", b""),
+        "pnm": f"P5\n{big} {big}\n255\n".encode() + bytes(1 << 16),
+        "bmp": _bmp(big, big, 8, bytes(64), palette=bytes(1024)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bombs()))
+def test_decompression_bomb_header_is_refused_before_decoding(case):
+    """PIL refuses these in Image.open; the port raises ValueError from the
+    header, before it allocates for the claimed size."""
+    data = _bombs()[case]
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(data))
+    with pytest.raises(ValueError, match="PIL opens"):
+        codecs.decode(data)
+
+
+def test_png_inflates_no_further_than_its_scanlines():
+    """An IDAT stream whose scanlines are followed by 64 MiB of zeros (it
+    compresses to ~64 KiB) decodes as PIL decodes it, without inflating the
+    rest."""
+    img = _photo(6, 5, seed=3)
+    raw = np.concatenate([np.zeros((6, 1), np.uint8), img.reshape(6, 15)], 1).tobytes()
+    idat = zlib.compress(raw + bytes(64 << 20), 9)
+    data = (codecs.PNG_SIGNATURE
+            + codecs._png_chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 6, 8, 2, 0, 0, 0))
+            + codecs._png_chunk(b"IDAT", idat) + codecs._png_chunk(b"IEND", b""))
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+    np.testing.assert_array_equal(codecs.decode(data), img)

@@ -44,6 +44,25 @@ class TestKernelsOnCard:
         torch.testing.assert_close(y, ink.instance_norm_plain(x, gamma, beta),
                                    rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("shape", [(1, 2, 1536, 2048), (2, 4, 33, 31)])
+    def test_instance_norm_flat_planes(self, cuda, shape):
+        """Planes whose mean is large against their spread, as in a flat
+        image region, against float64: one-pass moments of x (E[x^2] -
+        E[x]^2) in f32 lose their variance, and more so over a 2048x1536
+        plane's long per-thread sums; the kernel's of x less the plane's
+        first element do not."""
+        g = torch.Generator(device=cuda).manual_seed(2)
+        x = 50.0 + 0.1 * torch.randn(shape, device=cuda, generator=g)
+        gamma = torch.rand(shape[1], device=cuda, generator=g) + 0.5
+        beta = torch.randn(shape[1], device=cuda, generator=g) * 0.1
+        y = ink.instance_norm(x, gamma, beta)
+        xd = x.double()
+        mean = xd.mean(dim=(2, 3), keepdim=True)
+        xhat = (xd - mean) * torch.rsqrt((xd - mean).square().mean(dim=(2, 3), keepdim=True)
+                                         + 1e-6)
+        ref = xhat * gamma.double()[:, None, None] + beta.double()[:, None, None]
+        torch.testing.assert_close(y.double(), ref, rtol=1e-4, atol=1e-4)
+
     @pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 17, 31, 3), (2, 100, 130, 3),
                                        (1, 256, 256, 3), (2, 640, 640, 3)])
     def test_preprocess(self, cuda, shape):

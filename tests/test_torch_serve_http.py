@@ -23,6 +23,8 @@ from shmgan_tpu.config import Config as JConfig
 from shmgan_tpu_torch import Config
 from shmgan_tpu_torch import cli
 from shmgan_tpu_torch.checkpoint import export_inference_bundle
+from shmgan_tpu_torch.data.codecs import resize_bilinear
+from shmgan_tpu_torch.data.loader import to_unit
 from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.serve import BatchInferenceEngine
 from shmgan_tpu_torch.serve_http import HTTP_OUTPUTS, _decode_request_image, make_server
@@ -151,11 +153,45 @@ def test_bad_requests_are_400(server, query, body):
 
 
 def test_jpeg_is_400_with_a_reason(server):
+    """A JPEG of a kind PIL does not decode either (arithmetic coding, SOF9)
+    is refused with the feature named."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, format="JPEG")
+    data = bytearray(buf.getvalue())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9
     with pytest.raises(urllib.error.HTTPError) as exc:
-        _post(server + "/v1/specfree", buf.getvalue())
-    assert exc.value.code == 400 and "JPEG" in json.loads(exc.value.read())["error"]
+        _post(server + "/v1/specfree", bytes(data))
+    error = json.loads(exc.value.read())["error"]
+    assert exc.value.code == 400 and "JPEG" in error and "arithmetic coding" in error
+
+
+@pytest.mark.parametrize("fmt,query,shape", [("JPEG", "", (48, 40)), ("GIF", "", (48, 40)),
+                                             ("JPEG", "?size=native", (40, 56))])
+def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
+    """A JPEG or GIF body gives 200, within one level of the engine given
+    PIL's decoded pixels (resized as the server resizes)."""
+    url, run = running
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    arr = np.stack([yy * 5, xx * 4, (yy + xx) * 3], -1).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format=fmt)
+    with _post(url + "/v1/specfree" + query, buf.getvalue()) as r:
+        assert r.status == 200
+        got = _image(r.read())
+    with Image.open(buf) as im:
+        pixels = np.asarray(im.convert("RGB"))
+    native = query == "?size=native"
+    eng = BatchInferenceEngine(tiny_cfg(), *run.models, batch_size=1, outputs=HTTP_OUTPUTS,
+                               native_resolution=native, device="cpu")
+    if native:
+        want = eng.process_images_native([to_unit(pixels)])[0]["gen_rgb_calibrated"]
+    else:
+        x = to_unit(resize_bilinear(pixels, (32, 32)))[None]
+        want = eng.process_images(x)["gen_rgb_calibrated"][0]
+    eng.close()
+    want = (np.clip(want, 0, 1) * 255).astype(np.uint8)
+    assert got.shape == want.shape
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/v2/specfree")])

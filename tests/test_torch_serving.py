@@ -2,7 +2,8 @@
 `make_infer_fn(outputs=...)`, native-resolution inference (bucket_shape,
 pad_to_bucket, make_native_infer_fn) and make_mask_fn at float32, and the
 engine's folder job and watch_folder against the JAX engine's on the same
-files (the same files written, pixels within one level).
+files, PNGs and the photo formats (JPEG, GIF, 16-bit PNG, palette BMP,
+16-bit PPM): the same files written, pixels within one level.
 
 Both sides compute in float32; tolerances as tests/test_torch_infer.py: abs
 1e-3 on the [0, 1] outputs, 1e-3 relative to the output's scale on the
@@ -236,6 +237,51 @@ def test_folder_jobs_match_the_jax_engine(weights, tmp_path, native):
         for f in want:
             assert got[f].shape == want[f].shape, f
             assert np.abs(got[f] - want[f]).max() <= 1, f
+
+
+def _write_formats(root, seed):
+    """A folder of the formats a camera or an editor writes, and a JPEG cut
+    short (PIL refuses it too)."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:40, 0:48]
+    base = np.stack([yy * 6, xx * 5, (yy + xx) * 3], -1) + rng.normal(0, 6, (40, 48, 3))
+    arr = np.clip(base, 0, 255).astype(np.uint8)
+    im = Image.fromarray(arr)
+    im.save(os.path.join(root, "a_baseline.jpg"), quality=85)
+    im.save(os.path.join(root, "b_progressive.jpeg"), quality=85, progressive=True)
+    im.quantize(64).save(os.path.join(root, "c_palette.gif"))
+    im.quantize(64).save(os.path.join(root, "d_palette.bmp"))
+    Image.fromarray((arr[..., 0].astype(np.uint16) << 4) | 3).save(
+        os.path.join(root, "e_grey16.png"))
+    with open(os.path.join(root, "f_16bit.ppm"), "wb") as f:
+        f.write(b"P6\n48 40\n65535\n" + (arr.astype(">u2") * 257).tobytes())
+    with open(os.path.join(root, "a_baseline.jpg"), "rb") as f:
+        data = f.read()
+    with open(os.path.join(root, "g_cut_short.jpg"), "wb") as f:
+        f.write(data[:len(data) // 2])
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["square", "native"])
+def test_folder_jobs_on_photo_formats_match_the_jax_engine(weights, tmp_path, native):
+    """JPEG, GIF, 16-bit PNG, palette BMP and 16-bit PPM inputs: the port's
+    folder job writes the JAX engine's files, pixels within one level; the
+    JPEG cut short is skipped by both."""
+    jcfg, cfg = _configs()
+    in_dir = str(tmp_path / "in")
+    _write_formats(in_dir, seed=29)
+    kw = dict(batch_size=2, native_resolution=native, outputs=("gen_rgb_calibrated", "mask"))
+    jeng = JEngine(jcfg, *weights, **kw)
+    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 6
+    gen, specseg = _port(cfg, weights)
+    eng = BatchInferenceEngine(cfg, gen, specseg, device="cpu", **kw)
+    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 6
+    eng.close()
+    want, got = _read_dir(str(tmp_path / "jax")), _read_dir(str(tmp_path / "port"))
+    assert len(want) == 12 and list(got) == list(want)
+    for f in want:
+        assert got[f].shape == want[f].shape, f
+        assert np.abs(got[f] - want[f]).max() <= 1, f
 
 
 def test_watch_folder_waits_for_a_stable_file_and_backs_off(weights, tmp_path, monkeypatch):
