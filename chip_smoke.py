@@ -6,7 +6,7 @@ dtype).
 
 Phases (each prints its name before it starts and its seconds after):
   device      the card's name, count, CUDA version, nvidia-smi's name and
-              power limit;
+              power limit, and utils.device's report;
   build       compiles csrc/*.cu with nvcc (one process per source) and prints
               what ptxas reports;
   kernels     holds each kernel against its plain PyTorch version on the card
@@ -74,6 +74,19 @@ Phases (each prints its name before it starts and its seconds after):
               native, on ten PNGs and every JPEG, GIF, 16-bit PNG and BMP
               fixture: the files written, their shapes, the square job's
               pixels against process_images', launches;
+  data_parallel two ranks of one gloo group on the one card (NCCL refuses
+              two ranks on one device), each a process running dp_rank: the
+              fused step at the JAX defaults (128 px, filter 64, global batch
+              8, 4 a rank, the same draws) in f32 and bf16, each rank's
+              launches exactly (46, 28, 1), the ranks' parameters bit for
+              bit, the f32 step against one rank's on the global batch by
+              _compare_step, two-rank step ms beside one rank's; cli --mode
+              train --data_parallel 1 under a one-rank NCCL group (2 steps,
+              a checkpoint), then --mode export; the bundle's engine with
+              data_parallel=2 on ["cuda:0", "cuda:0"] in f32 and bf16, each
+              output within SERVE_ATOL of the one-device engine at the
+              shard's batch, 2 x (18, 1) launches a request, request ms
+              beside the one-device engine at batch 8;
   train       the fused train step at full width in f32 (the JAX package's
               default model: 128 px, filter 64, batch 8) on seeded weights: one
               step through the kernels against the same step through the plain
@@ -348,6 +361,9 @@ def device_phase():
     say(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     say(f"nvidia-smi: {smi}")
+    from shmgan_tpu_torch.utils.device import print_device_report
+
+    print_device_report()
     return smi
 
 
@@ -2814,6 +2830,281 @@ def quality_gan_phase():
     return counts
 
 
+DP_RANKS = 2          # two ranks of one gloo group, both on the one card
+DP_TIMED_STEPS = 3    # timed steps a rank, and of the one-rank step beside them
+DP_SEED = 14
+DP_SCENES = 16        # cli --mode train at batch 8: 2 steps
+
+
+def _dp_inputs(cfg):
+    """The global batch's views and draws of the data_parallel phase, the
+    same on every rank and in the one-rank reference: a seeded generator on
+    the card."""
+    from shmgan_tpu_torch.train.step import sample_draws
+
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    gen = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+    return views, sample_draws(cfg, gen, v, b, size, size), gen
+
+
+def dp_rank(workdir):
+    """One rank of the data_parallel phase (RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the environment, LOCAL_RANK 0): joins the gloo group,
+    broadcasts the seeded state from rank 0, and in f32 and bf16 takes one
+    step on its block of the global batch, counted (and with its averaged
+    gradients in f32), then DP_TIMED_STEPS timed steps; writes
+    <workdir>/rank<r>.pt."""
+    from shmgan_tpu_torch.data.pipeline import local_batch
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel.mesh import (maybe_initialize_distributed, rank,
+                                                shutdown_distributed, world_size)
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import broadcast_state, create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    if not maybe_initialize_distributed("gloo"):
+        raise RuntimeError("dp_rank: no launcher environment")
+    r, n = rank(), world_size()
+    out = {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = training_config(dtype)
+            state = broadcast_state(create_train_state(
+                cfg, build_models(cfg, device="cuda", seed=0)))
+            views, draws, gen = _dp_inputs(cfg)
+            local, mine = local_batch(views, r, n), draws.shard(r, n)
+            step = make_train_step(cfg, debug_grads=dtype == "float32")
+            step(copy.deepcopy(state), local, mine, 0)  # warm-up: cuDNN's choices
+            torch.cuda.synchronize()
+            _launch_counts(reset=True)
+            state, m = step(state, local, mine, 0)
+            torch.cuda.synchronize()
+            counts = _launch_counts(reset=True)
+            fast, times = make_train_step(cfg), []
+            v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+            for _ in range(DP_TIMED_STEPS):
+                views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+                d = sample_draws(cfg, gen, v, b, size, size).shard(r, n)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = fast(state, local_batch(views, r, n), d, 0)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            _launch_counts(reset=True)
+            cpu = lambda t: t.detach().cpu()  # noqa: E731
+            out[dtype] = {
+                "counts": counts, "ms": [t * 1e3 for t in times],
+                "metrics": {k: (({net: {name: cpu(g) for name, g in grads.items()}
+                                  for net, grads in val.items()}) if k == "_grads" else cpu(val))
+                            for k, val in m.items() if k != "_drop"},
+                "params": {f"{net}.{k}": cpu(p) for net, mod in (("G", state.gen),
+                                                                ("D", state.disc))
+                           for k, p in mod.named_parameters()}}
+            del state, m
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(workdir, f"rank{r}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(workdir, timeout=300):
+    """DP_RANKS processes of dp_rank, one gloo group on a free port; each is
+    killed if it outlives `timeout`. Raises with a rank's output if it fails."""
+    env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import chip_smoke; chip_smoke.dp_rank({workdir!r})"],
+                              cwd=ROOT, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_RANKS)]
+
+
+def _dp_step_checks(tmp):
+    """Two ranks against one: launches, rank agreement, the f32 step by
+    _compare_step; returns the ranks' step launches."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(tmp)
+    say(f"{DP_RANKS} ranks (gloo, one card, 4 images a rank of the global batch 8) ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    totals = {k: 0 for k in _launch_counts()}
+    for dtype, torch_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        want = step_launches(torch_dtype)
+        for r, res in enumerate(ranks):
+            counts = res[dtype]["counts"]
+            say(f"rank {r} {dtype}: one step launched {counts}; step ms "
+                f"{[round(t, 2) for t in res[dtype]['ms']]}")
+            if counts != want:
+                raise AssertionError(f"rank {r} {dtype}: launches {counts}, expected {want}")
+            totals = _sum_counts(totals, counts)
+        p0, p1 = ranks[0][dtype]["params"], ranks[1][dtype]["params"]
+        same = sum(torch.equal(p0[k], p1[k]) for k in p0)
+        say(f"{dtype}: ranks hold identical parameters after {1 + DP_TIMED_STEPS} steps: "
+            f"{same}/{len(p0)} tensors bit for bit")
+        if same != len(p0):
+            raise AssertionError(f"{dtype}: the ranks' parameters differ")
+
+        # one rank on the whole global batch, the same weights and draws
+        cfg = training_config(dtype)
+        state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+        views, draws, gen = _dp_inputs(cfg)
+        step = make_train_step(cfg, debug_grads=dtype == "float32")
+        step(copy.deepcopy(state), views, draws, 0)
+        state, ref = step(state, views, draws, 0)
+        if dtype == "float32":
+            _compare_step(ranks[0][dtype]["metrics"], ref,
+                          f"{DP_RANKS} ranks vs 1 rank, f32, global batch 8:")
+        fast, times = make_train_step(cfg), []
+        v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+        for _ in range(DP_TIMED_STEPS):
+            views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+            d = sample_draws(cfg, gen, v, b, size, size)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, _ = fast(state, views, d, 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        _launch_counts(reset=True)
+        two = [float(np.median(res[dtype]["ms"])) for res in ranks]
+        say(f"{dtype} step at global batch 8: {DP_RANKS} ranks on one card over gloo "
+            f"{two[0]:.2f} / {two[1]:.2f} ms (rank 0 / 1, median of {DP_TIMED_STEPS}) beside "
+            f"one rank {np.median(times) * 1e3:.2f} ms (not a scaling number: both ranks "
+            f"share the card and gloo copies the gradients through the host)")
+        del state, ref
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _dp_cli_check(tmp):
+    """cli --mode train --data_parallel 1 under a one-rank NCCL group (the
+    launcher's environment) for 2 steps, then --mode export in process."""
+    from shmgan_tpu_torch import cli
+    from shmgan_tpu_torch.checkpoint import CheckpointManager, load_inference_bundle
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+
+    tree = os.path.join(tmp, "tree")
+    write_fixture_tree(tree, DP_SCENES, 128)
+    common = ["--data_dir", tree, "--batch_size", "8", "--data_parallel", "1",
+              "--checkpoint_save_dir", os.path.join(tmp, "ckpt"),
+              "--log_dir", os.path.join(tmp, "logs"),
+              "--model_save_dir", os.path.join(tmp, "models"),
+              "--result_dir", os.path.join(tmp, "results")]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "shmgan_tpu_torch.cli", "--mode", "train",
+                           "--num_epochs", "1", *common], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "[dist] rank 0 of 1, backend nccl" not in log:
+        raise AssertionError(f"cli --mode train under NCCL exited {proc.returncode}:\n"
+                             f"{log[-4000:]}")
+    steps = CheckpointManager(os.path.join(tmp, "ckpt")).all_steps()
+    say(f"cli --mode train --data_parallel 1 under a one-rank NCCL group: "
+        f"{time.perf_counter() - t0:.1f} s, checkpoints {steps}")
+    if steps != [2]:
+        raise AssertionError(f"expected one checkpoint at step 2, got {steps}")
+    cli.main(["--mode", "export", *common])
+    _launch_counts(reset=True)
+    header = load_inference_bundle(os.path.join(tmp, "models", "shmgan_infer.msgpack"))[2]
+    say(f"cli --mode export: bundle of step {header['step']}")
+    if header["step"] != 2:
+        raise AssertionError(f"exported step {header['step']}, expected 2")
+
+
+def _dp_engine_check(bundle):
+    """The bundle's engine with data_parallel=2 on ["cuda:0", "cuda:0"],
+    f32 and bf16: each output against the one-device engine at the shard's
+    batch (4: the same calls) within SERVE_ATOL, launches 2 x (18, 1) a
+    request, and request ms beside the one-device engines at batch 8 and
+    at batch 4 (two calls a request, as the shards)."""
+    from shmgan_tpu_torch.profile_serve import serving_config
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+
+    totals = {k: 0 for k in _launch_counts()}
+    rgb = scenes(8, 256, 256, np.random.default_rng(DP_SEED))
+    for dtype, torch_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = serving_config(dtype)
+        gen, specseg = bundle_models(cfg, bundle)
+        dp = BatchInferenceEngine(cfg, gen, specseg, batch_size=8, data_parallel=2,
+                                  devices=["cuda:0", "cuda:0"])
+        shard = BatchInferenceEngine(cfg, gen, specseg, batch_size=4, device="cuda")
+        whole = BatchInferenceEngine(cfg, gen, specseg, batch_size=8, device="cuda")
+        for eng in (dp, shard, whole):
+            eng.process_images(rgb)  # warm-up
+        torch.cuda.synchronize()
+        _launch_counts(reset=True)
+        got = dp.process_images(rgb)
+        counts = _launch_counts(reset=True)
+        want = {**{k: 0 for k in totals}, _in_name(torch_dtype): 36, "fused_standardize_yuv": 2}
+        say(f"data-parallel engine, {dtype}, 2 shards of 4 on cuda:0: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"data-parallel engine {dtype}: launches {counts}, "
+                                 f"expected {want}")
+        totals = _sum_counts(totals, counts)
+        ref = shard.process_images(rgb)
+        _launch_counts(reset=True)
+        worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+        say(f"  against the one-device engine at batch 4: max |diff| {worst:.3e} over "
+            f"{len(ref)} outputs (tol {SERVE_ATOL})")
+        if set(got) != set(ref) or worst > SERVE_ATOL:
+            raise AssertionError(f"data-parallel engine {dtype} differs by {worst}")
+        ms = {}
+        for label, eng in (("one device, batch 8", whole), ("data parallel 2 x 4", dp),
+                           ("one device, batch 4", shard), ("one device, batch 4", shard),
+                           ("data parallel 2 x 4", dp), ("one device, batch 8", whole)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                eng.process_images(rgb)
+            torch.cuda.synchronize()
+            ms.setdefault(label, []).append((time.perf_counter() - t0) / 3 * 1e3)
+        _launch_counts(reset=True)
+        say(f"  request of 8 at 256 px, {dtype}: " + ", ".join(
+            f"{k} {np.mean(v):.2f} ms" for k, v in ms.items()) + " (same card, in turns)")
+        for eng in (dp, shard, whole):
+            eng.close()
+    return totals
+
+
+def data_parallel_phase(bundle):
+    """Data parallelism on the one card: two gloo ranks' fused step against
+    one rank, cli --mode train under a one-rank NCCL group, and the bundle's
+    data-parallel engine. Returns the launches of the counted runs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = _dp_step_checks(tmp)
+        _dp_cli_check(tmp)
+    return _sum_counts(steps, _dp_engine_check(bundle))
+
+
 def main() -> int:
     current = "device"
     try:
@@ -2838,6 +3129,8 @@ def main() -> int:
         by_path["serve_http"] = phase("serve_http", serve_http_phase)
         current = "serve_folder"
         by_path["serve_folder"] = phase("serve_folder", serve_folder_phase, bundle)
+        current = "data_parallel"
+        by_path["data_parallel"] = phase("data_parallel", data_parallel_phase, bundle)
         del bundle
         current = "train"
         by_path["train"] = phase("train", train_phase)

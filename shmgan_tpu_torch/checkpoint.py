@@ -11,6 +11,7 @@ the tree `flax.serialization.to_state_dict` gives for the JAX package's
 Orbax payload, so `flax.serialization.from_bytes` restores it onto that
 payload. A save writes a temporary directory and renames it into place, so a
 step directory is whole or absent; the newest `max_to_keep` steps are kept.
+Under a process group rank 0 writes and every rank restores.
 The JAX package's own Orbax checkpoints are not read (ROADMAP Queue 1 item
 10): a step directory that holds one raises.
 
@@ -40,6 +41,7 @@ import torch
 
 from shmgan_tpu_torch.config import Config, ModelConfig
 from shmgan_tpu_torch.convert import flax_tree
+from shmgan_tpu_torch.parallel.mesh import barrier, is_main
 from shmgan_tpu_torch.runtime import flax_msgpack
 
 # store dtypes of a bundle's floats (bfloat16 through torch: numpy has none)
@@ -164,12 +166,19 @@ class CheckpointManager:
 
     def save(self, state, step: Optional[int] = None) -> int:
         """Write `state` (a train.state.TrainState) at `step` (default: its
-        own); a step already saved is left as it is."""
+        own); a step already saved is left as it is. Under a process group
+        every rank calls it: rank 0 writes, and all return once it has."""
+        step = int(state.step) if step is None else int(step)
+        if is_main():
+            self._write(state, step)
+        barrier()
+        return step
+
+    def _write(self, state, step: int) -> None:
         from shmgan_tpu_torch.train.state import state_payload
 
-        step = int(state.step) if step is None else int(step)
         if step in self.all_steps():
-            return step
+            return
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -180,7 +189,6 @@ class CheckpointManager:
         os.replace(tmp, os.path.join(self.directory, str(step)))
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
-        return step
 
     def _load(self, step: int) -> Dict:
         with open(self._path(step), "rb") as f:

@@ -17,6 +17,17 @@ test, export and serve without a bundle restore the train checkpoint under
 generator when it has one and --use_ema is on. Everything runs on the CUDA
 card; `device="cpu"` in `main` (or any run_*) runs on the CPU, through the
 kernels' plain versions. --mode bench is not ported (ROADMAP Queue 1 item 2).
+
+Data-parallel training runs one process a card under `torchrun`:
+
+    torchrun --nproc_per_node 4 -m shmgan_tpu_torch.cli --mode train \
+        --data_parallel 4 --batch_size 8 --data_dir <polar-root>
+
+--data_parallel must be the number of processes (-1, the default, means
+it); above 1 without a launcher it raises, rather than run on one card. The
+process group is NCCL on the card, gloo on the CPU. Under a launcher, test
+and export run on rank 0 while the others wait. Serving data parallelism is
+one process over --data_parallel cards (serve.BatchInferenceEngine).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import time
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from shmgan_tpu_torch.checkpoint import (CheckpointManager, load_inference_bundle,
                                          load_specseg_weights, model_config,
@@ -34,15 +46,20 @@ from shmgan_tpu_torch.checkpoint import (CheckpointManager, load_inference_bundl
 from shmgan_tpu_torch.config import Config, torch_device
 from shmgan_tpu_torch.convert import load_flax, load_inference_weights
 from shmgan_tpu_torch.models import build_models
+from shmgan_tpu_torch.parallel.mesh import (barrier, is_main, maybe_initialize_distributed,
+                                            rank, shutdown_distributed, training_mesh,
+                                            world_size)
 from shmgan_tpu_torch.train.state import TrainState, create_train_state
 
 
 def run_train(cfg: Config, device="cuda") -> None:
     from shmgan_tpu_torch.train.loop import train
 
-    print(cfg.describe(), flush=True)
+    if is_main():
+        print(cfg.describe(), flush=True)
     train(cfg, device=device)
-    print(" [*] Training finished!", flush=True)
+    if is_main():
+        print(" [*] Training finished!", flush=True)
 
 
 def _restored_state(cfg: Config, device="cuda") -> TrainState:
@@ -192,8 +209,25 @@ def main(argv: Optional[list] = None, device="cuda") -> None:
     if cfg.mode == "bench":
         raise NotImplementedError("--mode bench is not ported yet: the port's benchmark is "
                                   "ROADMAP Queue 1 item 2")
-    {"train": run_train, "test": run_test, "export": run_export,
-     "serve": run_serve}[cfg.mode](cfg, device)
+    if cfg.mode == "serve":
+        run_serve(cfg, device)
+        return
+    # train, test and export join the launcher's process group, if any
+    joined = not dist.is_initialized() and maybe_initialize_distributed(
+        "gloo" if torch.device(device).type == "cpu" else "nccl")
+    if joined:
+        print(f"[dist] rank {rank()} of {world_size()}, backend {dist.get_backend()}",
+              flush=True)
+    try:
+        training_mesh(cfg)
+        if cfg.mode == "train":
+            run_train(cfg, device)
+        elif is_main():
+            {"test": run_test, "export": run_export}[cfg.mode](cfg, device)
+        barrier()
+    finally:
+        if joined:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

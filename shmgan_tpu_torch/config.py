@@ -2,7 +2,8 @@
 ModelConfig, TrainConfig, DataConfig, MeshConfig, EvalConfig and ServeConfig,
 with the same defaults, and of `Config.from_args`, the CLI surface, with the
 same flag names and defaults. The port keeps the fields that inference, the
-train step and its loop, serving and the CLI read or set.
+train step and its loop, serving and the CLI read or set; of MeshConfig,
+the two axes' sizes (spatial sharding is not ported).
 
 `model.compute_dtype` is the models' compute dtype, as in the JAX package:
 "bfloat16" (its default) or "float32". Parameters are float32 at either; each
@@ -130,20 +131,19 @@ class DataConfig:
 
 @dataclass
 class MeshConfig:
-    # -1 means "all remaining devices"; the port runs on one card, so -1 and 1
-    # are the only values it takes (check_single_device)
+    # -1 means "all": every launched rank in training (parallel/mesh.py), one
+    # device in serving, as the JAX engine reads it
     data_parallel: int = -1
     model_parallel: int = 1
 
-    def check_single_device(self) -> None:
-        """Raise unless the layout is the one card the port runs on: a data
-        parallel degree other than -1 or 1 needs parallel/mesh.py, ROADMAP
-        Queue 1 item 11, and is not silently run on one device."""
-        if self.data_parallel not in (-1, 1) or self.model_parallel != 1:
+    def check_ported(self) -> None:
+        """Raise on a layout the port cannot run, rather than run it on one
+        device: a model axis above 1 (tensor parallelism) is ROADMAP Queue 1
+        item 11."""
+        if self.model_parallel > 1:
             raise NotImplementedError(
-                f"data_parallel={self.data_parallel}, model_parallel={self.model_parallel}: "
-                "the port runs on one device; a mesh is ROADMAP Queue 1 item 11 "
-                "(parallel/mesh.py)")
+                f"model_parallel={self.model_parallel}: the port has data parallelism "
+                "only; tensor parallelism over the model axis is ROADMAP Queue 1 item 11")
 
 
 @dataclass

@@ -306,7 +306,8 @@ cudaLaunchConfig_t launch_config(long long batch, int cluster, long long smem_by
 
 // Sets both variants' shared-memory limit (the device's opt-in maximum less
 // their static shared memory) and allows clusters of 16 on the current
-// device. Called once, when the library is loaded.
+// device. cudaFuncSetAttribute holds for the device current when it runs, so
+// the wrapper calls this once on each device before its first launch there.
 extern "C" int shm_standardize_yuv_init(void) {
   cudaError_t err = configure<false>();
   if (err == cudaSuccess) err = configure<true>();

@@ -17,6 +17,12 @@ handed out as `torch.from_numpy` of it.
 
 An exception in the worker (the dataset's, or the copy's) is raised in the
 consumer, in place of the next batch.
+
+Under data parallelism (parallel/mesh.py) each rank feeds only its block of
+every global batch to its own card (`rank_feed`), the counterpart of
+`put_global_batch`: no rank loads or copies the whole batch. `local_batch`
+cuts the same block out of a batch every rank made whole (the on-card
+renders of the flagship trainer's phase B).
 """
 
 from __future__ import annotations
@@ -28,6 +34,24 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from shmgan_tpu_torch.parallel.mesh import rank, world_size
+
+
+def _check_divides(batch: int, processes: int) -> None:
+    if batch % processes != 0:
+        raise ValueError(f"global batch {batch} not divisible by {processes} processes")
+
+
+def local_batch(batch, rank_index: int, processes: int, axis: int = 1):
+    """Block rank_index of `processes` contiguous blocks of `batch` along
+    `axis` (the batch axis of a (V, B, H, W, 3) stack)."""
+    n = batch.shape[axis]
+    _check_divides(n, processes)
+    size = n // processes
+    index = [slice(None)] * batch.ndim
+    index[axis] = slice(rank_index * size, (rank_index + 1) * size)
+    return batch[tuple(index)]
 
 
 class _PinnedSlot:
@@ -120,3 +144,16 @@ class DevicePrefetcher:
             except queue.Empty:
                 pass
             self._thread.join(timeout=0.05)
+
+
+def rank_feed(dataset, shuffle_seed: Optional[int] = None, device="cuda",
+              depth: int = 2) -> DevicePrefetcher:
+    """This rank's feed of one epoch: its contiguous block of every global
+    batch of `dataset` (`iter_epoch(process_index=rank, process_count=world)`,
+    the same global order on every rank) on `device`. The global batch must
+    divide by the world size; it raises here, not in the worker."""
+    n = world_size()
+    if n > 1:
+        _check_divides(dataset.batch_size, n)
+    return DevicePrefetcher(dataset.iter_epoch(shuffle_seed=shuffle_seed, process_index=rank(),
+                                               process_count=n), device=device, depth=depth)

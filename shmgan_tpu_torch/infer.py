@@ -12,13 +12,22 @@ float32. TF32 is off for the float32 convolutions while the function runs.
 
 Also here: native-resolution inference (`bucket_shape`, `pad_to_bucket`,
 `make_native_infer_fn`) and SpecSeg alone (`make_mask_fn`).
+
+`data_parallel=n` splits each batch into n equal shards, runs shard i on
+device i (`cuda:0..n-1`, or the `devices` given, repeats allowed) with a
+replica of G and SpecSeg kept there, and concatenates the shards' outputs
+in order: the counterpart of the JAX function's batch sharding over n
+devices with replicated weights. Inference is per image, so no collective
+runs.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
-from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -112,7 +121,8 @@ def _check_outputs(outputs, with_cyclic: bool):
     return outputs
 
 
-def make_infer_fn(cfg: Config, with_cyclic: bool = False, outputs=None
+def make_infer_fn(cfg: Config, with_cyclic: bool = False, outputs=None,
+                  data_parallel: int = 1, devices: Optional[Sequence] = None
                   ) -> Callable[..., Dict[str, torch.Tensor]]:
     """fn(gen, specseg, rgb) -> dict of outputs, on rgb's device.
 
@@ -131,6 +141,9 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False, outputs=None
     those, and computes only what they need: ("mask",) runs no G, and
     without gen_rgb_denorm, the composite or the cyclic pass none of them
     runs. None returns every output.
+
+    data_parallel > 1: each call splits rgb's batch, which it must divide,
+    over the devices (see the module's docstring).
     """
     c_dim = cfg.model.c_dim
     outputs = _check_outputs(outputs, with_cyclic)
@@ -203,7 +216,67 @@ def make_infer_fn(cfg: Config, with_cyclic: bool = False, outputs=None
             out["cyc_rgb"] = yuv_to_rgb(cyc_yuv)
         return out
 
+    if data_parallel > 1:
+        return _data_parallel(infer, data_parallel, devices)
     return infer
+
+
+def dp_devices(n: int, devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The n devices of data-parallel inference: `devices` (n of them,
+    repeats allowed), else cuda:0..n-1, which must be visible."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != n:
+            raise ValueError(f"data_parallel={n} but {len(devices)} devices given")
+        return devices
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > visible:
+        raise ValueError(f"data_parallel={n} but only {visible} devices visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+class _Replicas:
+    """A copy of each module on each device it is asked for (the module
+    itself on its own device). A copy is made again when the module's
+    parameters or buffers were replaced or changed in place since it was
+    made (their identities and version counters)."""
+
+    def __init__(self):
+        self._copies: Dict[Tuple[int, torch.device], tuple] = {}
+
+    def get(self, module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+        if _device_of(module) == device:
+            return module
+        stamp = tuple((id(t), t._version)
+                      for t in itertools.chain(module.parameters(), module.buffers()))
+        key = (id(module), device)
+        held = self._copies.get(key)
+        if held is None or held[0] is not module or held[1] != stamp:
+            held = (module, stamp, copy.deepcopy(module).to(device))
+            self._copies[key] = held
+        return held[2]
+
+
+def _data_parallel(infer: Callable, n: int, devices: Optional[Sequence]) -> Callable:
+    devices = dp_devices(n, devices)
+    replicas = _Replicas()
+
+    def run(gen, specseg, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
+        b = rgb.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} must divide data_parallel {n}")
+        size = b // n
+        shards = []
+        # every shard is enqueued before any output is gathered, so the
+        # devices run at once
+        for i, dev in enumerate(devices):
+            x = rgb[i * size:(i + 1) * size].to(dev, non_blocking=True)
+            with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+                shards.append(infer(replicas.get(gen, dev), replicas.get(specseg, dev), x))
+        return {k: torch.cat([o[k].to(rgb.device) for o in shards],
+                             dim=1 if k == "cyc_rgb" else 0) for k in shards[0]}
+
+    return run
 
 
 def bucket_shape(h: int, w: int, multiple: int = 16, bucket: int = 64) -> Tuple[int, int]:
@@ -236,17 +309,21 @@ def _device_of(module: torch.nn.Module) -> torch.device:
 
 
 def make_native_infer_fn(cfg: Config, with_cyclic: bool = False, multiple: int = 16,
-                         bucket: int = 64, outputs=None
+                         bucket: int = 64, outputs=None, data_parallel: int = 1,
+                         devices: Optional[Sequence] = None
                          ) -> Callable[..., Dict[str, np.ndarray]]:
     """Inference at any (h, w): fn(gen, specseg, rgb) with rgb a (B, h, w, 3)
     float32 array, reflect-padded to its bucket (pad_to_bucket) on the host,
-    run on the models' device, every output cropped back to (h, w) there and
+    run on the models' device (over the data-parallel devices, from the
+    host, with data_parallel > 1), every output cropped back to (h, w) and
     returned as float32 numpy arrays. A batch shares one (h, w)."""
-    infer = make_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs)
+    infer = make_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs,
+                          data_parallel=data_parallel, devices=devices)
 
     def run(gen, specseg, rgb) -> Dict[str, np.ndarray]:
         rgb_p, (h, w) = pad_to_bucket(rgb, multiple=multiple, bucket=bucket)
-        out = infer(gen, specseg, torch.from_numpy(rgb_p).to(_device_of(gen)))
+        x = torch.from_numpy(rgb_p)
+        out = infer(gen, specseg, x if data_parallel > 1 else x.to(_device_of(gen)))
         # the spatial axes are the two before the channel axis, in (B, H, W, C)
         # and in cyc_rgb's (c_dim, B, H, W, C)
         return {k: v[..., :h, :w, :].float().cpu().numpy() for k, v in out.items()}

@@ -13,7 +13,7 @@ tiles) and the cluster size. `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -73,11 +73,16 @@ def _plan(b: int, h: int, w: int, cluster: Optional[int] = None) -> Plan:
 
 
 _lib = None
+# the devices whose kernel attributes are set, and each device's
+# cudaOccupancyMaxActiveClusters by plan
+_configured: Set[int] = set()
+_max_active: Dict[Tuple[int, Plan], int] = {}
 
 
 def _library():
     """The loaded kernel library, with its shared-memory and cluster-size
-    attributes set once for the current device."""
+    attributes set on the current device: cudaFuncSetAttribute holds for
+    the device current when it runs, so once for each device."""
     global _lib
     if _lib is None:
         from shmgan_tpu_torch.runtime.build import load
@@ -93,22 +98,29 @@ def _library():
         lib.shm_standardize_yuv_max_active_clusters.argtypes = [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.shm_standardize_yuv_max_active_clusters.restype = ctypes.c_int
-        err = lib.shm_standardize_yuv_init()
-        if err != 0:
-            raise RuntimeError(f"fused_standardize_yuv: setting the kernel's attributes "
-                               f"failed: CUDA error {err}")
         _lib = lib
+    device = torch.cuda.current_device()
+    if device not in _configured:
+        err = _lib.shm_standardize_yuv_init()
+        if err != 0:
+            raise RuntimeError(f"fused_standardize_yuv: setting the kernel's attributes on "
+                               f"cuda:{device} failed: CUDA error {err}")
+        _configured.add(device)
     return _lib
 
 
 def max_active_clusters(plan: Plan) -> int:
     """How many clusters of this plan the current device runs at once."""
-    count = ctypes.c_int(0)
-    err = _library().shm_standardize_yuv_max_active_clusters(
-        plan.cluster, plan.smem_bytes, int(plan.variant == "streaming"), ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
-    return count.value
+    key = (torch.cuda.current_device(), plan)
+    if key not in _max_active:
+        count = ctypes.c_int(0)
+        err = _library().shm_standardize_yuv_max_active_clusters(
+            plan.cluster, plan.smem_bytes, int(plan.variant == "streaming"),
+            ctypes.byref(count))
+        if err != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+        _max_active[key] = count.value
+    return _max_active[key]
 
 
 def fused_standardize_yuv_plain(rgb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,7 +32,17 @@ examples/quality_train.py. Two phases:
 Flags keep the JAX script's names, choices and defaults. `--max_segment`,
 `--segment_budget_s` and `--pallas_in` have no effect: the port runs each
 chunk as it is and always takes its CUDA instance-norm kernel on the card.
-`--data_parallel` above 1 raises.
+
+`--data_parallel N` runs phase B on N ranks, one process a card, under a
+launcher (`torchrun --nproc_per_node N -m shmgan_tpu_torch.quality_train
+--data_parallel N ...`; above 1 without one it raises). Every rank renders
+the global batch of each step from the same stream, takes its contiguous
+block of it and of the step's draws, and the step averages the gradients
+across the ranks, so N ranks compute what one does. Phase A, not data
+parallel in the JAX script either, runs whole on every rank (the same
+seeds) and rank 0's state is broadcast when phase B starts. Rank 0 logs,
+evaluates, and writes the checkpoints, the bundle, the galleries and the
+summaries; the ranks agree on the deadline and on a plateau stop.
 
 Random streams: stream i of run `seed` is a generator seeded from
 seed * 2^32 + i (`stream`), on the run's device.
@@ -68,15 +78,17 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from shmgan_tpu_torch.checkpoint import (CheckpointManager, export_inference_bundle,
                                          load_inference_bundle, load_specseg_weights,
                                          save_specseg_msgpack, transfer_matching_params)
-from shmgan_tpu_torch.config import Config, MeshConfig, torch_device
+from shmgan_tpu_torch.config import Config, torch_device
 from shmgan_tpu_torch.convert import flax_tree, load_flax
 from shmgan_tpu_torch.data import synthetic_device as sd
 from shmgan_tpu_torch.data import synthetic_dr as sdr
 from shmgan_tpu_torch.data.ood import synth_ood_set
+from shmgan_tpu_torch.data.pipeline import local_batch
 from shmgan_tpu_torch.data.synthetic import synth_eval_set
 from shmgan_tpu_torch.eval.fid import frechet_distance, specseg_features
 from shmgan_tpu_torch.infer import ieee_f32, make_infer_fn
@@ -84,9 +96,12 @@ from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.models.specseg import SpecSeg
 from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
+from shmgan_tpu_torch.parallel.mesh import (agree_any, is_main, local_device,
+                                            maybe_initialize_distributed, rank,
+                                            shutdown_distributed, training_mesh, world_size)
 from shmgan_tpu_torch.train.specseg_train import (create_specseg_state, iou,
                                                   make_specseg_train_step)
-from shmgan_tpu_torch.train.state import TrainState, create_train_state
+from shmgan_tpu_torch.train.state import TrainState, broadcast_state, create_train_state
 from shmgan_tpu_torch.train.step import make_train_step, sample_draws
 from shmgan_tpu_torch.utils.viz import image_grid
 
@@ -180,7 +195,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def log(msg: str) -> None:
-    print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+    """A time-stamped line, from rank 0 only."""
+    if is_main():
+        print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
 
 
 def resolve_segment(max_segment: int, image_size: int) -> int:
@@ -243,6 +260,7 @@ def build_cfg(a: argparse.Namespace) -> Config:
         scalar_channel_dropout=False, live_g1=True, g1_recon_weight=a.g1_recon_weight,
         single_input_prob=a.single_input_prob, consistent_domains=True, remat=a.remat,
         g_ema=a.g_ema)
+    cfg.mesh = dataclasses.replace(cfg.mesh, data_parallel=a.data_parallel)
     return cfg
 
 
@@ -363,7 +381,8 @@ def run_specseg_phase(a: argparse.Namespace, cfg: Config, device="cuda") -> Tupl
                 f"{dr_txt}{ema_txt} ({done / secs:.2f} steps/s, {done * b / secs:.0f} img/s)")
 
     path = a.specseg_out or os.path.join(a.out, "specseg_synth.msgpack")
-    save_specseg_msgpack(best["vars"], path)
+    if is_main():
+        save_specseg_msgpack(best["vars"], path)
     log(f"[specseg] done: exported {best['kind']}@{best['step']} (heldout IoU "
         f"{best['heldout_iou']:.3f}, score {best['score']:.3f}) -> {path}")
     summary = {"heldout_iou": best["heldout_iou"], "steps": a.specseg_steps, "weights": path,
@@ -535,9 +554,12 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
     ckpt = CheckpointManager(a.ckpt_dir or os.path.join(a.out, "ckpt"), max_to_keep=3)
     if ckpt.restore(state) is not None:
         log(f"[gan] resumed from step {state.step}")
+    broadcast_state(state)
     step_fn = make_train_step(cfg)
-    oracle = make_oracle(a, cfg, state, device)
-    ins_np, gts_np = oracle.gallery_inputs
+    main, rank_index, world = is_main(), rank(), world_size()
+    if world > 1:
+        log(f"[gan] data parallel over {world} ranks, {b // world} images a rank")
+    oracle = make_oracle(a, cfg, state, device) if main else None
 
     os.makedirs(a.out, exist_ok=True)
     live_path = os.path.join(a.out, "quality_live.json")
@@ -567,6 +589,7 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
 
     def save_gallery(gen4, mask4, tag: str) -> None:
         """A row of: the camera input, the mask, the generated image, the diffuse truth."""
+        ins_np, gts_np = oracle.gallery_inputs
         for i in range(gen4.shape[0]):
             image_grid([ins_np[i], mask4[i][..., 0], gen4[i], gts_np[i]],
                        path=os.path.join(a.out, f"sample_{tag}_{i}.png"))
@@ -581,13 +604,15 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
     done = state.step
     t0 = chunk_t0 = time.perf_counter()
     last_rate = 0.0
-    while done < a.gan_steps and time.time() < deadline:
+    while done < a.gan_steps and not agree_any(time.time() >= deadline):
         k = min(a.chunk, a.gan_steps - done)
         for s in range(done, done + k):
+            # the global batch and its draws, cut to this rank's block
             gen = stream(a.seed, GAN_STREAM + s, device)
             views = views_fn(gen, b, h, w, ed_mode=a.ed_mode,
                              camera_swap_prob=a.camera_swap_prob)
-            state, metrics = step_fn(state, views, sample_draws(cfg, gen, v, b, h, w), 1)
+            draws = sample_draws(cfg, gen, v, b, h, w).shard(rank_index, world)
+            state, metrics = step_fn(state, local_batch(views, rank_index, world), draws, 1)
         tg = float(metrics["total_G"])  # the chunk's synchronisation
         now = time.perf_counter()
         last_rate = k * b / (now - chunk_t0)
@@ -598,40 +623,50 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
             log(f"[gan {done}/{a.gan_steps}] total_G={tg:.2f} G1_L1={g1:.4f} "
                 f"({last_rate:.0f} img/s)")
         if done // a.eval_every > prev_done // a.eval_every:
-            gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
-            is_best = is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel,
-                                           a.fid_tol_abs)
-            if is_best:  # before record(), so the live file's best is current
-                best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
-            min_fid = min(min_fid, gf)
-            record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
+            plateau = False
+            if main:
+                gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
+                is_best = is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel,
+                                               a.fid_tol_abs)
+                if is_best:  # before record(), so the live file's best is current
+                    best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
+                min_fid = min(min_fid, gf)
+                record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
             ckpt.save(state, step=done)
-            if is_best:
-                save_gallery(gen4, mask4, "best")
-                evals_since_best = 0
-                # the eval tree (the EMA when on) survives the checkpoints' rotation
-                export_inference_bundle(oracle.eval_gen, oracle.eval_specseg, cfg,
-                                        os.path.join(a.out, "best_bundle.msgpack"),
-                                        step=state.step, store_dtype="float16")
-            else:
-                evals_since_best += 1
+            if main:
+                if is_best:
+                    save_gallery(gen4, mask4, "best")
+                    evals_since_best = 0
+                    # the eval tree (the EMA when on) survives the checkpoints' rotation
+                    export_inference_bundle(oracle.eval_gen, oracle.eval_specseg, cfg,
+                                            os.path.join(a.out, "best_bundle.msgpack"),
+                                            step=state.step, store_dtype="float16")
+                else:
+                    evals_since_best += 1
+                plateau = a.plateau_evals > 0 and evals_since_best >= a.plateau_evals
+                if plateau:
+                    log(f"[gan] plateau stop: {evals_since_best} consecutive evals without "
+                        f"a new best (best PSNR {best['psnr']:.2f} @ step "
+                        f"{best.get('step', '-')})")
             last_eval_step = done
-            if a.plateau_evals > 0 and evals_since_best >= a.plateau_evals:
-                log(f"[gan] plateau stop: {evals_since_best} consecutive evals without a new "
-                    f"best (best PSNR {best['psnr']:.2f} @ step {best.get('step', '-')})")
+            if agree_any(plateau):
                 break
 
-    if history and last_eval_step == done:
-        entry = history[-1]
-        save_gallery(gen4, mask4, "final")
+    entry = None
+    if last_eval_step == done:
+        if main:
+            entry = history[-1]
+            save_gallery(gen4, mask4, "final")
     else:
-        gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
-        if is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel, a.fid_tol_abs):
-            best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
-        min_fid = min(min_fid, gf)
-        entry = record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
+        if main:
+            gp, gs, gf, ip, is_, if_, gen4, mask4, g_fids = oracle()
+            if is_better_checkpoint(best, gp, gf, min_fid, a.fid_tol_rel, a.fid_tol_abs):
+                best.update({"psnr": gp, "ssim": gs, "fid": gf, "step": done})
+            min_fid = min(min_fid, gf)
+            entry = record(done, gp, gs, gf, ip, is_, if_, last_rate, g_fids)
         ckpt.save(state, step=done)
-        save_gallery(gen4, mask4, "final")
+        if main:
+            save_gallery(gen4, mask4, "final")
     wall = time.perf_counter() - t0
     log(f"[gan] finished at step {done} ({wall:.0f}s this run); best PSNR "
         f"{best['psnr']:.2f} @ step {best.get('step', done)}")
@@ -641,13 +676,26 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
 
 def main(argv=None) -> Dict:
     a = parse_args(argv)
-    MeshConfig(data_parallel=a.data_parallel).check_single_device()
+    joined = not dist.is_initialized() and maybe_initialize_distributed(
+        "gloo" if a.cpu else "nccl")
+    try:
+        return _main(a)
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _main(a: argparse.Namespace) -> Dict:
+    cfg = build_cfg(a)
+    training_mesh(cfg)
+    if a.phase in ("gan", "both") and a.batch % world_size():
+        raise ValueError(f"global batch {a.batch} not divisible by {world_size()} processes")
     check_warm_start(a)
-    device = torch_device("cpu" if a.cpu else "cuda")
-    os.makedirs(a.out, exist_ok=True)
+    device = local_device(torch_device("cpu" if a.cpu else "cuda"))
+    if is_main():
+        os.makedirs(a.out, exist_ok=True)
     log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
 
-    cfg = build_cfg(a)
     deadline = time.time() + a.max_hours * 3600.0
     specseg_vars = None
     summary = {"args": dict(vars(a))}
@@ -660,10 +708,11 @@ def main(argv=None) -> Dict:
         log(f"[gan] loaded frozen SpecSeg from {a.specseg_out}")
     if a.phase in ("both", "gan"):
         summary["gan"] = run_gan_phase(a, cfg, specseg_vars, deadline, device)
-    out_path = os.path.join(a.out, "quality_summary.json")
-    with open(out_path, "w") as f:
-        json.dump(summary, f, indent=1)
-    log(f"summary -> {out_path}")
+    if is_main():
+        out_path = os.path.join(a.out, "quality_summary.json")
+        with open(out_path, "w") as f:
+            json.dump(summary, f, indent=1)
+        log(f"summary -> {out_path}")
     return summary
 
 

@@ -17,6 +17,10 @@ widened exactly to float32 on the host, where the JAX engine hands back an
 `native_resolution=True` serves each image at its own (h, w)
 (`process_images_native`, infer.make_native_infer_fn); `outputs` restricts
 the outputs computed and copied back (infer.make_infer_fn).
+`data_parallel=n` splits every device call of `batch_size` (the global
+batch, which n must divide) into n shards over `devices` (default cuda:0..n-1,
+or n copies of the CPU when `device` is the CPU), each with its replica of
+the weights, as the JAX engine shards its batch over n devices.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -32,7 +36,7 @@ import torch
 from shmgan_tpu_torch.config import Config
 from shmgan_tpu_torch.data.codecs import encode_png
 from shmgan_tpu_torch.data.loader import decode_original, decode_resize, list_images
-from shmgan_tpu_torch.infer import make_infer_fn, make_native_infer_fn
+from shmgan_tpu_torch.infer import dp_devices, make_infer_fn, make_native_infer_fn
 
 
 def _batch_axis(key: str) -> int:
@@ -66,21 +70,28 @@ class BatchInferenceEngine:
     def __init__(self, cfg: Config, gen: torch.nn.Module, specseg: torch.nn.Module,
                  batch_size: int = 8, with_cyclic: bool = False, num_io_workers: int = 4,
                  native_resolution: bool = False, outputs=None, data_parallel: int = 1,
-                 device: str = "cuda"):
-        if data_parallel > 1:
-            raise NotImplementedError(
-                f"data_parallel={data_parallel}: the port serves on one card; data "
-                f"parallelism is ROADMAP Queue 1 item 11")
+                 device: str = "cuda", devices: Optional[Sequence] = None):
+        if data_parallel > 1 and batch_size % data_parallel:
+            raise ValueError(f"batch_size {batch_size} must divide "
+                             f"data_parallel {data_parallel}")
         self.cfg = cfg
         self.batch_size = batch_size
         self.image_size = cfg.model.image_size
         self.native_resolution = native_resolution
         self.device = torch.device(device)
+        self._dp = max(1, data_parallel)
+        if self._dp > 1 and devices is None and self.device.type == "cpu":
+            devices = [self.device] * self._dp
+        dp = dict(data_parallel=self._dp, devices=devices)
+        self._infer = make_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs, **dp)
+        self._native = (make_native_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs,
+                                             **dp)
+                        if native_resolution else None)
+        if self._dp > 1:
+            # the weights live on the first device; the others hold replicas
+            self.device = dp_devices(self._dp, devices)[0]
         self._gen = gen.to(self.device).eval()
         self._specseg = specseg.to(self.device).eval()
-        self._infer = make_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs)
-        self._native = (make_native_infer_fn(cfg, with_cyclic=with_cyclic, outputs=outputs)
-                        if native_resolution else None)
         self._io = ThreadPoolExecutor(max_workers=num_io_workers)
 
     def close(self) -> None:
@@ -110,7 +121,9 @@ class BatchInferenceEngine:
             chunk = rgb[i:i + self.batch_size]
             real = chunk.shape[0]
             x = torch.from_numpy(np.ascontiguousarray(_pad_batch(chunk, self.batch_size)))
-            out = self._infer(self._gen, self._specseg, x.to(self.device))
+            # data parallel: the shards go from the host to their devices
+            out = self._infer(self._gen, self._specseg,
+                              x if self._dp > 1 else x.to(self.device))
             outs.append({k: _take(v, k, slice(0, real)).cpu().float().numpy()
                          for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=_batch_axis(k)) for k in outs[0]}

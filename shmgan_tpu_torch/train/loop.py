@@ -18,6 +18,16 @@ draws(step, views_shape) -> train.step.Draws, with the step counter before
 the step. By default the draws come from one torch.Generator on the device,
 seeded from (seed, the steps the run starts from), so a resumed run's draws
 depend on where it resumes, as `fold_in(rng, steps_done)` makes them in JAX.
+
+Under a process group (`torchrun`, parallel/mesh.py) every rank runs this
+loop on `cuda:LOCAL_RANK` with `cfg.mesh.data_parallel` equal to the world
+size (or -1): the same seeded models, broadcast from rank 0 after the
+restore; its block of every global batch (`data.pipeline.rank_feed`); the
+global batch's draws, seeded alike on every rank and cut to its block
+(`Draws.shard`); the step's gradient all_reduce. Rank 0 writes the
+summaries, the metrics jsonl, the eval and the checkpoints; the ranks agree
+on a preemption signal at every step (`agree_any`), so all stop at the same
+step and none is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -34,9 +44,12 @@ from shmgan_tpu_torch.checkpoint import CheckpointManager, load_specseg_weights
 from shmgan_tpu_torch.config import Config, torch_device
 from shmgan_tpu_torch.convert import flax_tree, load_flax
 from shmgan_tpu_torch.data.loader import PolarimetricDataset
-from shmgan_tpu_torch.data.pipeline import DevicePrefetcher
+from shmgan_tpu_torch.data.pipeline import rank_feed
 from shmgan_tpu_torch.models import build_models
-from shmgan_tpu_torch.train.state import TrainState, create_train_state, param_count
+from shmgan_tpu_torch.parallel.mesh import (agree_any, is_main, local_device, rank,
+                                            training_mesh, world_size)
+from shmgan_tpu_torch.train.state import (TrainState, broadcast_state, create_train_state,
+                                          param_count)
 from shmgan_tpu_torch.train.step import Draws, make_train_step, sample_draws
 from shmgan_tpu_torch.utils.logging import MetricsWriter, StepTimer, progress_bar
 from shmgan_tpu_torch.utils.viz import write_model_summaries
@@ -67,16 +80,18 @@ class PreemptionGuard:
             signal.signal(sig, prev)
 
 
-def draw_source(cfg: Config, device, steps_done: int = 0) -> DrawSource:
+def draw_source(cfg: Config, device, steps_done: int = 0, rank_index: int = 0,
+                world: int = 1) -> DrawSource:
     """`sample_draws` on one torch.Generator on `device`, seeded from
-    (cfg.train.seed, steps_done)."""
+    (cfg.train.seed, steps_done): the global batch's draws (world times the
+    views' batch), cut to rank `rank_index`'s block."""
     seed = int(np.random.SeedSequence([cfg.train.seed, steps_done]).generate_state(
         1, np.uint64)[0])
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def draw(step: int, shape: Sequence[int]) -> Draws:
         v, b, h, w, _ = shape
-        return sample_draws(cfg, gen, v, b, h, w)
+        return sample_draws(cfg, gen, v, b * world, h, w).shard(rank_index, world)
 
     return draw
 
@@ -106,8 +121,9 @@ def train(cfg: Config, dataset: Optional[PolarimetricDataset] = None,
     epochs on the calibrated inference output, written under eval/*.
     models: the initial (G, D, SpecSeg) (default: build_models from
     cfg.train.seed); draws: the step's random draws (default: draw_source)."""
-    device = torch_device(device)
-    cfg.mesh.check_single_device()
+    training_mesh(cfg)
+    device = local_device(torch_device(device))
+    verbose = verbose and is_main()
     log = (lambda *a: print(*a, flush=True)) if verbose else (lambda *a: None)
     guard = PreemptionGuard(install=handle_preemption)
     try:
@@ -133,8 +149,10 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
     ss_tree = {"batch_stats": ss_stats, "params": ss_params}
     log(f"[models] G params: {param_count(g_tree):,}  D params: {param_count(d_tree):,}  "
         f"SpecSeg params: {param_count(ss_tree):,} (frozen)")
-    write_model_summaries(g_tree, d_tree, ss_tree,
-                          out_dir=os.path.join(tr.model_save_dir, "summaries"))
+    main = is_main()
+    if main:
+        write_model_summaries(g_tree, d_tree, ss_tree,
+                              out_dir=os.path.join(tr.model_save_dir, "summaries"))
 
     ckpt = CheckpointManager(tr.checkpoint_save_dir, max_to_keep=tr.checkpoint_max_to_keep)
     start_epoch = steps_done = 0
@@ -143,13 +161,14 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
             steps_done = state.step
             start_epoch = steps_done // max(dataset.batches_per_epoch, 1)
             log(f"[ckpt] restored step {steps_done} (epoch {start_epoch})")
+    broadcast_state(state)
     if draws is None:
-        draws = draw_source(cfg, device, steps_done)
+        draws = draw_source(cfg, device, steps_done, rank(), world_size())
     step_fn = make_train_step(cfg)
 
-    writer = MetricsWriter(tr.log_dir)
+    writer = MetricsWriter(tr.log_dir) if main else None
     run_eval = None
-    if eval_inputs is not None and eval_targets is not None:
+    if main and eval_inputs is not None and eval_targets is not None:
         run_eval = _evaluator(cfg, device, writer, log, eval_inputs, eval_targets)
 
     epoch_timer = StepTimer()
@@ -158,8 +177,8 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
         # every epoch in the same order as the JAX loop's: file order, or a
         # shuffle derived from (seed, epoch)
         shuffle_seed = (tr.seed * 100003 + epoch) if tr.shuffle else None
-        feed = DevicePrefetcher(dataset.iter_epoch(shuffle_seed=shuffle_seed),
-                                device=device, depth=cfg.data.prefetch)
+        feed = rank_feed(dataset, shuffle_seed=shuffle_seed, device=device,
+                         depth=cfg.data.prefetch)
         t_epoch = time.perf_counter()
         try:
             for batch_idx, views in enumerate(feed):
@@ -168,19 +187,19 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
                 epoch_timer.tick(tr.batch_size)
                 # float() of a device value waits for the device: at this
                 # cadence only
-                if total_steps % 50 == 0 or batch_idx == 0:
+                if main and (total_steps % 50 == 0 or batch_idx == 0):
                     writer.write(state.step, metrics)
                 if verbose:
                     progress_bar(batch_idx + 1, dataset.batches_per_epoch,
                                  prefix=f"epoch {epoch} ")
                 if max_steps is not None and total_steps >= max_steps:
                     break
-                if guard.requested:
+                if agree_any(guard.requested):
                     break
         finally:
             feed.close()
 
-        if guard.requested:
+        if agree_any(guard.requested):
             log("\n[preempt] signal received — checkpointing and exiting")
             log(f"[ckpt] saved step {ckpt.save(state)}")
             break
@@ -196,7 +215,8 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
 
     ckpt.save(state)
     ckpt.close()
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state
 
 

@@ -9,7 +9,8 @@ state copies all of them together.
 `state_payload` lays a state out as the tree the JAX package checkpoints
 (`flax.serialization.to_state_dict` of its Orbax payload), and
 `load_state_payload` fills a state from such a tree (checkpoint.py writes and
-reads it).
+reads it). `broadcast_state` makes every rank of a process group hold rank
+0's state (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn as nn
 from shmgan_tpu_torch.config import Config
 from shmgan_tpu_torch.convert import flax_tree, from_flax, load_flax, to_flax
 from shmgan_tpu_torch.models import SHMDiscriminator, SHMGenerator, SpecSeg
+from shmgan_tpu_torch.parallel.mesh import broadcast_
 
 
 def lr_schedule(initial_lr: float, decay_steps: int = 10000,
@@ -185,4 +187,22 @@ def load_state_payload(state: TrainState, payload: Mapping, with_ema: bool) -> T
                                          next(iter(g_named.values())))
         else:
             state.ema_g = {k: p.detach().clone() for k, p in g_named.items()}
+    return state
+
+
+def broadcast_state(state: TrainState) -> TrainState:
+    """Overwrite, in place, every rank's parameters (G, D, SpecSeg's and its
+    batch statistics), Adam moments, EMA, step and optimizer counts with
+    rank 0's: after a restore or a warm start, so that the replicas start
+    alike whatever each rank read. A no-op without a process group."""
+    tensors = [*state.gen.parameters(), *state.disc.parameters(),
+               *state.specseg.parameters(), *state.specseg.buffers(),
+               *state.g_opt.mu, *state.g_opt.nu, *state.d_opt.mu, *state.d_opt.nu]
+    if state.ema_g is not None:
+        tensors += list(state.ema_g.values())
+    counts = torch.tensor([state.step, state.g_opt.count, state.d_opt.count],
+                          dtype=torch.int64, device=state.g_opt.params[0].device)
+    with torch.no_grad():
+        broadcast_(tensors + [counts])
+    state.step, state.g_opt.count, state.d_opt.count = (int(c) for c in counts.tolist())
     return state

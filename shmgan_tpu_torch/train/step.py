@@ -21,6 +21,13 @@ in f32 at either dtype.
 Random draws are arguments (`Draws`), so a test can inject the JAX step's;
 `sample_draws` reproduces their distributions from a torch.Generator. The
 step updates the state in place and returns it with the metrics.
+
+Under a process group (parallel/mesh.py) `views` and `draws` are this
+rank's block of the global batch (`Draws.shard` of the global draws), and
+the G and D gradients and the losses are averaged across the ranks in one
+all_reduce after the backward, before the clip and the optimizers: every
+loss is a mean over the batch, so the average of the ranks' means is the
+global batch's mean, as in the JAX step on a data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
 from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
+from shmgan_tpu_torch.parallel.mesh import all_reduce_mean_
 from shmgan_tpu_torch.train.losses import GanLossInputs, lsgan_to_target, shmgan_losses
 from shmgan_tpu_torch.train.state import TrainState
 
@@ -60,6 +68,28 @@ class Draws:
         return Draws(**{f.name: None if getattr(self, f.name) is None
                         else getattr(self, f.name).to(device)
                         for f in dataclasses.fields(self)})
+
+    def shard(self, rank: int, world: int) -> "Draws":
+        """The draws of rank `rank`'s block of a global batch, from the
+        global batch's draws: flip and t are shared, a (1, V) drop is shared
+        and a (B, V) one is cut by rows, and noise and keep, stacked as
+        [generated (B); ED (B)] for D's live pass, are cut in each half."""
+        if world == 1:
+            return self
+
+        def rows(x):
+            n = x.shape[0] // world
+            return x[rank * n:(rank + 1) * n]
+
+        def halves(x):
+            if x is None:
+                return None
+            b = x.shape[0] // 2
+            return torch.cat([rows(x[:b]), rows(x[b:])])
+
+        drop = self.drop if self.drop.shape[0] == 1 else rows(self.drop)
+        return Draws(flip=self.flip, t=self.t, drop=drop, noise=halves(self.noise),
+                     keep=halves(self.keep))
 
 
 def sample_draws(cfg: Config, generator: torch.Generator, v: int, b: int, h: int,
@@ -223,6 +253,9 @@ def make_train_step(cfg: Config, debug_grads: bool = False
         g_named, d_named = dict(gen.named_parameters()), dict(disc.named_parameters())
         grads = torch.autograd.grad(loss_d + loss_g,
                                     list(g_named.values()) + list(d_named.values()))
+        metrics = {k: val.detach() for k, val in L.items()}
+        # across the ranks: one all_reduce of every gradient and loss
+        all_reduce_mean_(list(grads) + list(metrics.values()))
         g_grads = dict(zip(g_named, grads[:len(g_named)]))
         d_grads = dict(zip(d_named, grads[len(g_named):]))
 
@@ -237,7 +270,6 @@ def make_train_step(cfg: Config, debug_grads: bool = False
                                     alpha=1.0 - tr.g_ema)
         state.step += 1
 
-        metrics = {k: val.detach() for k, val in L.items()}
         metrics["target_label"] = t
         if debug_grads:
             metrics["_grads"] = {"G": g_grads, "D": d_grads}

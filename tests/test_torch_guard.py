@@ -2,7 +2,8 @@
 lacks: no import of jax, flax, optax, orbax, msgpack, PIL, matplotlib, h5py,
 tabulate, tensorboard or shmgan_tpu, by reading the sources and by running the
 port (serving, a bundle and a PNG read and written, one train step, the
-command line's train, export and test modes on a tiny tree, two SpecSeg steps
+command line's train, export and test modes on a tiny tree, the
+data-parallel layout, device report and a two-shard engine, two SpecSeg steps
 of the flagship trainer's phase A, and two GAN steps of its phase B on the DR
 curriculum with an eval, galleries and the best bundle) where those modules
 cannot be imported."""
@@ -72,6 +73,15 @@ def test_port_runs_with_banned_modules_blocked():
         out = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, device="cpu"
                                    ).process_images(np.full((1, 32, 32, 3), 0.5, np.float32))
         assert np.isfinite(out["gen_rgb_calibrated"]).all()
+
+        # data parallelism: the layout, the device report, a two-shard engine
+        from shmgan_tpu_torch.parallel.mesh import make_mesh
+        from shmgan_tpu_torch.utils.device import device_report
+        assert make_mesh(cfg, 4).shape == (4, 1) and device_report()["process_count"] == 1
+        dp = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, data_parallel=2,
+                                  device="cpu").process_images(np.full((1, 32, 32, 3), 0.5,
+                                                                       np.float32))
+        assert np.array_equal(dp["gen_rgb_calibrated"], out["gen_rgb_calibrated"])
 
         # serving's own I/O: a bundle, a PNG, the HTTP front end and the CLI
         import shmgan_tpu_torch.cli  # noqa: F401

@@ -94,6 +94,27 @@ class TestKernelsOnCard:
         yuv2, scale2 = pre.fused_standardize_yuv(x)
         assert torch.equal(yuv, yuv2) and torch.equal(scale, scale2)
 
+    @pytest.mark.parametrize("shape", [(2, 256, 256, 3), (8, 256, 256, 3)],
+                             ids=["cluster16", "cluster8"])
+    def test_preprocess_on_every_device(self, cuda, shape):
+        """The kernel's shared-memory and cluster-size attributes hold for
+        the device that set them; the wrapper sets them on each device
+        before its first launch there. Both shapes need more than 48 KB of
+        shared memory a block, the first a cluster of 16. Skips below two
+        cards: one card cannot show the fault."""
+        n = torch.cuda.device_count()
+        if n < 2:
+            pytest.skip("needs two CUDA cards: the attributes are per device")
+        for i in range(n):
+            dev = torch.device("cuda", i)
+            x = torch.rand(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(i))
+            before = pre.launches
+            yuv, scale = pre.fused_standardize_yuv(x)
+            assert pre.launches == before + 1 and i in pre._configured
+            ryuv, rscale = pre.fused_standardize_yuv_plain(x)
+            torch.testing.assert_close(yuv, ryuv, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(scale, rscale, rtol=1e-5, atol=1e-5)
+
     def test_instance_norm_on_unaligned_storage(self, cuda):
         # a contiguous view 4 bytes past an aligned base takes the scalar path
         shape = (2, 3, 8, 8)

@@ -186,8 +186,8 @@ def test_native_engine_groups_pads_and_keeps_order(weights):
 def test_engine_refusals(weights):
     _, cfg = _configs()
     gen, specseg = _port(cfg, weights)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        BatchInferenceEngine(cfg, gen, specseg, data_parallel=2, device="cpu")
+    with pytest.raises(ValueError, match="batch_size 3 must divide data_parallel 2"):
+        BatchInferenceEngine(cfg, gen, specseg, batch_size=3, data_parallel=2, device="cpu")
     square = BatchInferenceEngine(cfg, gen, specseg, batch_size=2, device="cpu")
     with pytest.raises(RuntimeError):
         square.process_images_native([np.zeros((32, 32, 3), np.float32)])

@@ -436,16 +436,17 @@ BUNDLE_256 = os.path.join(REPO, "artifacts", "shmgan_infer_256.msgpack")  # resi
                  "upsample_mode=resize_conv; pass --upsample_mode", id="argv1-phase B"),
     pytest.param(["--phase", "both", "--init_from", "empty"], "no checkpoint found",
                  id="argv2-phase B"),
-    pytest.param(["--phase", "specseg", "--data_parallel", "2"], "item 11",
-                 id="argv3-item 11")])
+    pytest.param(["--phase", "specseg", "--data_parallel", "2"],
+                 "torchrun --nproc_per_node 2", id="argv3-item 11")])
 def test_phase_a_refusals(tmp_path, argv, match):
     """What the trainer refuses before any work: both warm starts at once, a
     bundle of another upsample_mode, an --init_from without a checkpoint
-    (phase B, also under --phase both), and data parallelism."""
+    (phase B, also under --phase both), and data parallelism without a
+    launcher's process group."""
     out = tmp_path / "never"
     (tmp_path / "empty").mkdir()
     argv = [str(tmp_path / a) if a in ("ckpt", "empty") else a for a in argv]
-    error = NotImplementedError if "item 11" in match else SystemExit
+    error = RuntimeError if "torchrun" in match else SystemExit
     with pytest.raises(error, match=match):
         quality_train.main(argv + ["--cpu", "--out", str(out)])
     assert not out.exists()

@@ -558,12 +558,16 @@ def test_prefetcher_close_stops_a_worker_that_is_ahead():
 
 
 def test_entry_points_need_a_card_or_the_cpu(tree):
-    """Without CUDA, train raises unless device="cpu"; a data-parallel
-    layout the port cannot run raises rather than run on one device."""
+    """Without CUDA, train raises unless device="cpu"; a layout the port
+    cannot run here raises rather than run on one device: data parallelism
+    without a launcher's process group, and a model axis."""
     _, cfg = _configs(os.path.join(tree, "nocard"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train(cfg, verbose=False)
     cfg.mesh.data_parallel = 4
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
+        train(cfg, device="cpu", verbose=False)
+    cfg.mesh.data_parallel, cfg.mesh.model_parallel = 1, 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         train(cfg, device="cpu", verbose=False)
