@@ -153,7 +153,23 @@ Phases (each prints its name before it starts and its seconds after):
               f32 an eval, the backward's streaming launches counted; step
               ms, images/s, peak memory, seconds an eval and in its FIDs; the
               first eval beats the identity; best_bundle.msgpack reloaded and
-              serving one request.
+              serving one request;
+  keras_h5    the reference's Keras SpecSeg, tests/data/torch_h5/
+              specseg_keras2.h5 (base 16, 1 channel, seeded), read through
+              load_specseg_weights: sha256, each leaf's shape, sum and sum
+              of squares as its README states, exactly, and the read s;
+              cli --mode train --specseg_weights on it (a subprocess, bf16,
+              the JAX defaults, 2 steps): launches exactly 2 x (46, 28, 1),
+              the checkpoint's SpecSeg bit for bit the file's; --mode
+              export, the bundle served at b8, 256 px in f32 through the
+              kernels against the plain versions (SERVE_ATOL), (18, 1)
+              launches; utils/profiling's trace() and annotate() around a
+              bf16 train step (CUDA kernel events of the IN forward, IN
+              backward and preprocess kernels, the region), its (46, 28, 1)
+              launches, device_memory_stats(), debug_mode(nans=True) on a
+              CUDA NaN; save_dataset_hdf5 of the served gen_rgb read back
+              through runtime/hdf5.py bit for bit; the times beside the
+              card's name and power limit.
 The card against the CPU is compared in f32 only: bf16 rounds at other places
 there, and bf16 convolutions at full width are slow on a CPU.
 The last lines are the card's nvidia-smi line, one JSON line of kernel
@@ -3105,6 +3121,208 @@ def data_parallel_phase(bundle):
     return _sum_counts(steps, _dp_engine_check(bundle))
 
 
+# keras_h5: the reference's Keras SpecSeg (tests/data/torch_h5/, its README
+# holds the file's sha256 and each leaf's shape and exactly rounded sums) on
+# the command line's train, export and serve paths; KERAS_H5_SCENES scenes
+# make 2 steps at batch 8
+KERAS_H5 = os.path.join(ROOT, "tests", "data", "torch_h5", "specseg_keras2.h5")
+KERAS_H5_SCENES = 16
+KERAS_H5_REGION = "keras_h5/train_step"
+
+
+def _keras_h5_readme():
+    """(sha256, {leaf: (shape, sum, sum of squares)}) from the fixture's README."""
+    with open(os.path.join(os.path.dirname(KERAS_H5), "README.md")) as f:
+        text = f.read()
+    sha = re.search(r"sha256 `([0-9a-f]{64})`", text).group(1)
+    rows = {}
+    for m in re.finditer(r"^\| (\S+) \| \(([\d, ]*)\) \| (\S+) \| (\S+) \|$", text, re.M):
+        shape = tuple(int(d) for d in m.group(2).split(",") if d.strip())
+        rows[m.group(1)] = (shape, float(m.group(3)), float(m.group(4)))
+    return sha, rows
+
+
+def _keras_h5_read():
+    """The fixture through load_specseg_weights, held against its README
+    exactly; (the tree, read seconds)."""
+    import hashlib
+    import math
+
+    from shmgan_tpu_torch.checkpoint import load_specseg_weights
+
+    sha, rows = _keras_h5_readme()
+    t0 = time.perf_counter()
+    specseg_vars = load_specseg_weights(KERAS_H5)
+    read_s = time.perf_counter() - t0
+    digest = hashlib.sha256(_read(KERAS_H5)).hexdigest()
+    leaves = dict(_paths(specseg_vars))
+    if digest != sha or sorted(leaves) != sorted(rows):
+        raise AssertionError(f"{KERAS_H5}: sha256 {digest} (README {sha}), leaves "
+                             f"{sorted(set(leaves) ^ set(rows))} differ")
+    for path, want in rows.items():
+        x = np.asarray(leaves[path], np.float64).ravel()
+        got = (tuple(leaves[path].shape), math.fsum(x), math.fsum(x * x))
+        if got != want or leaves[path].dtype != np.float32:
+            raise AssertionError(f"{path}: (shape, sum, sum of squares) {got} "
+                                 f"{leaves[path].dtype}, README {want}")
+    n = sum(v.size for v in leaves.values())
+    say(f"read {os.path.relpath(KERAS_H5, ROOT)} ({os.path.getsize(KERAS_H5)} bytes) in "
+        f"{read_s:.4f} s: {len(leaves)} leaves, {n} float32 values, sha256, shapes, sums and "
+        "sums of squares as its README states, exactly")
+    return specseg_vars, read_s
+
+
+def _keras_h5_profile(root):
+    """One bf16 train step at the JAX defaults inside trace() and
+    annotate(); the trace's CUDA kernel events by kernel; memory stats;
+    debug_mode on a CUDA NaN. Returns the step's launches."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+    from shmgan_tpu_torch.utils import profiling
+
+    cfg = training_config("bfloat16")
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+    draws = sample_draws(cfg, gen, v, b, size, size)
+    step = make_train_step(cfg)
+    state, _ = step(state, views, draws, 0)              # warm-up
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with profiling.trace(os.path.join(root, "trace")) as prof:
+        with profiling.annotate(KERAS_H5_REGION):
+            state, metrics = step(state, views, draws, 0)
+    trace_s = time.perf_counter() - t0
+    counts = _launch_counts(reset=True)
+    if counts != step_launches(torch.bfloat16):
+        raise AssertionError(f"the traced step launched {counts}")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {label: sum(part in n for n in names) for label, part in (
+        ("IN forward", "instance_norm_kernel"), ("IN backward", "instance_norm_bwd_"),
+        ("preprocess", "standardize_yuv"))}
+    regions = sum(e.get("name") == KERAS_H5_REGION for e in events)
+    say(f"trace of one bf16 train step: {os.path.getsize(prof.trace_path)} bytes, "
+        f"{len(names)} CUDA kernel events, of them {found}; the annotate region "
+        f"{regions} time(s); traced step {trace_s:.3f} s (trace write included)")
+    if not all(found.values()) or not regions:
+        raise AssertionError(f"the trace lacks kernel events {found} or the region ({regions})")
+
+    stats = profiling.device_memory_stats()
+    say(f"device_memory_stats: {stats}")
+    if not 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]:
+        raise AssertionError(f"device_memory_stats: {stats}")
+    try:
+        with profiling.debug_mode(nans=True):
+            torch.log(torch.zeros(4, device="cuda")) * 0
+    except FloatingPointError as e:
+        say(f"debug_mode(nans=True) raised on a CUDA NaN: {e}")
+    else:
+        raise AssertionError("debug_mode(nans=True) let a CUDA NaN through")
+    return counts
+
+
+def keras_h5_phase(smi):
+    """The reference's Keras SpecSeg on the card: the committed fixture read
+    through load_specseg_weights against its README; cli --mode train (bf16,
+    the JAX defaults, 2 steps, a subprocess) with --specseg_weights on it:
+    launches, the checkpoint's SpecSeg bit for bit the file's (loaded as
+    is, unchanged by the steps: it is frozen); --mode export, and the bundle
+    served at b8, 256 px in f32 through the kernels against the plain
+    versions; trace() around a bf16 train step, device_memory_stats(),
+    debug_mode() and save_dataset_hdf5 of the served gen_rgb read back."""
+    from shmgan_tpu_torch import Config, cli
+    from shmgan_tpu_torch.checkpoint import load_inference_bundle
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.runtime import flax_msgpack, hdf5
+    from shmgan_tpu_torch.serve import BatchInferenceEngine
+    from shmgan_tpu_torch.utils.viz import save_dataset_hdf5
+
+    specseg_vars, read_s = _keras_h5_read()
+    with tempfile.TemporaryDirectory() as root:
+        tree = os.path.join(root, "tree")
+        write_fixture_tree(tree, KERAS_H5_SCENES, 128, seed=2)
+        d = {k: os.path.join(root, k) for k in ("ckpt", "logs", "models", "results")}
+
+        def argv(mode, *extra):
+            return ["--mode", mode, "--data_dir", tree, "--batch_size", "8",
+                    "--specseg_weights", KERAS_H5, "--checkpoint_save_step", "1",
+                    "--checkpoint_save_dir", d["ckpt"], "--log_dir", d["logs"],
+                    "--model_save_dir", d["models"], "--result_dir", d["results"], *extra]
+
+        # cli --mode train in a subprocess, which prints its launches last
+        script = ("import json, sys, chip_smoke; from shmgan_tpu_torch import cli; "
+                  "cli.main(sys.argv[1:]); print(json.dumps(chip_smoke._launch_counts()))")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script, *argv("train", "--num_epochs", "1")],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        train_s = time.perf_counter() - t0
+        if proc.returncode != 0 or f"loaded frozen weights from {KERAS_H5}" not in proc.stdout:
+            raise AssertionError(f"cli --mode train: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        counts = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = {k: 2 * n for k, n in step_launches(torch.bfloat16).items()}
+        say(f"cli --mode train --specseg_weights {os.path.basename(KERAS_H5)}, bf16, b8, 128 "
+            f"px, filter 64: 2 steps in {train_s:.2f} s of subprocess; launches {counts}")
+        if counts != want:
+            raise AssertionError(f"--mode train launched {counts}, expected {want}")
+        with open(os.path.join(d["ckpt"], "2", "state.msgpack"), "rb") as f:
+            saved = flax_msgpack.loads(f.read())
+        _leaves_equal(saved["specseg_vars"], specseg_vars,
+                      "checkpoint 2's SpecSeg (after 2 steps) vs the h5")
+
+        # --mode export, and the bundle served at b8, 256 px, f32
+        t0 = time.perf_counter()
+        cli.main(argv("export"))
+        export_s = time.perf_counter() - t0
+        bundle = load_inference_bundle(os.path.join(d["models"], "shmgan_infer.msgpack"))
+        _leaves_equal(bundle[1], specseg_vars, "the bundle's SpecSeg vs the h5")
+        cfg = Config.from_args(argv("serve", "--compute_dtype", "float32"))
+        gen, specseg = bundle_models(cfg, bundle)
+        cfg.model.image_size = 256
+        engine = BatchInferenceEngine(cfg, gen, specseg, batch_size=8, device="cuda")
+        rgb = scenes(8, 256, 256, np.random.default_rng(3))
+        engine.process_images(rgb)                       # warm-up
+        _launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.process_images(rgb)
+        request_ms = (time.perf_counter() - t0) * 1e3
+        served = _launch_counts(reset=True)
+        want = {**{k: 0 for k in served}, _in_name(torch.float32): 18, "fused_standardize_yuv": 1}
+        if served != want:
+            raise AssertionError(f"the request launched {served}, expected {want}")
+        with plain_versions():
+            plain = engine.process_images(rgb)
+        if any(_launch_counts(reset=True).values()):
+            raise AssertionError("plain run launched a kernel")
+        _compare(out, plain, "keras_h5 bundle, kernels vs plain, f32 b8 256 px:")
+        say(f"--mode export {export_s:.2f} s; one f32 request of 8 at 256 px on the h5 "
+            f"SpecSeg {request_ms:.2f} ms, launches {served}")
+
+        # profiling and the hdf5 dump on the card
+        traced = _keras_h5_profile(root)
+        dump = os.path.join(root, "estimated_diffuse_images.hdf5")
+        t0 = time.perf_counter()
+        size = save_dataset_hdf5(out["gen_rgb"], dump)
+        dump_s = time.perf_counter() - t0
+        back = hdf5.File(dump)["default"][()]
+        if back.dtype != out["gen_rgb"].dtype or not np.array_equal(back, out["gen_rgb"]):
+            raise AssertionError(f"save_dataset_hdf5: read back {back.dtype} {back.shape}")
+        say(f"save_dataset_hdf5 of gen_rgb {out['gen_rgb'].shape} {out['gen_rgb'].dtype}: "
+            f"{size} bytes in {dump_s:.3f} s, read back bit for bit")
+    say(f"keras_h5 on {smi}: h5 read {read_s:.4f} s, cli --mode train (2 steps) "
+        f"{train_s:.2f} s, export {export_s:.2f} s, request {request_ms:.2f} ms, dump "
+        f"{dump_s:.3f} s")
+    return _sum_counts(counts, served, traced)
+
+
 def main() -> int:
     current = "device"
     try:
@@ -3146,6 +3364,8 @@ def main() -> int:
         by_path["specseg_train"] = phase("specseg_train", specseg_train_phase)
         current = "quality_gan"
         by_path["quality_gan"] = phase("quality_gan", quality_gan_phase)
+        current = "keras_h5"
+        by_path["keras_h5"] = phase("keras_h5", keras_h5_phase, smi)
     except Exception:
         traceback.print_exc()
         say(f"chip_smoke FAILED in phase {current}")

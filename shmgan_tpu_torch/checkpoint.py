@@ -1,9 +1,10 @@
 """Train checkpoints and inference bundles: the counterpart of
 shmgan_tpu/checkpoint.py's `CheckpointManager`, the SpecSeg files
 (`save_specseg_msgpack`, `load_specseg_msgpack`, `load_specseg_weights`,
-`specseg_msgpack_in_channels`, `specseg_in_channels_of`),
-`load_inference_bundle`, `export_inference_bundle` and
-`transfer_matching_params`, without flax, msgpack or Orbax.
+`specseg_msgpack_in_channels`, `specseg_in_channels_of`, and the
+reference's Keras h5 through `load_specseg_h5`), `load_inference_bundle`,
+`export_inference_bundle` and `transfer_matching_params`, without flax,
+msgpack, h5py or Orbax.
 
 A train checkpoint is one directory per step, `<dir>/<step>/state.msgpack`:
 the flax msgpack (runtime/flax_msgpack.py) of `train.state.state_payload`,
@@ -12,8 +13,14 @@ Orbax payload, so `flax.serialization.from_bytes` restores it onto that
 payload. A save writes a temporary directory and renames it into place, so a
 step directory is whole or absent; the newest `max_to_keep` steps are kept.
 Under a process group rank 0 writes and every rank restores.
-The JAX package's own Orbax checkpoints are not read (ROADMAP Queue 1 item
-10): a step directory that holds one raises.
+The JAX package's own Orbax checkpoints are not read here: a step directory
+that holds one raises with the command of `orbax_to_torch.py` (at the
+repository's root, run where the JAX package and orbax are installed), which
+converts them into this format.
+
+The reference's SpecSeg is a Keras h5 (specsegv3_chkpt.h5, 1 input
+channel), read through runtime/hdf5.py in any of Keras's three weight
+layouts and mapped onto the flax SpecSeg tree as the JAX package maps it.
 
 A bundle is two files: `<path>`, the flax msgpack of
 {"g_params": G's params, "specseg_vars": {"params", "batch_stats"}}
@@ -42,7 +49,7 @@ import torch
 from shmgan_tpu_torch.config import Config, ModelConfig
 from shmgan_tpu_torch.convert import flax_tree
 from shmgan_tpu_torch.parallel.mesh import barrier, is_main
-from shmgan_tpu_torch.runtime import flax_msgpack
+from shmgan_tpu_torch.runtime import flax_msgpack, hdf5
 
 # store dtypes of a bundle's floats (bfloat16 through torch: numpy has none)
 STORE_DTYPES = ("float16", "float32", "bfloat16")
@@ -131,6 +138,7 @@ def export_inference_bundle(gen: torch.nn.Module, specseg: torch.nn.Module, cfg:
 STATE_FILE = "state.msgpack"
 # what an Orbax step directory of the JAX package holds
 _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "default", "_METADATA")
+ORBAX_CONVERTER = "orbax_to_torch.py"
 
 
 class CheckpointManager:
@@ -156,8 +164,10 @@ class CheckpointManager:
             elif any(os.path.exists(os.path.join(step_dir, m)) for m in _ORBAX_MARKERS):
                 raise NotImplementedError(
                     f"{step_dir} holds an Orbax checkpoint of the JAX package; the port "
-                    f"reads its own {STATE_FILE} checkpoints only (reading Orbax: ROADMAP "
-                    "Queue 1 item 10)")
+                    f"reads its own {STATE_FILE} checkpoints only. Convert it where the "
+                    f"JAX package is installed: python {ORBAX_CONVERTER} "
+                    f"--checkpoint_save_dir {self.directory} --out <new dir> "
+                    "<the run's model flags>")
         return sorted(steps)
 
     def latest_step(self) -> Optional[int]:
@@ -267,15 +277,113 @@ def load_specseg_msgpack(path: str, base_filters: int = 16, image_size: int = 12
     return _map_floats(tree, lambda x: np.asarray(x, np.float32))
 
 
+# Keras layer names in the reference SpecSeg's order (SpecSeg.py:34-88): the
+# 10 contracting convs with 5 BNs, 4 x (transpose + 2 convs), the 1x1 head,
+# named conv2d, conv2d_1, ..., batch_normalization, ..., conv2d_transpose, ...
+_FLAX_CONV_ORDER = [
+    "down0/conv0", "down0/conv1", "down1/conv0", "down1/conv1",
+    "down2/conv0", "down2/conv1", "down3/conv0", "down3/conv1",
+    "bottom/conv0", "bottom/conv1",
+    "up0/conv0", "up0/conv1", "up1/conv0", "up1/conv1",
+    "up2/conv0", "up2/conv1", "up3/conv0", "up3/conv1",
+    "head",
+]
+_FLAX_BN_ORDER = ["down0/bn", "down1/bn", "down2/bn", "down3/bn", "bottom/bn"]
+_FLAX_CONVT_ORDER = ["up0_t", "up1_t", "up2_t", "up3_t"]
+# Keras 3 stores a layer's weights under positional names, vars/0, vars/1, ...
+_POSITIONAL = {"conv": ["kernel", "bias"],
+               "bn": ["gamma", "beta", "moving_mean", "moving_variance"]}
+
+
+def _keras_name(base: str, idx: int) -> str:
+    return base if idx == 0 else f"{base}_{idx}"
+
+
+def _collect_h5_weights(h5file: hdf5.Group) -> Dict[str, Dict[str, np.ndarray]]:
+    """{layer name: {weight short name: array}} of a Keras weight file, in
+    any of its layouts: Keras 2's full-model save (`model_weights/<layer>/
+    <layer>/kernel:0`, the reference's), Keras 2's save_weights (the layers
+    at the root) and Keras 3's (`layers/<layer>/vars/<i>`)."""
+    if "model_weights" in h5file:
+        root = h5file["model_weights"]
+    elif "layers" in h5file:
+        root = h5file["layers"]
+    else:
+        root = h5file
+    out = {}
+    for layer_name in root:
+        weights = {}
+
+        def leaf(name, obj):
+            if isinstance(obj, hdf5.Dataset):
+                weights[name.split("/")[-1].split(":")[0]] = obj.read()
+
+        group = root[layer_name]
+        if isinstance(group, hdf5.Group):
+            group.visititems(leaf)
+        if weights and all(k.isdigit() for k in weights):
+            names = _POSITIONAL["bn" if "batch_normalization" in layer_name else "conv"]
+            weights = {names[int(k)]: v for k, v in weights.items()}
+        if weights:
+            out[layer_name] = weights
+    return out
+
+
+def convert_keras_convt_kernel(k_tf: np.ndarray) -> np.ndarray:
+    """A Keras Conv2DTranspose kernel (kh, kw, out, in) as the flax
+    ConvTranspose kernel (kh, kw, in, out) of the same function: spatially
+    flipped (TF's transpose conv correlates with the flipped kernel) and
+    in/out swapped."""
+    return np.ascontiguousarray(k_tf[::-1, ::-1].transpose(0, 1, 3, 2))
+
+
+def load_specseg_h5(path: str) -> Dict:
+    """The flax SpecSeg variable tree {"params", "batch_stats"} of a Keras h5
+    in the reference's topology (specsegv3_chkpt.h5), as the JAX package's
+    `load_specseg_h5` gives it, leaf for leaf."""
+    with hdf5.File(path) as f:
+        layers = _collect_h5_weights(f)
+    params: Dict = {}
+    batch_stats: Dict = {}
+
+    def set_path(tree, flax_path, leaf):
+        *parents, last = flax_path.split("/")
+        for p in parents:
+            tree = tree.setdefault(p, {})
+        tree[last] = leaf
+
+    def layer(base, i):
+        name = _keras_name(base, i)
+        if name not in layers:
+            raise KeyError(f"{path}: no weights for the Keras layer {name!r} of the reference "
+                           f"SpecSeg (found {sorted(layers)})")
+        return layers[name]
+
+    for i, flax_path in enumerate(_FLAX_CONV_ORDER):
+        w = layer("conv2d", i)
+        set_path(params, flax_path + "/kernel", w["kernel"].astype(np.float32))
+        set_path(params, flax_path + "/bias", w["bias"].astype(np.float32))
+    for i, flax_path in enumerate(_FLAX_BN_ORDER):
+        w = layer("batch_normalization", i)
+        set_path(params, flax_path + "/scale", w["gamma"].astype(np.float32))
+        set_path(params, flax_path + "/bias", w["beta"].astype(np.float32))
+        set_path(batch_stats, flax_path + "/mean", w["moving_mean"].astype(np.float32))
+        set_path(batch_stats, flax_path + "/var", w["moving_variance"].astype(np.float32))
+    for i, flax_path in enumerate(_FLAX_CONVT_ORDER):
+        w = layer("conv2d_transpose", i)
+        set_path(params, flax_path + "/kernel", convert_keras_convt_kernel(w["kernel"]))
+        set_path(params, flax_path + "/bias", w["bias"].astype(np.float32))
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def load_specseg_weights(path: str, base_filters: int = 16, image_size: int = 128) -> Dict:
-    """A SpecSeg variable tree from a `.msgpack` file (`load_specseg_msgpack`,
-    in-channel count detected). The reference's keras `.h5` needs h5py,
-    which the port does not use: it raises (ROADMAP Queue 1 item 10)."""
-    if not path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the port reads SpecSeg weights from .msgpack only; the keras h5 "
-            "converter needs h5py (ROADMAP Queue 1 item 10)")
-    return load_specseg_msgpack(path, base_filters=base_filters, image_size=image_size)
+    """A SpecSeg variable tree by the file's extension, as the JAX package
+    dispatches: `.msgpack` through `load_specseg_msgpack` (in-channel count
+    read from the file), anything else as the reference's Keras h5 (1 input
+    channel) through `load_specseg_h5`."""
+    if path.endswith(".msgpack"):
+        return load_specseg_msgpack(path, base_filters=base_filters, image_size=image_size)
+    return load_specseg_h5(path)
 
 
 def transfer_matching_params(dst_tree: Mapping, src_tree: Mapping) -> Tuple[Dict, int, int]:

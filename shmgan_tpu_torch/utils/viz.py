@@ -1,14 +1,15 @@
-"""Model summaries and image grids: the counterpart of shmgan_tpu/utils/viz.py's
-`model_summary`, `write_model_summaries`, `rescale_for_display` and
-`image_grid`. The summaries read flax-layout trees (nested dicts of arrays,
-as `convert.flax_tree` lays a module out), so the text is the JAX package's,
-line for line, for the same configuration.
+"""Model summaries, image plots and the hdf5 dump: the counterpart of
+shmgan_tpu/utils/viz.py. The summaries read flax-layout trees (nested dicts
+of arrays, as `convert.flax_tree` lays a module out), so the text is the JAX
+package's, line for line, for the same configuration.
 
-`image_grid` writes its row of panels as an 8-bit PNG through
-data/codecs.encode_png, without matplotlib: each panel rescaled for display,
-a one-channel panel as grey, no title text drawn (a deliberate difference
-from the JAX package's figure). viz.py's `debug_plot`, `plot_single_image`
-and its hdf5 dump are not ported.
+`image_grid`, `debug_plot` and `plot_single_image` write their panels as an
+8-bit PNG through data/codecs.encode_png, without matplotlib: each panel
+rescaled for display (debug_plot's label planes clipped to [0, 1], as JAX
+draws them with vmin 0 and vmax 1), a one-channel panel as grey, GRID_GAP
+white pixels between panels, no title text drawn (a deliberate difference
+from the JAX package's figures). Each returns the uint8 image it wrote.
+`save_dataset_hdf5` writes through runtime/hdf5.py.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Iterator, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from shmgan_tpu_torch.data.codecs import encode_png
+from shmgan_tpu_torch.runtime import hdf5
 
 GRID_GAP = 4   # pixels of white between two panels
 
@@ -68,6 +70,44 @@ def rescale_for_display(img: np.ndarray) -> np.ndarray:
     return (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
 
 
+def _panel(img: Any, rescale: bool = True) -> np.ndarray:
+    """(H, W), (H, W, 1) or (H, W, 3) as (H, W, 3) uint8: rescaled for
+    display, or else clipped to [0, 1]."""
+    arr = np.squeeze(np.asarray(img, dtype=np.float32))
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=-1)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"expected an image (H, W[, 1|3]), got {np.shape(img)}")
+    arr = rescale_for_display(arr) if rescale else np.clip(arr, 0.0, 1.0)
+    return np.round(arr * 255.0).astype(np.uint8)
+
+
+def _tile(rows: Sequence[Sequence[np.ndarray]], path: Optional[str]) -> np.ndarray:
+    """Rows of uint8 panels, GRID_GAP white pixels apart (the shorter or
+    narrower ones padded white), written to `path` as a PNG when given."""
+    h = max(p.shape[0] for row in rows for p in row)
+    lines = []
+    for row in rows:
+        gap = np.full((h, GRID_GAP, 3), 255, np.uint8)
+        line = []
+        for i, p in enumerate(row):
+            if i:
+                line.append(gap)
+            line.append(np.pad(p, ((0, h - p.shape[0]), (0, 0), (0, 0)), constant_values=255))
+        lines.append(np.concatenate(line, axis=1))
+    w = max(line.shape[1] for line in lines)
+    stack = []
+    for i, line in enumerate(lines):
+        if i:
+            stack.append(np.full((GRID_GAP, w, 3), 255, np.uint8))
+        stack.append(np.pad(line, ((0, 0), (0, w - line.shape[1]), (0, 0)), constant_values=255))
+    out = np.concatenate(stack, axis=0)
+    if path:
+        with open(path, "wb") as f:
+            f.write(encode_png(out))
+    return out
+
+
 def image_grid(images: Sequence[Any], titles: Optional[Sequence[str]] = None,
                path: Optional[str] = None) -> np.ndarray:
     """A row of images, each (H, W), (H, W, 1) or (H, W, 3), rescaled for
@@ -75,23 +115,40 @@ def image_grid(images: Sequence[Any], titles: Optional[Sequence[str]] = None,
     the (H, W_total, 3) uint8 row, written to `path` as a PNG when given.
     `titles` is the JAX signature's; no text is drawn."""
     del titles
-    panels = []
-    for img in images:
-        arr = np.squeeze(np.asarray(img, dtype=np.float32))
-        if arr.ndim == 2:
-            arr = np.repeat(arr[..., None], 3, axis=-1)
-        if arr.ndim != 3 or arr.shape[-1] != 3:
-            raise ValueError(f"image_grid: expected (H, W[, 1|3]), got {np.shape(img)}")
-        panels.append(np.round(rescale_for_display(arr) * 255.0).astype(np.uint8))
-    h = max(p.shape[0] for p in panels)
-    gap = np.full((h, GRID_GAP, 3), 255, np.uint8)
-    row = []
-    for i, p in enumerate(panels):
-        if i:
-            row.append(gap)
-        row.append(np.pad(p, ((0, h - p.shape[0]), (0, 0), (0, 0)), constant_values=255))
-    grid = np.concatenate(row, axis=1)
-    if path:
-        with open(path, "wb") as f:
-            f.write(encode_png(grid))
-    return grid
+    return _tile([[_panel(img) for img in images]], path)
+
+
+def debug_plot(gen_input: Any, path: Optional[str] = None) -> np.ndarray:
+    """A packed generator input (1, H, W, 2C): its C image channels in one
+    row (each rescaled for display), its C label planes in the row below
+    (clipped to [0, 1]); the uint8 image, written to `path` when given."""
+    t = np.squeeze(np.asarray(gen_input, dtype=np.float32))
+    if t.ndim != 3 or t.shape[-1] % 2:
+        raise ValueError(f"debug_plot: expected (1, H, W, 2C), got {np.shape(gen_input)}")
+    c = t.shape[-1] // 2
+    return _tile([[_panel(t[..., i]) for i in range(c)],
+                  [_panel(t[..., c + i], rescale=False) for i in range(c)]], path)
+
+
+def plot_single_image(img: Any, title: str = "", path: Optional[str] = None) -> np.ndarray:
+    """One grey panel for an (H, W) or (H, W, 1) image; for an (H, W, 3) one
+    the original over its three channels, a column of four panels, each
+    rescaled for display. `title` is the JAX signature's; no text is
+    drawn."""
+    del title
+    arr = np.squeeze(np.asarray(img, dtype=np.float32))
+    if arr.ndim == 2:
+        return _tile([[_panel(arr)]], path)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"plot_single_image: expected (H, W[, 1|3]), got {np.shape(img)}")
+    return _tile([[_panel(arr)]] + [[_panel(arr[..., i])] for i in range(3)], path)
+
+
+def save_dataset_hdf5(image_stack: Any, path: str = "./estimated_diffuse_images.hdf5",
+                      dataset_name: str = "default") -> int:
+    """Add `image_stack` to the hdf5 file at `path` (made if absent) as the
+    dataset `dataset_name`, chunked and deflated at level 9, its dtype
+    kept; returns the file's size in bytes. A name already in the file, or
+    a file holding anything but datasets (runtime/hdf5.append_dataset),
+    raises."""
+    return hdf5.append_dataset(path, dataset_name, np.asarray(image_stack))

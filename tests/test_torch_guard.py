@@ -1,12 +1,16 @@
 """The port and chip_smoke.py stay free of JAX and of what the card's machine
 lacks: no import of jax, flax, optax, orbax, msgpack, PIL, matplotlib, h5py,
-tabulate, tensorboard or shmgan_tpu, by reading the sources and by running the
-port (serving, a bundle and a PNG read and written, one train step, the
-command line's train, export and test modes on a tiny tree, the
+zstandard, tabulate, tensorboard or shmgan_tpu, by reading the sources and by
+running the port (serving, a bundle and a PNG read and written, one train
+step, the command line's train, export and test modes on a tiny tree, the
 data-parallel layout, device report and a two-shard engine, two SpecSeg steps
-of the flagship trainer's phase A, and two GAN steps of its phase B on the DR
-curriculum with an eval, galleries and the best bundle) where those modules
-cannot be imported."""
+of the flagship trainer's phase A, two GAN steps of its phase B on the DR
+curriculum with an eval, galleries and the best bundle, the reference's Keras
+h5 read and an hdf5 dump written, the plots and the profiling hooks) where
+those modules cannot be imported.
+
+orbax_to_torch.py, the Orbax converter, is the one file outside tests/ that
+imports both packages, and nothing of the port or chip_smoke.py reaches it."""
 
 import ast
 import os
@@ -16,7 +20,10 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "PIL", "matplotlib", "h5py",
-          "tabulate", "tensorboard", "shmgan_tpu")
+          "zstandard", "zstd", "tabulate", "tensorboard", "shmgan_tpu")
+CONVERTER = "orbax_to_torch.py"
+# what is not the repo's own source: build outputs, proof trees, chip runs
+NOT_SOURCE = {".git", "_proof", "chiprun_out", "tests", "__pycache__", "_build"}
 
 
 def _port_sources():
@@ -46,6 +53,24 @@ def test_no_banned_import_in_sources():
     assert not found, found
 
 
+def test_the_converter_is_the_one_bridge():
+    """Outside tests/, only the converter imports both packages; the port
+    and chip_smoke.py never import it."""
+    both = []
+    for root, dirs, files in os.walk(REPO):
+        dirs[:] = [d for d in dirs if d not in NOT_SOURCE]
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                tops = {m.split(".")[0] for m in _imported_modules(path)}
+                if {"shmgan_tpu", "shmgan_tpu_torch"} <= tops:
+                    both.append(os.path.relpath(path, REPO))
+    assert both == [CONVERTER]
+    reach = [os.path.relpath(p, REPO) for p in _port_sources()
+             if CONVERTER[:-3] in {m.split(".")[0] for m in _imported_modules(p)}]
+    assert not reach
+
+
 def test_port_runs_with_banned_modules_blocked():
     script = textwrap.dedent(f"""
         import importlib.abc, sys
@@ -59,6 +84,10 @@ def test_port_runs_with_banned_modules_blocked():
         for m in list(sys.modules):
             if m.split(".")[0] in BANNED:
                 del sys.modules[m]
+        # torch.profiler loads torch._dynamo, which asks importlib whether
+        # optional modules (tabulate among them) exist; it imports none, as
+        # the check of sys.modules at the end shows
+        import torch._dynamo  # noqa: F401
         sys.meta_path.insert(0, Block())
 
         import numpy as np
@@ -150,7 +179,32 @@ def test_port_runs_with_banned_modules_blocked():
         assert [r["step"] for r in gan["history"]] == [2]
         for name in ("best_bundle.msgpack", "sample_best_0.png", "sample_final_1.png"):
             assert os.path.getsize(os.path.join(root, "quality", name)) > 0
+
+        # the reference's Keras h5, the hdf5 dump, the plots, the profiling hooks
+        from shmgan_tpu_torch.checkpoint import load_specseg_weights
+        from shmgan_tpu_torch.runtime import hdf5
+        from shmgan_tpu_torch.utils import profiling, viz
+
+        ss = load_specseg_weights("tests/data/torch_h5/specseg_keras2.h5")
+        assert ss["params"]["down0"]["conv0"]["kernel"].shape == (3, 3, 1, 16)
+        dump = os.path.join(root, "dump.hdf5")
+        viz.save_dataset_hdf5(np.ones((2, 3), np.float32), dump)
+        assert hdf5.File(dump)["default"][()].sum() == 6
+        assert viz.debug_plot(np.zeros((1, 8, 8, 4))).shape == (20, 20, 3)
+        assert viz.plot_single_image(np.zeros((8, 8, 3))).shape == (44, 8, 3)
+        with profiling.trace(os.path.join(root, "trace")) as prof:
+            with profiling.annotate("guard"):
+                torch.ones(2) + 1
+        assert os.path.getsize(prof.trace_path) > 0
+        try:
+            with profiling.debug_mode():
+                torch.zeros(1) / 0 * 0
+            raise AssertionError("no NaN raised")
+        except FloatingPointError:
+            pass
+        assert torch.cuda.is_available() or not profiling.device_memory_stats()
         shutil.rmtree(root)
+        assert "orbax_to_torch" not in sys.modules
         print("OK", sorted(m for m in sys.modules if m.split(".")[0] in BANNED))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

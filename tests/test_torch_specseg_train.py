@@ -324,8 +324,13 @@ def test_specseg_file_is_jax_bytes_and_jax_reads_it(tmp_path, in_channels):
 
 
 def test_h5_weights_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_specseg_weights(str(tmp_path / "specsegv3_chkpt.h5"))
+    """A name other than .msgpack goes to the Keras h5 reader (as in the JAX
+    package), which refuses a file that is not HDF5: here a SpecSeg msgpack
+    under the reference's h5 name."""
+    path = str(tmp_path / "specsegv3_chkpt.h5")
+    save_specseg_msgpack({"params": {"w": np.ones(2, np.float32)}}, path)
+    with pytest.raises(ValueError, match="not an HDF5 file"):
+        load_specseg_weights(path)
 
 
 # -- the flagship trainer's phase A ------------------------------------------------------------
