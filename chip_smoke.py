@@ -87,6 +87,23 @@ Phases (each prints its name before it starts and its seconds after):
               output within SERVE_ATOL of the one-device engine at the
               shard's batch, 2 x (18, 1) launches a request, request ms
               beside the one-device engine at batch 8;
+  model_parallel a 1 x 2 mesh (tensor parallelism) of two gloo ranks on
+              the one card, each a process running tp_rank: the seeded
+              state cut to each rank's slices at the JAX defaults (128 px,
+              filter 64, batch 8, tp_min_channels 256), one counted step in
+              f32 and four in bf16, each rank's launches exactly (46, 28,
+              1), the leaves whole on both ranks bit for bit; the
+              gathered f32 step against one rank's by _compare_step; the
+              bf16 steps against the same steps computed in one process
+              with every cut block run as its two slices (within
+              TP_SPLIT_RTOL), through the kernels against themselves
+              through the plain versions (GAP_C) and against one rank's
+              (TP_GAP_C); the IN
+              kernels against their plain versions at every other shape
+              the step gave them (the channel slices, G1's batch); a timed
+              step over gloo beside one rank's; train.loop.train for 2
+              steps on a 16-scene tree and its checkpoint restored on one
+              rank, equal to the ranks' gathered state bit for bit;
   train       the fused train step at full width in f32 (the JAX package's
               default model: 128 px, filter 64, batch 8) on seeded weights: one
               step through the kernels against the same step through the plain
@@ -756,18 +773,19 @@ def _compare(out, ref, label):
     return worst
 
 
-def _gap_check(label, kernels, plain, f32):
+def _gap_check(label, kernels, plain, f32, limit=GAP_C):
     """One output of a bf16 path (arrays, flattened here) through the kernels
-    and through the plain versions: ||kernels - plain|| <= GAP_C ||plain -
-    f32||, relative L2 to the f32 output of the same input. The limit comes
-    from the plain path and the f32 path alone."""
+    and through the plain versions: ||kernels - plain|| <= limit ||plain -
+    f32|| (limit GAP_C unless given), relative L2 to the f32 output of the
+    same input. The limit comes from the plain path and the f32 path
+    alone."""
     k, p, f = (np.asarray(t, np.float64).ravel() for t in (kernels, plain, f32))
     ref = max(np.linalg.norm(f), 1e-300)
     d_kp, d_pf = np.linalg.norm(k - p) / ref, np.linalg.norm(p - f) / ref
     say(f"  {label}: ||kernels - plain||={d_kp:.3e}, ||plain - f32||={d_pf:.3e} (relative "
-        f"L2), ratio {d_kp / max(d_pf, 1e-300):.3f} (limit {GAP_C})")
-    if not d_kp <= GAP_C * d_pf:
-        raise AssertionError(f"{label}: kernels vs plain {d_kp} > {GAP_C} x plain vs f32 "
+        f"L2), ratio {d_kp / max(d_pf, 1e-300):.3f} (limit {limit})")
+    if not d_kp <= limit * d_pf:
+        raise AssertionError(f"{label}: kernels vs plain {d_kp} > {limit} x plain vs f32 "
                              f"{d_pf}")
 
 
@@ -1593,36 +1611,43 @@ def train_phase():
     return totals
 
 
-def _compare_step_gap(steps, label):
+LOSSES = "losses (each scaled by its f32 value)"
+
+
+def _gap_vectors(m, f32):
+    """A train step's metrics `m` as the gap rule reads them, beside the
+    same step's in f32: {"G gradients", "D gradients": each network's
+    gradients as one float64 vector; LOSSES: every loss divided by its f32
+    value}."""
+    keys = sorted(k for k in f32 if not k.startswith("_") and k != "target_label")
+    out = {f"{net} gradients": torch.cat([m["_grads"][net][k].double().flatten().cpu()
+                                          for k in sorted(m["_grads"][net])]).numpy()
+           for net in ("G", "D")}
+    out[LOSSES] = np.array([float(m[k]) / max(abs(float(f32[k])), 1e-30) for k in keys])
+    return out
+
+
+def _compare_step_gap(steps, label, limit=GAP_C):
     """bf16 steps through the kernels against the same steps through the
     plain versions, `steps` a list of (kernels, plain, f32) metrics, one
     batch each: G's and D's gradients, each network as one vector, and the
-    losses as one vector, each loss scaled by its f32 value, held by
-    _gap_check over all the batches at once (STEP_GAP_BATCHES), each
-    batch's ratio printed beside."""
-    def flat(m, net):
-        return torch.cat([m["_grads"][net][k].double().flatten().cpu()
-                          for k in sorted(m["_grads"][net])]).numpy()
-
+    losses as one vector (_gap_vectors), each held by _gap_check (at
+    `limit`) over all the batches at once (STEP_GAP_BATCHES), each batch's
+    ratio printed beside."""
     keys = sorted(k for k in steps[0][2] if not k.startswith("_") and k != "target_label")
-
-    def scaled(m, f32):
-        return np.array([float(m[k]) / max(abs(float(f32[k])), 1e-30) for k in keys])
-
-    parts = {f"{net} gradients": [tuple(flat(m, net) for m in step) for step in steps]
-             for net in ("G", "D")}
-    parts[f"losses ({len(keys)}, each scaled by its f32 value)"] = [
-        tuple(scaled(m, step[2]) for m in step) for step in steps]
-    for i, (k_, p_, f_) in enumerate(parts[f"losses ({len(keys)}, each scaled by its f32 value)"]):
+    vecs = [[_gap_vectors(m, step[2]) for m in step] for step in steps]
+    for i, step in enumerate(vecs):
+        k_, p_, f_ = (v[LOSSES] for v in step)
         say(f"  {label} batch {i}, each loss, (kernels - plain, plain - f32) / |f32|: "
             + ", ".join(f"{k} {a - b:+.2e} {b - c:+.2e}" for k, a, b, c in zip(keys, k_, p_, f_)))
-    for name, per in parts.items():
+    for name in vecs[0][0]:
+        per = [tuple(v[name] for v in step) for step in vecs]
         if len(per) > 1:
             say(f"  {label} {name}, ratio of each batch (read): " + ", ".join(
                 f"{np.linalg.norm(k - p) / max(np.linalg.norm(p - f), 1e-300):.3f}"
                 for k, p, f in per))
         _gap_check(f"{label} {name}" + (f", {len(per)} batches" if len(per) > 1 else ""),
-                   *(np.concatenate(x) for x in zip(*per)))
+                   *(np.concatenate(x) for x in zip(*per)), limit=limit)
 
 
 def _bf16_step_check(cfg, f32_cfg, state, batches, what):
@@ -2932,16 +2957,19 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _run_ranks(workdir, timeout=300):
-    """DP_RANKS processes of dp_rank, one gloo group on a free port; each is
-    killed if it outlives `timeout`. Raises with a rank's output if it fails."""
-    env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+def _run_ranks(workdir, target, n, prefix, timeout):
+    """n processes of `target` ("module.function", called with `workdir`), one
+    gloo group on a free port; each is killed if it outlives `timeout`.
+    Raises with a rank's output if it fails; returns each rank's
+    <workdir>/<prefix><r>.pt."""
+    module = target.rpartition(".")[0]
+    env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_RANK="0",
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
     procs = [subprocess.Popen([sys.executable, "-c",
-                               f"import chip_smoke; chip_smoke.dp_rank({workdir!r})"],
+                               f"import {module}; {target}({workdir!r})"],
                               cwd=ROOT, env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(DP_RANKS)]
+             for r in range(n)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -2951,9 +2979,9 @@ def _run_ranks(workdir, timeout=300):
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"rank {r} exited {p.returncode}:\n{log[-4000:]}")
-    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
-            for r in range(DP_RANKS)]
+            raise AssertionError(f"{target} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return [torch.load(os.path.join(workdir, f"{prefix}{r}.pt"), weights_only=False)
+            for r in range(n)]
 
 
 def _dp_step_checks(tmp):
@@ -2966,7 +2994,7 @@ def _dp_step_checks(tmp):
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _run_ranks(tmp)
+    ranks = _run_ranks(tmp, "chip_smoke.dp_rank", DP_RANKS, "rank", 300)
     say(f"{DP_RANKS} ranks (gloo, one card, 4 images a rank of the global batch 8) ran in "
         f"{time.perf_counter() - t0:.1f} s")
     totals = {k: 0 for k in _launch_counts()}
@@ -3119,6 +3147,364 @@ def data_parallel_phase(bundle):
         steps = _dp_step_checks(tmp)
         _dp_cli_check(tmp)
     return _sum_counts(steps, _dp_engine_check(bundle))
+
+
+# The bf16 1 x 2 step against the same step computed in one process with
+# each block the JAX rule cuts run as its TP_RANKS slices (tp_gap.split_compute:
+# the mesh's arithmetic without a collective): G's and D's gradients within
+# TP_SPLIT_RTOL (L2, relative) and every loss within it (relative). On an
+# H100 they read 0, every part of 16 batches over seeds 15-18, twice, and the
+# bf16 step repeats bit for bit (shmgan_tpu_torch/tp_gap.py); every cut
+# block's input gradient x 1.01, planted in bf16 only, reads 0.18-0.22 of the
+# one-rank step's gap to f32 there (about 5e-3 of G's gradients, 2e-2 of
+# D's). Not held in f32: there the split read G 1.5e-4, D 1.8e-6 from the
+# mesh, as far as one rank's f32 step (cuDNN's f32 convolutions differ
+# between the runs), which _compare_step holds at GRAD_NORM_RTOL.
+TP_SPLIT_RTOL = 1e-6
+# The bf16 1 x 2 step against the bf16 one-rank step by the gap rule: half-
+# width convolutions round apart from whole ones, so this pair differs as
+# two correct roundings of the step do. On an H100 (tp_gap.py) the losses
+# read 1.433, 0.866, 0.548 and 0.828 over seeds 15-18 (15 is TP_SEED; its
+# batch 2, 2.477, repeats bit for bit), and the same step on one rank with
+# cuDNN off 1.202 on seed 15; G 0.760-0.779, D 0.713-0.728. Planted in bf16
+# only, rank 1's gathered channels x 1.01 read 2.682-3.478 on the losses and
+# the backward taking the other rank's slice 7.4-12.0 on the gradients
+# (every cut block's input gradient x 1.01 reads G 0.806: the split check
+# holds that one). JAX's own 1 x 2 bf16 step against its one-device step
+# reads G 0.110, D 0.692, losses 0.505 on the CPU at 128 px, filter 8
+# (tests/tp_gap_jax.py).
+TP_GAP_C = 2.0
+TP_RANKS = 2          # a 1 x 2 mesh: two ranks of one gloo group, both on the one card
+TP_TIMED_STEPS = 3    # timed steps a rank, and of the one-rank step beside them
+TP_SEED = 15
+TP_SCENES = 16        # train.loop.train at batch 8: 2 steps
+
+
+def _tp_config(dtype):
+    """The JAX defaults at batch 8 (training_config) on a 1 x TP_RANKS mesh,
+    tp_min_channels 256."""
+    from shmgan_tpu_torch.profile_train import training_config
+
+    cfg = training_config(dtype)
+    cfg.mesh.data_parallel, cfg.mesh.model_parallel = 1, TP_RANKS
+    return cfg
+
+
+def _tp_batches(cfg, n, seed=TP_SEED):
+    """n (views, draws) of the global batch from a seeded generator on the
+    card: the same on every rank and in the one-rank reference."""
+    from shmgan_tpu_torch.train.step import sample_draws
+
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.rand((v, b, size, size, 3), device="cuda", generator=gen),
+             sample_draws(cfg, gen, v, b, size, size)) for _ in range(n)], gen
+
+
+def _payload_digest(payload):
+    """sha256 over a checkpoint tree's leaf paths, dtypes, shapes and bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for path, leaf in sorted(_paths(payload)):
+        leaf = np.ascontiguousarray(leaf)
+        digest.update(f"{path} {leaf.dtype} {leaf.shape}".encode())
+        digest.update(leaf.tobytes())
+    return digest.hexdigest()
+
+
+def _tp_steps(cfg, state, batches):
+    """One counted step with debug_grads from `state` on each batch (after
+    a warm-up step): the launches, the metrics on the host and the (B, C,
+    H, W) and dtype of every IN call; returns them and the last state."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, debug_grads=True)
+    step(copy.deepcopy(state), *batches[0], 0)  # warm-up: cuDNN's choices
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    shapes, plain = set(), ink.instance_norm
+
+    def spy(x, *args):
+        shapes.add((tuple(x.shape), x.dtype))
+        return plain(x, *args)
+
+    counts, metrics, stepped = [], [], None
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    for views, draws in batches:
+        ink.instance_norm = spy
+        try:
+            stepped, m = step(copy.deepcopy(state), views, draws, 0)
+        finally:
+            ink.instance_norm = plain
+        torch.cuda.synchronize()
+        counts.append(_launch_counts(reset=True))
+        metrics.append({k: (({net: {name: cpu(g) for name, g in grads.items()}
+                              for net, grads in val.items()}) if k == "_grads" else cpu(val))
+                        for k, val in m.items() if k != "_drop"})
+    return counts, metrics, shapes, stepped
+
+
+def _timed_steps(cfg, state, gen):
+    """TP_TIMED_STEPS steps on fresh global batches: host ms of each."""
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    fast, times = make_train_step(cfg), []
+    v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+    for _ in range(TP_TIMED_STEPS):
+        views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+        draws = sample_draws(cfg, gen, v, b, size, size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = fast(state, views, draws, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _launch_counts(reset=True)
+    return times
+
+
+def tp_rank(workdir):
+    """One rank of the model_parallel phase (RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the environment, LOCAL_RANK 0): joins the gloo group;
+    in f32 (one batch) and bf16 (STEP_GAP_BATCHES batches, also through the
+    plain versions) cuts the seeded state to its slices and takes one
+    counted step with debug_grads a batch, then TP_TIMED_STEPS timed steps;
+    then train.loop.train for 2 steps on the tree under <workdir>, its
+    checkpoint and the digest of its gathered payload; writes
+    <workdir>/tp<r>.pt."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel import tp
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.parallel.mesh import (maybe_initialize_distributed, rank,
+                                                rank_layout, shutdown_distributed,
+                                                training_mesh)
+    from shmgan_tpu_torch.train.loop import train
+    from shmgan_tpu_torch.train.state import create_train_state, shard_state, state_payload
+
+    if not maybe_initialize_distributed("gloo"):
+        raise RuntimeError("tp_rank: no launcher environment")
+    r, out = rank(), {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = _tp_config(dtype)
+            layout = rank_layout(training_mesh(cfg))
+            state = shard_state(create_train_state(cfg, build_models(cfg, device="cuda", seed=0)),
+                                layout, cfg.model.image_size, cfg.mesh.tp_min_channels)
+            batches, gen = _tp_batches(cfg, 1 if dtype == "float32" else STEP_GAP_BATCHES)
+            plain = []
+            if dtype == "bfloat16":
+                with plain_versions():
+                    plain_counts, plain, _, _ = _tp_steps(cfg, state, batches)
+                if any(any(c.values()) for c in plain_counts):
+                    raise AssertionError("the plain 1 x 2 step launched a kernel")
+            counts, metrics, shapes, state = _tp_steps(cfg, state, batches)
+            cut = ({f"G.{k}" for k in tp.sharded_params(state.gen)}
+                   | {f"D.{k}" for k in tp.sharded_params(state.disc)})
+            out[dtype] = {
+                "counts": counts, "ms": _timed_steps(cfg, state, gen), "shapes": shapes,
+                "metrics": metrics if r == 0 else [], "plain": plain if r == 0 else [],
+                "whole": {f"{net}.{k}": p.detach().cpu() for net, mod in (("G", state.gen),
+                                                                         ("D", state.disc))
+                          for k, p in mod.named_parameters() if f"{net}.{k}" not in cut},
+                "cut": sorted(cut)}
+            del state, batches
+            torch.cuda.empty_cache()
+        cfg = _loop_config(_tp_config("bfloat16"), os.path.join(workdir, "loop"),
+                           os.path.join(workdir, "tree"), 1)
+        _launch_counts(reset=True)
+        t0 = time.perf_counter()
+        state = train(cfg, max_steps=2, verbose=False)
+        torch.cuda.synchronize()
+        out["loop"] = {"counts": _launch_counts(reset=True), "s": time.perf_counter() - t0,
+                       "step": state.step, "digest": _payload_digest(state_payload(state))}
+        torch.save(out, os.path.join(workdir, f"tp{r}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def _tp_in_checks(shapes):
+    """The IN forward (with its stats), backward and autograd against their
+    plain versions (_backward_check) at every (shape, dtype) the 1 x 2 step
+    called IN with that the kernels phase's train shapes do not hold: the
+    channel slices, and G1's batch. Returns the worst error by dtype."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    train_shapes = {s for s, _ in TRAIN_IN_SHAPES}
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    worst = {}
+    for shape, dtype in sorted(shapes, key=lambda s: (str(s[1]), s[0])):
+        if shape in train_shapes:
+            continue
+        tol, ptol = ((IN_TOL, IN_TOL) if dtype == torch.float32
+                     else (IN_TOL_BF16, IN_PARAM_TOL_BF16))
+        x, gamma, beta, dy = _in_inputs("cuda", g, shape, dtype)
+        b, c, h, w = shape
+        say(f"{_in_name(dtype, 'backward')} {shape} plan: "
+            f"{ink._bwd_plan(b, c, h * w, dtype).variant}")
+        err = _backward_check(ink, _in_name(dtype, "backward"), shape, x, gamma, beta, dy,
+                              tol, ptol)[0]
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        del x, dy
+    _launch_counts(reset=True)
+    return worst
+
+
+def _split_steps(cfg, batches):
+    """The counted steps of _tp_steps on one rank with every block the JAX
+    rule cuts computed as the TP_RANKS model ranks' slices in this process
+    (tp_gap.split_compute): the mesh's arithmetic without a collective."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.tp_gap import mark_cut, split_compute
+    from shmgan_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    for model in (state.gen, state.disc):
+        mark_cut(model, TP_RANKS, cfg.model.image_size, cfg.mesh.tp_min_channels)
+    with split_compute(TP_RANKS):
+        return _tp_steps(cfg, state, batches)[1]
+
+
+def _compare_split(got, ref, label):
+    """The mesh's steps against its split's, batch by batch: G's and D's
+    gradients and every loss within TP_SPLIT_RTOL (relative)."""
+    worst, same = {}, True
+    for m, r in zip(got, ref):
+        for net in ("G", "D"):
+            a, b = m["_grads"][net], r["_grads"][net]
+            diff = sum(((a[k].double() - b[k].double()) ** 2).sum().item() for k in b) ** 0.5
+            norm = sum((b[k].double() ** 2).sum().item() for k in b) ** 0.5
+            worst[f"{net} gradients"] = max(worst.get(f"{net} gradients", 0.0), diff / norm)
+            same &= all(torch.equal(a[k], b[k]) for k in b)
+        for k in r:
+            if not k.startswith("_"):
+                rel = abs(float(m[k]) - float(r[k])) / max(abs(float(r[k])), 1e-30)
+                worst["losses"] = max(worst.get("losses", 0.0), rel)
+                same &= torch.equal(m[k], r[k])
+    say(f"  {label} {len(got)} batches, worst relative L2 " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TP_SPLIT_RTOL}); bit for bit: "
+        f"{same}")
+    if not all(v <= TP_SPLIT_RTOL for v in worst.values()):
+        raise AssertionError(f"{label} {worst} beyond {TP_SPLIT_RTOL}")
+
+
+def _tp_step_checks(ranks):
+    """The ranks' counted steps: launches, whole leaves across ranks; the
+    gathered f32 step against one rank's by _compare_step; the bf16 steps
+    against their split in one process (_compare_split), through the
+    kernels against the same steps through the plain versions by the gap
+    rule (GAP_C), and against one rank's bf16 steps at TP_GAP_C; timed
+    steps beside one rank's. Returns the ranks' step launches."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state
+
+    totals = {k: 0 for k in _launch_counts()}
+    f32_refs = None
+    for dtype, torch_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        want = step_launches(torch_dtype)
+        for r, res in enumerate(ranks):
+            for counts in res[dtype]["counts"]:
+                if counts != want:
+                    raise AssertionError(f"tp rank {r} {dtype}: launches {counts}, "
+                                         f"expected {want}")
+                totals = _sum_counts(totals, counts)
+            say(f"tp rank {r} {dtype}: each of {len(res[dtype]['counts'])} steps launched "
+                f"{want}; {len(res[dtype]['cut'])} parameters cut; timed step ms "
+                f"{[round(t, 2) for t in res[dtype]['ms']]}")
+        w0, w1 = ranks[0][dtype]["whole"], ranks[1][dtype]["whole"]
+        same = sum(torch.equal(w0[k], w1[k]) for k in w0)
+        say(f"{dtype}: leaves whole on both ranks after {1 + TP_TIMED_STEPS} steps: "
+            f"{same}/{len(w0)} bit for bit")
+        if same != len(w0) or set(w0) != set(w1):
+            raise AssertionError(f"{dtype}: the ranks' whole leaves differ")
+
+        # one rank on the same weights, batches and draws
+        cfg = training_config(dtype)
+        batches, gen = _tp_batches(cfg, len(ranks[0][dtype]["metrics"]))
+        state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+        refs = _tp_steps(cfg, state, batches)[1]
+        if dtype == "float32":
+            _compare_step(ranks[0][dtype]["metrics"][0], refs[0],
+                          f"{TP_RANKS} model ranks vs 1 rank, f32, batch 8:")
+            # the gap rule's yardstick: the one-rank f32 step on the bf16 batches
+            f32_refs = _tp_steps(cfg, create_train_state(
+                cfg, build_models(cfg, device="cuda", seed=0)),
+                _tp_batches(cfg, STEP_GAP_BATCHES)[0])[1]
+        else:
+            tp_steps = ranks[0][dtype]["metrics"]
+            _compare_split(tp_steps, _split_steps(cfg, batches),
+                           f"1 x {TP_RANKS} mesh vs its split in one process, bf16:")
+            _compare_step_gap(list(zip(tp_steps, ranks[0][dtype]["plain"], f32_refs)),
+                              f"1 x {TP_RANKS} mesh, bf16, kernels vs plain:")
+            _compare_step_gap(list(zip(tp_steps, refs, f32_refs)),
+                              f"1 x {TP_RANKS} mesh vs 1 rank, bf16 (kernels vs plain read "
+                              f"mesh vs one rank):", limit=TP_GAP_C)
+        one = _timed_steps(cfg, state, gen)
+        two = [float(np.median(res[dtype]["ms"])) for res in ranks]
+        say(f"{dtype} step at batch 8: 1 x {TP_RANKS} mesh on one card over gloo "
+            f"{two[0]:.2f} / {two[1]:.2f} ms (rank 0 / 1, median of {TP_TIMED_STEPS}) beside "
+            f"one rank {np.median(one):.2f} ms (not a scaling number: both ranks share the "
+            f"card and gloo copies every gathered activation through the host)")
+        del state, refs
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _tp_loop_checks(tmp, ranks):
+    """The ranks' 2 loop steps: launches, one checkpoint at step 2, the
+    ranks' gathered payloads alike, and the checkpoint restored on one
+    rank equal to them, bit for bit (digests). Returns the launches."""
+    from shmgan_tpu_torch.checkpoint import CheckpointManager
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.profile_train import training_config
+    from shmgan_tpu_torch.train.state import create_train_state, state_payload
+
+    want = {k: 2 * n for k, n in step_launches(torch.bfloat16).items()}
+    totals = {k: 0 for k in _launch_counts()}
+    for r, res in enumerate(ranks):
+        loop = res["loop"]
+        say(f"tp rank {r}: train.loop.train, 2 steps in {loop['s']:.1f} s (checkpoint "
+            f"included), launches {loop['counts']}")
+        if loop["counts"] != want or loop["step"] != 2:
+            raise AssertionError(f"tp rank {r} loop: step {loop['step']}, launches "
+                                 f"{loop['counts']}, expected {want}")
+        totals = _sum_counts(totals, loop["counts"])
+    ckpt = CheckpointManager(os.path.join(tmp, "loop", "checkpoint_save_dir"))
+    if ckpt.all_steps() != [2]:
+        raise AssertionError(f"expected one checkpoint at step 2, got {ckpt.all_steps()}")
+    cfg = training_config("bfloat16")
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=1))
+    ckpt.restore(state)
+    digests = [res["loop"]["digest"] for res in ranks] + [_payload_digest(state_payload(state))]
+    say(f"1 x {TP_RANKS} checkpoint at step {state.step} restored on one rank: payload "
+        f"digests (rank 0, rank 1, restored) {[d[:16] for d in digests]}")
+    if len(set(digests)) != 1:
+        raise AssertionError("the restored checkpoint differs from the ranks' gathered state")
+    return totals
+
+
+def model_parallel_phase():
+    """Tensor parallelism on the one card: a 1 x 2 mesh of two gloo ranks
+    (NCCL refuses two ranks on one device) at the JAX defaults, in f32 and
+    bf16, against one rank; the IN kernels at the shapes its step gives
+    them; 2 steps of train.loop.train with a checkpoint restored on one
+    rank. Returns the launches of the counted runs."""
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fixture_tree(os.path.join(tmp, "tree"), TP_SCENES, 128, seed=0)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(tmp, "chip_smoke.tp_rank", TP_RANKS, "tp", 600)
+        say(f"{TP_RANKS} model ranks (gloo, one card, batch 8 each) ran in "
+            f"{time.perf_counter() - t0:.1f} s")
+        steps = _tp_step_checks(ranks)
+        loop = _tp_loop_checks(tmp, ranks)
+    worst = _tp_in_checks(ranks[0]["float32"]["shapes"] | ranks[0]["bfloat16"]["shapes"])
+    say(f"IN at the 1 x {TP_RANKS} step's other shapes, worst error by dtype: "
+        + ", ".join(f"{str(d).split('.')[-1]} {e:.3e}" for d, e in worst.items()))
+    return _sum_counts(steps, loop)
 
 
 # keras_h5: the reference's Keras SpecSeg (tests/data/torch_h5/, its README
@@ -3350,6 +3736,8 @@ def main() -> int:
         current = "data_parallel"
         by_path["data_parallel"] = phase("data_parallel", data_parallel_phase, bundle)
         del bundle
+        current = "model_parallel"
+        by_path["model_parallel"] = phase("model_parallel", model_parallel_phase)
         current = "train"
         by_path["train"] = phase("train", train_phase)
         current = "train_bf16"

@@ -41,14 +41,14 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from shmgan_tpu_torch.config import Config, ModelConfig
 from shmgan_tpu_torch.convert import flax_tree
-from shmgan_tpu_torch.parallel.mesh import barrier, is_main
+from shmgan_tpu_torch.parallel.mesh import agree_any, barrier, is_main
 from shmgan_tpu_torch.runtime import flax_msgpack, hdf5
 
 # store dtypes of a bundle's floats (bfloat16 through torch: numpy has none)
@@ -177,23 +177,28 @@ class CheckpointManager:
     def save(self, state, step: Optional[int] = None) -> int:
         """Write `state` (a train.state.TrainState) at `step` (default: its
         own); a step already saved is left as it is. Under a process group
-        every rank calls it: rank 0 writes, and all return once it has."""
+        every rank calls it: rank 0 writes, and all return once it has. A
+        state cut over the model axis is gathered whole first, every rank
+        joining, unless rank 0 finds the step saved."""
+        from shmgan_tpu_torch.train.state import is_model_sharded, state_payload
+
         step = int(state.step) if step is None else int(step)
+        gathered = None
+        if is_model_sharded(state) and agree_any(is_main() and step not in self.all_steps()):
+            gathered = state_payload(state)
         if is_main():
-            self._write(state, step)
+            self._write(lambda: state_payload(state) if gathered is None else gathered, step)
         barrier()
         return step
 
-    def _write(self, state, step: int) -> None:
-        from shmgan_tpu_torch.train.state import state_payload
-
+    def _write(self, payload: Callable[[], Dict], step: int) -> None:
         if step in self.all_steps():
             return
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-            f.write(flax_msgpack.dumps(state_payload(state)))
+            f.write(flax_msgpack.dumps(payload()))
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(self.directory, str(step)))

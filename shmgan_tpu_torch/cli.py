@@ -18,16 +18,24 @@ generator when it has one and --use_ema is on. Everything runs on the CUDA
 card; `device="cpu"` in `main` (or any run_*) runs on the CPU, through the
 kernels' plain versions. --mode bench is not ported (ROADMAP Queue 1 item 2).
 
-Data-parallel training runs one process a card under `torchrun`:
+Data-parallel and tensor-parallel training run one process a card under
+`torchrun`:
 
     torchrun --nproc_per_node 4 -m shmgan_tpu_torch.cli --mode train \
         --data_parallel 4 --batch_size 8 --data_dir <polar-root>
+    torchrun --nproc_per_node 4 -m shmgan_tpu_torch.cli --mode train \
+        --data_parallel 2 --model_parallel 2 --batch_size 8 --data_dir <polar-root>
 
---data_parallel must be the number of processes (-1, the default, means
-it); above 1 without a launcher it raises, rather than run on one card. The
-process group is NCCL on the card, gloo on the CPU. Under a launcher, test
-and export run on rank 0 while the others wait. Serving data parallelism is
-one process over --data_parallel cards (serve.BatchInferenceEngine).
+--data_parallel times --model_parallel must be the number of processes
+(--data_parallel -1, the default, means what the model axis leaves); a
+layout of more than one process without a launcher raises, rather than run
+on one card. --model_parallel M splits the wide conv kernels' output
+channels over M ranks (parallel/tp.py), as the JAX package's mesh does;
+checkpoints hold the whole state whatever the mesh. The process group is
+NCCL on the card, gloo on the CPU. Under a launcher, test and export run on
+rank 0 while the others wait. Serving data parallelism is one process over
+--data_parallel cards (serve.BatchInferenceEngine); serving ignores
+--model_parallel, as the JAX package's does.
 """
 
 from __future__ import annotations

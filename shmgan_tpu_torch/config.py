@@ -131,19 +131,25 @@ class DataConfig:
 
 @dataclass
 class MeshConfig:
-    # -1 means "all": every launched rank in training (parallel/mesh.py), one
-    # device in serving, as the JAX engine reads it
+    # -1 means "all": every launched rank the model axis leaves in training
+    # (parallel/mesh.py), one device in serving, as the JAX engine reads it
     data_parallel: int = -1
+    # tensor parallelism in training: the output channels of the wide conv
+    # kernels split over this many ranks (parallel/tp.py); serving ignores it
     model_parallel: int = 1
+    # shard feature maps spatially (H) over the model axis (not ported)
+    spatial_sharding: bool = False
+    # conv kernels with at least this many output channels are split over
+    # the model axis; narrower ones stay whole on every rank
+    tp_min_channels: int = 256
 
     def check_ported(self) -> None:
-        """Raise on a layout the port cannot run, rather than run it on one
-        device: a model axis above 1 (tensor parallelism) is ROADMAP Queue 1
-        item 11."""
-        if self.model_parallel > 1:
+        """Raise on a layout the port cannot run, rather than run it another
+        way: spatial sharding is ROADMAP Queue 1 item 11b."""
+        if self.spatial_sharding:
             raise NotImplementedError(
-                f"model_parallel={self.model_parallel}: the port has data parallelism "
-                "only; tensor parallelism over the model axis is ROADMAP Queue 1 item 11")
+                "spatial_sharding: the port splits the model axis over channels only; "
+                "spatial sharding over it is ROADMAP Queue 1 item 11b")
 
 
 @dataclass

@@ -16,11 +16,16 @@ Layouts:
 Every parameter and buffer of the module must be filled exactly once, and
 every leaf of the tree must land somewhere: anything left over or missing
 raises.
+
+Tensor parallelism (parallel/tp.py): `shard_tree` cuts a flax tree into
+model rank j's slices by a tree of PartitionSpec tuples
+(`parallel.mesh.param_specs`), and `gather_tree` joins the ranks' slices
+back; `flax_shapes` gives a module's flax leaf shapes without its data.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,25 +43,30 @@ _LEAF_NAMES = {
 _FLAX_NAMES = {cls: {t: f for f, t in names.items()} for cls, names in _LEAF_NAMES.items()}
 
 
+# the flax kernel axis that each torch weight axis holds
+_KERNEL_AXES = {nn.Conv2d: (3, 2, 0, 1), nn.ConvTranspose2d: (2, 3, 0, 1), nn.Linear: (1, 0)}
+
+
+def kernel_axes(module: nn.Module) -> Tuple[int, ...]:
+    """For each axis of `module`'s torch weight, the axis of its flax kernel
+    it holds: torch axis d is flax axis kernel_axes(module)[d]."""
+    return _KERNEL_AXES.get(type(module), (3, 2, 0, 1))
+
+
 def _torch_layout(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf != "kernel":
         return value
     if isinstance(module, nn.ConvTranspose2d):
-        return value[::-1, ::-1].transpose(2, 3, 0, 1)
-    if isinstance(module, nn.Linear):
-        return value.T
-    return value.transpose(3, 2, 0, 1)
+        value = value[::-1, ::-1]
+    return value.transpose(kernel_axes(module))
 
 
 def _flax_layout(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     """The inverse of _torch_layout."""
     if leaf != "kernel":
         return value
-    if isinstance(module, nn.ConvTranspose2d):
-        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
-    if isinstance(module, nn.Linear):
-        return value.T
-    return value.transpose(2, 3, 1, 0)
+    value = value.transpose(np.argsort(kernel_axes(module)))
+    return value[::-1, ::-1] if isinstance(module, nn.ConvTranspose2d) else value
 
 
 def _walk(tree: Mapping, prefix: str = ""):
@@ -157,6 +167,62 @@ def flax_tree(module: nn.Module) -> Tuple[Dict, Dict]:
 
 def _sorted(tree: Dict) -> Dict:
     return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def flax_shapes(module: nn.Module) -> Dict:
+    """The flax params tree of `module` with each leaf's shape (a tuple) in
+    place of its array; reads no data (a module on the meta device will do)."""
+    tree: Dict = {}
+    for name, tensor in module.named_parameters():
+        owner_path, _, torch_leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_path)
+        leaf = _FLAX_NAMES.get(type(owner), {}).get(torch_leaf, torch_leaf)
+        node = tree
+        for part in owner_path.split(".") if owner_path else []:
+            node = node.setdefault(part, {})
+        shape = tuple(tensor.shape)
+        if leaf == "kernel":
+            shape = tuple(shape[a] for a in np.argsort(kernel_axes(owner)))
+        node[leaf] = shape
+    return _sorted(tree)
+
+
+def _model_axis(spec: Sequence) -> Optional[int]:
+    return tuple(spec).index("model") if "model" in spec else None
+
+
+def shard_tree(tree: Mapping, specs: Mapping, index: int, count: int) -> Dict:
+    """Model rank `index`'s slice, of `count`, of each leaf of a flax tree
+    of numpy arrays: block `index` of the axis its spec (a tree of the same
+    keys, `parallel.mesh.param_specs`) names "model"; the whole leaf where
+    the spec names none. Copies, never views."""
+    out: Dict = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out[key] = shard_tree(val, specs[key], index, count)
+            continue
+        val = np.asarray(val)
+        axis = _model_axis(specs[key])
+        if axis is not None:
+            n = val.shape[axis] // count
+            val = np.take(val, np.arange(index * n, (index + 1) * n), axis=axis)
+        out[key] = np.array(val, order="C")
+    return out
+
+
+def gather_tree(trees: Sequence[Mapping], specs: Mapping) -> Dict:
+    """The inverse of `shard_tree`: the model ranks' trees, in model index
+    order, joined along each leaf's model axis; a leaf whole on every rank
+    is rank 0's."""
+    out: Dict = {}
+    for key, val in trees[0].items():
+        if isinstance(val, Mapping):
+            out[key] = gather_tree([t[key] for t in trees], specs[key])
+            continue
+        axis = _model_axis(specs[key])
+        out[key] = (np.array(val, order="C") if axis is None
+                    else np.concatenate([np.asarray(t[key]) for t in trees], axis=axis))
+    return out
 
 
 def load_inference_weights(gen: nn.Module, specseg: nn.Module, g_params: Mapping,

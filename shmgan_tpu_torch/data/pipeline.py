@@ -147,13 +147,18 @@ class DevicePrefetcher:
 
 
 def rank_feed(dataset, shuffle_seed: Optional[int] = None, device="cuda",
-              depth: int = 2) -> DevicePrefetcher:
-    """This rank's feed of one epoch: its contiguous block of every global
-    batch of `dataset` (`iter_epoch(process_index=rank, process_count=world)`,
-    the same global order on every rank) on `device`. The global batch must
-    divide by the world size; it raises here, not in the worker."""
-    n = world_size()
+              depth: int = 2, process_index: Optional[int] = None,
+              process_count: Optional[int] = None) -> DevicePrefetcher:
+    """This rank's feed of one epoch: block `process_index` of
+    `process_count` contiguous blocks of every global batch of `dataset`
+    (`iter_epoch`, the same global order on every rank) on `device`. The
+    index and count are the rank's data index and the data axis's size
+    (default: the rank and the world size, the mesh of data parallelism
+    alone); the M ranks of a model row take the same block. The global
+    batch must divide by the count; it raises here, not in the worker."""
+    index = rank() if process_index is None else process_index
+    n = world_size() if process_count is None else process_count
     if n > 1:
         _check_divides(dataset.batch_size, n)
-    return DevicePrefetcher(dataset.iter_epoch(shuffle_seed=shuffle_seed, process_index=rank(),
+    return DevicePrefetcher(dataset.iter_epoch(shuffle_seed=shuffle_seed, process_index=index,
                                                process_count=n), device=device, depth=depth)

@@ -20,6 +20,12 @@ Compute dtype: each block has a `dtype`, as the flax modules' `dtype` field
 `linear` cast the input, weight and bias to the block's dtype when called, as
 flax's `promote_dtype` does, so gradients reach the float32 parameters
 through the cast. InstanceNorm returns its input's dtype.
+
+Tensor parallelism (parallel/tp.py): a block with `TP_DIMS` can be cut to
+one model rank's slice of its output channels (`tp.shard_model_`, which sets
+`tp`); it then runs its conv, leaky_relu and InstanceNorm on the slice,
+between `tp.enter` and `tp.leave`, and returns its channels whole.
+`TP_DIMS` names the torch dim of each parameter's output channels.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from shmgan_tpu_torch.ops.kernels import instance_norm as in_kernel
+from shmgan_tpu_torch.parallel.tp import enter, leave
 
 INIT_STDDEV = 0.02  # DCGAN-style N(0, 0.02) of every G kernel and IN's beta
 
@@ -90,76 +97,91 @@ class InstanceNorm(nn.Module):
 class ConvIN(nn.Module):
     """Conv (stride 1, SAME) + leaky_relu + InstanceNorm."""
 
+    TP_DIMS = {"conv.weight": 0, "conv.bias": 0, "inorm.scale": 0, "inorm.bias": 0}
+
     def __init__(self, cin: int, features: int, kernel: int = 3, slope: float = 0.2,
                  eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope, self.dtype = slope, dtype
+        self.slope, self.dtype, self.tp = slope, dtype, None
         self.conv = same_conv(cin, features, kernel)
         self.inorm = InstanceNorm(features, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.inorm(leaky_relu(conv(self.conv, x, self.dtype), self.slope))
+        x = conv(self.conv, enter(self.tp, x), self.dtype)
+        return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
 
 
 class ConvLReLUIN(nn.Module):
     """Conv 3x3 stride 2 (flax SAME), no bias, + leaky_relu + InstanceNorm:
     the discriminator's strided block."""
 
+    TP_DIMS = {"conv.weight": 0, "inorm.scale": 0, "inorm.bias": 0}
+
     def __init__(self, cin: int, features: int, slope: float = 0.2, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope, self.dtype = slope, dtype
+        self.slope, self.dtype, self.tp = slope, dtype, None
         self.conv = nn.Conv2d(cin, features, 3, stride=2, padding=0, bias=False)
         self.inorm = InstanceNorm(features, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv(self.conv, F.pad(x, (0, 1, 0, 1)), self.dtype)
-        return self.inorm(leaky_relu(x, self.slope))
+        x = conv(self.conv, F.pad(enter(self.tp, x), (0, 1, 0, 1)), self.dtype)
+        return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
 
 
 class MaskAttention(nn.Module):
     """Two conv3x3 + leaky_relu over the (optionally 2x2 max-pooled) mask.
-    Returns (attention features, pooled mask)."""
+    Returns (attention features, pooled mask). Cut over the model axis, each
+    conv runs on its slice and its output is gathered whole."""
+
+    TP_DIMS = {"conv0.weight": 0, "conv0.bias": 0, "conv1.weight": 0, "conv1.bias": 0}
 
     def __init__(self, cin: int, features: int, pool: bool = True, pool_size: int = 2,
                  slope: float = 0.2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pool, self.pool_size, self.slope, self.dtype = pool, pool_size, slope, dtype
+        self.tp = None
         self.conv0 = same_conv(cin, features)
         self.conv1 = same_conv(features, features)
 
     def forward(self, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         pooled = max_pool(mask, self.pool_size) if self.pool else mask
-        a = leaky_relu(conv(self.conv0, pooled, self.dtype), self.slope)
-        a = leaky_relu(conv(self.conv1, a, self.dtype), self.slope)
+        a = pooled
+        for m in (self.conv0, self.conv1):
+            a = leave(self.tp, leaky_relu(conv(m, enter(self.tp, a), self.dtype), self.slope))
         return a, pooled
 
 
 class ConvTransposeUp(nn.Module):
-    """Transposed conv k3 s2 (flax SAME: exactly 2x) + leaky_relu."""
+    """Transposed conv k3 s2 (flax SAME: exactly 2x) + leaky_relu. Its weight
+    is (in, out, kh, kw): the output channels are dim 1."""
+
+    TP_DIMS = {"convt.weight": 1, "convt.bias": 0}
 
     def __init__(self, cin: int, features: int, slope: float = 0.2,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope, self.dtype = slope, dtype
+        self.slope, self.dtype, self.tp = slope, dtype, None
         self.convt = nn.ConvTranspose2d(cin, features, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        y = conv_transpose(self.convt, x, self.dtype)
-        return leaky_relu(y[..., :2 * h, :2 * w], self.slope)
+        y = conv_transpose(self.convt, enter(self.tp, x), self.dtype)
+        return leave(self.tp, leaky_relu(y[..., :2 * h, :2 * w], self.slope))
 
 
 class ResizeConvUp(nn.Module):
     """Nearest 2x resize + conv3x3 + leaky_relu. The conv is named `convt`, as
     in flax, so both upsample modes share one parameter tree."""
 
+    TP_DIMS = {"convt.weight": 0, "convt.bias": 0}
+
     def __init__(self, cin: int, features: int, slope: float = 0.2,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.slope, self.dtype = slope, dtype
+        self.slope, self.dtype, self.tp = slope, dtype, None
         self.convt = same_conv(cin, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return leaky_relu(conv(self.convt, x, self.dtype), self.slope)
+        x = F.interpolate(enter(self.tp, x), scale_factor=2, mode="nearest")
+        return leave(self.tp, leaky_relu(conv(self.convt, x, self.dtype), self.slope))

@@ -18,6 +18,13 @@ Computes in `dtype` (float32 or bfloat16, the JAX module's `dtype`): the
 image and the mask are cast to it, the noise is added in it (a float32 draw
 is rounded to it first, as JAX draws the noise in x's dtype), dropout runs in
 it, and both outputs come back in float32.
+
+Tensor parallelism (parallel/tp.py): the strided blocks and the attention
+can be cut over the model axis as blocks.py says, and the class head's
+Dense kernel by its input rows (`TP_DIMS`: the Linear weight's dim 1, in
+the NHWC flatten order, so a rank's rows are a run of spatial positions
+with all their channels): each rank multiplies its block of the flattened
+features, and the partial logits are summed over the model row.
 """
 
 from __future__ import annotations
@@ -30,9 +37,12 @@ import torch.nn as nn
 from shmgan_tpu_torch.models.blocks import (
     INIT_STDDEV, ConvLReLUIN, InstanceNorm, MaskAttention, conv, leaky_relu, linear,
 )
+from shmgan_tpu_torch.parallel.tp import reduce_sum, split_last
 
 
 class SHMDiscriminator(nn.Module):
+    TP_DIMS = {"out_class.weight": 1}
+
     def __init__(self, filter_size: int = 64, c_dim: int = 5, image_size: int = 128,
                  instance_norm_eps: float = 1e-6, slope: float = 0.2,
                  noise_stddev: float = 0.1, dropout_rate: float = 0.2,
@@ -40,7 +50,7 @@ class SHMDiscriminator(nn.Module):
         super().__init__()
         n, eps = filter_size, instance_norm_eps
         self.slope, self.noise_stddev, self.dropout_rate = slope, noise_stddev, dropout_rate
-        self.dtype = dtype
+        self.dtype, self.tp = dtype, None
         cin = 3
         for i, w in enumerate((n, n * 2, n * 4, n * 8)):
             self.add_module(f"block{i}", ConvLReLUIN(cin, w, slope=slope, eps=eps, dtype=dtype))
@@ -64,8 +74,8 @@ class SHMDiscriminator(nn.Module):
         if keep is not None:
             x = torch.where(keep.bool(), x / (1.0 - self.dropout_rate), torch.zeros_like(x))
         real_fake = leaky_relu(conv(self.out_realfake, x, self.dtype), self.slope)
-        logits = linear(self.out_class, x.permute(0, 2, 3, 1).reshape(x.shape[0], -1),
-                        self.dtype)
+        flat = split_last(self.tp, x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+        logits = reduce_sum(self.tp, linear(self.out_class, flat, self.dtype))
         return real_fake.permute(0, 2, 3, 1).contiguous().float(), logits.float()
 
     @torch.no_grad()

@@ -20,14 +20,20 @@ seeded from (seed, the steps the run starts from), so a resumed run's draws
 depend on where it resumes, as `fold_in(rng, steps_done)` makes them in JAX.
 
 Under a process group (`torchrun`, parallel/mesh.py) every rank runs this
-loop on `cuda:LOCAL_RANK` with `cfg.mesh.data_parallel` equal to the world
-size (or -1): the same seeded models, broadcast from rank 0 after the
-restore; its block of every global batch (`data.pipeline.rank_feed`); the
-global batch's draws, seeded alike on every rank and cut to its block
-(`Draws.shard`); the step's gradient all_reduce. Rank 0 writes the
-summaries, the metrics jsonl, the eval and the checkpoints; the ranks agree
-on a preemption signal at every step (`agree_any`), so all stop at the same
-step and none is left waiting in a collective.
+loop on `cuda:LOCAL_RANK` with `cfg.mesh.data_parallel` x
+`cfg.mesh.model_parallel` equal to the world size (data_parallel -1 means
+what the model axis leaves): the same seeded models, broadcast from rank 0
+after the restore, then cut to the rank's slices over the model axis
+(`train.state.shard_state`, as the JAX loop places its state after the
+restore); the block of every global batch of its data index
+(`data.pipeline.rank_feed`); the global batch's draws, seeded alike on
+every rank and cut to that block (`Draws.shard`); the step's gradient
+averages. Rank 0 writes the summaries, the metrics jsonl and the
+checkpoints (which every rank of a model row helps gather whole); the eval
+runs on rank 0, or when G is cut on the ranks of rank 0's model row, whose
+collectives it joins; the ranks agree on a
+preemption signal at every step (`agree_any`), so all stop at the same step
+and none is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -46,10 +52,10 @@ from shmgan_tpu_torch.convert import flax_tree, load_flax
 from shmgan_tpu_torch.data.loader import PolarimetricDataset
 from shmgan_tpu_torch.data.pipeline import rank_feed
 from shmgan_tpu_torch.models import build_models
-from shmgan_tpu_torch.parallel.mesh import (agree_any, is_main, local_device, rank,
-                                            training_mesh, world_size)
+from shmgan_tpu_torch.parallel.mesh import (agree_any, is_main, local_device, rank_layout,
+                                            training_mesh)
 from shmgan_tpu_torch.train.state import (TrainState, broadcast_state, create_train_state,
-                                          param_count)
+                                          is_model_sharded, param_count, shard_state)
 from shmgan_tpu_torch.train.step import Draws, make_train_step, sample_draws
 from shmgan_tpu_torch.utils.logging import MetricsWriter, StepTimer, progress_bar
 from shmgan_tpu_torch.utils.viz import write_model_summaries
@@ -121,20 +127,20 @@ def train(cfg: Config, dataset: Optional[PolarimetricDataset] = None,
     epochs on the calibrated inference output, written under eval/*.
     models: the initial (G, D, SpecSeg) (default: build_models from
     cfg.train.seed); draws: the step's random draws (default: draw_source)."""
-    training_mesh(cfg)
+    mesh = training_mesh(cfg)
     device = local_device(torch_device(device))
     verbose = verbose and is_main()
     log = (lambda *a: print(*a, flush=True)) if verbose else (lambda *a: None)
     guard = PreemptionGuard(install=handle_preemption)
     try:
         return _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
-                      eval_every_epochs, device, models, draws, log)
+                      eval_every_epochs, device, models, draws, log, mesh)
     finally:
         guard.restore()
 
 
 def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
-           eval_every_epochs, device, models, draws, log) -> TrainState:
+           eval_every_epochs, device, models, draws, log, mesh) -> TrainState:
     tr = cfg.train
     if dataset is None:
         dataset = PolarimetricDataset(cfg.data, cfg.model.image_size, tr.batch_size)
@@ -162,13 +168,16 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
             start_epoch = steps_done // max(dataset.batches_per_epoch, 1)
             log(f"[ckpt] restored step {steps_done} (epoch {start_epoch})")
     broadcast_state(state)
+    layout = rank_layout(mesh)
+    shard_state(state, layout, cfg.model.image_size, cfg.mesh.tp_min_channels)
     if draws is None:
-        draws = draw_source(cfg, device, steps_done, rank(), world_size())
+        draws = draw_source(cfg, device, steps_done, layout.data_index, layout.data_parallel)
     step_fn = make_train_step(cfg)
 
     writer = MetricsWriter(tr.log_dir) if main else None
     run_eval = None
-    if main and eval_inputs is not None and eval_targets is not None:
+    if (main or (is_model_sharded(state) and layout.data_index == 0)) \
+            and eval_inputs is not None and eval_targets is not None:
         run_eval = _evaluator(cfg, device, writer, log, eval_inputs, eval_targets)
 
     epoch_timer = StepTimer()
@@ -178,7 +187,8 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
         # shuffle derived from (seed, epoch)
         shuffle_seed = (tr.seed * 100003 + epoch) if tr.shuffle else None
         feed = rank_feed(dataset, shuffle_seed=shuffle_seed, device=device,
-                         depth=cfg.data.prefetch)
+                         depth=cfg.data.prefetch, process_index=layout.data_index,
+                         process_count=layout.data_parallel)
         t_epoch = time.perf_counter()
         try:
             for batch_idx, views in enumerate(feed):
@@ -232,6 +242,8 @@ def _evaluator(cfg, device, writer, log, eval_inputs, eval_targets):
         out = infer_fn(state.gen, state.specseg, inputs)
         means = {k: float(v.mean()) for k, v in
                  evaluate_pair(out["gen_rgb_calibrated"], targets).items()}
+        if writer is None:  # a rank that only joins a cut G's collectives
+            return
         writer.write(state.step, means, prefix="eval/")
         log(f"[eval epoch {epoch}] " + "  ".join(f"{k}={v:.4f}" for k, v in means.items()))
 

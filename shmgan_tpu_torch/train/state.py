@@ -11,6 +11,14 @@ state copies all of them together.
 `load_state_payload` fills a state from such a tree (checkpoint.py writes and
 reads it). `broadcast_state` makes every rank of a process group hold rank
 0's state (parallel/mesh.py).
+
+Tensor parallelism: `shard_state` cuts a whole state to this rank's slices
+over the model axis (parallel/tp.py), its Adam moments and EMA with them;
+clip and Adam are elementwise, so each rank updates its slices alone. A cut
+state's `state_payload` gathers every slice whole (each rank of a model
+row joins), so checkpoints hold the JAX package's tree whatever the mesh,
+and a restore fills a whole state, which `shard_state` then cuts, as the
+JAX loop restores and then places its state.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch.nn as nn
 from shmgan_tpu_torch.config import Config
 from shmgan_tpu_torch.convert import flax_tree, from_flax, load_flax, to_flax
 from shmgan_tpu_torch.models import SHMDiscriminator, SHMGenerator, SpecSeg
-from shmgan_tpu_torch.parallel.mesh import broadcast_
+from shmgan_tpu_torch.parallel import tp
+from shmgan_tpu_torch.parallel.mesh import RankLayout, broadcast_
 
 
 def lr_schedule(initial_lr: float, decay_steps: int = 10000,
@@ -61,6 +70,12 @@ class ClipAdamDecay:
     def moments(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         return dict(zip(self.names, self.mu)), dict(zip(self.names, self.nu))
 
+    def rebind(self, params: Dict[str, nn.Parameter], mu: Dict[str, torch.Tensor],
+               nu: Dict[str, torch.Tensor]) -> None:
+        """Update `params` (the same names) from now on, with these moments."""
+        self.params = [params[k] for k in self.names]
+        self.mu, self.nu = [mu[k] for k in self.names], [nu[k] for k in self.names]
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         g = torch._foreach_clamp_min([grads[k] for k in self.names], -self.clip)
@@ -94,6 +109,9 @@ class TrainState:
     step: int = 0                    # global step counter
     # EMA of G's parameters by name (cfg.train.g_ema > 0), else None
     ema_g: Optional[Dict[str, torch.Tensor]] = None
+    # this rank's place in the mesh (`shard_state`); None: the whole state,
+    # averaged over every rank of a process group
+    layout: Optional[RankLayout] = None
 
 
 def create_train_state(cfg: Config, models: Tuple[SHMGenerator, SHMDiscriminator, SpecSeg]
@@ -121,8 +139,8 @@ def param_count(tree: Mapping) -> int:
 def _opt_payload(module: nn.Module, template: Mapping, opt: ClipAdamDecay) -> Dict:
     """optax's chain state (clip, scale_by_adam, scale_by_learning_rate) as
     flax's state dict: {"0": {}, "1": {"count", "mu", "nu"}, "2": {"count"}},
-    both counts the optimizer's."""
-    mu, nu = opt.moments()
+    both counts the optimizer's, the moments whole."""
+    mu, nu = (tp.gather_named(module, m) for m in opt.moments())
     count = np.asarray(opt.count, np.int32)
     return {"0": {}, "1": {"count": count, "mu": to_flax(module, template, mu),
                            "nu": to_flax(module, template, nu)},
@@ -132,8 +150,12 @@ def _opt_payload(module: nn.Module, template: Mapping, opt: ClipAdamDecay) -> Di
 def state_payload(state: TrainState) -> Dict[str, Any]:
     """The state as the JAX package's checkpoint tree, numpy on the host:
     step, g_params, d_params, specseg_vars {params, batch_stats},
-    g_opt_state, d_opt_state, and ema_g_params when the EMA is on."""
-    g_params, d_params = flax_tree(state.gen)[0], flax_tree(state.disc)[0]
+    g_opt_state, d_opt_state, and ema_g_params when the EMA is on. A state
+    cut over the model axis is gathered whole: every rank of its model row
+    calls this."""
+    g_params, d_params = (
+        to_flax(m, flax_tree(m)[0], tp.gather_named(m, dict(m.named_parameters())))
+        for m in (state.gen, state.disc))
     ss_params, ss_stats = flax_tree(state.specseg)
     payload = {"step": np.asarray(state.step, np.int32), "g_params": g_params,
                "d_params": d_params,
@@ -141,8 +163,31 @@ def state_payload(state: TrainState) -> Dict[str, Any]:
                "g_opt_state": _opt_payload(state.gen, g_params, state.g_opt),
                "d_opt_state": _opt_payload(state.disc, d_params, state.d_opt)}
     if state.ema_g is not None:
-        payload["ema_g_params"] = to_flax(state.gen, g_params, state.ema_g)
+        payload["ema_g_params"] = to_flax(state.gen, g_params,
+                                          tp.gather_named(state.gen, state.ema_g))
     return payload
+
+
+def is_model_sharded(state: TrainState) -> bool:
+    """Whether `state` is cut over a model axis of more than one rank."""
+    return state.layout is not None and state.layout.model_parallel > 1
+
+
+def shard_state(state: TrainState, layout: RankLayout, image_size: int,
+                min_channels: int) -> TrainState:
+    """Cut a whole state, in place, to this rank's slices over the model axis
+    (`tp.shard_model_` of G and D at `image_size`, the JAX rule's
+    `min_channels`), each optimizer's moments and the EMA as their
+    parameters, and keep `layout`. The whole state must be alike on every
+    rank (built from one seed, or broadcast)."""
+    for module, opt in ((state.gen, state.g_opt), (state.disc, state.d_opt)):
+        tp.shard_model_(module, layout, image_size, min_channels)
+        mu, nu = (tp.slice_named(module, m, layout) for m in opt.moments())
+        opt.rebind(dict(module.named_parameters()), mu, nu)
+    if state.ema_g is not None:
+        state.ema_g = tp.slice_named(state.gen, state.ema_g, layout)
+    state.layout = layout
+    return state
 
 
 def _named_tensors(module: nn.Module, tree: Mapping, names: List[str],
@@ -194,15 +239,26 @@ def broadcast_state(state: TrainState) -> TrainState:
     """Overwrite, in place, every rank's parameters (G, D, SpecSeg's and its
     batch statistics), Adam moments, EMA, step and optimizer counts with
     rank 0's: after a restore or a warm start, so that the replicas start
-    alike whatever each rank read. A no-op without a process group."""
-    tensors = [*state.gen.parameters(), *state.disc.parameters(),
-               *state.specseg.parameters(), *state.specseg.buffers(),
-               *state.g_opt.mu, *state.g_opt.nu, *state.d_opt.mu, *state.d_opt.nu]
-    if state.ema_g is not None:
-        tensors += list(state.ema_g.values())
+    alike whatever each rank read. In a state cut over the model axis each
+    slice comes from the rank of data index 0 that holds the same slice,
+    over the data column, and the rest from rank 0. A no-op without a
+    process group."""
+    whole = [*state.specseg.parameters(), *state.specseg.buffers()]
+    cut = []
+    for module, opt, ema in ((state.gen, state.g_opt, state.ema_g),
+                             (state.disc, state.d_opt, None)):
+        dims = tp.sharded_params(module)
+        mu, nu = opt.moments()
+        for name, p in module.named_parameters():
+            group = cut if name in dims else whole
+            group += [p, mu[name], nu[name]] + ([ema[name]] if ema is not None else [])
     counts = torch.tensor([state.step, state.g_opt.count, state.d_opt.count],
                           dtype=torch.int64, device=state.g_opt.params[0].device)
     with torch.no_grad():
-        broadcast_(tensors + [counts])
+        broadcast_(whole + [counts])
+        if cut:
+            layout = state.layout
+            broadcast_(cut, src=int(layout.mesh.devices[0, layout.model_index]),
+                       group=layout.data_group)
     state.step, state.g_opt.count, state.d_opt.count = (int(c) for c in counts.tolist())
     return state

@@ -23,11 +23,16 @@ Random draws are arguments (`Draws`), so a test can inject the JAX step's;
 step updates the state in place and returns it with the metrics.
 
 Under a process group (parallel/mesh.py) `views` and `draws` are this
-rank's block of the global batch (`Draws.shard` of the global draws), and
-the G and D gradients and the losses are averaged across the ranks in one
-all_reduce after the backward, before the clip and the optimizers: every
+rank's block of the global batch (`Draws.shard` of the global draws by its
+data index), and the G and D gradients and the losses are averaged across
+the data axis after the backward, before the clip and the optimizers: every
 loss is a mean over the batch, so the average of the ranks' means is the
-global batch's mean, as in the JAX step on a data-parallel mesh.
+global batch's mean, as in the JAX step on a data-parallel mesh. In a state
+cut over the model axis (`state.shard_state`) the M ranks of a data index
+take the same rows and draws; the gradients of the cut parameters are
+averaged over the data column, and those of whole parameters, with the
+losses, over every rank, so the copies on a model row stay equal bit for
+bit (`_average_`).
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
 from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
+from shmgan_tpu_torch.parallel import tp
 from shmgan_tpu_torch.parallel.mesh import all_reduce_mean_
 from shmgan_tpu_torch.train.losses import GanLossInputs, lsgan_to_target, shmgan_losses
-from shmgan_tpu_torch.train.state import TrainState
+from shmgan_tpu_torch.train.state import TrainState, is_model_sharded
 
 REMAT_MODES = ("none", "models", "disc", "gen")
 
@@ -70,10 +76,11 @@ class Draws:
                         for f in dataclasses.fields(self)})
 
     def shard(self, rank: int, world: int) -> "Draws":
-        """The draws of rank `rank`'s block of a global batch, from the
-        global batch's draws: flip and t are shared, a (1, V) drop is shared
-        and a (B, V) one is cut by rows, and noise and keep, stacked as
-        [generated (B); ED (B)] for D's live pass, are cut in each half."""
+        """The draws of block `rank` of `world` blocks of a global batch (a
+        data index of the data axis), from the global batch's draws: flip
+        and t are shared, a (1, V) drop is shared and a (B, V) one is cut by
+        rows, and noise and keep, stacked as [generated (B); ED (B)] for D's
+        live pass, are cut in each half."""
         if world == 1:
             return self
 
@@ -137,13 +144,33 @@ def _onehot_planes(b: int, h: int, w: int, c_dim: int, idx: int, device) -> torc
     return planes
 
 
+def _average_(state: TrainState, g_grads: Dict[str, torch.Tensor],
+              d_grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]) -> None:
+    """Average the gradients and losses across the ranks, in place: in a
+    state cut over the model axis the cut parameters' over the data column
+    and the rest over every rank (a model row's copies are equal, so that
+    is their data mean); otherwise all of them over every rank."""
+    if not is_model_sharded(state):
+        all_reduce_mean_(list(g_grads.values()) + list(d_grads.values())
+                         + list(metrics.values()))
+        return
+    cut, whole = [], list(metrics.values())
+    for module, grads in ((state.gen, g_grads), (state.disc, d_grads)):
+        dims = tp.sharded_params(module)
+        for name, g in grads.items():
+            (cut if name in dims else whole).append(g)
+    all_reduce_mean_(whole)
+    all_reduce_mean_(cut, group=state.layout.data_group)
+
+
 def make_train_step(cfg: Config, debug_grads: bool = False
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """step(state, views, draws, epoch) -> (state, metrics).
 
     views: (V, B, H, W, 3) RGB in [0, 1], V == c_dim (I0, I45, I90, I135, ED).
     debug_grads: the metrics also hold the G and D gradients by parameter
-    name ("_grads") and the drop pattern ("_drop")."""
+    name ("_grads"; whole, gathered over the model axis) and the drop
+    pattern ("_drop")."""
     tr = cfg.train
     c_dim = cfg.model.c_dim
     live_g1 = tr.live_g1
@@ -254,10 +281,9 @@ def make_train_step(cfg: Config, debug_grads: bool = False
         grads = torch.autograd.grad(loss_d + loss_g,
                                     list(g_named.values()) + list(d_named.values()))
         metrics = {k: val.detach() for k, val in L.items()}
-        # across the ranks: one all_reduce of every gradient and loss
-        all_reduce_mean_(list(grads) + list(metrics.values()))
         g_grads = dict(zip(g_named, grads[:len(g_named)]))
         d_grads = dict(zip(d_named, grads[len(g_named):]))
+        _average_(state, g_grads, d_grads, metrics)
 
         state.d_opt.step(d_grads)
         if epoch >= tr.train_G_after:
@@ -272,7 +298,8 @@ def make_train_step(cfg: Config, debug_grads: bool = False
 
         metrics["target_label"] = t
         if debug_grads:
-            metrics["_grads"] = {"G": g_grads, "D": d_grads}
+            metrics["_grads"] = {"G": tp.gather_named(gen, g_grads),
+                                 "D": tp.gather_named(disc, d_grads)}
             metrics["_drop"] = drop
         return state, metrics
 

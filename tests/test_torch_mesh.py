@@ -2,8 +2,9 @@
 `make_mesh` against the JAX package's `make_mesh` on the conftest's 8
 virtual devices (the same shape and device order, the same refusal of a
 layout larger than the devices), the refusals of what the port does not run
-(a model axis; data parallelism without a process group, which says how to
-launch; a degree other than the world size), `Draws.shard` and
+(spatial sharding; a layout of more than one rank without a process group,
+which says how to launch; a degree other than the world size), a model
+axis accepted as JAX lays it out, `Draws.shard` and
 `local_batch` against slices made by hand, the collectives without a group
 and in a one-rank gloo group, and `device_report`.
 """
@@ -53,15 +54,26 @@ def test_too_large_a_mesh_raises_as_jax(dp, mp):
 
 
 def test_model_axis_is_refused():
-    jcfg, cfg = _configs(-1, 2)
-    assert j_make_mesh(jcfg).devices.shape == (4, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    """A model axis is accepted and laid out as JAX's (rank i * M + j at
+    data index i, model index j); spatial sharding is refused by name."""
+    for dp, mp in ((-1, 2), (2, 4), (1, 2)):
+        jcfg, cfg = _configs(dp, mp)
+        want = np.vectorize(lambda d: d.id)(j_make_mesh(jcfg).devices)
+        got = mesh.make_mesh(cfg, 8)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.devices, want)
+    _, cfg = _configs(-1, 2)
+    cfg.mesh.spatial_sharding = True
+    with pytest.raises(NotImplementedError, match="spatial_sharding.*Queue 1 item 11b"):
         mesh.make_mesh(cfg, 8)
+    with pytest.raises(NotImplementedError, match="spatial_sharding.*Queue 1 item 11b"):
+        mesh.training_mesh(cfg)
 
 
 def test_data_parallel_without_a_launcher_raises(tmp_path, monkeypatch):
-    """--data_parallel 2 with no process group says how to launch, from the
-    CLI, the loop and the flagship trainer, and never runs on one device."""
+    """--data_parallel 2, or a model axis, with no process group says how to
+    launch, from the CLI, the loop and the flagship trainer, and never runs
+    on one device."""
     monkeypatch.chdir(tmp_path)
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
@@ -75,15 +87,18 @@ def test_data_parallel_without_a_launcher_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         quality_train.main(["--cpu", "--phase", "gan", "--data_parallel", "2",
                             "--out", str(tmp_path / "never")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 .*--model_parallel 2"):
         cli.main(["--mode", "export", "--model_parallel", "2"], device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4 .*--model_parallel 2"):
+        train(_configs(2, 2)[1], device="cpu", verbose=False)
     assert not (tmp_path / "never").exists() and not (tmp_path / "models").exists()
 
 
 def test_one_rank_group(monkeypatch):
     """In a one-rank gloo group: data_parallel -1 and 1 are the world size,
-    2 is not; the collectives keep every value (sum over one rank, / 1) and
-    agree_any reads the flag."""
+    2 is not, nor is a model axis of 2; the collectives keep every value
+    (sum over one rank, / 1) and agree_any reads the flag; the rank's
+    layout is (0, 0)."""
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
@@ -95,6 +110,10 @@ def test_one_rank_group(monkeypatch):
             assert mesh.training_mesh(_configs(dp)[1]).shape == (1, 1)
         with pytest.raises(ValueError, match="must be WORLD_SIZE"):
             mesh.training_mesh(_configs(2)[1])
+        with pytest.raises(ValueError, match="must be WORLD_SIZE"):
+            mesh.training_mesh(_configs(-1, 2)[1])
+        layout = mesh.rank_layout(mesh.training_mesh(_configs(1)[1]))
+        assert (layout.data_index, layout.model_index, layout.data_parallel) == (0, 0, 1)
         floats = [torch.arange(6.0).view(2, 3), torch.tensor(2.5)]
         tensors = floats + [torch.arange(3)]
         before = [t.clone() for t in tensors]

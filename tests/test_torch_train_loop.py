@@ -561,7 +561,8 @@ def test_prefetcher_close_stops_a_worker_that_is_ahead():
 def test_entry_points_need_a_card_or_the_cpu(tree):
     """Without CUDA, train raises unless device="cpu"; a layout the port
     cannot run here raises rather than run on one device: data parallelism
-    without a launcher's process group, and a model axis."""
+    or a model axis without a launcher's process group, and spatial
+    sharding."""
     _, cfg = _configs(os.path.join(tree, "nocard"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -570,5 +571,8 @@ def test_entry_points_need_a_card_or_the_cpu(tree):
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
         train(cfg, device="cpu", verbose=False)
     cfg.mesh.data_parallel, cfg.mesh.model_parallel = 1, 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        train(cfg, device="cpu", verbose=False)
+    cfg.mesh.model_parallel, cfg.mesh.spatial_sharding = 1, True
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
         train(cfg, device="cpu", verbose=False)

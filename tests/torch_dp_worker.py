@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel CPU tests (tests/test_torch_dp_*.py).
+"""One rank of the port's data- and tensor-parallel CPU tests
+(tests/test_torch_dp_*.py, tests/test_torch_tp_*.py).
 
     RANK=r WORLD_SIZE=n LOCAL_RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dp_worker.py <workdir> <job> [<job> ...]
@@ -17,6 +18,20 @@ writing `<workdir>/<job>_<rank>.pt`:
          again, resuming from its checkpoint, for 2 more; the parameters
          after each;
   gan    `quality_train.main` with the arguments of gan.pt.
+  tp_step    every case of tp_step_cases.pt (as step's, with a mesh in its
+         config): the whole state cut to this rank's slices
+         (`shard_state`), one step on its data index's block; the
+         gradients and parameters gathered whole, this rank's own slices,
+         the names cut, the IN shapes (B, C, H, W) the step normalised, and
+         a broadcast_state of the cut state after the other ranks'
+         slices were moved;
+  tp_loop    from tp_loop.pt: `train.loop.train` on the mesh for 2 steps,
+         with its held-out eval, and the gathered payload after them; a
+         one-rank checkpoint restored, cut and gathered again; then resumed
+         for 2 steps;
+  tp_cli     `cli.main` --mode train, then --mode export, with the argv of
+         tp_cli.pt (tp_min_channels, which has no flag, set from it too);
+         the parameters the loop cut.
 
 Imports no JAX: the ranks run the port alone.
 """
@@ -136,7 +151,119 @@ def spawn_ranks(workdir, jobs, world=2, timeout=240):
              for job in jobs} for r in range(world)]
 
 
-JOBS = {"step": job_step, "feed": job_feed, "loop": job_loop, "gan": job_gan}
+def _named(module):
+    return {k: p.detach().clone() for k, p in module.named_parameters()}
+
+
+def job_tp_step(workdir):
+    import copy
+
+    from shmgan_tpu_torch.data.pipeline import local_batch
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.parallel import tp
+    from shmgan_tpu_torch.parallel.mesh import rank_layout, training_mesh
+    from shmgan_tpu_torch.train.state import broadcast_state, create_train_state, shard_state
+    from shmgan_tpu_torch.train.step import Draws, make_train_step
+
+    shapes, plain = [], ink.instance_norm
+
+    def recording(x, *args):
+        shapes.append(tuple(x.shape))
+        return plain(x, *args)
+
+    ink.instance_norm = recording
+    out = {}
+    for case in torch.load(os.path.join(workdir, "tp_step_cases.pt"), weights_only=False):
+        cfg = make_config(case["config"])
+        layout = rank_layout(training_mesh(cfg))
+        state = shard_state(create_train_state(cfg, _models(cfg, case["weights"])), layout,
+                            cfg.model.image_size, cfg.mesh.tp_min_channels)
+        views = local_batch(case["views"], layout.data_index, layout.data_parallel)
+        draws = Draws(**case["draws"]).shard(layout.data_index, layout.data_parallel)
+        del shapes[:]
+        state, m = make_train_step(cfg, debug_grads=True)(state, views, draws, 0)
+        # every rank but rank 0 moves its whole leaves; every rank but those
+        # of data index 0 its slices too
+        moved, cut = copy.deepcopy(state), tp.sharded_params(state.gen)
+        with torch.no_grad():
+            mu = moved.g_opt.moments()[0]
+            for name, p in moved.gen.named_parameters():
+                if layout.data_index > 0 or (layout.model_index > 0 and name not in cut):
+                    p.add_(1.0)
+                    mu[name].add_(1.0)
+            if layout.data_index > 0 or layout.model_index > 0:
+                moved.step += 5
+        broadcast_state(moved)
+        out[case["name"]] = {
+            "grads": m.pop("_grads"), "metrics": {k: v for k, v in m.items()
+                                                  if not k.startswith("_")},
+            "gen": tp.gather_named(state.gen, _named(state.gen)),
+            "disc": tp.gather_named(state.disc, _named(state.disc)),
+            "local": {"gen": _named(state.gen), "disc": _named(state.disc)},
+            "cut": {"gen": tp.sharded_params(state.gen), "disc": tp.sharded_params(state.disc)},
+            "in_shapes": list(shapes), "coords": (layout.data_index, layout.model_index),
+            "broadcast": {"gen": _named(moved.gen), "mu": moved.g_opt.moments()[0],
+                          "step": moved.step},
+            "mu": {k: t.clone() for k, t in state.g_opt.moments()[0].items()}}
+    ink.instance_norm = plain
+    return out
+
+
+def job_tp_loop(workdir):
+    from shmgan_tpu_torch.checkpoint import CheckpointManager
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel.mesh import rank_layout, training_mesh
+    from shmgan_tpu_torch.train.loop import train
+    from shmgan_tpu_torch.train.state import create_train_state, shard_state, state_payload
+
+    spec = torch.load(os.path.join(workdir, "tp_loop.pt"), weights_only=False)
+    cfg, resume = make_config(spec["run"]), make_config(spec["resume"])
+    state = train(cfg, max_steps=2, verbose=False, device="cpu", **spec["eval"])
+    out = {"step": state.step, "payload": state_payload(state)}
+    # a one-rank checkpoint on this mesh: restored whole, cut, gathered again
+    restored = create_train_state(resume, build_models(resume, device="cpu", seed=1))
+    CheckpointManager(resume.train.checkpoint_save_dir).restore(restored)
+    shard_state(restored, rank_layout(training_mesh(resume)), resume.model.image_size,
+                resume.mesh.tp_min_channels)
+    out["restored"] = state_payload(restored)
+    out["resumed_step"] = train(resume, max_steps=2, verbose=False, device="cpu").step
+    return out
+
+
+def job_tp_cli(workdir):
+    import dataclasses
+
+    from shmgan_tpu_torch import cli
+    from shmgan_tpu_torch.config import Config
+    from shmgan_tpu_torch.parallel import tp
+    from shmgan_tpu_torch.train import loop
+
+    spec = torch.load(os.path.join(workdir, "tp_cli.pt"), weights_only=False)
+    original, parse = Config.__dict__["from_args"], Config.from_args
+
+    def from_args(argv=None):
+        cfg = parse(argv)
+        cfg.mesh = dataclasses.replace(cfg.mesh, tp_min_channels=spec["tp_min_channels"])
+        return cfg
+
+    cut, shard_state = [], loop.shard_state
+
+    def recording(state, *args):
+        state = shard_state(state, *args)
+        cut.append(sorted(tp.sharded_params(state.gen)) + sorted(tp.sharded_params(state.disc)))
+        return state
+
+    Config.from_args, loop.shard_state = staticmethod(from_args), recording
+    try:
+        for argv in spec["argvs"]:
+            cli.main(argv, device="cpu")
+    finally:
+        Config.from_args, loop.shard_state = original, shard_state
+    return {"cut": cut}
+
+
+JOBS = {"step": job_step, "feed": job_feed, "loop": job_loop, "gan": job_gan,
+        "tp_step": job_tp_step, "tp_loop": job_tp_loop, "tp_cli": job_tp_cli}
 
 
 def main(workdir, jobs):
