@@ -104,6 +104,28 @@ Phases (each prints its name before it starts and its seconds after):
               step over gloo beside one rank's; train.loop.train for 2
               steps on a 16-scene tree and its checkpoint restored on one
               rank, equal to the ranks' gathered state bit for bit;
+  spatial     a 1 x 2 spatial mesh (H over the model axis, every parameter
+              whole) of two gloo ranks on the one card, each a process
+              running sp_rank on its band of 64 of the 128 rows at the JAX
+              defaults (filter 64, batch 8): one counted step in f32 and
+              four in bf16, each rank's launches exactly 92 band IN
+              forward kernels, 56 band backward kernels and 2 band
+              preprocess kernels (46, 28 and 1 calls of two launches each),
+              the parameters on both ranks bit for bit; the f32 step against
+              one rank's by _compare_step; the bf16 steps against the same
+              steps computed band by band in one process
+              (spatial.split_compute, TP_SPLIT_RTOL), through the kernels
+              against the plain versions (GAP_C), and against one rank's
+              (a reading); the band IN kernels against their plain versions
+              at every band shape of the step with flat planes (their
+              backward held, with the plain version's, against float64
+              within its rounding of the plane's mean), the band
+              preprocess against its plain and the whole-image versions;
+              each rank's peak memory beside one rank's whole step at 128
+              px and, in bf16, at 256 px; step ms over gloo beside one
+              rank's; train.loop.train for 2 steps and its checkpoint
+              restored on one rank bit for bit; the band entry points timed
+              through a one-rank row for the kernels line;
   train       the fused train step at full width in f32 (the JAX package's
               default model: 128 px, filter 64, batch 8) on seeded weights: one
               step through the kernels against the same step through the plain
@@ -279,6 +301,13 @@ GAP_C = 1.0
 # moves every batch alike, so pooling keeps it as large
 STEP_GAP_BATCHES = 4
 PRE_TOL = dict(rtol=1e-5, atol=1e-5)  # same arithmetic, other sum order
+# a flat plane's backward (mean 50, spread 0.1) against float64: any f32
+# arithmetic rounds the plane's mean, by a few ulps of its largest |x| (the
+# kernels' per-thread Welford and Chan's merge, the plain versions' sums),
+# and xhat carries that error times rstd (10) everywhere on the plane; each
+# side is held within its tolerance plus the first-order error of a mean
+# FLAT_ULPS ulps off (in_reference_f64)
+FLAT_ULPS = 16
 SERVE_ATOL = 1e-3                     # kernel path vs plain path, whole engine
 # train step, kernel path vs plain path and card vs CPU: G's and D's gradients
 # as a whole within 2e-3 (L2, relative), each leaf within 2.5e-1 of its own
@@ -287,6 +316,29 @@ SERVE_ATOL = 1e-3                     # kernel path vs plain path, whole engine
 # up to 7.4e-2 of their scale on the card; a wrong or missing gradient path
 # moves a leaf by ~1), every loss within 1e-4 (relative)
 GRAD_NORM_RTOL, GRAD_LEAF_RTOL, LOSS_RTOL = 2e-3, 2.5e-1, 1e-4
+
+
+def in_reference_f64(x, gamma, beta, dy, eps=1e-6):
+    """IN of (B, C, H, W) x in float64: (y, dx, dgamma, dbeta) for the
+    output gradient dy, and the errors (of dx (B, C, H, W), of dgamma (C,))
+    that a plane's mean off by FLAT_ULPS f32 ulps of the plane's largest
+    |x| gives them at most: xhat is then off by e = FLAT_ULPS * ulp * rstd
+    over the whole plane, so dgamma by e |sum(g)| (added over the batch)
+    and dx by rstd |gamma| e (|sum(g xhat)| + (|xhat| + e) |sum(g)|) / n."""
+    xd, gd = x.double(), dy.double()
+    gm, bt = gamma.double()[:, None, None], beta.double()[:, None, None]
+    n = x.shape[2] * x.shape[3]
+    mean = xd.mean((2, 3), keepdim=True)
+    rstd = torch.rsqrt((xd - mean).square().mean((2, 3), keepdim=True) + eps)
+    xhat = (xd - mean) * rstd
+    sg, sgx = gd.sum((2, 3), keepdim=True), (gd * xhat).sum((2, 3), keepdim=True)
+    dx = rstd / n * (n * gm * gd - gm * sg - xhat * gm * sgx)
+    top = xd.abs().amax((2, 3), keepdim=True)
+    ulp = torch.finfo(torch.float32).eps * torch.exp2(torch.floor(torch.log2(top)))
+    e = FLAT_ULPS * ulp * rstd
+    dx_err = rstd * gm.abs() * e * (sgx.abs() + (xhat.abs() + e) * sg.abs()) / n
+    return ((xhat * gm + bt, dx, (gd * xhat).sum((0, 2, 3)), gd.sum((0, 2, 3))),
+            (dx_err, (e * sg.abs()).sum((0, 2, 3))))
 
 
 def _in_name(dtype, kind="forward"):
@@ -1471,7 +1523,7 @@ def _launch_counts(reset: bool = False):
     counts = launch_counts()
     if reset:
         ink.launches.update(dict.fromkeys(ink.launches, 0))
-        pre.launches = 0
+        pre.launches = pre.band_launches = 0
     return counts
 
 
@@ -3213,18 +3265,27 @@ def _payload_digest(payload):
     return digest.hexdigest()
 
 
-def _tp_steps(cfg, state, batches):
+def _tp_steps(cfg, state, batches, layout=None, spied="instance_norm"):
     """One counted step with debug_grads from `state` on each batch (after
     a warm-up step): the launches, the metrics on the host and the (B, C,
-    H, W) and dtype of every IN call; returns them and the last state."""
+    H, W) and dtype of every call of `ink.<spied>`; returns them and the
+    last state. With a spatial `layout` each step takes the rank's band of
+    the views and its rows of the draws."""
+    from shmgan_tpu_torch.data.pipeline import local_band
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
     from shmgan_tpu_torch.train.step import make_train_step
 
+    def band(views, draws):
+        if layout is None or not layout.spatial:
+            return views, draws
+        j, m = layout.model_index, layout.model_parallel
+        return local_band(views, j, m).contiguous(), draws.rows(j, m)
+
     step = make_train_step(cfg, debug_grads=True)
-    step(copy.deepcopy(state), *batches[0], 0)  # warm-up: cuDNN's choices
+    step(copy.deepcopy(state), *band(*batches[0]), 0)  # warm-up: cuDNN's choices
     torch.cuda.synchronize()
     _launch_counts(reset=True)
-    shapes, plain = set(), ink.instance_norm
+    shapes, plain = set(), getattr(ink, spied)
 
     def spy(x, *args):
         shapes.add((tuple(x.shape), x.dtype))
@@ -3233,11 +3294,11 @@ def _tp_steps(cfg, state, batches):
     counts, metrics, stepped = [], [], None
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     for views, draws in batches:
-        ink.instance_norm = spy
+        setattr(ink, spied, spy)
         try:
-            stepped, m = step(copy.deepcopy(state), views, draws, 0)
+            stepped, m = step(copy.deepcopy(state), *band(views, draws), 0)
         finally:
-            ink.instance_norm = plain
+            setattr(ink, spied, plain)
         torch.cuda.synchronize()
         counts.append(_launch_counts(reset=True))
         metrics.append({k: (({net: {name: cpu(g) for name, g in grads.items()}
@@ -3451,23 +3512,24 @@ def _tp_step_checks(ranks):
     return totals
 
 
-def _tp_loop_checks(tmp, ranks):
-    """The ranks' 2 loop steps: launches, one checkpoint at step 2, the
-    ranks' gathered payloads alike, and the checkpoint restored on one
-    rank equal to them, bit for bit (digests). Returns the launches."""
+def _tp_loop_checks(tmp, ranks, want=None, label="tp"):
+    """The ranks' 2 loop steps: launches (`want`, by default 2 x
+    step_launches in bf16), one checkpoint at step 2, the ranks' gathered
+    payloads alike, and the checkpoint restored on one rank equal to them,
+    bit for bit (digests). Returns the launches."""
     from shmgan_tpu_torch.checkpoint import CheckpointManager
     from shmgan_tpu_torch.models import build_models
     from shmgan_tpu_torch.profile_train import training_config
     from shmgan_tpu_torch.train.state import create_train_state, state_payload
 
-    want = {k: 2 * n for k, n in step_launches(torch.bfloat16).items()}
+    want = want or {k: 2 * n for k, n in step_launches(torch.bfloat16).items()}
     totals = {k: 0 for k in _launch_counts()}
     for r, res in enumerate(ranks):
         loop = res["loop"]
-        say(f"tp rank {r}: train.loop.train, 2 steps in {loop['s']:.1f} s (checkpoint "
+        say(f"{label} rank {r}: train.loop.train, 2 steps in {loop['s']:.1f} s (checkpoint "
             f"included), launches {loop['counts']}")
         if loop["counts"] != want or loop["step"] != 2:
-            raise AssertionError(f"tp rank {r} loop: step {loop['step']}, launches "
+            raise AssertionError(f"{label} rank {r} loop: step {loop['step']}, launches "
                                  f"{loop['counts']}, expected {want}")
         totals = _sum_counts(totals, loop["counts"])
     ckpt = CheckpointManager(os.path.join(tmp, "loop", "checkpoint_save_dir"))
@@ -3477,8 +3539,8 @@ def _tp_loop_checks(tmp, ranks):
     state = create_train_state(cfg, build_models(cfg, device="cuda", seed=1))
     ckpt.restore(state)
     digests = [res["loop"]["digest"] for res in ranks] + [_payload_digest(state_payload(state))]
-    say(f"1 x {TP_RANKS} checkpoint at step {state.step} restored on one rank: payload "
-        f"digests (rank 0, rank 1, restored) {[d[:16] for d in digests]}")
+    say(f"{label} 1 x {len(ranks)} checkpoint at step {state.step} restored on one rank: "
+        f"payload digests (rank 0, rank 1, restored) {[d[:16] for d in digests]}")
     if len(set(digests)) != 1:
         raise AssertionError("the restored checkpoint differs from the ranks' gathered state")
     return totals
@@ -3505,6 +3567,426 @@ def model_parallel_phase():
     say(f"IN at the 1 x {TP_RANKS} step's other shapes, worst error by dtype: "
         + ", ".join(f"{str(d).split('.')[-1]} {e:.3e}" for d, e in worst.items()))
     return _sum_counts(steps, loop)
+
+
+# spatial: a 1 x SP_RANKS spatial mesh (H over the model axis, every parameter
+# whole) of two gloo ranks on the one card. The bf16 mesh is held against its
+# split (spatial.split_compute: each band computed in one process, the halos
+# and moments joined as the mesh joins them) within TP_SPLIT_RTOL; on the CPU
+# at 64 px they are one computation, bit for bit (tests/test_torch_spatial_*).
+SP_RANKS = 2          # a 1 x 2 mesh: two ranks of one gloo group, both on the one card
+SP_TIMED_STEPS = 3    # timed steps a rank, and of the one-rank step beside them
+SP_SEED = 17
+SP_SCENES = 16        # train.loop.train at batch 8: 2 steps
+SP_BIG = 256          # the bf16 step whose peak memory is read at this size too
+IN_SRC = "shmgan_tpu_torch/csrc/instance_norm.cu"
+PRE_SRC = "shmgan_tpu_torch/csrc/preprocess.cu"
+
+
+def _sp_config(dtype, size=None):
+    """The JAX defaults at batch 8 (training_config) on a 1 x SP_RANKS
+    spatial mesh, at `size` px if given. A state without a layout trains on
+    one rank whatever the mesh says."""
+    from shmgan_tpu_torch.profile_train import training_config
+
+    cfg = training_config(dtype)
+    cfg.model.image_size = size or cfg.model.image_size
+    cfg.mesh.data_parallel, cfg.mesh.model_parallel = 1, SP_RANKS
+    cfg.mesh.spatial_sharding = True
+    return cfg
+
+
+def sp_step_launches(dtype):
+    """A spatial rank's kernel launches in one train step: every IN call and
+    the preprocess on bands, two launches a call (46 forwards, 28 backwards,
+    1 preprocess), nothing whole."""
+    return {**{k: 0 for k in _launch_counts()}, _in_name(dtype, "band_forward"): 2 * 46,
+            _in_name(dtype, "band_backward"): 2 * 28, "fused_standardize_yuv_band": 2}
+
+
+def _peak_step(cfg, state, views, draws):
+    """Peak device memory (GiB) of one train step from `state` in this
+    process, above what it held before."""
+    from shmgan_tpu_torch.train.step import make_train_step
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    make_train_step(cfg)(state, views, draws, 0)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def sp_rank(workdir):
+    """One rank of the spatial phase (RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the environment, LOCAL_RANK 0): joins the gloo group; in
+    f32 (one batch) and bf16 (STEP_GAP_BATCHES batches, also through the plain
+    versions) takes one counted step with debug_grads a batch on its band,
+    then SP_TIMED_STEPS timed steps and one whose peak memory it reads; one
+    bf16 step at SP_BIG px for its peak memory; then train.loop.train for 2
+    steps on the tree under <workdir> and the digest of its payload; writes
+    <workdir>/sp<r>.pt."""
+    from shmgan_tpu_torch.data.pipeline import local_band
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel.mesh import (maybe_initialize_distributed, rank,
+                                                rank_layout, shutdown_distributed,
+                                                training_mesh)
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.train.loop import train
+    from shmgan_tpu_torch.train.state import create_train_state, shard_state, state_payload
+    from shmgan_tpu_torch.train.step import make_train_step, sample_draws
+
+    if not maybe_initialize_distributed("gloo"):
+        raise RuntimeError("sp_rank: no launcher environment")
+    r, out = rank(), {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = _sp_config(dtype)
+            layout = rank_layout(training_mesh(cfg))
+            state = shard_state(create_train_state(cfg, build_models(cfg, device="cuda", seed=0)),
+                                layout, cfg.model.image_size, cfg.mesh.tp_min_channels)
+            batches, gen = _tp_batches(cfg, 1 if dtype == "float32" else STEP_GAP_BATCHES,
+                                       seed=SP_SEED)
+            plain = []
+            if dtype == "bfloat16":
+                with plain_versions():
+                    plain_counts, plain, _, _ = _tp_steps(cfg, state, batches, layout,
+                                                          "instance_norm_band")
+                if any(any(c.values()) for c in plain_counts):
+                    raise AssertionError("the plain 1 x 2 spatial step launched a kernel")
+            counts, metrics, shapes, state = _tp_steps(cfg, state, batches, layout,
+                                                       "instance_norm_band")
+            fast, times = make_train_step(cfg), []
+            v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
+            j, m = layout.model_index, layout.model_parallel
+            for _ in range(SP_TIMED_STEPS + 1):
+                views = torch.rand((v, b, size, size, 3), device="cuda", generator=gen)
+                draws = sample_draws(cfg, gen, v, b, size, size)
+                args = (local_band(views, j, m).contiguous(), draws.rows(j, m))
+                if len(times) == SP_TIMED_STEPS:
+                    peak = _peak_step(cfg, state, *args)
+                    break
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = fast(state, *args, 0)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            _launch_counts(reset=True)
+            out[dtype] = {"counts": counts, "ms": times, "shapes": shapes, "peak_gib": peak,
+                          "metrics": metrics if r == 0 else [], "plain": plain if r == 0 else [],
+                          "params": {f"{net}.{k}": p.detach().cpu()
+                                     for net, mod in (("G", state.gen), ("D", state.disc))
+                                     for k, p in mod.named_parameters()}}
+            del state, batches
+            torch.cuda.empty_cache()
+        cfg = _sp_config("bfloat16", SP_BIG)
+        layout = rank_layout(training_mesh(cfg))
+        state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+        state.layout = layout
+        (views, draws), = _tp_batches(cfg, 1, seed=SP_SEED)[0]
+        args = (local_band(views, layout.model_index, SP_RANKS).contiguous(),
+                draws.rows(layout.model_index, SP_RANKS))
+        del views
+        make_train_step(cfg)(copy.deepcopy(state), *args, 0)  # warm-up
+        out["big_peak_gib"] = _peak_step(cfg, state, *args)
+        _launch_counts(reset=True)
+        del state, args
+        torch.cuda.empty_cache()
+        cfg = _loop_config(_sp_config("bfloat16"), os.path.join(workdir, "loop"),
+                           os.path.join(workdir, "tree"), 1)
+        _launch_counts(reset=True)
+        t0 = time.perf_counter()
+        state = train(cfg, max_steps=2, verbose=False)
+        torch.cuda.synchronize()
+        out["loop"] = {"counts": _launch_counts(reset=True), "s": time.perf_counter() - t0,
+                       "step": state.step, "digest": _payload_digest(state_payload(state))}
+        torch.save(out, os.path.join(workdir, f"sp{r}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def _flat_planes(x):
+    """x with the planes of channel 0 flat: mean 50, spread 0.1 (a flat image
+    region, where E[x^2] - E[x]^2 in f32 loses the variance)."""
+    x = x.clone()
+    flat = 50.0 + 0.1 * torch.randn(x[:, 0].shape, device=x.device,
+                                    generator=torch.Generator(device=x.device).manual_seed(3))
+    x[:, 0] = flat.to(x.dtype)
+    return x
+
+
+def _sp_in_checks(shapes):
+    """The band IN entry points against their plain versions at every (band
+    shape, dtype) the spatial step gave them: the whole map of SP_RANKS bands
+    computed band by band in one process (instance_norm_split), through the
+    kernels and through the plain steps, forward and autograd, with the
+    planes of channel 0 flat. y and dbeta are held over every plane, dx and
+    dgamma over the other channels. On the flat channel each side's dx and
+    dgamma is held against float64 (in_reference_f64) within its tolerance
+    plus the error of its rounded mean: a flat plane's backward carries each
+    forward's rounding of the mean (one f32 ulp of 50 is 3.8e-6, times its
+    rstd 10 in xhat), amplified by rstd again in dx and by |sum(g)| in
+    dgamma (kernels against plain on an H100: dx 3.2e-4 at a 64-element
+    plane, dgamma 1.6e-2 at (16, 64, 64, 64)). Returns the worst error by
+    dtype and kind."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    g = torch.Generator(device="cuda").manual_seed(SP_SEED)
+    worst = {}
+    for (b, c, h, w), dtype in sorted(shapes, key=lambda s: (str(s[1]), s[0])):
+        shape = (b, c, h * SP_RANKS, w)
+        tol, ptol = ((IN_TOL, IN_TOL) if dtype == torch.float32
+                     else (IN_TOL_BF16, IN_PARAM_TOL_BF16))
+        x, gamma, beta, dy = _in_inputs("cuda", g, shape, dtype)
+        x = _flat_planes(x)
+        got, ref = [], []
+        for fn, res in ((ink.instance_norm_split, got), (ink.instance_norm_split_plain, ref)):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta)]
+            y = fn(*leaves, 1e-6, SP_RANKS)
+            res.extend([y.detach(), *torch.autograd.grad(y, leaves, dy)])
+        torch.cuda.synchronize()
+        (_, dx64, dgamma64, _), (dx_err, dgamma_err) = in_reference_f64(
+            x[:, :1], gamma[:1], beta[:1], dy[:, :1])
+        flat, flat_ok = [], True
+        for side in (got, ref):
+            dx_gap = (side[1][:, :1].double() - dx64).abs()
+            dx_lim = tol["atol"] + tol["rtol"] * dx64.abs() + dx_err
+            dg_gap = (side[2][:1].double() - dgamma64).abs()
+            dg_lim = ptol["atol"] + ptol["rtol"] * dgamma64.abs() + dgamma_err
+            flat.append(((dx_gap / dx_lim).max().item(), (dg_gap / dg_lim).max().item()))
+            flat_ok &= bool((dx_gap <= dx_lim).all() and (dg_gap <= dg_lim).all())
+        got[1], ref[1] = got[1][:, 1:], ref[1][:, 1:]
+        got[2], ref[2] = got[2][1:], ref[2][1:]
+        errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)]
+        ok = flat_ok and all(torch.allclose(a.float(), r.float(), **t)
+                             for a, r, t in zip(got, ref, (tol, tol, ptol, ptol)))
+        say(f"{_in_name(dtype, 'band_forward')} / {_in_name(dtype, 'band_backward')} band "
+            f"{(b, c, h, w)} of {shape}: max_abs_err y {errs[0]:.3e}, dx {errs[1]:.3e}, dgamma "
+            f"{errs[2]:.3e}, dbeta {errs[3]:.3e}; the flat channel against float64, gap over "
+            f"limit: kernels dx {flat[0][0]:.3f}, dgamma {flat[0][1]:.3f}, plain dx "
+            f"{flat[1][0]:.3f}, dgamma {flat[1][1]:.3f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"band IN disagrees with its plain version or with float64 "
+                                 f"at {shape} {dtype}")
+        for kind, e in (("band_forward", errs[0]), ("band_backward", max(errs[1:]))):
+            worst[kind, dtype] = max(worst.get((kind, dtype), 0.0), e)
+        del x, dy, got, ref
+    _launch_counts(reset=True)
+    return worst
+
+
+def _sp_pre_check():
+    """The band preprocess against its plain version and against the whole-
+    image plain version at the step's (40, 128, 128, 3), split in SP_RANKS
+    bands in one process. Returns the worst error."""
+    from shmgan_tpu_torch.ops.kernels import preprocess as pre
+
+    g = torch.Generator(device="cuda").manual_seed(SP_SEED)
+    rgb = torch.rand(PRE_TRAIN_SHAPE, device="cuda", generator=g)
+    rgb[0] = 0.0
+    yuv, scale = pre.fused_standardize_yuv_split(rgb, SP_RANKS)
+    bands = [rgb.narrow(1, k * rgb.shape[1] // SP_RANKS, rgb.shape[1] // SP_RANKS)
+             for k in range(SP_RANKS)]
+    totals = sum(pre.band_moments_plain(x) for x in bands)
+    ref = [pre.band_apply_plain(x, totals, 3 * rgb.shape[1] * rgb.shape[2]) for x in bands]
+    ryuv, rscale = torch.cat([r[0] for r in ref], 1), ref[0][1]
+    wyuv, wscale = pre.fused_standardize_yuv_plain(rgb)
+    torch.cuda.synchronize()
+    err = max((yuv - ryuv).abs().max().item(), (scale - rscale).abs().max().item())
+    werr = max((yuv - wyuv).abs().max().item(), (scale - wscale).abs().max().item())
+    ok = all(torch.allclose(a, r, **PRE_TOL) for a, r in ((yuv, ryuv), (scale, rscale),
+                                                          (yuv, wyuv), (scale, wscale)))
+    say(f"fused_standardize_yuv_band {PRE_TRAIN_SHAPE} in {SP_RANKS} bands: max_abs_err "
+        f"{err:.3e} against its plain version, {werr:.3e} against the whole-image plain "
+        f"version (tol {PRE_TOL}) {'ok' if ok else 'FAIL'}; a black image's scale "
+        f"{scale[0].item()}")
+    if not ok or scale[0].item() != 1.0 / 256.0:
+        raise AssertionError("the band preprocess disagrees with its plain version")
+    _launch_counts(reset=True)
+    return max(err, werr)
+
+
+def _sp_rows(in_shapes, in_worst, pre_worst):
+    """The kernels line's rows of the band entry points, timed through a
+    model row of one rank (spatial.LocalRow: the band is the whole map) at
+    the step's largest band (IN) and the train step's preprocess shape:
+    `ms` host-inclusive, `device_ms` from CUDA-graph replays, `device_cold_ms`
+    after an L2 flush; the plain steps' ms; the bytes bound."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.ops.kernels import preprocess as pre
+    from shmgan_tpu_torch.parallel.spatial import LocalRow
+
+    g = torch.Generator(device="cuda").manual_seed(SP_SEED)
+    row, rows = LocalRow(), []
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = max((s for s, d in in_shapes if d == dtype), key=lambda s: int(np.prod(s)))
+        x, gamma, beta, dy = _in_inputs("cuda", g, shape, dtype)
+        _, mean, rstd = ink.instance_norm_band_forward(x, gamma, beta, 1e-6, row)
+        calls = {
+            "band_forward": (lambda: ink.instance_norm_band_forward(x, gamma, beta, 1e-6, row),
+                             lambda: ink.instance_norm_band_forward(x, gamma, beta, 1e-6, row,
+                                                                    plain=True), 2),
+            "band_backward": (lambda: ink.instance_norm_band_backward(x, dy, gamma, mean, rstd,
+                                                                      row),
+                              lambda: ink.instance_norm_band_backward(x, dy, gamma, mean, rstd,
+                                                                      row, plain=True), 3)}
+        for kind, (kernel, plain, tensors) in calls.items():
+            nbytes = tensors * x.numel() * x.element_size()
+            bound_ms, bound_by = bound(nbytes, 10.0 * x.numel())
+            ms, dev_ms, cold = time_ms(kernel, 50), device_ms(kernel), device_cold_ms(kernel)
+            plain_ms = time_ms(plain, 10)
+            rows.append({"name": _in_name(dtype, kind), "route": "cuda", "source": IN_SRC,
+                         "replaces": ("shmgan_tpu/ops/pallas/instance_norm.py:197" if kind ==
+                                      "band_forward" else
+                                      "shmgan_tpu/ops/pallas/instance_norm.py:225"),
+                         "shape": list(shape), "max_abs_err": in_worst.get((kind, dtype), 0.0),
+                         "ms": ms, "device_ms": dev_ms, "device_cold_ms": cold,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None})
+            say(f"{_in_name(dtype, kind)} {shape} (one-rank row): {ms:.4f} ms, device "
+                f"{dev_ms:.4f} ms, cold {cold:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {share(bound_ms, dev_ms)} (device)")
+        del x, dy, mean, rstd
+    rgb = torch.rand(PRE_TRAIN_SHAPE, device="cuda", generator=g)
+    kernel = lambda: pre.fused_standardize_yuv_band(rgb, row)  # noqa: E731
+    plain = lambda: pre.fused_standardize_yuv_band_plain(rgb, row)  # noqa: E731
+    bound_ms, bound_by = bound(2 * rgb.numel() * 4, 25.0 * rgb.numel() / 3)
+    ms, dev_ms, cold = time_ms(kernel, 50), device_ms(kernel), device_cold_ms(kernel)
+    plain_ms = time_ms(plain, 10)
+    rows.append({"name": "fused_standardize_yuv_band", "route": "cuda", "source": PRE_SRC,
+                 "replaces": "shmgan_tpu/ops/pallas/preprocess.py:75",
+                 "shape": list(PRE_TRAIN_SHAPE), "max_abs_err": pre_worst, "ms": ms,
+                 "device_ms": dev_ms, "device_cold_ms": cold, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    say(f"fused_standardize_yuv_band {PRE_TRAIN_SHAPE} (one-rank row): {ms:.4f} ms, device "
+        f"{dev_ms:.4f} ms, cold {cold:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {share(bound_ms, dev_ms)} (device); no library call computes the "
+        f"band's function")
+    _launch_counts(reset=True)
+    return rows
+
+
+def _sp_step_checks(ranks, smi):
+    """The ranks' counted steps: launches, parameters alike on both ranks;
+    the f32 step against one rank's whole step by _compare_step; the bf16
+    steps against their split in one process (_compare_split), through the
+    kernels against themselves through the plain versions (GAP_C), and
+    against one rank's bf16 steps as a reading; peak memory and step times
+    beside one rank's. Returns the ranks' step launches."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel.spatial import split_compute
+    from shmgan_tpu_torch.train.state import create_train_state
+
+    totals = {k: 0 for k in _launch_counts()}
+    f32_refs = None
+    for dtype, torch_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        want = sp_step_launches(torch_dtype)
+        for r, res in enumerate(ranks):
+            for counts in res[dtype]["counts"]:
+                if counts != want:
+                    raise AssertionError(f"spatial rank {r} {dtype}: launches {counts}, "
+                                         f"expected {want}")
+                totals = _sum_counts(totals, counts)
+            say(f"spatial rank {r} {dtype}: each of {len(res[dtype]['counts'])} steps launched "
+                f"{ {k: n for k, n in want.items() if n} }; timed step ms "
+                f"{[round(t, 2) for t in res[dtype]['ms']]}")
+        p0, p1 = ranks[0][dtype]["params"], ranks[1][dtype]["params"]
+        same = sum(torch.equal(p0[k], p1[k]) for k in p0)
+        say(f"{dtype}: parameters on both ranks after {1 + SP_TIMED_STEPS} steps: "
+            f"{same}/{len(p0)} bit for bit")
+        if same != len(p0) or set(p0) != set(p1):
+            raise AssertionError(f"{dtype}: the spatial ranks' parameters differ")
+
+        cfg = _sp_config(dtype)
+        batches, gen = _tp_batches(cfg, len(ranks[0][dtype]["metrics"]), seed=SP_SEED)
+        fresh = lambda: create_train_state(cfg, build_models(cfg, device="cuda", seed=0))  # noqa
+        refs = _tp_steps(cfg, fresh(), batches)[1]
+        mesh = ranks[0][dtype]["metrics"]
+        if dtype == "float32":
+            _compare_step(mesh[0], refs[0], f"1 x {SP_RANKS} spatial mesh vs 1 rank, f32, "
+                                            f"batch 8:")
+            f32_refs = _tp_steps(cfg, fresh(), _tp_batches(cfg, STEP_GAP_BATCHES,
+                                                           seed=SP_SEED)[0])[1]
+        else:
+            with split_compute(SP_RANKS):
+                split = _tp_steps(cfg, fresh(), batches)[1]
+            _compare_split(mesh, split, f"1 x {SP_RANKS} spatial mesh vs its split in one "
+                                        f"process, bf16:")
+            _compare_step_gap(list(zip(mesh, ranks[0][dtype]["plain"], f32_refs)),
+                              f"1 x {SP_RANKS} spatial mesh, bf16, kernels vs plain:")
+            _sp_gap_reading(mesh, refs, f32_refs)
+        state = fresh()
+        one = _timed_steps(cfg, state, gen)
+        (views, draws), = _tp_batches(cfg, 1, seed=SP_SEED)[0]
+        one_peak = _peak_step(cfg, state, views, draws)
+        two = [float(np.median(res[dtype]["ms"])) for res in ranks]
+        say(f"{dtype} step at batch 8, 128 px on {smi}: 1 x {SP_RANKS} spatial mesh on one card "
+            f"over gloo {two[0]:.2f} / {two[1]:.2f} ms (rank 0 / 1, median of {SP_TIMED_STEPS}) "
+            f"beside one rank {np.median(one):.2f} ms (not a scaling number: both ranks share "
+            f"the card and gloo copies every halo and sum through the host)")
+        say(f"{dtype} peak memory of a step, 128 px, batch 8: rank 0 / 1 "
+            f"{ranks[0][dtype]['peak_gib']:.3f} / {ranks[1][dtype]['peak_gib']:.3f} GiB beside "
+            f"one rank's whole step {one_peak:.3f} GiB")
+        del state, refs
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _sp_gap_reading(mesh, refs, f32_refs):
+    """The bf16 mesh against one rank's bf16 steps by the gap measure, as a
+    reading (no limit): half-height convolutions round apart from whole ones."""
+    for name in ("G gradients", "D gradients", LOSSES):
+        k, p, f = (np.concatenate([_gap_vectors(m, f32)[name] for m, f32 in zip(side, f32_refs)])
+                   for side in (mesh, refs, f32_refs))
+        say(f"  1 x {SP_RANKS} spatial mesh vs 1 rank, bf16, {name} over {len(mesh)} batches "
+            f"(read): ||mesh - one|| / ||one - f32|| = "
+            f"{np.linalg.norm(k - p) / max(np.linalg.norm(p - f), 1e-300):.3f}")
+
+
+def _sp_big_peak(ranks, smi):
+    """One rank's whole bf16 step at SP_BIG px beside the ranks' peaks."""
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.train.state import create_train_state
+    from shmgan_tpu_torch.train.step import make_train_step
+
+    cfg = _sp_config("bfloat16", SP_BIG)
+    state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
+    (views, draws), = _tp_batches(cfg, 1, seed=SP_SEED)[0]
+    make_train_step(cfg)(copy.deepcopy(state), views, draws, 0)  # warm-up
+    one = _peak_step(cfg, state, views, draws)
+    _launch_counts(reset=True)
+    say(f"bf16 peak memory of a step, {SP_BIG} px, batch 8, on {smi}: rank 0 / 1 "
+        f"{ranks[0]['big_peak_gib']:.3f} / {ranks[1]['big_peak_gib']:.3f} GiB beside one rank's "
+        f"whole step {one:.3f} GiB")
+    del state, views
+    torch.cuda.empty_cache()
+
+
+def spatial_phase(smi):
+    """Spatial sharding on the one card: a 1 x 2 spatial mesh of two gloo
+    ranks at the JAX defaults in f32 and bf16, against one rank and (bf16)
+    its split in one process; the band kernels at the shapes its step gives
+    them; peak memory a rank; 2 steps of train.loop.train with a checkpoint
+    restored on one rank. Returns (the launches of the counted runs, the
+    kernels line's rows of the band entry points)."""
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fixture_tree(os.path.join(tmp, "tree"), SP_SCENES, 128, seed=0)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(tmp, "chip_smoke.sp_rank", SP_RANKS, "sp", 600)
+        say(f"{SP_RANKS} spatial ranks (gloo, one card, 64 of 128 rows each) ran in "
+            f"{time.perf_counter() - t0:.1f} s")
+        steps = _sp_step_checks(ranks, smi)
+        _sp_big_peak(ranks, smi)
+        loop = _tp_loop_checks(tmp, ranks, {k: 2 * n for k, n in
+                                            sp_step_launches(torch.bfloat16).items()},
+                               "spatial")
+    shapes = ranks[0]["float32"]["shapes"] | ranks[0]["bfloat16"]["shapes"]
+    in_worst = _sp_in_checks(shapes)
+    pre_worst = _sp_pre_check()
+    return _sum_counts(steps, loop), _sp_rows(shapes, in_worst, pre_worst)
 
 
 # keras_h5: the reference's Keras SpecSeg (tests/data/torch_h5/, its README
@@ -3738,6 +4220,9 @@ def main() -> int:
         del bundle
         current = "model_parallel"
         by_path["model_parallel"] = phase("model_parallel", model_parallel_phase)
+        current = "spatial"
+        by_path["spatial"], band_rows = phase("spatial", spatial_phase, smi)
+        rows += band_rows
         current = "train"
         by_path["train"] = phase("train", train_phase)
         current = "train_bf16"

@@ -3,7 +3,7 @@ ModelConfig, TrainConfig, DataConfig, MeshConfig, EvalConfig and ServeConfig,
 with the same defaults, and of `Config.from_args`, the CLI surface, with the
 same flag names and defaults. The port keeps the fields that inference, the
 train step and its loop, serving and the CLI read or set; of MeshConfig,
-the two axes' sizes (spatial sharding is not ported).
+the two axes' sizes and spatial sharding.
 
 `model.compute_dtype` is the models' compute dtype, as in the JAX package:
 "bfloat16" (its default) or "float32". Parameters are float32 at either; each
@@ -137,19 +137,12 @@ class MeshConfig:
     # tensor parallelism in training: the output channels of the wide conv
     # kernels split over this many ranks (parallel/tp.py); serving ignores it
     model_parallel: int = 1
-    # shard feature maps spatially (H) over the model axis (not ported)
+    # shard feature maps spatially (H) over the model axis in training, with
+    # every parameter whole (parallel/spatial.py); the CLI has no flag for it
     spatial_sharding: bool = False
     # conv kernels with at least this many output channels are split over
     # the model axis; narrower ones stay whole on every rank
     tp_min_channels: int = 256
-
-    def check_ported(self) -> None:
-        """Raise on a layout the port cannot run, rather than run it another
-        way: spatial sharding is ROADMAP Queue 1 item 11b."""
-        if self.spatial_sharding:
-            raise NotImplementedError(
-                "spatial_sharding: the port splits the model axis over channels only; "
-                "spatial sharding over it is ROADMAP Queue 1 item 11b")
 
 
 @dataclass

@@ -854,3 +854,262 @@ extern "C" int shm_instance_norm_bwd_blocks_per_sm(int bf16, int variant, int ve
   return bf16 ? backward_blocks_per_sm<__nv_bfloat16>(variant, vector, threads, cluster, count)
               : backward_blocks_per_sm<float>(variant, vector, threads, cluster, count);
 }
+
+// ------------------------------------------------------------------ bands
+//
+// Instance norm of a map cut into bands of rows over the ranks of a model
+// row (parallel/spatial.py): each rank holds rows of every (b, c) plane, and
+// no rank holds a whole plane. Forward in two launches around a gather:
+//   moments  each plane's band: mean and M2 (the forward's per-thread
+//            Welford and block merge), into (2, planes);
+//   (the ranks' (2, planes) gathered into (M, 2, planes), rank order)
+//   apply    each block merges the M partials of its plane in rank order
+//            (Chan et al.'s pairwise update, every band the same count), then
+//            y = (x - mean) * gamma * rstd + beta as the forward, and writes
+//            the plane's mean and rstd.
+// Never E[x^2] - E[x]^2 across ranks: a flat plane cancels in that.
+// Backward in two launches around an all_reduce:
+//   sums     each plane's band: sum of g and of g * xhat, into (2, planes);
+//   (the ranks' sums added in float over the row)
+//   apply    dx = rstd / n * (n * g * gamma - gamma * sum(g) - xhat * gamma
+//            * sum(g * xhat)), n the whole plane's count, as the TPU kernel's
+//            VJP (_bwd); the blocks of batch row 0 also add each channel's
+//            band sums over the batch, in order: dgamma and dbeta of this
+//            band, which the train step sums over the row with the other
+//            gradients.
+// One 256-thread block a plane in every launch: simple, and correct at any
+// band; the moments and apply launches take 16-byte loads where the plane
+// allows them, the backward's one element at a time.
+
+namespace {
+
+// Folds the partial (nb, mb, m2b) into a in rank order; the first is copied,
+// so that a row of one band is that band's moments exactly.
+__device__ __forceinline__ void merge_band(Moments& a, float nb, float mb, float m2b) {
+  if (a.n == 0.f) {
+    a = Moments{nb, mb, m2b};
+    return;
+  }
+  const float n = a.n + nb;
+  const float delta = mb - a.mean;
+  a.mean = fmaf(delta, nb / n, a.mean);
+  a.m2 += m2b + delta * delta * (a.n * nb / n);
+  a.n = n;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_moments_kernel(const T* __restrict__ x, float* __restrict__ out, long long planes,
+                    long long hw) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long plane = blockIdx.x;
+  const T* xp = x + plane * hw;
+  const bool vec = (hw % kVec == 0) && aligned16(x);
+  Moments acc{0.f, 0.f, 0.f};
+  if (vec) {
+    if constexpr (std::is_same_v<T, float>) {
+      const float4* xv = reinterpret_cast<const float4*>(xp);
+      for (long long i = threadIdx.x; i < hw / 4; i += kThreads) {
+        const float4 v = xv[i];
+        const float w[4] = {v.x, v.y, v.z, v.w};
+        fold<4>(acc, w);
+      }
+    } else {
+      const uint4* xv = reinterpret_cast<const uint4*>(xp);
+      for (long long i = threadIdx.x; i < hw / 8; i += kThreads) {
+        float v[8];
+        unpack8(xv[i], v);
+        fold<8>(acc, v);
+      }
+    }
+  } else {
+    for (long long i = threadIdx.x; i < hw; i += kThreads) {
+      const float w[1] = {to_f32(xp[i])};
+      fold<1>(acc, w);
+    }
+  }
+  block_moments(acc);
+  if (threadIdx.x == 0) {
+    out[plane] = acc.mean;
+    out[planes + plane] = acc.m2;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, const float* __restrict__ parts, int nparts,
+                  long long planes, int channels, long long hw, float eps, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long plane = blockIdx.x;
+  const int c = static_cast<int>(plane % channels);
+  const T* xp = x + plane * hw;
+  T* yp = y + plane * hw;
+  const bool vec = (hw % kVec == 0) && aligned16(x) && aligned16(y);
+
+  Moments acc{0.f, 0.f, 0.f};
+  for (int r = 0; r < nparts; ++r)  // the same order in every thread
+    merge_band(acc, static_cast<float>(hw), parts[(2LL * r) * planes + plane],
+               parts[(2LL * r + 1) * planes + plane]);
+  const float mean = acc.mean;
+  const float var = fmaxf(acc.m2 / acc.n, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  const float scale = gamma[c] * rstd;
+  const float bias = beta[c];
+  if (threadIdx.x == 0) {
+    mean_out[plane] = mean;
+    rstd_out[plane] = rstd;
+  }
+  if (vec) {
+    if constexpr (std::is_same_v<T, float>) {
+      const float4* xv = reinterpret_cast<const float4*>(xp);
+      float4* yv = reinterpret_cast<float4*>(yp);
+      for (long long i = threadIdx.x; i < hw / 4; i += kThreads) {
+        float4 v = xv[i];
+        v.x = fmaf(v.x - mean, scale, bias);
+        v.y = fmaf(v.y - mean, scale, bias);
+        v.z = fmaf(v.z - mean, scale, bias);
+        v.w = fmaf(v.w - mean, scale, bias);
+        yv[i] = v;
+      }
+    } else {
+      const uint4* xv = reinterpret_cast<const uint4*>(xp);
+      uint4* yv = reinterpret_cast<uint4*>(yp);
+      for (long long i = threadIdx.x; i < hw / 8; i += kThreads) {
+        float v[8];
+        unpack8(xv[i], v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = fmaf(v[k] - mean, scale, bias);
+        yv[i] = pack8(v);
+      }
+    }
+  } else {
+    for (long long i = threadIdx.x; i < hw; i += kThreads)
+      yp[i] = from_f32<T>(fmaf(to_f32(xp[i]) - mean, scale, bias));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     const float* __restrict__ mean, const float* __restrict__ rstd,
+                     float* __restrict__ out, long long planes, long long hw) {
+  const long long plane = blockIdx.x;
+  const T* xp = x + plane * hw;
+  const T* gp = g + plane * hw;
+  const float m = mean[plane], inv = rstd[plane];
+  float sg = 0.f, sgx = 0.f;
+  for (long long i = threadIdx.x; i < hw; i += kThreads) {
+    const float gv = to_f32(gp[i]);
+    sg += gv;
+    sgx = fmaf(gv, (to_f32(xp[i]) - m) * inv, sgx);
+  }
+  block_sum2(sg, sgx);
+  if (threadIdx.x == 0) {
+    out[plane] = sg;
+    out[planes + plane] = sgx;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ gamma, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const float* __restrict__ local,
+                      const float* __restrict__ total, long long batch, int channels,
+                      long long hw, float n, T* __restrict__ dx, float* __restrict__ dgamma,
+                      float* __restrict__ dbeta) {
+  const long long planes = batch * channels;
+  const long long plane = blockIdx.x;
+  const int c = static_cast<int>(plane % channels);
+  const T* xp = x + plane * hw;
+  const T* gp = g + plane * hw;
+  T* dp = dx + plane * hw;
+  const float m = mean[plane], inv = rstd[plane], gm = gamma[c];
+  const float sum_gg = gm * total[plane];
+  const float sum_gg_xhat = gm * total[planes + plane];
+  const float k = inv / n;
+  for (long long i = threadIdx.x; i < hw; i += kThreads) {
+    const float xhat = (to_f32(xp[i]) - m) * inv;
+    const float gg = to_f32(gp[i]) * gm;
+    dp[i] = from_f32<T>(k * (n * gg - sum_gg - xhat * sum_gg_xhat));
+  }
+  if (plane < channels && threadIdx.x == 0) {  // batch row 0: channel c's band sums
+    float sg = 0.f, sgx = 0.f;
+    for (long long b = 0; b < batch; ++b) {
+      sg += local[b * channels + c];
+      sgx += local[planes + b * channels + c];
+    }
+    dgamma[c] = sgx;
+    dbeta[c] = sg;
+  }
+}
+
+cudaError_t launched() { return cudaGetLastError(); }
+
+bool bad_grid(long long planes) { return planes <= 0 || planes > INT_MAX; }
+
+}  // namespace
+
+// x (planes, hw) of this band -> out (2, planes): each plane's band mean, M2.
+#define SHM_BAND_MOMENTS(SUFFIX, T)                                                      \
+  extern "C" int shm_instance_norm_band_moments_##SUFFIX(const T* x, float* out,         \
+                                                          long long planes, long long hw, \
+                                                          void* stream) {                 \
+    if (bad_grid(planes) || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);      \
+    band_moments_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,              \
+                             static_cast<cudaStream_t>(stream)>>>(x, out, planes, hw);   \
+    return static_cast<int>(launched());                                                  \
+  }
+SHM_BAND_MOMENTS(f32, float)
+SHM_BAND_MOMENTS(bf16, __nv_bfloat16)
+
+// parts (nparts, 2, planes), the row's band moments in rank order, each band
+// of hw elements a plane -> y, and each plane's mean and rstd (planes).
+#define SHM_BAND_APPLY(SUFFIX, T)                                                         \
+  extern "C" int shm_instance_norm_band_apply_##SUFFIX(                                   \
+      const T* x, const float* gamma, const float* beta, const float* parts, int nparts,  \
+      long long planes, int channels, long long hw, float eps, T* y, float* mean,         \
+      float* rstd, void* stream) {                                                         \
+    if (bad_grid(planes) || hw <= 0 || nparts <= 0 || channels <= 0)                      \
+      return static_cast<int>(cudaErrorInvalidValue);                                     \
+    band_apply_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,                \
+                           static_cast<cudaStream_t>(stream)>>>(                          \
+        x, gamma, beta, parts, nparts, planes, channels, hw, eps, y, mean, rstd);         \
+    return static_cast<int>(launched());                                                  \
+  }
+SHM_BAND_APPLY(f32, float)
+SHM_BAND_APPLY(bf16, __nv_bfloat16)
+
+// x, g (planes, hw) of this band, the plane's mean and rstd -> out (2,
+// planes): each plane's band sums of g and of g * xhat.
+#define SHM_BAND_BWD_SUMS(SUFFIX, T)                                                      \
+  extern "C" int shm_instance_norm_band_bwd_sums_##SUFFIX(                                \
+      const T* x, const T* g, const float* mean, const float* rstd, float* out,           \
+      long long planes, long long hw, void* stream) {                                      \
+    if (bad_grid(planes) || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);      \
+    band_bwd_sums_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,             \
+                              static_cast<cudaStream_t>(stream)>>>(x, g, mean, rstd, out, \
+                                                                   planes, hw);           \
+    return static_cast<int>(launched());                                                  \
+  }
+SHM_BAND_BWD_SUMS(f32, float)
+SHM_BAND_BWD_SUMS(bf16, __nv_bfloat16)
+
+// local (2, planes): this band's sums; total: the row's; n: the whole plane's
+// count -> dx of this band, and dgamma, dbeta (channels) of this band.
+#define SHM_BAND_BWD_APPLY(SUFFIX, T)                                                     \
+  extern "C" int shm_instance_norm_band_bwd_apply_##SUFFIX(                               \
+      const T* x, const T* g, const float* gamma, const float* mean, const float* rstd,   \
+      const float* local, const float* total, long long batch, int channels,              \
+      long long hw, float n, T* dx, float* dgamma, float* dbeta, void* stream) {          \
+    if (bad_grid(batch * channels) || hw <= 0 || channels <= 0)                           \
+      return static_cast<int>(cudaErrorInvalidValue);                                     \
+    band_bwd_apply_kernel<T><<<static_cast<unsigned int>(batch * channels), kThreads, 0,  \
+                               static_cast<cudaStream_t>(stream)>>>(                      \
+        x, g, gamma, mean, rstd, local, total, batch, channels, hw, n, dx, dgamma, dbeta);\
+    return static_cast<int>(launched());                                                  \
+  }
+SHM_BAND_BWD_APPLY(f32, float)
+SHM_BAND_BWD_APPLY(bf16, __nv_bfloat16)

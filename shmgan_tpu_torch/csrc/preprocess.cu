@@ -347,3 +347,82 @@ extern "C" int shm_standardize_yuv_max_active_clusters(int cluster, long long sm
                 : cudaOccupancyMaxActiveClusters(count, standardize_yuv<false>, &cfg);
   return static_cast<int>(err);
 }
+
+// ------------------------------------------------------------------ bands
+//
+// The same standardisation of images cut into bands of rows over the ranks
+// of a model row (parallel/spatial.py): no rank holds a whole image, so the
+// moments are reduced over the row between two launches.
+//   moments  one 512-thread block an image: the band's sum and sum of
+//            squares of its YUV values (the same per-pixel arithmetic, and
+//            the same block reduction, as the kernel above), into (B, 2);
+//   (the ranks' (B, 2) added in float over the row)
+//   apply    each thread reads the image's totals, forms the scale as the
+//            kernel above does, and writes YUV / scale for its pixels; the
+//            first thread of an image writes its scale.
+// The band is read twice, once a launch: simple, and correct at any band.
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+band_moments(const float* __restrict__ rgb, float* __restrict__ out, long long npix) {
+  const long long img = blockIdx.x;
+  const float* src = rgb + img * npix * 3;
+  float s = 0.f, s2 = 0.f;
+  for (long long p = threadIdx.x; p < npix; p += kThreads) {
+    float y, u, v;
+    to_yuv(__ldg(src + 3 * p), __ldg(src + 3 * p + 1), __ldg(src + 3 * p + 2), y, u, v);
+    add_moments(y, u, v, s, s2);
+  }
+  block_sum2(s, s2);
+  if (threadIdx.x == 0) {
+    out[2 * img] = s;
+    out[2 * img + 1] = s2;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+band_apply(const float* __restrict__ rgb, const float* __restrict__ totals,
+           float* __restrict__ yuv, float* __restrict__ scale_out, long long npix, float n) {
+  const long long img = blockIdx.y;
+  const float mean = totals[2 * img] / n;
+  const float var = fmaxf(totals[2 * img + 1] / n - mean * mean, 0.f);
+  const float scale = fmaxf(sqrtf(var), 1.f / 256.f);
+  const float inv = 1.f / scale;
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p == 0) scale_out[img] = scale;
+  if (p >= npix) return;
+  const long long off = (img * npix + p) * 3;
+  float y, u, v;
+  to_yuv(__ldg(rgb + off), __ldg(rgb + off + 1), __ldg(rgb + off + 2), y, u, v);
+  yuv[off] = y * inv;
+  yuv[off + 1] = u * inv;
+  yuv[off + 2] = v * inv;
+}
+
+}  // namespace
+
+// rgb (batch, npix, 3) of this band -> out (batch, 2): each image's band sum
+// and sum of squares of its YUV values. Returns cudaGetLastError().
+extern "C" int shm_standardize_yuv_band_moments_f32(const float* rgb, float* out,
+                                                    long long batch, long long npix,
+                                                    void* stream) {
+  if (batch <= 0 || batch > 0x7fffffffLL || npix <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  band_moments<<<static_cast<unsigned int>(batch), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(rgb, out, npix);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// totals (batch, 2): the row's sums; n: the YUV values of a whole image ->
+// yuv (batch, npix, 3) of this band, scale (batch,).
+extern "C" int shm_standardize_yuv_band_apply_f32(const float* rgb, const float* totals,
+                                                  float* yuv, float* scale, long long batch,
+                                                  long long npix, float n, void* stream) {
+  const long long blocks = (npix + 255) / 256;
+  if (batch <= 0 || batch > 65535 || npix <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  band_apply<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(batch)),
+               256, 0, static_cast<cudaStream_t>(stream)>>>(rgb, totals, yuv, scale, npix, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -22,7 +22,9 @@ Under data parallelism (parallel/mesh.py) each rank feeds only its block of
 every global batch to its own card (`rank_feed`), the counterpart of
 `put_global_batch`: no rank loads or copies the whole batch. `local_batch`
 cuts the same block out of a batch every rank made whole (the on-card
-renders of the flagship trainer's phase B).
+renders of the flagship trainer's phase B). On a spatial layout
+(parallel/spatial.py) each rank of a model row feeds its band of rows of
+that block (`local_band`), the counterpart of `shard_batch(spatial=True)`.
 """
 
 from __future__ import annotations
@@ -52,6 +54,19 @@ def local_batch(batch, rank_index: int, processes: int, axis: int = 1):
     index = [slice(None)] * batch.ndim
     index[axis] = slice(rank_index * size, (rank_index + 1) * size)
     return batch[tuple(index)]
+
+
+def local_band(batch, index: int, count: int, axis: int = 2):
+    """Band `index` of `count` equal bands of rows of `batch` along `axis`
+    (the H axis of a (V, B, H, W, 3) stack); H must divide by count, as the
+    JAX package's placement of H on the model axis requires."""
+    h = batch.shape[axis]
+    if h % count != 0:
+        raise ValueError(f"image height {h} not divisible by {count} bands")
+    size = h // count
+    index_ = [slice(None)] * batch.ndim
+    index_[axis] = slice(index * size, (index + 1) * size)
+    return batch[tuple(index_)]
 
 
 class _PinnedSlot:
@@ -148,17 +163,25 @@ class DevicePrefetcher:
 
 def rank_feed(dataset, shuffle_seed: Optional[int] = None, device="cuda",
               depth: int = 2, process_index: Optional[int] = None,
-              process_count: Optional[int] = None) -> DevicePrefetcher:
+              process_count: Optional[int] = None, band_index: int = 0,
+              band_count: int = 1) -> DevicePrefetcher:
     """This rank's feed of one epoch: block `process_index` of
     `process_count` contiguous blocks of every global batch of `dataset`
     (`iter_epoch`, the same global order on every rank) on `device`. The
     index and count are the rank's data index and the data axis's size
     (default: the rank and the world size, the mesh of data parallelism
-    alone); the M ranks of a model row take the same block. The global
-    batch must divide by the count; it raises here, not in the worker."""
+    alone); the M ranks of a model row take the same block, and on a
+    spatial layout band `band_index` of `band_count` of its rows
+    (`local_band`). The global batch must divide by the count, and the
+    image height by the bands; it raises here, not in the worker."""
     index = rank() if process_index is None else process_index
     n = world_size() if process_count is None else process_count
     if n > 1:
         _check_divides(dataset.batch_size, n)
-    return DevicePrefetcher(dataset.iter_epoch(shuffle_seed=shuffle_seed, process_index=index,
-                                               process_count=n), device=device, depth=depth)
+    it = dataset.iter_epoch(shuffle_seed=shuffle_seed, process_index=index, process_count=n)
+    if band_count > 1:
+        size = getattr(dataset, "image_size", band_count)
+        if size % band_count:
+            raise ValueError(f"image height {size} not divisible by {band_count} bands")
+        it = (local_band(np.asarray(b), band_index, band_count) for b in it)
+    return DevicePrefetcher(it, device=device, depth=depth)

@@ -26,6 +26,14 @@ one model rank's slice of its output channels (`tp.shard_model_`, which sets
 `tp`); it then runs its conv, leaky_relu and InstanceNorm on the slice,
 between `tp.enter` and `tp.leave`, and returns its channels whole.
 `TP_DIMS` names the torch dim of each parameter's output channels.
+
+Spatial sharding (parallel/spatial.py): every block's forward takes `sp`,
+the Band of its input map (None: the whole map). On a band a convolution
+takes the halo rows its window needs (a 3x3 SAME conv one above and one
+below, D's stride-2 conv one below, the transposed conv one above), a pool
+and a 1x1 conv run on the band, and InstanceNorm takes its moments over
+the row; a block whose map the band cannot hold (`sp.fits`) runs whole on
+every rank of the row (`sp.whole`) and keeps its band of the result.
 """
 
 from __future__ import annotations
@@ -46,12 +54,20 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
 
 
-def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    return F.avg_pool2d(x, 2)
+def _pool(x: torch.Tensor, fn, size: int, sp) -> torch.Tensor:
+    if sp is None:
+        return fn(x)
+    if sp.fits(step=size):
+        return sp.local(x, fn)
+    return sp.whole(x, fn, sp.h // size)
 
 
-def max_pool(x: torch.Tensor, size: int) -> torch.Tensor:
-    return F.max_pool2d(x, size)
+def avg_pool_2x2(x: torch.Tensor, sp=None) -> torch.Tensor:
+    return _pool(x, lambda t: F.avg_pool2d(t, 2), 2, sp)
+
+
+def max_pool(x: torch.Tensor, size: int, sp=None) -> torch.Tensor:
+    return _pool(x, lambda t: F.max_pool2d(t, size), size, sp)
 
 
 def same_conv(cin: int, cout: int, kernel: int = 3) -> nn.Conv2d:
@@ -66,6 +82,25 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 def conv(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """m(x) computed in `dtype`: input, weight and bias cast to it."""
     return m._conv_forward(x.to(dtype), m.weight.to(dtype), _cast(m.bias, dtype))
+
+
+def conv_rows(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """m(x) computed in `dtype`, padded on W only: x carries the rows above
+    and below its band that the window takes (spatial.Band.rows)."""
+    return F.conv2d(x.to(dtype), m.weight.to(dtype), _cast(m.bias, dtype), m.stride,
+                    (0, m.padding[1]))
+
+
+def conv_lrelu(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, slope: float,
+               sp) -> torch.Tensor:
+    """leaky_relu(m(x)) of a stride-1 SAME conv, on sp's band of x (sp None:
+    the whole map)."""
+    p = m.padding[0]
+    if sp is None:
+        return leaky_relu(conv(m, x, dtype), slope)
+    if not sp.fits(halo=p):
+        return sp.whole(x, lambda t: leaky_relu(conv(m, t, dtype), slope), sp.h)
+    return sp.rows(x, lambda e: leaky_relu(conv_rows(m, e, dtype), slope), p, p)
 
 
 def conv_transpose(m: nn.ConvTranspose2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -90,8 +125,10 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return in_kernel.instance_norm(x, self.scale, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        if sp is None:
+            return in_kernel.instance_norm(x, self.scale, self.bias, self.eps)
+        return sp.instance_norm(x, self.scale, self.bias, self.eps)
 
 
 class ConvIN(nn.Module):
@@ -106,9 +143,13 @@ class ConvIN(nn.Module):
         self.conv = same_conv(cin, features, kernel)
         self.inorm = InstanceNorm(features, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv(self.conv, enter(self.tp, x), self.dtype)
-        return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        if sp is None:
+            x = conv(self.conv, enter(self.tp, x), self.dtype)
+            return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
+        if not sp.fits(halo=self.conv.padding[0]):
+            return sp.whole(x, self.forward, sp.h)
+        return self.inorm(conv_lrelu(self.conv, x, self.dtype, self.slope, sp), sp)
 
 
 class ConvLReLUIN(nn.Module):
@@ -124,9 +165,16 @@ class ConvLReLUIN(nn.Module):
         self.conv = nn.Conv2d(cin, features, 3, stride=2, padding=0, bias=False)
         self.inorm = InstanceNorm(features, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv(self.conv, F.pad(enter(self.tp, x), (0, 1, 0, 1)), self.dtype)
-        return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        if sp is None:
+            x = conv(self.conv, F.pad(enter(self.tp, x), (0, 1, 0, 1)), self.dtype)
+            return leave(self.tp, self.inorm(leaky_relu(x, self.slope)))
+        if not sp.fits(halo=1, step=2):
+            return sp.whole(x, self.forward, sp.h // 2)
+        # the band and the row below it (SAME at stride 2 pads below only)
+        y = sp.rows(x, lambda e: leaky_relu(
+            conv(self.conv, F.pad(e, (0, 1)), self.dtype), self.slope), 0, 1)
+        return self.inorm(y, sp.at(sp.h // 2))
 
 
 class MaskAttention(nn.Module):
@@ -144,9 +192,14 @@ class MaskAttention(nn.Module):
         self.conv0 = same_conv(cin, features)
         self.conv1 = same_conv(features, features)
 
-    def forward(self, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        pooled = max_pool(mask, self.pool_size) if self.pool else mask
+    def forward(self, mask: torch.Tensor, sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        pooled = max_pool(mask, self.pool_size, sp) if self.pool else mask
         a = pooled
+        if sp is not None:
+            psp = sp.at(sp.h // self.pool_size) if self.pool else sp
+            for m in (self.conv0, self.conv1):
+                a = conv_lrelu(m, a, self.dtype, self.slope, psp)
+            return a, pooled
         for m in (self.conv0, self.conv1):
             a = leave(self.tp, leaky_relu(conv(m, enter(self.tp, a), self.dtype), self.slope))
         return a, pooled
@@ -164,10 +217,19 @@ class ConvTransposeUp(nn.Module):
         self.slope, self.dtype, self.tp = slope, dtype, None
         self.convt = nn.ConvTranspose2d(cin, features, 3, stride=2, padding=0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
         h, w = x.shape[-2:]
-        y = conv_transpose(self.convt, enter(self.tp, x), self.dtype)
-        return leave(self.tp, leaky_relu(y[..., :2 * h, :2 * w], self.slope))
+        if sp is None:
+            y = conv_transpose(self.convt, enter(self.tp, x), self.dtype)
+            return leave(self.tp, leaky_relu(y[..., :2 * h, :2 * w], self.slope))
+        if not sp.fits(halo=1):
+            return sp.whole(x, self.forward, 2 * sp.h)
+
+        def band(e):  # the row above and the band: output rows 2 .. 2 * band + 1
+            y = conv_transpose(self.convt, e, self.dtype)
+            return leaky_relu(y[..., 2:2 * e.shape[2], :2 * w], self.slope)
+
+        return sp.rows(x, band, 1, 0)
 
 
 class ResizeConvUp(nn.Module):
@@ -182,6 +244,11 @@ class ResizeConvUp(nn.Module):
         self.slope, self.dtype, self.tp = slope, dtype, None
         self.convt = same_conv(cin, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(enter(self.tp, x), scale_factor=2, mode="nearest")
-        return leave(self.tp, leaky_relu(conv(self.convt, x, self.dtype), self.slope))
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        if sp is None:
+            x = F.interpolate(enter(self.tp, x), scale_factor=2, mode="nearest")
+            return leave(self.tp, leaky_relu(conv(self.convt, x, self.dtype), self.slope))
+        if not sp.fits(halo=1):
+            return sp.whole(x, self.forward, 2 * sp.h)
+        x = sp.local(x, lambda t: F.interpolate(t, scale_factor=2, mode="nearest"))
+        return conv_lrelu(self.convt, x, self.dtype, self.slope, sp.at(2 * sp.h))

@@ -25,6 +25,14 @@ Dense kernel by its input rows (`TP_DIMS`: the Linear weight's dim 1, in
 the NHWC flatten order, so a rank's rows are a run of spatial positions
 with all their channels): each rank multiplies its block of the flattened
 features, and the partial logits are summed over the model row.
+
+Spatial sharding (parallel/spatial.py): with `sp`, the image, the mask, the
+noise and the keep mask are a band of rows (of images of height sp.h, and
+of the (H/32)-row map for keep), and so is the patch map; each block gets
+the Band of its map, the patch head takes a halo row from each side, and
+the class head is row-parallel over the band: in NHWC flatten order a
+band's rows are one run of the Dense's input rows, so each rank multiplies
+its run by those rows and the partial logits are summed over the row.
 """
 
 from __future__ import annotations
@@ -33,9 +41,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from shmgan_tpu_torch.models.blocks import (
-    INIT_STDDEV, ConvLReLUIN, InstanceNorm, MaskAttention, conv, leaky_relu, linear,
+    INIT_STDDEV, ConvLReLUIN, InstanceNorm, MaskAttention, conv_lrelu, linear,
 )
 from shmgan_tpu_torch.parallel.tp import reduce_sum, split_last
 
@@ -63,20 +72,40 @@ class SHMDiscriminator(nn.Module):
 
     def forward(self, img: torch.Tensor, mask: torch.Tensor,
                 noise: Optional[torch.Tensor] = None,
-                keep: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                keep: Optional[torch.Tensor] = None,
+                sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
         x = img.permute(0, 3, 1, 2).contiguous().to(self.dtype)
         if noise is not None:
             x = x + self.noise_stddev * noise.to(self.dtype)
+
+        def at(halvings):
+            return None if sp is None else sp.at(sp.h >> halvings)
+
         for i in range(4):
-            x = getattr(self, f"block{i}")(x)
-        attn, _ = self.attn(mask.permute(0, 3, 1, 2).contiguous().to(self.dtype))
-        x = self.block4(x + attn)
+            x = getattr(self, f"block{i}")(x, at(i))
+        attn, _ = self.attn(mask.permute(0, 3, 1, 2).contiguous().to(self.dtype), at(0))
+        x = self.block4(x + attn, at(4))
         if keep is not None:
             x = torch.where(keep.bool(), x / (1.0 - self.dropout_rate), torch.zeros_like(x))
-        real_fake = leaky_relu(conv(self.out_realfake, x, self.dtype), self.slope)
-        flat = split_last(self.tp, x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
-        logits = reduce_sum(self.tp, linear(self.out_class, flat, self.dtype))
+        real_fake = conv_lrelu(self.out_realfake, x, self.dtype, self.slope, at(5))
+        if sp is None:
+            flat = split_last(self.tp, x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+            logits = reduce_sum(self.tp, linear(self.out_class, flat, self.dtype))
+        else:
+            row = x.shape[1] * x.shape[3]  # Dense input rows of one feature-map row
+
+            def partial(band, start, stop):
+                flat = band.permute(0, 2, 3, 1).reshape(band.shape[0], -1)
+                w = self.out_class.weight[:, start * row:stop * row]
+                return F.linear(flat.to(self.dtype), w.to(self.dtype))
+
+            logits = at(5).reduce(x, partial, 2)
         return real_fake.permute(0, 2, 3, 1).contiguous().float(), logits.float()
+
+    @staticmethod
+    def out_height(h: int) -> int:
+        """The patch map's height for images of height h (five stride-2 convs)."""
+        return h >> 5
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "SHMDiscriminator":

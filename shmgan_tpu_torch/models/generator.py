@@ -10,6 +10,9 @@ the interface, NCHW inside. Topology (N = filter_size):
 
 Computes in `dtype` (float32 or bfloat16, the JAX module's `dtype`): the
 mask is cast to it, every block returns it, and so does the output.
+
+`sp` (parallel/spatial.py): x and the mask are a band of rows of images of
+height sp.h, and so is the output; each block gets the Band of its map.
 """
 
 from __future__ import annotations
@@ -52,21 +55,30 @@ class SHMGenerator(nn.Module):
             cin = feats
         self.head = nn.Conv2d(cin, 1, 1)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, sp=None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous()
         pooled = mask.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+
+        def at(level):  # the Band of the maps `level` pools down
+            return None if sp is None else sp.at(sp.h >> level)
+
         skips = []
         for lvl in range(self.levels):
-            x = getattr(self, f"down{lvl}_1")(getattr(self, f"down{lvl}_0")(x))
-            attn, pooled = getattr(self, f"attn{lvl}")(pooled)
+            x = getattr(self, f"down{lvl}_1")(getattr(self, f"down{lvl}_0")(x, at(lvl)), at(lvl))
+            attn, pooled = getattr(self, f"attn{lvl}")(pooled, at(max(lvl - 1, 0)))
             skips.append(x + attn)
-            x = avg_pool_2x2(x)
-        x = self.bottleneck_1(self.bottleneck_0(x))
+            x = avg_pool_2x2(x, at(lvl))
+        x = self.bottleneck_1(self.bottleneck_0(x, at(self.levels)), at(self.levels))
         for ulvl in range(self.levels):
-            x = getattr(self, f"up{ulvl}_t")(x)
+            x = getattr(self, f"up{ulvl}_t")(x, at(self.levels - ulvl))
             x = torch.cat([x, skips[self.levels - 1 - ulvl]], dim=1)
-            x = getattr(self, f"up{ulvl}_1")(getattr(self, f"up{ulvl}_0")(x))
-        y = leaky_relu(conv(self.head, x, self.dtype), self.slope)
+            lsp = at(self.levels - 1 - ulvl)
+            x = getattr(self, f"up{ulvl}_1")(getattr(self, f"up{ulvl}_0")(x, lsp), lsp)
+
+        def head(t):
+            return leaky_relu(conv(self.head, t, self.dtype), self.slope)
+
+        y = head(x) if sp is None else sp.local(x, head)
         return y.permute(0, 2, 3, 1).contiguous()
 
     @torch.no_grad()

@@ -19,6 +19,11 @@ Five levels (base, 2x, 4x, 8x, 16x filters), each two conv3x3 + relu (+ BN on
 the contracting path); 2x2 max pool down; transposed conv k2 s2 up (the
 flipped flax kernel with padding 0) with skip concats; 1x1 sigmoid head.
 
+In eval mode `sp` (parallel/spatial.py) runs it on a band of rows of
+images of height sp.h: the 3x3 convs take a halo row from each side, the
+pools, the transposed convs (k2 s2: two output rows an input row) and the
+head run on the band, and the batch norm's running statistics are local.
+
 Computes in `dtype` (float32 or bfloat16, the JAX module's `dtype`); the
 batch norm computes in float32 against its float32 statistics and casts back,
 as flax's does, and the head's sigmoid takes a float32 cast: the output is
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-from shmgan_tpu_torch.models.blocks import conv, conv_transpose, same_conv
+from shmgan_tpu_torch.models.blocks import conv, conv_rows, conv_transpose, max_pool, same_conv
 
 DROPOUT = (0.1, 0.1, 0.2, 0.2, 0.3)  # down0..down3, bottom
 UP_DROPOUT = (0.2, 0.2, 0.1, 0.1)    # up0..up3
@@ -53,11 +58,18 @@ class _DoubleConv(nn.Module):
         self.conv1 = same_conv(features, features)
         self.bn = nn.BatchNorm2d(features, eps=1e-3) if batch_norm else None
 
-    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None, sp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """keep given: train mode (dropout with it, batch statistics); it
-        returns the new running statistics of its batch norm, if any."""
+        returns the new running statistics of its batch norm, if any. sp:
+        eval mode on a band (see the module's docstring)."""
         train = keep is not None
+        if sp is not None:
+            if not sp.fits(halo=1):
+                return sp.whole(x, lambda t: self.forward(t)[0], sp.h), None
+            for m in (self.conv0, self.conv1):
+                x = sp.rows(x, lambda e, m=m: F.relu(conv_rows(m, e, self.dtype)), 1, 1)
+            return self._eval_bn(x), None
         x = F.relu(conv(self.conv0, x, self.dtype))
         if train:
             x = torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
@@ -66,8 +78,7 @@ class _DoubleConv(nn.Module):
             return x, None
         bn = self.bn
         if not train:
-            return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                                bn.bias, training=False, eps=bn.eps).to(self.dtype), None
+            return self._eval_bn(x), None
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
@@ -76,6 +87,13 @@ class _DoubleConv(nn.Module):
         stats = {"mean": BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean.detach(),
                  "var": BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var.detach()}
         return y.to(self.dtype), stats
+
+    def _eval_bn(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.bn
+        if bn is None:
+            return x
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            training=False, eps=bn.eps).to(self.dtype)
 
 
 class SpecSeg(nn.Module):
@@ -116,47 +134,69 @@ class SpecSeg(nn.Module):
                 for shape, r in zip(self.keep_shapes(batch, h, w), rates)]
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                keep: Optional[Sequence[torch.Tensor]] = None
+                keep: Optional[Sequence[torch.Tensor]] = None, sp=None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
         """(B, H, W, in_channels) -> (B, H, W, 1) probabilities; with train,
         (probabilities, new batch_stats) from the 9 keep masks, batch_stats
-        laid out as flax's {"down0": {"bn": {"mean", "var"}}, ...}."""
+        laid out as flax's {"down0": {"bn": {"mean", "var"}}, ...}. sp: eval
+        mode on a band of rows (see the module's docstring)."""
         if train and (keep is None or len(keep) != 2 * self.levels + 1):
             raise ValueError(f"train mode takes {2 * self.levels + 1} keep masks")
+        if train and sp is not None:
+            raise ValueError("SpecSeg trains on whole images only; sp is for eval mode")
         keeps = dict(zip(self.block_names(), keep)) if train else {}
         stats: Dict = {}
 
-        def block(name, h):
-            h, new = getattr(self, name)(h, keeps.get(name))
+        def at(level):
+            return None if sp is None else sp.at(sp.h >> level)
+
+        def block(name, h, level):
+            h, new = getattr(self, name)(h, keeps.get(name), at(level))
             if new is not None:
                 stats[name] = {"bn": new}
             return h
 
-        x, skips = self._encode(x.permute(0, 3, 1, 2).contiguous(), block)
+        x, skips = self._encode(x.permute(0, 3, 1, 2).contiguous(), block, at)
         for j in range(self.levels):
-            x = conv_transpose(getattr(self, f"up{j}_t"), x, self.dtype)
+            up_t = getattr(self, f"up{j}_t")
+            level = self.levels - j
+
+            def up(t, up_t=up_t):
+                return conv_transpose(up_t, t, self.dtype)
+
+            if sp is None:
+                x = up(x)
+            elif at(level).fits():
+                x = at(level).local(x, up)
+            else:
+                x = at(level).whole(x, up, 2 * at(level).h)
             x = torch.cat([x, skips[-(j + 1)]], dim=1)
-            x = block(f"up{j}", x)
-        y = torch.sigmoid(conv(self.head, x, self.dtype).float())
+            x = block(f"up{j}", x, level - 1)
+
+        def head(t):
+            return torch.sigmoid(conv(self.head, t, self.dtype).float())
+
+        y = head(x) if sp is None else sp.local(x, head)
         y = y.permute(0, 2, 3, 1).contiguous()
         return (y, stats) if train else y
 
-    def _encode(self, x: torch.Tensor, block) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def _encode(self, x: torch.Tensor, block, at=lambda level: None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The contracting path and the bottom block of NCHW x: (the bottom
         block's output, the skips)."""
         skips = []
         for i in range(self.levels):
-            x = block(f"down{i}", x)
+            x = block(f"down{i}", x, i)
             skips.append(x)
-            x = F.max_pool2d(x, 2)
-        return block("bottom", x), skips
+            x = max_pool(x, 2, at(i))
+        return block("bottom", x, self.levels), skips
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The bottom block's output in eval mode, (B, 16 base, H/16, W/16)
         NCHW in the compute dtype, from (B, H, W, in_channels): the encoder
         features flax's `capture_intermediates` reads at "bottom"."""
         return self._encode(x.permute(0, 3, 1, 2).contiguous(),
-                            lambda name, h: getattr(self, name)(h)[0])[0]
+                            lambda name, h, level: getattr(self, name)(h)[0])[0]
 
     @torch.no_grad()
     def load_batch_stats(self, stats: Dict) -> None:

@@ -9,4 +9,5 @@ def launch_counts() -> Dict[str, int]:
     from shmgan_tpu_torch.ops.kernels import preprocess as pre
 
     return {**{ink.kernel_name(*k): n for k, n in ink.launches.items()},
-            "fused_standardize_yuv": pre.launches}
+            "fused_standardize_yuv": pre.launches,
+            "fused_standardize_yuv_band": pre.band_launches}

@@ -26,9 +26,25 @@ The backward kernel has three variants (packed, resident, streaming);
 `_bwd_plan` picks one from the shape alone, with its threads, and the
 launch takes the plan and refuses one it cannot run.
 
-`launches[kind, dtype]` counts the launches of each kernel ("forward" or
-"backward") by activation dtype, so a run can show its path went through the
-kernels; `kernel_name(kind, dtype)` names each in reports.
+Bands (parallel/spatial.py): `instance_norm_band(x, gamma, beta, eps, comm)`
+normalises a band of rows of every plane, the planes spread over the ranks
+of a model row, with the row's moments: the band's mean and M2 by one
+launch (`band_moments`), the row's gathered in rank order (`comm.gather`),
+then one launch that merges them (Chan et al.'s pairwise update) and
+applies the affine (`band_apply`). Its backward takes the band's sums of g
+and g * xhat by one launch (`band_bwd_sums`), adds the row's in float32
+(`comm.sum_f32`), and forms dx, and this band's dgamma and dbeta, by one
+more (`band_bwd_apply`). Each step has its plain version beside it, and a
+CPU tensor runs those. `instance_norm_split(x, gamma, beta, eps, m)` is the
+same arithmetic on a whole map in one process: each of its m bands through
+the same steps, the bands' moments and sums joined in rank order.
+
+`launches[kind, dtype]` counts the launches of each kernel by activation
+dtype: "forward" and "backward", and the band kernels by the entry point
+they serve ("band_forward": `band_moments` and `band_apply`;
+"band_backward": `band_bwd_sums` and `band_bwd_apply`; two launches a
+call), so a run can show its path went through the kernels;
+`kernel_name(kind, dtype)` names each in reports.
 """
 
 from __future__ import annotations
@@ -42,7 +58,10 @@ from torch.autograd.function import once_differentiable
 # the kernels' entry points in csrc/instance_norm.cu, by activation dtype
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: Dict[torch.dtype, tuple] = {}
-KINDS = ("forward", "backward")
+_band_fns: Dict[torch.dtype, tuple] = {}
+KINDS = ("forward", "backward", "band_forward", "band_backward")
+_KIND_NAMES = {"forward": "", "backward": "_backward", "band_forward": "_band",
+               "band_backward": "_band_backward"}
 launches: Dict[Tuple[str, torch.dtype], int] = {(k, d): 0 for k in KINDS for d in _SUFFIX}
 
 
@@ -112,9 +131,9 @@ def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
 
 
 def kernel_name(kind: str, dtype: torch.dtype) -> str:
-    """instance_norm, instance_norm_backward, and each with _bf16 for bf16."""
-    return ("instance_norm" + ("_backward" if kind == "backward" else "")
-            + ("_bf16" if dtype == torch.bfloat16 else ""))
+    """instance_norm, instance_norm_backward, instance_norm_band,
+    instance_norm_band_backward, and each with _bf16 for bf16."""
+    return "instance_norm" + _KIND_NAMES[kind] + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
 def _kernel_fns(dtype: torch.dtype):
@@ -297,3 +316,309 @@ def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                     or beta.requires_grad):
         return _InstanceNormFn.apply(x, gamma, beta, eps)
     return _forward(x, gamma, beta, eps, with_stats=False)[0]
+
+
+# -- bands of rows, over the ranks of a model row (parallel/spatial.py) ------
+
+def _band_kernel_fns(dtype: torch.dtype):
+    """(moments, apply, bwd_sums, bwd_apply) C functions for `dtype`."""
+    if dtype not in _band_fns:
+        from shmgan_tpu_torch.runtime.build import load
+
+        lib = load("instance_norm")
+        p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+        sig = {"moments": [p, p, ll, ll, p],
+               "apply": [p, p, p, p, i, ll, i, ll, f, p, p, p, p],
+               "bwd_sums": [p, p, p, p, p, ll, ll, p],
+               "bwd_apply": [p, p, p, p, p, p, p, ll, i, ll, f, p, p, p, p]}
+        fns = []
+        for name, argtypes in sig.items():
+            fn = getattr(lib, f"shm_instance_norm_band_{name}_{_SUFFIX[dtype]}")
+            fn.argtypes, fn.restype = argtypes, i
+            fns.append(fn)
+        _band_fns[dtype] = tuple(fns)
+    return _band_fns[dtype]
+
+
+def _run(fn, what: str, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"instance_norm band {what} kernel launch failed: CUDA error {err}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_band(x: torch.Tensor, **others: torch.Tensor) -> None:
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"instance_norm band: expected a non-empty (B, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cuda":
+        acts = {"x": x, **{k: v for k, v in others.items() if v.dtype != torch.float32}}
+        _check(acts, {k: v for k, v in others.items() if k not in acts})
+
+
+def band_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """(2, B, C) float32: each plane's mean and sum of squared deviations
+    (M2) over this band's rows, two-pass."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3))
+    m2 = (xf - mean[:, :, None, None]).square().sum(dim=(2, 3))
+    return torch.stack([mean, m2])
+
+
+def band_moments(x: torch.Tensor) -> torch.Tensor:
+    """`band_moments_plain` by one launch for a CUDA tensor (per-thread
+    Welford, merged over the block); the plain version for a CPU one."""
+    _check_band(x)
+    if x.device.type == "cpu":
+        return band_moments_plain(x)
+    b, c, h, w = x.shape
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _run(_band_kernel_fns(x.dtype)[0], "moments", x.data_ptr(), out.data_ptr(), b * c,
+             h * w, _stream(x))
+    launches["band_forward", x.dtype] += 1
+    return out
+
+
+def _merge(parts: torch.Tensor, n_band: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, M2 / n) of the row from its bands' (M, 2, B, C) moments, each
+    band n_band elements a plane, merged in rank order (Chan et al.)."""
+    n, mean, m2 = float(n_band), parts[0, 0], parts[0, 1]
+    for r in range(1, parts.shape[0]):
+        total = n + n_band
+        delta = parts[r, 0] - mean
+        mean = mean + delta * (n_band / total)
+        m2 = m2 + parts[r, 1] + delta.square() * (n * n_band / total)
+        n = total
+    return mean, m2 / n
+
+
+def band_apply_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     parts: torch.Tensor, eps: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, rstd): the row's moments from `parts` (M, 2, B, C), then
+    y = (x - mean) * gamma * rstd + beta in x's dtype; mean and rstd (B, C)."""
+    mean, var = _merge(parts, x.shape[2] * x.shape[3])
+    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+    scale = (gamma.view(1, -1) * rstd)[:, :, None, None]
+    y = (x.float() - mean[:, :, None, None]) * scale + beta.view(1, -1, 1, 1)
+    return y.to(x.dtype), mean, rstd
+
+
+def band_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               parts: torch.Tensor, eps: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`band_apply_plain` by one launch for a CUDA tensor."""
+    b, c, h, w = x.shape
+    _check_band(x, gamma=gamma, beta=beta, parts=parts)
+    if parts.dim() != 4 or parts.shape[1:] != (2, b, c) or gamma.shape != (c,) \
+            or beta.shape != (c,):
+        raise ValueError(f"instance_norm band: parts {tuple(parts.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)} do not fit "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return band_apply_plain(x, gamma, beta, parts, eps)
+    y = torch.empty_like(x)
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        _run(_band_kernel_fns(x.dtype)[1], "apply", x.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), parts.data_ptr(), parts.shape[0], b * c, c, h * w, float(eps),
+             y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _stream(x))
+    launches["band_forward", x.dtype] += 1
+    return y, mean, rstd
+
+
+def band_bwd_sums_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor) -> torch.Tensor:
+    """(2, B, C) float32: each plane's sums of g and of g * xhat over this
+    band's rows."""
+    gf = g.float()
+    xhat = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
+    return torch.stack([gf.sum(dim=(2, 3)), (gf * xhat).sum(dim=(2, 3))])
+
+
+def band_bwd_sums(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                  rstd: torch.Tensor) -> torch.Tensor:
+    """`band_bwd_sums_plain` by one launch for a CUDA tensor."""
+    _check_band(x, g=g, mean=mean, rstd=rstd)
+    if x.device.type == "cpu":
+        return band_bwd_sums_plain(x, g, mean, rstd)
+    b, c, h, w = x.shape
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _run(_band_kernel_fns(x.dtype)[2], "backward sums", x.data_ptr(), g.data_ptr(),
+             mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), b * c, h * w, _stream(x))
+    launches["band_backward", x.dtype] += 1
+    return out
+
+
+def band_bwd_apply_plain(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                         mean: torch.Tensor, rstd: torch.Tensor, local: torch.Tensor,
+                         total: torch.Tensor, n: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta) of this band: dx from the row's sums `total`
+    (2, B, C) and the whole plane's count n (`_bwd` of the JAX package);
+    dgamma and dbeta from this band's sums `local`, added over the batch."""
+    inv = rstd[:, :, None, None]
+    xhat = (x.float() - mean[:, :, None, None]) * inv
+    gm = gamma.view(1, -1, 1, 1)
+    sum_gg = (gamma.view(1, -1) * total[0])[:, :, None, None]
+    sum_gg_xhat = (gamma.view(1, -1) * total[1])[:, :, None, None]
+    dx = inv / n * (n * (g.float() * gm) - sum_gg - xhat * sum_gg_xhat)
+    return dx.to(x.dtype), local[1].sum(dim=0), local[0].sum(dim=0)
+
+
+def band_bwd_apply(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                   mean: torch.Tensor, rstd: torch.Tensor, local: torch.Tensor,
+                   total: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`band_bwd_apply_plain` by one launch for a CUDA tensor."""
+    _check_band(x, g=g, gamma=gamma, mean=mean, rstd=rstd, local=local, total=total)
+    if x.device.type == "cpu":
+        return band_bwd_apply_plain(x, g, gamma, mean, rstd, local, total, n)
+    b, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    with torch.cuda.device(x.device):
+        _run(_band_kernel_fns(x.dtype)[3], "backward apply", x.data_ptr(), g.data_ptr(),
+             gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), local.data_ptr(),
+             total.data_ptr(), b, c, h * w, float(n), dx.data_ptr(), dgamma.data_ptr(),
+             dbeta.data_ptr(), _stream(x))
+    launches["band_backward", x.dtype] += 1
+    return dx, dgamma, dbeta
+
+
+class _Steps(NamedTuple):
+    moments: object
+    apply: object
+    bwd_sums: object
+    bwd_apply: object
+
+
+_KERNEL_STEPS = _Steps(band_moments, band_apply, band_bwd_sums, band_bwd_apply)
+_PLAIN_STEPS = _Steps(band_moments_plain, band_apply_plain, band_bwd_sums_plain,
+                      band_bwd_apply_plain)
+
+
+def _steps(x: torch.Tensor, plain: bool) -> _Steps:
+    return _PLAIN_STEPS if plain or x.device.type == "cpu" else _KERNEL_STEPS
+
+
+def instance_norm_band_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                               eps: float, comm, plain: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, rstd) of this rank's band: its moments (one launch),
+    gathered over the row (`comm.gather`), merged and applied (one launch);
+    the plain steps for a CPU tensor or with `plain`."""
+    steps = _steps(x, plain)
+    parts = comm.gather(steps.moments(x))
+    return steps.apply(x, gamma, beta, parts, eps)
+
+
+def instance_norm_band_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                                mean: torch.Tensor, rstd: torch.Tensor, comm,
+                                plain: bool = False
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta) of this rank's band from the forward's mean and
+    rstd: its sums (one launch), added over the row in float32
+    (`comm.sum_f32`), then dx and this band's dgamma and dbeta (one launch);
+    the plain steps for a CPU tensor or with `plain`."""
+    steps = _steps(x, plain)
+    local = steps.bwd_sums(x, g, mean, rstd)
+    total = comm.sum_f32(local)
+    return steps.bwd_apply(x, g, gamma, mean, rstd, local, total,
+                           x.shape[2] * x.shape[3] * comm.m)
+
+
+class _BandFn(torch.autograd.Function):
+    """IN of this rank's band, the moments and sums joined over `comm`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, comm, plain):
+        y, mean, rstd = instance_norm_band_forward(x, gamma, beta, eps, comm, plain)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.comm, ctx.plain = comm, plain
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_band_backward(x, g.contiguous(), gamma, mean, rstd,
+                                                        ctx.comm, ctx.plain)
+        return dx, dgamma, dbeta, None, None, None
+
+
+def instance_norm_band(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                       comm) -> torch.Tensor:
+    """Instance norm of this rank's band of rows (B, C, h, W) of planes cut
+    into comm.m equal bands over a model row; `comm` (parallel/spatial.py's
+    Band) gathers the bands' moments in rank order (`gather`) and adds
+    float32 sums over the row (`sum_f32`). Through the kernels for a CUDA
+    tensor, the plain steps for a CPU one; differentiable in x, gamma and
+    beta (dgamma and dbeta: this band's share)."""
+    return _BandFn.apply(x.contiguous(), gamma, beta, eps, comm, False)
+
+
+def instance_norm_band_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                             eps: float, comm) -> torch.Tensor:
+    """`instance_norm_band` through the plain steps on any device."""
+    return _BandFn.apply(x.contiguous(), gamma, beta, eps, comm, True)
+
+
+def _bands(h: int, m: int):
+    if h % m:
+        raise ValueError(f"instance_norm split: {h} rows do not divide into {m} bands")
+    return [(j * (h // m), h // m) for j in range(m)]
+
+
+class _SplitFn(torch.autograd.Function):
+    """`_BandFn` of every band of a whole map in one process."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, m, plain):
+        steps = _steps(x, plain)
+        bands = [x.narrow(2, s, n).contiguous() for s, n in _bands(x.shape[2], m)]
+        parts = torch.stack([steps.moments(b) for b in bands])
+        outs = [steps.apply(b, gamma, beta, parts, eps) for b in bands]
+        mean, rstd = outs[0][1], outs[0][2]
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.m, ctx.steps = m, steps
+        return torch.cat([o[0] for o in outs], 2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        spans = _bands(x.shape[2], ctx.m)
+        xs = [x.narrow(2, s, n).contiguous() for s, n in spans]
+        gs = [g.narrow(2, s, n).contiguous() for s, n in spans]
+        local = [ctx.steps.bwd_sums(xb, gb, mean, rstd) for xb, gb in zip(xs, gs)]
+        total = local[0]
+        for part in local[1:]:
+            total = total + part
+        outs = [ctx.steps.bwd_apply(xb, gb, gamma, mean, rstd, lb, total, x.shape[2] * x.shape[3])
+                for xb, gb, lb in zip(xs, gs, local)]
+        dgamma, dbeta = outs[0][1], outs[0][2]
+        for o in outs[1:]:
+            dgamma, dbeta = dgamma + o[1], dbeta + o[2]
+        return torch.cat([o[0] for o in outs], 2), dgamma, dbeta, None, None, None
+
+
+def instance_norm_split(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                        m: int) -> torch.Tensor:
+    """Instance norm of a whole (B, C, H, W) map computed as the m bands of a
+    model row compute it (`instance_norm_band`), in one process: the kernels
+    for a CUDA tensor, the plain steps for a CPU one."""
+    return _SplitFn.apply(x.contiguous(), gamma, beta, eps, m, False)
+
+
+def instance_norm_split_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                              eps: float, m: int) -> torch.Tensor:
+    """`instance_norm_split` through the plain steps on any device."""
+    return _SplitFn.apply(x.contiguous(), gamma, beta, eps, m, True)

@@ -8,6 +8,15 @@ fallback. It replaces the TPU kernel `shmgan_tpu/ops/pallas/preprocess.py`
 thread-block cluster per image; `_plan` picks, from the shape alone, its
 variant (the image resident in the cluster's shared memory, or streamed in
 tiles) and the cluster size. `launches` counts kernel launches.
+
+Bands (parallel/spatial.py): `fused_standardize_yuv_band(rgb, comm)`
+standardises a band of rows of each image, the images spread over the ranks
+of a model row: each image's band moments by one launch (`band_moments`),
+their sum over the row (`comm.sum_f32`), then one launch that forms the
+scale and writes the band (`band_apply`); each step has its plain version
+beside it, and a CPU tensor runs those. `fused_standardize_yuv_split(rgb,
+m)` is the same arithmetic on whole images in one process.
+`band_launches` counts the band kernels' launches (two a call).
 """
 
 from __future__ import annotations
@@ -162,3 +171,144 @@ def fused_standardize_yuv(rgb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
                          f"got {rgb.dtype}")
     b, h, w, _ = rgb.shape
     return _launch(rgb, _plan(b, h, w))
+
+
+# -- bands of rows, over the ranks of a model row (parallel/spatial.py) ------
+
+band_launches = 0
+_band_lib = None
+
+
+def _band_library():
+    global _band_lib
+    if _band_lib is None:
+        from shmgan_tpu_torch.runtime.build import load
+
+        lib = load("preprocess")
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.shm_standardize_yuv_band_moments_f32.argtypes = [p, p, ll, ll, p]
+        lib.shm_standardize_yuv_band_moments_f32.restype = ctypes.c_int
+        lib.shm_standardize_yuv_band_apply_f32.argtypes = [p, p, p, p, ll, ll, ctypes.c_float,
+                                                           p]
+        lib.shm_standardize_yuv_band_apply_f32.restype = ctypes.c_int
+        _band_lib = lib
+    return _band_lib
+
+
+def _check_rgb(rgb: torch.Tensor) -> None:
+    if rgb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_standardize_yuv: unsupported device {rgb.device}")
+    if rgb.dim() != 4 or rgb.shape[-1] != 3 or rgb.numel() == 0:
+        raise ValueError(f"fused_standardize_yuv: expected a non-empty (B, H, W, 3), got "
+                         f"{tuple(rgb.shape)}")
+    if rgb.device.type == "cuda" and (rgb.dtype != torch.float32 or not rgb.is_contiguous()):
+        raise ValueError(f"fused_standardize_yuv: rgb must be contiguous float32, "
+                         f"got {rgb.dtype}")
+
+
+def band_moments_plain(rgb: torch.Tensor) -> torch.Tensor:
+    """(B, 2) float32: each image's sum and sum of squares of its YUV values
+    over this band's rows."""
+    yuv = rgb_to_yuv(rgb).float()
+    return torch.stack([yuv.sum(dim=(1, 2, 3)), yuv.square().sum(dim=(1, 2, 3))], 1)
+
+
+def band_moments(rgb: torch.Tensor) -> torch.Tensor:
+    """`band_moments_plain` by one launch for a CUDA tensor."""
+    global band_launches
+    _check_rgb(rgb)
+    if rgb.device.type == "cpu":
+        return band_moments_plain(rgb)
+    b, h, w, _ = rgb.shape
+    out = torch.empty((b, 2), dtype=torch.float32, device=rgb.device)
+    with torch.cuda.device(rgb.device):
+        err = _band_library().shm_standardize_yuv_band_moments_f32(
+            rgb.data_ptr(), out.data_ptr(), b, h * w,
+            torch.cuda.current_stream(rgb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_standardize_yuv band moments launch failed: CUDA error {err}")
+    band_launches += 1
+    return out
+
+
+def band_apply_plain(rgb: torch.Tensor, totals: torch.Tensor, n: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(YUV of this band / scale, scale (B,)) from the row's sums `totals`
+    (B, 2) over the n YUV values of each whole image, as
+    `per_image_standardization` forms the scale."""
+    mean = totals[:, 0] / n
+    variance = torch.clamp(totals[:, 1] / n - mean.square(), min=0.0)
+    scale = torch.clamp(torch.sqrt(variance), min=1.0 / 256.0)
+    return rgb_to_yuv(rgb).float() / scale.view(-1, 1, 1, 1), scale
+
+
+def band_apply(rgb: torch.Tensor, totals: torch.Tensor, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`band_apply_plain` by one launch for a CUDA tensor (times 1 / scale,
+    as the whole-image kernel)."""
+    global band_launches
+    _check_rgb(rgb)
+    if rgb.device.type == "cpu":
+        return band_apply_plain(rgb, totals, n)
+    b, h, w, _ = rgb.shape
+    if totals.shape != (b, 2) or totals.dtype != torch.float32 or not totals.is_contiguous() \
+            or totals.device != rgb.device:
+        raise ValueError(f"fused_standardize_yuv band: totals must be contiguous float32 "
+                         f"({b}, 2) on {rgb.device}, got {tuple(totals.shape)}")
+    yuv = torch.empty_like(rgb)
+    scale = torch.empty(b, dtype=torch.float32, device=rgb.device)
+    with torch.cuda.device(rgb.device):
+        err = _band_library().shm_standardize_yuv_band_apply_f32(
+            rgb.data_ptr(), totals.data_ptr(), yuv.data_ptr(), scale.data_ptr(), b, h * w,
+            float(n), torch.cuda.current_stream(rgb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_standardize_yuv band apply launch failed: CUDA error {err}")
+    band_launches += 1
+    return yuv, scale
+
+
+def _band_steps(rgb: torch.Tensor, plain: bool):
+    """(moments, apply): the kernels' steps for a CUDA tensor, the plain
+    steps for a CPU one or with `plain`."""
+    if plain or rgb.device.type == "cpu":
+        return band_moments_plain, band_apply_plain
+    return band_moments, band_apply
+
+
+def fused_standardize_yuv_band(rgb: torch.Tensor, comm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_standardize_yuv` of this rank's band of rows (B, h, W, 3) of
+    images cut into comm.m equal bands over a model row: the band's moments
+    (one launch), their sum over the row (`comm.sum_f32`), then the scale
+    and the band (one launch). Through the kernels for a CUDA tensor, the
+    plain steps for a CPU one."""
+    return _standardize_band(rgb, comm, False)
+
+
+def _standardize_band(rgb: torch.Tensor, comm, plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_rgb(rgb)
+    moments, apply = _band_steps(rgb, plain)
+    b, h, w, _ = rgb.shape
+    return apply(rgb, comm.sum_f32(moments(rgb)), 3 * h * w * comm.m)
+
+
+def fused_standardize_yuv_band_plain(rgb: torch.Tensor, comm
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_standardize_yuv_band` through the plain steps on any device."""
+    return _standardize_band(rgb, comm, True)
+
+
+def fused_standardize_yuv_split(rgb: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_standardize_yuv` of whole images computed as the m bands of a
+    model row compute it (`fused_standardize_yuv_band`), in one process."""
+    _check_rgb(rgb)
+    b, h, w, _ = rgb.shape
+    if h % m:
+        raise ValueError(f"fused_standardize_yuv split: {h} rows do not divide into {m} bands")
+    moments, apply = _band_steps(rgb, False)
+    bands = [rgb.narrow(1, j * (h // m), h // m).contiguous() for j in range(m)]
+    parts = [moments(x) for x in bands]
+    totals = parts[0]
+    for p in parts[1:]:
+        totals = totals + p
+    outs = [apply(x, totals, 3 * h * w) for x in bands]
+    return torch.cat([o[0] for o in outs], 1), outs[0][1]

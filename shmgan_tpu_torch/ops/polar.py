@@ -33,7 +33,12 @@ def calc_dop(i0_y: torch.Tensor, i45_y: torch.Tensor, i90_y: torch.Tensor,
     return dop, 0.5 * torch.atan2(s2, s1)
 
 
-def gram_matrix(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> (B, C, C) gram matrix normalised by H * W."""
+def gram_matrix(x: torch.Tensor, sp=None) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C, C) gram matrix normalised by H * W; with sp
+    (parallel/spatial.py) x is a band of rows, and the bands' products are
+    summed over the row."""
     b, h, w, c = x.shape
+    if sp is not None:
+        return sp.reduce(x, lambda t, start, stop: torch.einsum("bijc,bijd->bcd", t, t),
+                         1) / float(sp.h * w)
     return torch.einsum("bijc,bijd->bcd", x, x) / float(h * w)

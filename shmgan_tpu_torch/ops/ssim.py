@@ -3,7 +3,12 @@ MeanSquaredError's semantics, and the cyclic SSIM loss transform (the
 counterpart of shmgan_tpu/ops/ssim.py).
 SSIM: an 11-tap Gaussian window with sigma 1.5 as two depthwise VALID
 convolutions, k1 = 0.01, k2 = 0.03, and the per-image score the mean over
-window positions and channels."""
+window positions and channels.
+
+With `sp` (parallel/spatial.py) a and b are bands of rows of images of
+height sp.h: the VALID window takes filter_size - 1 rows from below the
+band, a band's outputs are the windows that start in it, and the per-image
+mean is the row's sum over the whole image's count."""
 
 from __future__ import annotations
 
@@ -32,24 +37,46 @@ def _separable_gaussian(x: torch.Tensor, filter_size: int, sigma: float) -> torc
 
 
 def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float, filter_size: int = 11,
-         filter_sigma: float = 1.5, k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
+         filter_sigma: float = 1.5, k1: float = 0.01, k2: float = 0.03,
+         sp=None) -> torch.Tensor:
     """Per-image SSIM, (B, H, W, C) -> (B,)."""
     a = a.float().permute(0, 3, 1, 2)
     b = b.float().permute(0, 3, 1, 2)
+    c = a.shape[1]
     c1 = (k1 * max_val) ** 2
     c2 = (k2 * max_val) ** 2
 
     def blur(t):
         return _separable_gaussian(t, filter_size, filter_sigma)
 
-    mu_a, mu_b = blur(a), blur(b)
-    mu_aa, mu_bb, mu_ab = blur(a * a), blur(b * b), blur(a * b)
-    var_a = mu_aa - mu_a * mu_a
-    var_b = mu_bb - mu_b * mu_b
-    cov = mu_ab - mu_a * mu_b
-    luminance = (2.0 * mu_a * mu_b + c1) / (mu_a * mu_a + mu_b * mu_b + c1)
-    cs = (2.0 * cov + c2) / (var_a + var_b + c2)
-    return (luminance * cs).mean(dim=(1, 2, 3))
+    def ssim_map(a, b):  # (B, C, rows, W) each -> the windows' scores
+        mu_a, mu_b = blur(a), blur(b)
+        mu_aa, mu_bb, mu_ab = blur(a * a), blur(b * b), blur(a * b)
+        var_a = mu_aa - mu_a * mu_a
+        var_b = mu_bb - mu_b * mu_b
+        cov = mu_ab - mu_a * mu_b
+        luminance = (2.0 * mu_a * mu_b + c1) / (mu_a * mu_a + mu_b * mu_b + c1)
+        cs = (2.0 * cov + c2) / (var_a + var_b + c2)
+        return luminance * cs
+
+    if sp is None:
+        return ssim_map(a, b).mean(dim=(1, 2, 3))
+    both = torch.cat([a, b], 1)
+    reach, h = filter_size - 1, sp.h
+
+    def band(t):  # a band and the rows below it
+        return ssim_map(t[:, :c], t[:, c:])
+
+    if sp.fits(halo=reach):
+        smap = sp.rows(both, band, 0, reach)
+    else:
+        smap = sp.whole(both, lambda t: band(F.pad(t, (0, 0, 0, reach))), h)
+    valid = h - reach  # windows that start in the band and end in the image
+
+    def band_sum(t, start, stop):
+        return t.narrow(2, 0, max(0, min(stop, valid) - start)).sum(dim=(1, 2, 3))
+
+    return sp.reduce(smap, band_sum, 2) / float(c * valid * (both.shape[3] - reach))
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float) -> torch.Tensor:

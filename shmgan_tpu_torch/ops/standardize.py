@@ -44,9 +44,15 @@ def rescale_01(x: torch.Tensor) -> torch.Tensor:
     return torch.where(denom == 0, torch.zeros_like(x), (x - x.min()) / denom)
 
 
-def rescale_01_per_image(x: torch.Tensor) -> torch.Tensor:
+def rescale_01_per_image(x: torch.Tensor, sp=None) -> torch.Tensor:
     """Per-image min-max rescale to [0, 1] over everything but the batch
-    axis; an image with max == min becomes zeros."""
+    axis; an image with max == min becomes zeros. sp: x (B, H, W, C) is a
+    band of rows (parallel/spatial.py), the min and max taken over the row."""
+    if sp is not None:
+        lo, hi = sp.extreme(x, False), sp.extreme(x, True)
+        denom = hi - lo
+        return sp.local(x, lambda t: torch.where(denom == 0, torch.zeros_like(t),
+                                                  (t - lo) / denom), 1)
     dims = tuple(range(1, x.dim()))
     lo = x.amin(dim=dims, keepdim=True)
     hi = x.amax(dim=dims, keepdim=True)

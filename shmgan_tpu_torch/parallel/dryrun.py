@@ -5,13 +5,17 @@ on n virtual CPU devices.
     python -m shmgan_tpu_torch.parallel.dryrun 4
 
 starts n processes, one gloo group on a free localhost port, each one rank
-on the CPU, and runs two meshes at 32 px, filter 16, SpecSeg base 4:
+on the CPU, and runs three meshes, filter 16, SpecSeg base 4:
 
   1. data_parallel n / 2 x model_parallel 2 (model_parallel 1 for an odd n),
      tp_min_channels 64 (at this width the default 256 would cut nothing),
-     global batch n / 2: the seeded state cut to each rank's slices
+     global batch n / 2, 32 px: the seeded state cut to each rank's slices
      (`train.state.shard_state`), one step;
-  2. pure data parallelism over n, global batch n: one step.
+  2. pure data parallelism over n, global batch n, 32 px: one step;
+  3. (an even n) data_parallel n / 2 x model_parallel 2 with spatial
+     sharding, global batch n / 2, at 64 px as the JAX dry run's spatial
+     pass: every parameter whole, each rank on its band of rows of its
+     data index's block and its rows of the draws, one step.
 
 Each must end with finite losses, one step taken, and every rank holding
 the same whole parameters bit for bit (gathered over the model axis,
@@ -38,18 +42,23 @@ import torch.distributed as dist
 from shmgan_tpu_torch.config import Config
 
 SIZE = 32
+SPATIAL_SIZE = 64
 
 
 def _plans(n: int):
+    """(data_parallel, model_parallel, tp_min_channels, spatial, image size)
+    of each mesh."""
     mp = 2 if n > 1 and n % 2 == 0 else 1
-    plans = [(n // mp, mp, 64)]
+    plans = [(n // mp, mp, 64, False, SIZE)]
     if n > 1:
-        plans.append((n, 1, Config().mesh.tp_min_channels))
+        plans.append((n, 1, Config().mesh.tp_min_channels, False, SIZE))
+    if mp > 1:
+        plans.append((n // mp, mp, Config().mesh.tp_min_channels, True, SPATIAL_SIZE))
     return plans
 
 
-def _step(dp: int, mp: int, min_channels: int) -> str:
-    from shmgan_tpu_torch.data.pipeline import local_batch
+def _step(dp: int, mp: int, min_channels: int, spatial: bool, size: int) -> str:
+    from shmgan_tpu_torch.data.pipeline import local_band, local_batch
     from shmgan_tpu_torch.models import build_models
     from shmgan_tpu_torch.parallel import tp
     from shmgan_tpu_torch.parallel.mesh import rank_layout, training_mesh
@@ -57,20 +66,23 @@ def _step(dp: int, mp: int, min_channels: int) -> str:
     from shmgan_tpu_torch.train.step import make_train_step, sample_draws
 
     cfg = Config()
-    cfg.model = dataclasses.replace(cfg.model, image_size=SIZE, filter_size=16,
+    cfg.model = dataclasses.replace(cfg.model, image_size=size, filter_size=16,
                                     specseg_base_filters=4)
     cfg.train = dataclasses.replace(cfg.train, batch_size=dp)
     cfg.mesh = dataclasses.replace(cfg.mesh, data_parallel=dp, model_parallel=mp,
-                                   tp_min_channels=min_channels)
+                                   tp_min_channels=min_channels, spatial_sharding=spatial)
     layout = rank_layout(training_mesh(cfg))
     state = shard_state(create_train_state(cfg, build_models(cfg, device="cpu", seed=0)),
-                        layout, SIZE, min_channels)
+                        layout, size, min_channels)
     gen = torch.Generator().manual_seed(1)
-    views = torch.rand((cfg.model.c_dim, dp, SIZE, SIZE, 3), generator=gen)
-    draws = sample_draws(cfg, gen, cfg.model.c_dim, dp, SIZE, SIZE)
-    state, metrics = make_train_step(cfg)(
-        state, local_batch(views, layout.data_index, dp),
-        draws.shard(layout.data_index, dp), 0)
+    views = torch.rand((cfg.model.c_dim, dp, size, size, 3), generator=gen)
+    draws = sample_draws(cfg, gen, cfg.model.c_dim, dp, size, size)
+    views = local_batch(views, layout.data_index, dp)
+    draws = draws.shard(layout.data_index, dp)
+    if spatial:
+        views = local_band(views, layout.model_index, mp).contiguous()
+        draws = draws.rows(layout.model_index, mp)
+    state, metrics = make_train_step(cfg)(state, views, draws, 0)
     total_g, total_d = float(metrics["total_G"]), float(metrics["total_D"])
     if not (torch.isfinite(metrics["total_G"]) and torch.isfinite(metrics["total_D"])):
         raise AssertionError(f"non-finite losses: total_G={total_g} total_D={total_d}")
@@ -86,9 +98,11 @@ def _step(dp: int, mp: int, min_channels: int) -> str:
     if len(set(digests)) != 1:
         raise AssertionError(f"the ranks' parameters differ after the step: {digests}")
     counts = {net: tp.shard_counts(m) for net, m in (("G", state.gen), ("D", state.disc))}
-    if mp > 1 and not counts["G"]["cut"]:
+    if mp > 1 and not spatial and not counts["G"]["cut"]:
         raise AssertionError("model_parallel > 1 but nothing was cut")
-    kind = "dp x tp" if mp > 1 else "pure dp"
+    if spatial and (counts["G"]["cut"] or counts["D"]["cut"]):
+        raise AssertionError("spatial sharding cut parameters")
+    kind = "dp x spatial" if spatial else "dp x tp" if mp > 1 else "pure dp"
     held = "  ".join(f"{net} cut/whole {c['cut']}/{c['whole']}" for net, c in counts.items())
     return (f"[dryrun_multichip] mesh={{'data': {dp}, 'model': {mp}}} ({kind}) "
             f"total_G={total_g:.4f} total_D={total_d:.4f} {held} ranks agree OK")
@@ -102,8 +116,8 @@ def _rank_main() -> None:
     if not maybe_initialize_distributed("gloo"):
         raise RuntimeError("dryrun rank: no launcher environment")
     try:
-        for dp, mp, min_channels in _plans(world_size()):
-            line = _step(dp, mp, min_channels)
+        for plan in _plans(world_size()):
+            line = _step(*plan)
             if is_main():
                 print(line, flush=True)
     finally:
@@ -111,7 +125,7 @@ def _rank_main() -> None:
 
 
 def dryrun_multichip(n: int = 4, timeout: float = 600.0) -> List[str]:
-    """Run the two meshes on n CPU ranks (see the module's docstring); print
+    """Run the meshes on n CPU ranks (see the module's docstring); print
     and return rank 0's lines. Raises with a failing rank's output."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

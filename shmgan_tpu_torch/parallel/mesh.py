@@ -24,7 +24,11 @@ so the kernels run unchanged on every rank.
 The model axis (tensor parallelism, parallel/tp.py): `param_spec` is the
 JAX package's rule for which kernels split their output channels over the
 M ranks of a row (`_param_spec`, `_output_extent`); everything else stays
-whole on every rank.
+whole on every rank. With `mesh.spatial_sharding` the model axis holds rows
+of the activations instead (parallel/spatial.py): every parameter is whole,
+each rank of a row holds its band of every feature map's rows, and the
+gradients are summed over the row before the data axis averages them. At
+model_parallel 1 it is the plain layout, as in the JAX package.
 
 Only `all_reduce`, `all_gather` and `broadcast` run on the tensors, so the
 path runs over NCCL, or over gloo with CUDA or CPU tensors. Flags the host
@@ -33,7 +37,7 @@ decides (a signal, a deadline) are agreed over a gloo group on CPU tensors
 
 Serving is one process over a list of devices: infer.make_infer_fn's
 `data_parallel`; it ignores the model axis, as the JAX package's serving
-does. Spatial sharding is not ported (ROADMAP Queue 1 item 11b).
+does.
 """
 
 from __future__ import annotations
@@ -127,9 +131,11 @@ def launch_line(dp: int, mp: int = 1) -> str:
 @dataclass(frozen=True)
 class Mesh:
     """A (data, model) layout of ranks; devices[i, j] is the rank at data
-    index i and model index j, as in the JAX package's mesh."""
+    index i and model index j, as in the JAX package's mesh. spatial: the
+    model axis holds rows of the activations (more than one model rank)."""
     data_parallel: int
     model_parallel: int
+    spatial: bool = False
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -143,15 +149,15 @@ class Mesh:
 def make_mesh(cfg, n: int) -> Mesh:
     """The layout of cfg.mesh over n devices, by the JAX package's rules:
     data_parallel -1 takes every device the model axis leaves, and a layout
-    larger than n raises. Spatial sharding raises as unported."""
+    larger than n raises. Spatial sharding over a model axis of one rank is
+    the plain layout."""
     mp = max(1, cfg.mesh.model_parallel)
     dp = cfg.mesh.data_parallel
     if dp == -1:
         dp = n // mp
     if dp * mp > n:
         raise ValueError(f"mesh {dp}x{mp} needs more than the {n} devices present")
-    cfg.mesh.check_ported()
-    return Mesh(dp, mp)
+    return Mesh(dp, mp, spatial=bool(cfg.mesh.spatial_sharding) and mp > 1)
 
 
 def training_mesh(cfg) -> Mesh:
@@ -160,7 +166,6 @@ def training_mesh(cfg) -> Mesh:
     model_parallel). A layout of more than one rank needs a process group
     (`maybe_initialize_distributed`): without one it raises and says how to
     launch, rather than run on one device."""
-    cfg.mesh.check_ported()
     dp, mp = cfg.mesh.data_parallel, max(1, cfg.mesh.model_parallel)
     if (dp > 1 or mp > 1) and not dist.is_initialized():
         raise RuntimeError(
@@ -198,6 +203,12 @@ class RankLayout:
     @property
     def data_parallel(self) -> int:
         return self.mesh.data_parallel
+
+    @property
+    def spatial(self) -> bool:
+        """Whether the model row holds bands of rows (parallel/spatial.py)
+        rather than slices of channels."""
+        return self.mesh.spatial
 
     def __deepcopy__(self, memo) -> "RankLayout":
         return self
@@ -310,6 +321,21 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
         flat.div_(n)
 
     _collective_(tensors, mean)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None, divisor: int = 1) -> None:
+    """Sum each tensor across the ranks of `group` (default: every rank),
+    then divide by `divisor` (unless 1), in place: one all_reduce per dtype.
+    A no-op without a process group or in a one-rank group."""
+    if not tensors or _group_size(group) == 1:
+        return
+
+    def total(flat):
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat.div_(divisor)
+
+    _collective_(tensors, total)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group=None) -> None:

@@ -144,10 +144,12 @@ def shard_model_(model: nn.Module, layout: RankLayout, image_size: int,
     torch dim of its output channels or input rows}) whose kernels the JAX
     rule splits at `image_size` gets its parameters replaced by their
     slices and `tp = layout`. Returns {parameter name: dim} of the cut
-    parameters. A no-op at model_parallel 1."""
+    parameters. A no-op at model_parallel 1, and on a spatial layout, whose
+    model axis holds rows of the activations and every parameter whole (the
+    JAX rule's `model_parallel = ... and not spatial`)."""
     m = layout.model_parallel
     cut: Dict[str, int] = {}
-    if m == 1:
+    if m == 1 or layout.spatial:
         return cut
     specs = param_specs(flax_shapes(model), m, image_size, min_channels)
     for prefix, block in model.named_modules():

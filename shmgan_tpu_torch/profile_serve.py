@@ -64,9 +64,13 @@ def serving_config(compute_dtype: str) -> Config:
 
 @contextmanager
 def plain_versions():
-    """Route both kernel wrappers to their plain versions inside the block."""
+    """Route the kernel wrappers (the band entry points of parallel/spatial.py
+    too) to their plain versions inside the block."""
     with mock.patch.object(ink, "instance_norm", ink.instance_norm_plain), \
-            mock.patch.object(pre, "fused_standardize_yuv", pre.fused_standardize_yuv_plain):
+            mock.patch.object(pre, "fused_standardize_yuv", pre.fused_standardize_yuv_plain), \
+            mock.patch.object(ink, "instance_norm_band", ink.instance_norm_band_plain), \
+            mock.patch.object(pre, "fused_standardize_yuv_band",
+                              pre.fused_standardize_yuv_band_plain):
         yield
 
 

@@ -33,7 +33,11 @@ checkpoints (which every rank of a model row helps gather whole); the eval
 runs on rank 0, or when G is cut on the ranks of rank 0's model row, whose
 collectives it joins; the ranks agree on a
 preemption signal at every step (`agree_any`), so all stop at the same step
-and none is left waiting in a collective.
+and none is left waiting in a collective. On a spatial layout
+(`cfg.mesh.spatial_sharding`, parallel/spatial.py) nothing is cut: each
+rank of a model row feeds its band of rows of its data index's block
+(`rank_feed`'s band) and takes its rows of the draws (`Draws.rows`); the
+eval runs on rank 0 with G whole.
 """
 
 from __future__ import annotations
@@ -87,17 +91,19 @@ class PreemptionGuard:
 
 
 def draw_source(cfg: Config, device, steps_done: int = 0, rank_index: int = 0,
-                world: int = 1) -> DrawSource:
+                world: int = 1, band_index: int = 0, bands: int = 1) -> DrawSource:
     """`sample_draws` on one torch.Generator on `device`, seeded from
     (cfg.train.seed, steps_done): the global batch's draws (world times the
-    views' batch), cut to rank `rank_index`'s block."""
+    views' batch, `bands` times their rows), cut to rank `rank_index`'s
+    block and band `band_index`'s rows."""
     seed = int(np.random.SeedSequence([cfg.train.seed, steps_done]).generate_state(
         1, np.uint64)[0])
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def draw(step: int, shape: Sequence[int]) -> Draws:
         v, b, h, w, _ = shape
-        return sample_draws(cfg, gen, v, b * world, h, w).shard(rank_index, world)
+        return sample_draws(cfg, gen, v, b * world, h * bands, w).shard(
+            rank_index, world).rows(band_index, bands)
 
     return draw
 
@@ -170,8 +176,11 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
     broadcast_state(state)
     layout = rank_layout(mesh)
     shard_state(state, layout, cfg.model.image_size, cfg.mesh.tp_min_channels)
+    band_index, bands = ((layout.model_index, layout.model_parallel) if layout.spatial
+                         else (0, 1))
     if draws is None:
-        draws = draw_source(cfg, device, steps_done, layout.data_index, layout.data_parallel)
+        draws = draw_source(cfg, device, steps_done, layout.data_index, layout.data_parallel,
+                            band_index, bands)
     step_fn = make_train_step(cfg)
 
     writer = MetricsWriter(tr.log_dir) if main else None
@@ -188,7 +197,8 @@ def _train(cfg, dataset, max_steps, verbose, guard, eval_inputs, eval_targets,
         shuffle_seed = (tr.seed * 100003 + epoch) if tr.shuffle else None
         feed = rank_feed(dataset, shuffle_seed=shuffle_seed, device=device,
                          depth=cfg.data.prefetch, process_index=layout.data_index,
-                         process_count=layout.data_parallel)
+                         process_count=layout.data_parallel, band_index=band_index,
+                         band_count=bands)
         t_epoch = time.perf_counter()
         try:
             for batch_idx, views in enumerate(feed):

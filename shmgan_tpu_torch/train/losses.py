@@ -10,7 +10,10 @@ by term with the reference's weights and exclusions:
   masked specular MSE: computed, excluded from the totals
   NST content + style
 
-All reductions are means over whole tensors, batch included. The SpecSeg
+All reductions are means over whole tensors, batch included; with `sp`
+(parallel/spatial.py) the image-sized tensors are bands of rows (and the
+patch maps bands of theirs, `sp_rf`), and each mean is the row's sum over
+the whole tensor's count. The SpecSeg
 trainer's objective (train/specseg_train.py) is dice + focal on its
 probabilities: `dice_loss`, `binary_focal_loss`, `specseg_loss`.
 """
@@ -27,13 +30,19 @@ from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
 
 
-def lsgan_to_target(pred: torch.Tensor, target) -> torch.Tensor:
+def image_mean(t: torch.Tensor, sp=None) -> torch.Tensor:
+    """The mean of every element of t; with sp, t (..., H, W, C) is a band of
+    rows and the mean the whole tensor's."""
+    return t.mean() if sp is None else sp.mean(t)
+
+
+def lsgan_to_target(pred: torch.Tensor, target, sp=None) -> torch.Tensor:
     """mean((pred - target)^2)."""
-    return (pred - target).square().mean()
+    return image_mean((pred - target).square(), sp)
 
 
-def lsgan_to_zero(pred: torch.Tensor) -> torch.Tensor:
-    return pred.square().mean()
+def lsgan_to_zero(pred: torch.Tensor, sp=None) -> torch.Tensor:
+    return image_mean(pred.square(), sp)
 
 
 def softmax_ce(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -42,18 +51,18 @@ def softmax_ce(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return (-(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)).mean()
 
 
-def masked_mse(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (a * mask - b * mask).square().mean()
+def masked_mse(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, sp=None) -> torch.Tensor:
+    return image_mean((a * mask - b * mask).square(), sp)
 
 
 def nst_loss(cyc_ed_yuv: torch.Tensor, i0_yuv: torch.Tensor, ed_yuv: torch.Tensor,
              image_size: int, style_weight: float = 100.0,
-             content_weight: float = 1.0) -> Dict[str, torch.Tensor]:
+             content_weight: float = 1.0, sp=None) -> Dict[str, torch.Tensor]:
     """content = mean((cyc_ED - I0)^2); style = mean((gram(cyc_ED) -
     gram(ED))^2) / (2 * 9 * H * W)^2, with H = W = image_size."""
-    content = (cyc_ed_yuv - i0_yuv).square().mean()
+    content = image_mean((cyc_ed_yuv - i0_yuv).square(), sp)
     factor = 1.0 / (2.0 * 9.0 * image_size * image_size) ** 2
-    style = factor * (gram_matrix(cyc_ed_yuv) - gram_matrix(ed_yuv)).square().mean()
+    style = factor * (gram_matrix(cyc_ed_yuv, sp) - gram_matrix(ed_yuv, sp)).square().mean()
     return {"content": content, "style": style,
             "nst": style_weight * style + content_weight * content}
 
@@ -79,14 +88,15 @@ class GanLossInputs(NamedTuple):
 
 
 def shmgan_losses(inp: GanLossInputs, image_size: int, style_weight: float = 100.0,
-                  content_weight: float = 1.0) -> Dict[str, torch.Tensor]:
-    """Every loss component and the three totals."""
+                  content_weight: float = 1.0, sp=None, sp_rf=None) -> Dict[str, torch.Tensor]:
+    """Every loss component and the three totals; sp and sp_rf: the Bands of
+    the images and of the patch maps (parallel/spatial.py), or None."""
     v = inp.rf_cyc.shape[0]
     t = inp.target_label
     c_dim = inp.lbl_cyc.shape[-1]
 
-    d3_rf_cyc = sum(lsgan_to_target(inp.rf_cyc[i], t) for i in range(v))
-    d1_rf = lsgan_to_target(inp.rf_gen, t)
+    d3_rf_cyc = sum(lsgan_to_target(inp.rf_cyc[i], t, sp_rf) for i in range(v))
+    d1_rf = lsgan_to_target(inp.rf_gen, t, sp_rf)
     g_gan = (d3_rf_cyc + d1_rf) / 6.0
 
     eye = torch.eye(c_dim, dtype=torch.float32, device=inp.lbl_cyc.device)
@@ -98,20 +108,20 @@ def shmgan_losses(inp: GanLossInputs, image_size: int, style_weight: float = 100
 
     # D2's term is also summed into D4's, and both reach the total: the
     # reference's double count, kept
-    d2_rf_target = lsgan_to_target(inp.rf_target, t) + lsgan_to_zero(inp.rf_gen)
-    d4_terms = sum(lsgan_to_target(inp.rf_orig[i], t) + lsgan_to_zero(inp.rf_cyc[i])
+    d2_rf_target = lsgan_to_target(inp.rf_target, t, sp_rf) + lsgan_to_zero(inp.rf_gen, sp_rf)
+    d4_terms = sum(lsgan_to_target(inp.rf_orig[i], t, sp_rf) + lsgan_to_zero(inp.rf_cyc[i], sp_rf)
                    for i in range(v))
     d4_rf_cyc = d4_terms + d2_rf_target
 
-    l1_g1 = (inp.gen_rgb - inp.orig_rgb[v - 1]).abs().mean()
-    l1_cyc = [(inp.cyc_rgb[i] - inp.orig_rgb[i]).abs().mean() for i in range(v)]
+    l1_g1 = image_mean((inp.gen_rgb - inp.orig_rgb[v - 1]).abs(), sp)
+    l1_cyc = [image_mean((inp.cyc_rgb[i] - inp.orig_rgb[i]).abs(), sp) for i in range(v)]
     l1_total = (sum(l1_cyc[: v - 1]) + l1_g1) / 5.0 + 10.0 * l1_cyc[v - 1]
 
     drop = inp.drop if inp.drop.dim() == 2 else inp.drop[None, :]
     ssim_losses, ssim_raw = [], []
     for i in range(v):
-        s = ssim_fn(rescale_01_per_image(inp.cyc_yuv[i]),
-                    rescale_01_per_image(inp.ds_yuv[i]), max_val=5.0)
+        s = ssim_fn(rescale_01_per_image(inp.cyc_yuv[i], sp),
+                    rescale_01_per_image(inp.ds_yuv[i], sp), max_val=5.0, sp=sp)
         ssim_raw.append(s.mean())
         term = ssim_log_loss(s)
         ssim_losses.append(torch.where(drop[:, i] > 0.5, torch.zeros_like(term), term).mean())
@@ -120,11 +130,11 @@ def shmgan_losses(inp: GanLossInputs, image_size: int, style_weight: float = 100
                   + ssim_losses[3] + ssim_losses[4] * 10.0) / 5.0
 
     # computed but excluded from the totals, as in the reference
-    spec = [masked_mse(inp.cyc_yuv[i], inp.ds_yuv[i], inp.mask) for i in range(v)]
+    spec = [masked_mse(inp.cyc_yuv[i], inp.ds_yuv[i], inp.mask, sp) for i in range(v)]
     spec_total = (spec[0] + spec[1] + spec[2] + spec[3]) / 5.0 + 5.0 * spec[4]
 
     nst = nst_loss(inp.cyc_yuv[v - 1], inp.ds_yuv[0], inp.ds_yuv[v - 1],
-                   image_size, style_weight, content_weight)
+                   image_size, style_weight, content_weight, sp)
 
     total_g = (d1_rf + d3_rf_cyc) / 6.0 + 10.0 * l1_total + 10.0 * ssim_total \
         + 10.0 * nst["nst"]

@@ -12,6 +12,10 @@ state copies all of them together.
 reads it). `broadcast_state` makes every rank of a process group hold rank
 0's state (parallel/mesh.py).
 
+Spatial sharding (parallel/spatial.py) cuts nothing: `shard_state` keeps
+the layout, every parameter stays whole, and checkpoints save and restore as
+under data parallelism.
+
 Tensor parallelism: `shard_state` cuts a whole state to this rank's slices
 over the model axis (parallel/tp.py), its Adam moments and EMA with them;
 clip and Adam are elementwise, so each rank updates its slices alone. A cut
@@ -170,7 +174,15 @@ def state_payload(state: TrainState) -> Dict[str, Any]:
 
 def is_model_sharded(state: TrainState) -> bool:
     """Whether `state` is cut over a model axis of more than one rank."""
-    return state.layout is not None and state.layout.model_parallel > 1
+    return state.layout is not None and state.layout.model_parallel > 1 \
+        and not state.layout.spatial
+
+
+def is_spatial(state: TrainState) -> bool:
+    """Whether `state` trains on bands of rows over a model axis of more
+    than one rank (parallel/spatial.py): every parameter whole."""
+    return state.layout is not None and state.layout.model_parallel > 1 \
+        and state.layout.spatial
 
 
 def shard_state(state: TrainState, layout: RankLayout, image_size: int,
@@ -178,8 +190,9 @@ def shard_state(state: TrainState, layout: RankLayout, image_size: int,
     """Cut a whole state, in place, to this rank's slices over the model axis
     (`tp.shard_model_` of G and D at `image_size`, the JAX rule's
     `min_channels`), each optimizer's moments and the EMA as their
-    parameters, and keep `layout`. The whole state must be alike on every
-    rank (built from one seed, or broadcast)."""
+    parameters, and keep `layout` (a spatial layout cuts nothing). The
+    whole state must be alike on every rank (built from one seed, or
+    broadcast)."""
     for module, opt in ((state.gen, state.g_opt), (state.disc, state.d_opt)):
         tp.shard_model_(module, layout, image_size, min_channels)
         mu, nu = (tp.slice_named(module, m, layout) for m in opt.moments())

@@ -33,6 +33,16 @@ take the same rows and draws; the gradients of the cut parameters are
 averaged over the data column, and those of whole parameters, with the
 losses, over every rank, so the copies on a model row stay equal bit for
 bit (`_average_`).
+
+On a spatial layout (parallel/spatial.py) every parameter is whole, and
+the M ranks of a data index hold bands of rows of its block: `views` is
+the rank's band of every image and `draws` its rows of D's noise and keep
+mask (`Draws.rows`). The models and the losses run on the bands through
+the step's `Band` (the flip exchanges them: rank j's becomes rank M - 1 -
+j's, reversed), every loss is the whole image's and alike on the row, and
+each rank's band gradients are summed over the model row, then averaged
+over the data column, in float32. Inside `spatial.split_compute(m)` a step
+on one rank runs as m bands in one process.
 """
 
 from __future__ import annotations
@@ -52,10 +62,12 @@ from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
 from shmgan_tpu_torch.ops.ssim import ssim_log_loss
 from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
-from shmgan_tpu_torch.parallel import tp
-from shmgan_tpu_torch.parallel.mesh import all_reduce_mean_
-from shmgan_tpu_torch.train.losses import GanLossInputs, lsgan_to_target, shmgan_losses
-from shmgan_tpu_torch.train.state import TrainState, is_model_sharded
+from shmgan_tpu_torch.models import SHMDiscriminator
+from shmgan_tpu_torch.parallel import spatial, tp
+from shmgan_tpu_torch.parallel.mesh import all_reduce_mean_, all_reduce_sum_
+from shmgan_tpu_torch.train.losses import (GanLossInputs, image_mean, lsgan_to_target,
+                                           shmgan_losses)
+from shmgan_tpu_torch.train.state import TrainState, is_model_sharded, is_spatial
 
 REMAT_MODES = ("none", "models", "disc", "gen")
 
@@ -98,6 +110,23 @@ class Draws:
         return Draws(flip=self.flip, t=self.t, drop=drop, noise=halves(self.noise),
                      keep=halves(self.keep))
 
+    def rows(self, index: int, count: int) -> "Draws":
+        """The draws of band `index` of `count` bands of rows (a model index
+        of a spatial layout, parallel/spatial.py): the noise's rows of the
+        images and the keep mask's rows of D's last map, each cut by
+        `spatial.span`; the rest is per image and shared."""
+        if count == 1:
+            return self
+
+        def cut(x):
+            if x is None:
+                return None
+            start, stop = spatial.span(x.shape[2], count, index)
+            return x[:, :, start:stop]
+
+        return Draws(flip=self.flip, t=self.t, drop=self.drop, noise=cut(self.noise),
+                     keep=cut(self.keep))
+
 
 def sample_draws(cfg: Config, generator: torch.Generator, v: int, b: int, h: int,
                  w: int) -> Draws:
@@ -127,13 +156,15 @@ def sample_draws(cfg: Config, generator: torch.Generator, v: int, b: int, h: int
     return Draws(flip=flip, t=t, drop=drop, noise=noise, keep=keep)
 
 
-def preprocess_views(views: torch.Tensor
+def preprocess_views(views: torch.Tensor, sp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(V, B, H, W, 3) RGB in [0, 1] -> (standardised YUV (V, B, H, W, 3),
     Y (B, H, W, V), average CbCr (B, H, W, 2)); each image standardised on
-    its own, all V*B in one launch."""
+    its own, all V*B in one launch (with sp, bands of rows: the band entry
+    point)."""
     v, b, h, w, _ = views.shape
-    flat, _ = preprocess.fused_standardize_yuv(views.reshape(v * b, h, w, 3).contiguous())
+    rgb = views.reshape(v * b, h, w, 3).contiguous()
+    flat, _ = preprocess.fused_standardize_yuv(rgb) if sp is None else sp.preprocess(rgb)
     ds_yuv = flat.view(v, b, h, w, 3)
     return ds_yuv, ds_yuv[..., 0].permute(1, 2, 3, 0), ds_yuv[..., 1:].mean(dim=0)
 
@@ -149,7 +180,15 @@ def _average_(state: TrainState, g_grads: Dict[str, torch.Tensor],
     """Average the gradients and losses across the ranks, in place: in a
     state cut over the model axis the cut parameters' over the data column
     and the rest over every rank (a model row's copies are equal, so that
-    is their data mean); otherwise all of them over every rank."""
+    is their data mean); on a spatial layout the band gradients summed over
+    every rank and divided by the data axis's size (their sum over the row,
+    averaged over the data column), the losses (alike on a row) averaged;
+    otherwise all of them over every rank."""
+    if is_spatial(state):
+        all_reduce_sum_(list(g_grads.values()) + list(d_grads.values()),
+                        divisor=state.layout.data_parallel)
+        all_reduce_mean_(list(metrics.values()))
+        return
     if not is_model_sharded(state):
         all_reduce_mean_(list(g_grads.values()) + list(d_grads.values())
                          + list(metrics.values()))
@@ -192,14 +231,19 @@ def make_train_step(cfg: Config, debug_grads: bool = False
         gen, disc = state.gen, state.disc
         v, b, h, w, _ = views.shape
         dev = views.device
-        views = torch.where(draws.flip, views.flip(2), views)
+        sp = spatial.step_band(state.layout, h)
+        if sp is None:
+            views = torch.where(draws.flip, views.flip(2), views)
+        else:
+            views = sp.flip(views, draws.flip)
+        sp_rf = None if sp is None else sp.at(SHMDiscriminator.out_height(sp.h))
         t = draws.t
 
-        ds_yuv, y_planes, avg_cbcr = preprocess_views(views)
+        ds_yuv, y_planes, avg_cbcr = preprocess_views(views, sp)
         with torch.no_grad():
             ss_in = specseg_net_input(y_planes[..., 2:3], views[2],
-                                      cfg.model.specseg_in_channels)
-            mask = state.specseg(ss_in)
+                                      cfg.model.specseg_in_channels, sp)
+            mask = state.specseg(ss_in, sp=sp)
 
         drop = draws.drop
         drop_b = (drop[:, None, None, :] > 0.5).expand(b, h, w, v)
@@ -209,17 +253,17 @@ def make_train_step(cfg: Config, debug_grads: bool = False
 
         # G1 on stopped G params: its inputs carry no gradient either
         if live_g1:
-            gen_y = remat(remat_g, gen, gen_input, mask)
+            gen_y = remat(remat_g, gen, gen_input, mask, sp)
         else:
             with torch.no_grad():
-                gen_y = gen(gen_input, mask)
+                gen_y = gen(gen_input, mask, sp)
         gen_yuv = torch.cat([gen_y, avg_cbcr], dim=-1)
         gen_rgb = yuv_to_rgb(gen_yuv)
 
         # live D on [generated, ED original]
         live_in = torch.cat([gen_rgb, views_cmp[v - 1]], dim=0)
         rf_live, lbl_live = remat(remat_d, disc, live_in, torch.cat([mask, mask]),
-                                  draws.noise, draws.keep)
+                                  draws.noise, draws.keep, sp)
         rf_gen, rf_target, lbl_gen = rf_live[:b], rf_live[b:], lbl_live[:b]
 
         # cyclic inputs: dropped views replaced by the (stopped) G1 output
@@ -229,7 +273,7 @@ def make_train_step(cfg: Config, debug_grads: bool = False
             ych = cyc_base.clone()
             ych[..., i] = 0.0
             cyc_inputs.append(torch.cat([ych, _onehot_planes(b, h, w, c_dim, i, dev)], -1))
-        cyc_y = remat(remat_g, gen, torch.cat(cyc_inputs), mask.repeat(v, 1, 1, 1))
+        cyc_y = remat(remat_g, gen, torch.cat(cyc_inputs), mask.repeat(v, 1, 1, 1), sp)
         cyc_y = cyc_y.view(v, b, h, w, 1)
         cyc_yuv = torch.cat([cyc_y, avg_cbcr.expand(v, b, h, w, 2)], dim=-1)
         cyc_rgb = yuv_to_rgb(cyc_yuv)
@@ -241,7 +285,7 @@ def make_train_step(cfg: Config, debug_grads: bool = False
         frozen_in = torch.cat(frozen_parts)
         d_stopped = {k: p.detach() for k, p in disc.named_parameters()}
         rf_frozen, lbl_frozen = remat(
-            remat_d, lambda x, m: functional_call(disc, d_stopped, (x, m)),
+            remat_d, lambda x, m: functional_call(disc, d_stopped, (x, m), {"sp": sp}),
             frozen_in, mask.repeat(2 * v + int(live_g1), 1, 1, 1))
         rf_shape = rf_frozen.shape[1:]
         L = shmgan_losses(
@@ -254,7 +298,7 @@ def make_train_step(cfg: Config, debug_grads: bool = False
                 gen_rgb=gen_rgb, cyc_rgb=cyc_rgb, cyc_yuv=cyc_yuv, orig_rgb=views_cmp,
                 ds_yuv=ds_yuv, mask=mask, drop=drop, target_label=t),
             image_size=cfg.model.image_size, style_weight=tr.style_weight,
-            content_weight=tr.content_weight)
+            content_weight=tr.content_weight, sp=sp, sp_rf=sp_rf)
 
         # L_D: total_D + total_C with every dependency but the live D stopped
         loss_d = (L["D1_cls"] + L["D3_cls"].detach()) / 6.0 \
@@ -265,14 +309,14 @@ def make_train_step(cfg: Config, debug_grads: bool = False
         # L_G: total_G with the live D1 term swapped for its stopped value
         loss_g = L["total_G"] + (L["D1_rf"].detach() - L["D1_rf"]) / 6.0
         if live_g1:
-            adv_g1 = lsgan_to_target(rf_frozen[2 * v * b:], t)
+            adv_g1 = lsgan_to_target(rf_frozen[2 * v * b:], t, sp_rf)
             loss_g = loss_g + (adv_g1 - adv_g1.detach()) / 6.0
             L["G1_adv_frozen"] = adv_g1.detach()
         if g1_recon_weight > 0.0:
             ed_cmp = views_cmp[v - 1] if tr.consistent_domains else yuv_to_rgb(ds_yuv[v - 1])
-            g1_l1 = (gen_rgb - ed_cmp).abs().mean()
-            s = ssim_fn(rescale_01_per_image(gen_yuv), rescale_01_per_image(ds_yuv[v - 1]),
-                        max_val=5.0)
+            g1_l1 = image_mean((gen_rgb - ed_cmp).abs(), sp)
+            s = ssim_fn(rescale_01_per_image(gen_yuv, sp),
+                        rescale_01_per_image(ds_yuv[v - 1], sp), max_val=5.0, sp=sp)
             g1_ssim = ssim_log_loss(s).mean()
             loss_g = loss_g + g1_recon_weight * (g1_l1 + g1_ssim)
             L["G1_L1"], L["G1_SSIM_loss"] = g1_l1, g1_ssim

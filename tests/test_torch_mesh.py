@@ -2,9 +2,9 @@
 `make_mesh` against the JAX package's `make_mesh` on the conftest's 8
 virtual devices (the same shape and device order, the same refusal of a
 layout larger than the devices), the refusals of what the port does not run
-(spatial sharding; a layout of more than one rank without a process group,
-which says how to launch; a degree other than the world size), a model
-axis accepted as JAX lays it out, `Draws.shard` and
+(a layout of more than one rank without a process group, which says how to
+launch; a degree other than the world size), a model axis and spatial
+sharding over it accepted as JAX lays them out, `Draws.shard` and
 `local_batch` against slices made by hand, the collectives without a group
 and in a one-rank gloo group, and `device_report`.
 """
@@ -55,18 +55,24 @@ def test_too_large_a_mesh_raises_as_jax(dp, mp):
 
 def test_model_axis_is_refused():
     """A model axis is accepted and laid out as JAX's (rank i * M + j at
-    data index i, model index j); spatial sharding is refused by name."""
+    data index i, model index j), with spatial sharding too; spatial
+    sharding over a model axis of one rank is the plain layout, as in JAX;
+    without a process group a spatial mesh says how to launch."""
     for dp, mp in ((-1, 2), (2, 4), (1, 2)):
-        jcfg, cfg = _configs(dp, mp)
-        want = np.vectorize(lambda d: d.id)(j_make_mesh(jcfg).devices)
-        got = mesh.make_mesh(cfg, 8)
-        assert got.shape == want.shape
-        np.testing.assert_array_equal(got.devices, want)
+        for spatial in (False, True):
+            jcfg, cfg = _configs(dp, mp)
+            jcfg.mesh = dataclasses.replace(jcfg.mesh, spatial_sharding=spatial)
+            cfg.mesh.spatial_sharding = spatial
+            want = np.vectorize(lambda d: d.id)(j_make_mesh(jcfg).devices)
+            got = mesh.make_mesh(cfg, 8)
+            assert got.shape == want.shape and got.spatial == spatial
+            np.testing.assert_array_equal(got.devices, want)
+    _, cfg = _configs(4, 1)
+    cfg.mesh.spatial_sharding = True
+    assert mesh.make_mesh(cfg, 8) == mesh.Mesh(4, 1)
     _, cfg = _configs(-1, 2)
     cfg.mesh.spatial_sharding = True
-    with pytest.raises(NotImplementedError, match="spatial_sharding.*Queue 1 item 11b"):
-        mesh.make_mesh(cfg, 8)
-    with pytest.raises(NotImplementedError, match="spatial_sharding.*Queue 1 item 11b"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         mesh.training_mesh(cfg)
 
 

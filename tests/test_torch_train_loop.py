@@ -60,6 +60,7 @@ from shmgan_tpu_torch.data import synthetic
 from shmgan_tpu_torch.data.loader import PolarimetricDataset, SingleFolderDataset
 from shmgan_tpu_torch.data.pipeline import DevicePrefetcher
 from shmgan_tpu_torch.models import build_models
+from shmgan_tpu_torch.parallel.mesh import Mesh, training_mesh
 from shmgan_tpu_torch.train.loop import train
 from shmgan_tpu_torch.train.state import create_train_state, state_payload
 from shmgan_tpu_torch.train.step import Draws
@@ -561,8 +562,9 @@ def test_prefetcher_close_stops_a_worker_that_is_ahead():
 def test_entry_points_need_a_card_or_the_cpu(tree):
     """Without CUDA, train raises unless device="cpu"; a layout the port
     cannot run here raises rather than run on one device: data parallelism
-    or a model axis without a launcher's process group, and spatial
-    sharding."""
+    or a model axis, channels or spatial, without a launcher's process
+    group. Spatial sharding over a model axis of one rank is the plain
+    layout."""
     _, cfg = _configs(os.path.join(tree, "nocard"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -573,6 +575,8 @@ def test_entry_points_need_a_card_or_the_cpu(tree):
     cfg.mesh.data_parallel, cfg.mesh.model_parallel = 1, 2
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         train(cfg, device="cpu", verbose=False)
-    cfg.mesh.model_parallel, cfg.mesh.spatial_sharding = 1, True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
+    cfg.mesh.spatial_sharding = True
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         train(cfg, device="cpu", verbose=False)
+    cfg.mesh.model_parallel = 1
+    assert training_mesh(cfg) == Mesh(1, 1)

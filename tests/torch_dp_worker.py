@@ -1,5 +1,6 @@
-"""One rank of the port's data- and tensor-parallel CPU tests
-(tests/test_torch_dp_*.py, tests/test_torch_tp_*.py).
+"""One rank of the port's data-, tensor-parallel and spatial CPU tests
+(tests/test_torch_dp_*.py, tests/test_torch_tp_*.py,
+tests/test_torch_spatial_*.py).
 
     RANK=r WORLD_SIZE=n LOCAL_RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dp_worker.py <workdir> <job> [<job> ...]
@@ -32,6 +33,18 @@ writing `<workdir>/<job>_<rank>.pt`:
   tp_cli     `cli.main` --mode train, then --mode export, with the argv of
          tp_cli.pt (tp_min_channels, which has no flag, set from it too);
          the parameters the loop cut.
+  sp_step    every case of sp_step_cases.pt (as step's, with a spatial
+         mesh in its config): one step on this rank's band of its data
+         index's block (`local_band`) and its rows of the draws
+         (`Draws.rows`); the gradients, metrics and parameters, and the
+         (B, C, H, W) of every IN call (band and whole);
+  sp_units   the ops of parallel/spatial.py on this rank's band of the
+         inputs of sp_units.pt: a halo'd conv's output and its input
+         gradient, the band IN's output and gradients, SSIM, the per-image
+         rescale and the preprocess;
+  sp_loop    from sp_loop.pt: `train.loop.train` on the spatial mesh for 2
+         steps (and `cli.main --mode train` with the config's mesh, when
+         given), the payload after them.
 
 Imports no JAX: the ranks run the port alone.
 """
@@ -262,8 +275,113 @@ def job_tp_cli(workdir):
     return {"cut": cut}
 
 
+def job_sp_step(workdir):
+    from shmgan_tpu_torch.data.pipeline import local_band, local_batch
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.parallel.mesh import rank_layout, training_mesh
+    from shmgan_tpu_torch.train.state import create_train_state, shard_state
+    from shmgan_tpu_torch.train.step import Draws, make_train_step
+
+    shapes, whole, band = [], ink.instance_norm, ink.instance_norm_band
+
+    def recording(fn, kind):
+        def call(x, *args):
+            shapes.append((kind, tuple(x.shape)))
+            return fn(x, *args)
+        return call
+
+    ink.instance_norm, ink.instance_norm_band = recording(whole, "whole"), recording(band, "band")
+    out = {}
+    try:
+        for case in torch.load(os.path.join(workdir, "sp_step_cases.pt"), weights_only=False):
+            cfg = make_config(case["config"])
+            layout = rank_layout(training_mesh(cfg))
+            state = shard_state(create_train_state(cfg, _models(cfg, case["weights"])), layout,
+                                cfg.model.image_size, cfg.mesh.tp_min_channels)
+            i, j = layout.data_index, layout.model_index
+            dp, mp = layout.data_parallel, layout.model_parallel
+            views = local_band(local_batch(case["views"], i, dp), j, mp).contiguous()
+            draws = Draws(**case["draws"]).shard(i, dp).rows(j, mp)
+            del shapes[:]
+            state, m = make_train_step(cfg, debug_grads=True)(state, views, draws, 0)
+            out[case["name"]] = {
+                "grads": m.pop("_grads"), "metrics": {k: v for k, v in m.items()
+                                                      if not k.startswith("_")},
+                "gen": state.gen.state_dict(), "disc": state.disc.state_dict(),
+                "in_shapes": list(shapes), "coords": (i, j)}
+    finally:
+        ink.instance_norm, ink.instance_norm_band = whole, band
+    return out
+
+
+def job_sp_units(workdir):
+    import torch.nn.functional as F
+
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.ops.ssim import ssim
+    from shmgan_tpu_torch.ops.standardize import rescale_01_per_image
+    from shmgan_tpu_torch.parallel.mesh import Mesh, rank_layout
+    from shmgan_tpu_torch.parallel.spatial import Band
+
+    spec = torch.load(os.path.join(workdir, "sp_units.pt"), weights_only=False)
+    m = world_size()
+    sp = Band(rank_layout(Mesh(1, m, spatial=True)), spec["x"].shape[2])
+    start, stop = sp.span()
+
+    def mine(t, dim=2):
+        return t.narrow(dim, start, stop - start).detach().clone().requires_grad_(True)
+
+    out = {}
+    x = mine(spec["x"])  # (B, C, H, W)
+    y = sp.rows(x, lambda e: F.conv2d(e, spec["w"], padding=(0, 1)), 1, 1)
+    (dx,) = torch.autograd.grad(y, x, mine(spec["gy"][:, :3].contiguous()))
+    out["conv"] = (y.detach(), dx)
+    x = mine(spec["x"])
+    gamma, beta = (spec[k].clone().requires_grad_(True) for k in ("gamma", "beta"))
+    y = ink.instance_norm_band(x, gamma, beta, 1e-6, sp)
+    out["in"] = (y.detach(), *torch.autograd.grad(y, (x, gamma, beta), mine(spec["gy"])))
+    a, b = mine(spec["a"], 1), mine(spec["b"], 1)  # (B, H, W, C)
+    s = ssim(a, b, max_val=5.0, sp=sp.at(spec["a"].shape[1]))
+    out["ssim"] = (s.detach(), *torch.autograd.grad(s.sum(), (a, b)))
+    t = mine(spec["ties"], 1)
+    r = rescale_01_per_image(t, sp.at(spec["ties"].shape[1]))
+    out["rescale"] = (r.detach(), *torch.autograd.grad(r, t, mine(spec["gr"], 1)))
+    out["pre"] = sp.at(spec["rgb"].shape[1]).preprocess(mine(spec["rgb"], 1).detach())
+    out["span"] = (start, stop)
+    return out
+
+
+def job_sp_loop(workdir):
+    import dataclasses
+
+    from shmgan_tpu_torch import cli
+    from shmgan_tpu_torch.config import Config
+    from shmgan_tpu_torch.train.loop import train
+    from shmgan_tpu_torch.train.state import state_payload
+
+    spec = torch.load(os.path.join(workdir, "sp_loop.pt"), weights_only=False)
+    cfg = make_config(spec["run"])
+    state = train(cfg, max_steps=2, verbose=False, device="cpu")
+    out = {"step": state.step, "payload": state_payload(state)}
+    if spec.get("argv"):
+        original, parse = Config.__dict__["from_args"], Config.from_args
+
+        def from_args(argv=None):
+            parsed = parse(argv)
+            parsed.mesh = dataclasses.replace(parsed.mesh, spatial_sharding=True)
+            return parsed
+
+        Config.from_args = staticmethod(from_args)
+        try:
+            cli.main(spec["argv"], device="cpu")
+        finally:
+            Config.from_args = original
+    return out
+
+
 JOBS = {"step": job_step, "feed": job_feed, "loop": job_loop, "gan": job_gan,
-        "tp_step": job_tp_step, "tp_loop": job_tp_loop, "tp_cli": job_tp_cli}
+        "tp_step": job_tp_step, "tp_loop": job_tp_loop, "tp_cli": job_tp_cli,
+        "sp_step": job_sp_step, "sp_units": job_sp_units, "sp_loop": job_sp_loop}
 
 
 def main(workdir, jobs):
