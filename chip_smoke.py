@@ -93,7 +93,8 @@ Phases (each prints its name before it starts and its seconds after):
               filter 64, batch 8, tp_min_channels 256), one counted step in
               f32 and four in bf16, each rank's launches exactly (46, 28,
               1), the leaves whole on both ranks bit for bit; the
-              gathered f32 step against one rank's by _compare_step; the
+              gathered f32 step against one rank's by _compare_step, both
+              under cuDNN's deterministic algorithms; the
               bf16 steps against the same steps computed in one process
               with every cut block run as its two slices (within
               TP_SPLIT_RTOL), through the kernels against themselves
@@ -111,15 +112,18 @@ Phases (each prints its name before it starts and its seconds after):
               four in bf16, each rank's launches exactly 92 band IN
               forward kernels, 56 band backward kernels and 2 band
               preprocess kernels (46, 28 and 1 calls of two launches each),
-              the parameters on both ranks bit for bit; the f32 step against
-              one rank's by _compare_step; the bf16 steps against the same
-              steps computed band by band in one process
+              the band backward's calls a step by band shape as
+              SP_BAND_SHAPES says, the parameters on both ranks bit for
+              bit; the f32 step against one rank's by _compare_step (both
+              cuDNN deterministic); the bf16 steps against the same steps
+              computed band by band in one process
               (spatial.split_compute, TP_SPLIT_RTOL), through the kernels
               against the plain versions (GAP_C), and against one rank's
               (a reading); the band IN kernels against their plain versions
               at every band shape of the step with flat planes (their
               backward held, with the plain version's, against float64
-              within its rounding of the plane's mean), the band
+              within its rounding of the plane's mean; each shape's
+              backward plan printed; two calls bit for bit), the band
               preprocess against its plain and the whole-image versions;
               each rank's peak memory beside one rank's whole step at 128
               px and, in bf16, at 256 px; step ms over gloo beside one
@@ -228,7 +232,7 @@ import sys
 import tempfile
 import time
 import traceback
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -3265,6 +3269,22 @@ def _payload_digest(payload):
     return digest.hexdigest()
 
 
+@contextmanager
+def _cudnn_deterministic(on=True):
+    """Inside (when `on`), cuDNN takes deterministic algorithms only. A mesh's
+    f32 step is held against one rank's so: under cuDNN's default f32
+    algorithms one rank's own step read D's gradients 2.167e-3 (relative L2)
+    off its first run, once in six (shmgan_tpu_torch/sp_repeat.py --mesh
+    model, H100), past GRAD_NORM_RTOL; deterministic, one rank repeats bit
+    for bit and the 1 x 2 tensor mesh reads D 1.046e-6 in every run."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = before or on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def _tp_steps(cfg, state, batches, layout=None, spied="instance_norm"):
     """One counted step with debug_grads from `state` on each batch (after
     a warm-up step): the launches, the metrics on the host and the (B, C,
@@ -3359,7 +3379,8 @@ def tp_rank(workdir):
                     plain_counts, plain, _, _ = _tp_steps(cfg, state, batches)
                 if any(any(c.values()) for c in plain_counts):
                     raise AssertionError("the plain 1 x 2 step launched a kernel")
-            counts, metrics, shapes, state = _tp_steps(cfg, state, batches)
+            with _cudnn_deterministic(dtype == "float32"):
+                counts, metrics, shapes, state = _tp_steps(cfg, state, batches)
             cut = ({f"G.{k}" for k in tp.sharded_params(state.gen)}
                    | {f"D.{k}" for k in tp.sharded_params(state.disc)})
             out[dtype] = {
@@ -3484,10 +3505,12 @@ def _tp_step_checks(ranks):
         cfg = training_config(dtype)
         batches, gen = _tp_batches(cfg, len(ranks[0][dtype]["metrics"]))
         state = create_train_state(cfg, build_models(cfg, device="cuda", seed=0))
-        refs = _tp_steps(cfg, state, batches)[1]
+        with _cudnn_deterministic(dtype == "float32"):
+            refs = _tp_steps(cfg, state, batches)[1]
         if dtype == "float32":
             _compare_step(ranks[0][dtype]["metrics"][0], refs[0],
-                          f"{TP_RANKS} model ranks vs 1 rank, f32, batch 8:")
+                          f"{TP_RANKS} model ranks vs 1 rank, f32, batch 8 (cuDNN deterministic "
+                          f"on both sides):")
             # the gap rule's yardstick: the one-rank f32 step on the bf16 batches
             f32_refs = _tp_steps(cfg, create_train_state(
                 cfg, build_models(cfg, device="cuda", seed=0)),
@@ -3579,6 +3602,10 @@ SP_TIMED_STEPS = 3    # timed steps a rank, and of the one-rank step beside them
 SP_SEED = 17
 SP_SCENES = 16        # train.loop.train at batch 8: 2 steps
 SP_BIG = 256          # the bf16 step whose peak memory is read at this size too
+# (B, C, h, W) of a spatial rank's band IN backward calls at 128 px, batch
+# 8, and their calls a step: TRAIN_IN_SHAPES with each map's 128 / 64 / ...
+# rows halved (the cyclic G pass, live D, frozen D; G1's params are stopped)
+SP_BAND_SHAPES = [((b, c, h // SP_RANKS, w), calls) for (b, c, h, w), calls in TRAIN_IN_SHAPES]
 IN_SRC = "shmgan_tpu_torch/csrc/instance_norm.cu"
 PRE_SRC = "shmgan_tpu_torch/csrc/preprocess.cu"
 
@@ -3617,6 +3644,23 @@ def _peak_step(cfg, state, views, draws):
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
+@contextmanager
+def _calls_by_shape(module, name, tally):
+    """Inside, module.<name> adds one to tally[(shape, dtype)] of its first
+    argument at each call."""
+    real = getattr(module, name)
+
+    def spy(x, *args, **kwargs):
+        tally[tuple(x.shape), x.dtype] = tally.get((tuple(x.shape), x.dtype), 0) + 1
+        return real(x, *args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield tally
+    finally:
+        setattr(module, name, real)
+
+
 def sp_rank(workdir):
     """One rank of the spatial phase (RANK, WORLD_SIZE, MASTER_ADDR and
     MASTER_PORT from the environment, LOCAL_RANK 0): joins the gloo group; in
@@ -3628,6 +3672,7 @@ def sp_rank(workdir):
     <workdir>/sp<r>.pt."""
     from shmgan_tpu_torch.data.pipeline import local_band
     from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
     from shmgan_tpu_torch.parallel.mesh import (maybe_initialize_distributed, rank,
                                                 rank_layout, shutdown_distributed,
                                                 training_mesh)
@@ -3654,8 +3699,12 @@ def sp_rank(workdir):
                                                           "instance_norm_band")
                 if any(any(c.values()) for c in plain_counts):
                     raise AssertionError("the plain 1 x 2 spatial step launched a kernel")
-            counts, metrics, shapes, state = _tp_steps(cfg, state, batches, layout,
-                                                       "instance_norm_band")
+            with _calls_by_shape(ink, "instance_norm_band_backward", {}) as bwd, \
+                    _cudnn_deterministic(dtype == "float32"):
+                counts, metrics, shapes, state = _tp_steps(cfg, state, batches, layout,
+                                                           "instance_norm_band")
+            steps = len(batches) + 1  # _tp_steps' warm-up step and its counted steps
+            bwd = {shape: n / steps for (shape, _), n in bwd.items()}
             fast, times = make_train_step(cfg), []
             v, b, size = cfg.model.c_dim, cfg.train.batch_size, cfg.model.image_size
             j, m = layout.model_index, layout.model_parallel
@@ -3672,7 +3721,8 @@ def sp_rank(workdir):
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             _launch_counts(reset=True)
-            out[dtype] = {"counts": counts, "ms": times, "shapes": shapes, "peak_gib": peak,
+            out[dtype] = {"counts": counts, "ms": times, "shapes": shapes, "bwd_shapes": bwd,
+                          "peak_gib": peak,
                           "metrics": metrics if r == 0 else [], "plain": plain if r == 0 else [],
                           "params": {f"{net}.{k}": p.detach().cpu()
                                      for net, mod in (("G", state.gen), ("D", state.disc))
@@ -3727,8 +3777,9 @@ def _sp_in_checks(shapes):
     forward's rounding of the mean (one f32 ulp of 50 is 3.8e-6, times its
     rstd 10 in xhat), amplified by rstd again in dx and by |sum(g)| in
     dgamma (kernels against plain on an H100: dx 3.2e-4 at a 64-element
-    plane, dgamma 1.6e-2 at (16, 64, 64, 64)). Returns the worst error by
-    dtype and kind."""
+    plane, dgamma 1.6e-2 at (16, 64, 64, 64)). Each shape's backward plan is
+    printed first, and two calls through the kernels are held bit for bit.
+    Returns the worst error by dtype and kind."""
     from shmgan_tpu_torch.ops.kernels import instance_norm as ink
 
     g = torch.Generator(device="cuda").manual_seed(SP_SEED)
@@ -3739,12 +3790,15 @@ def _sp_in_checks(shapes):
                      else (IN_TOL_BF16, IN_PARAM_TOL_BF16))
         x, gamma, beta, dy = _in_inputs("cuda", g, shape, dtype)
         x = _flat_planes(x)
-        got, ref = [], []
-        for fn, res in ((ink.instance_norm_split, got), (ink.instance_norm_split_plain, ref)):
+        got, ref, again = [], [], []
+        for fn, res in ((ink.instance_norm_split, got), (ink.instance_norm_split_plain, ref),
+                        (ink.instance_norm_split, again)):
             leaves = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta)]
             y = fn(*leaves, 1e-6, SP_RANKS)
             res.extend([y.detach(), *torch.autograd.grad(y, leaves, dy)])
         torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            raise AssertionError(f"band IN at {shape} {dtype}: two calls differ")
         (_, dx64, dgamma64, _), (dx_err, dgamma_err) = in_reference_f64(
             x[:, :1], gamma[:1], beta[:1], dy[:, :1])
         flat, flat_ok = [], True
@@ -3761,6 +3815,8 @@ def _sp_in_checks(shapes):
         ok = flat_ok and all(torch.allclose(a.float(), r.float(), **t)
                              for a, r, t in zip(got, ref, (tol, tol, ptol, ptol)))
         say(f"{_in_name(dtype, 'band_forward')} / {_in_name(dtype, 'band_backward')} band "
+            f"{(b, c, h, w)} of {shape}: backward plan {ink._band_bwd_plan(b, c, h * w, dtype)}")
+        say(f"{_in_name(dtype, 'band_forward')} / {_in_name(dtype, 'band_backward')} band "
             f"{(b, c, h, w)} of {shape}: max_abs_err y {errs[0]:.3e}, dx {errs[1]:.3e}, dgamma "
             f"{errs[2]:.3e}, dbeta {errs[3]:.3e}; the flat channel against float64, gap over "
             f"limit: kernels dx {flat[0][0]:.3f}, dgamma {flat[0][1]:.3f}, plain dx "
@@ -3770,7 +3826,7 @@ def _sp_in_checks(shapes):
                                  f"at {shape} {dtype}")
         for kind, e in (("band_forward", errs[0]), ("band_backward", max(errs[1:]))):
             worst[kind, dtype] = max(worst.get((kind, dtype), 0.0), e)
-        del x, dy, got, ref
+        del x, dy, got, ref, again
     _launch_counts(reset=True)
     return worst
 
@@ -3890,6 +3946,12 @@ def _sp_step_checks(ranks, smi):
             say(f"spatial rank {r} {dtype}: each of {len(res[dtype]['counts'])} steps launched "
                 f"{ {k: n for k, n in want.items() if n} }; timed step ms "
                 f"{[round(t, 2) for t in res[dtype]['ms']]}")
+            if res[dtype]["bwd_shapes"] != dict(SP_BAND_SHAPES):
+                raise AssertionError(f"spatial rank {r} {dtype}: band IN backward calls a step "
+                                     f"{res[dtype]['bwd_shapes']}, SP_BAND_SHAPES says "
+                                     f"{dict(SP_BAND_SHAPES)}")
+        say(f"{dtype}: band IN backward calls a rank a step by band shape, as SP_BAND_SHAPES "
+            f"on both ranks: {dict(SP_BAND_SHAPES)}")
         p0, p1 = ranks[0][dtype]["params"], ranks[1][dtype]["params"]
         same = sum(torch.equal(p0[k], p1[k]) for k in p0)
         say(f"{dtype}: parameters on both ranks after {1 + SP_TIMED_STEPS} steps: "
@@ -3900,11 +3962,12 @@ def _sp_step_checks(ranks, smi):
         cfg = _sp_config(dtype)
         batches, gen = _tp_batches(cfg, len(ranks[0][dtype]["metrics"]), seed=SP_SEED)
         fresh = lambda: create_train_state(cfg, build_models(cfg, device="cuda", seed=0))  # noqa
-        refs = _tp_steps(cfg, fresh(), batches)[1]
+        with _cudnn_deterministic(dtype == "float32"):
+            refs = _tp_steps(cfg, fresh(), batches)[1]
         mesh = ranks[0][dtype]["metrics"]
         if dtype == "float32":
             _compare_step(mesh[0], refs[0], f"1 x {SP_RANKS} spatial mesh vs 1 rank, f32, "
-                                            f"batch 8:")
+                                            f"batch 8 (cuDNN deterministic on both sides):")
             f32_refs = _tp_steps(cfg, fresh(), _tp_batches(cfg, STEP_GAP_BATCHES,
                                                            seed=SP_SEED)[0])[1]
         else:

@@ -873,13 +873,41 @@ extern "C" int shm_instance_norm_bwd_blocks_per_sm(int bf16, int variant, int ve
 //   (the ranks' sums added in float over the row)
 //   apply    dx = rstd / n * (n * g * gamma - gamma * sum(g) - xhat * gamma
 //            * sum(g * xhat)), n the whole plane's count, as the TPU kernel's
-//            VJP (_bwd); the blocks of batch row 0 also add each channel's
-//            band sums over the batch, in order: dgamma and dbeta of this
-//            band, which the train step sums over the row with the other
-//            gradients.
-// One 256-thread block a plane in every launch: simple, and correct at any
-// band; the moments and apply launches take 16-byte loads where the plane
-// allows them, the backward's one element at a time.
+//            VJP (_bwd); the threads of batch row 0's planes also add each
+//            channel's band sums over the batch, in order: dgamma and dbeta
+//            of this band, which the train step sums over the row with the
+//            other gradients.
+// The moments and apply launches of the forward take one 256-thread block a
+// plane and 16-byte loads where the plane allows them.
+//
+// Bound of the backward: memory. x and g are read, dx written (6 bytes an
+// element in bf16, 12 in f32) against ~12 flops. The row's sums arrive
+// between the launches, so both read x and g: 5 bytes' worth moved for the
+// bound's 3 wherever the second read misses L2 (a largest band, 40 x 64
+// planes of 64 x 128, holds 84 MB of x and g in bf16 against a 50 MB L2).
+// What the design does about it:
+//   - 16-byte loads and stores (4 floats, 8 bf16) wherever H*W is a
+//     multiple of 16 bytes, a thread loading kBandUnroll chunks before it
+//     uses them: bytes in flight to cover HBM's latency. One element a
+//     thread (the element variant) where H*W is not such a multiple; a base
+//     off 16 bytes moves its 16 bytes one element at a time (load16);
+//   - the sums launch walks the planes (packed: the blocks) from the last,
+//     the apply launch from the first, so that the apply launch reads first
+//     the planes that the sums launch read last, still in L2; in repeated
+//     calls the next sums launch then starts on the planes the apply launch
+//     read last. The apply launch keeps grid order so that batch row 0's
+//     blocks, which also add the channel sums over the batch, run first
+//     and not in its tail;
+//   - planes of up to 256 elements (the small bands of D's deep maps and
+//     G's bottleneck) go `lanes` threads a plane, several planes a warp,
+//     their sums a __shfl_xor_sync butterfly within the plane's segment
+//     (the whole-plane backward's packed variant), not a block with two
+//     barriers a plane.
+// The wrapper (ops/kernels/instance_norm.py, _band_bwd_plan) picks the
+// variant and block size from the band's shape alone and passes the plan to
+// both launches, which refuse one they cannot run (cudaErrorInvalidValue).
+// Every sum is in f32 in a fixed order, without atomics: repeat calls are
+// bit-identical, and a band gives the same bits in a mesh and in its split.
 
 namespace {
 
@@ -990,60 +1018,320 @@ band_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-band_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                     const float* __restrict__ mean, const float* __restrict__ rstd,
-                     float* __restrict__ out, long long planes, long long hw) {
-  const long long plane = blockIdx.x;
-  const T* xp = x + plane * hw;
-  const T* gp = g + plane * hw;
-  const float m = mean[plane], inv = rstd[plane];
-  float sg = 0.f, sgx = 0.f;
-  for (long long i = threadIdx.x; i < hw; i += kThreads) {
-    const float gv = to_f32(gp[i]);
-    sg += gv;
-    sgx = fmaf(gv, (to_f32(xp[i]) - m) * inv, sgx);
+// The band backward's plan variant, as the wrapper passes it.
+enum BandVariant { kBandPacked = 0, kBandVector = 1, kBandElement = 2 };
+
+constexpr int kBandThreads = 512;  // threads of a vector or element block, at most
+constexpr int kBandUnroll = 4;     // chunks a thread loads before it uses them
+constexpr long long kBandMaxHw = 1LL << 30;
+
+// dx of one chunk of a band: rstd / n * (n * g * gamma - sum_gg - xhat *
+// sum_gg_xhat), sum_gg = gamma * sum(g) and sum_gg_xhat = gamma * sum(g *
+// xhat) over the whole plane; k = rstd / n.
+template <typename C>
+__device__ __forceinline__ typename C::Raw band_dx_chunk(typename C::Raw xr, typename C::Raw gr,
+                                                         float mu, float rs, float gm, float k,
+                                                         float n, float sum_gg,
+                                                         float sum_gg_xhat) {
+  float a[C::kW], b[C::kW], o[C::kW];
+  C::unpack(xr, a);
+  C::unpack(gr, b);
+#pragma unroll
+  for (int j = 0; j < C::kW; ++j) {
+    const float xhat = (a[j] - mu) * rs;
+    o[j] = k * (n * (b[j] * gm) - sum_gg - xhat * sum_gg_xhat);
   }
-  block_sum2(sg, sgx);
-  if (threadIdx.x == 0) {
+  return C::pack(o);
+}
+
+// dgamma[c] and dbeta[c]: channel c's band sums, b in order.
+__device__ __forceinline__ void band_channel_sums(const float* __restrict__ local,
+                                                  long long batch, int channels, int c,
+                                                  float* __restrict__ dgamma,
+                                                  float* __restrict__ dbeta) {
+  const long long planes = batch * channels;
+  float sg = 0.f, sgx = 0.f;
+#pragma unroll 16
+  for (long long b = 0; b < batch; ++b) {
+    sg += local[b * channels + c];
+    sgx += local[planes + b * channels + c];
+  }
+  dgamma[c] = sgx;
+  dbeta[c] = sg;
+}
+
+// Packed: thread t of the grid, its blocks numbered from the last (the
+// reverse of the apply launch), is lane t % lanes of plane t / lanes, and
+// lane l holds chunks l, l + lanes, ... of its band (at most kPackedElems
+// elements of x and of g), as the whole-plane packed variant. Every thread
+// of a warp takes part in the butterfly, those past the last plane with
+// zeros.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kPackedThreads)
+band_bwd_sums_packed(const T* __restrict__ x, const T* __restrict__ g,
+                     const float* __restrict__ mean, const float* __restrict__ rstd,
+                     float* __restrict__ out, long long planes, int hw, int lanes) {
+  using C = Chunk<T, kVector>;
+  constexpr int kChunks = kPackedElems / C::kW;
+  const int nchunks = hw / C::kW;
+  const int lane = threadIdx.x & (lanes - 1);
+  const unsigned int blk = gridDim.x - 1 - blockIdx.x;
+  const long long plane = (static_cast<long long>(blk) * blockDim.x + threadIdx.x) / lanes;
+  const bool live = plane < planes;
+  const bool aligned = aligned16(x) && aligned16(g);
+  float sg = 0.f, sgx = 0.f;
+  if (live) {
+    const long long off = plane * hw;
+    const float mu = mean[plane], rs = rstd[plane];
+    typename C::Raw xs[kChunks], gs[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int j = lane + k * lanes;
+      if (j < nchunks) {
+        xs[k] = C::load(x + off + j * C::kW, aligned);
+        gs[k] = C::load(g + off + j * C::kW, aligned);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      if (lane + k * lanes < nchunks) add_chunk<C>(xs[k], gs[k], mu, rs, sg, sgx);
+  }
+  for (int o = lanes >> 1; o > 0; o >>= 1) {
+    sg += __shfl_xor_sync(0xffffffffu, sg, o);
+    sgx += __shfl_xor_sync(0xffffffffu, sgx, o);
+  }
+  if (live && lane == 0) {
     out[plane] = sg;
     out[planes + plane] = sgx;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-band_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+// The packed apply: the blocks in grid order, the reverse of the sums
+// launch's.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kPackedThreads)
+band_bwd_apply_packed(const T* __restrict__ x, const T* __restrict__ g,
                       const float* __restrict__ gamma, const float* __restrict__ mean,
                       const float* __restrict__ rstd, const float* __restrict__ local,
-                      const float* __restrict__ total, long long batch, int channels,
-                      long long hw, float n, T* __restrict__ dx, float* __restrict__ dgamma,
-                      float* __restrict__ dbeta) {
+                      const float* __restrict__ total, long long batch, int channels, int hw,
+                      float n, T* __restrict__ dx, float* __restrict__ dgamma,
+                      float* __restrict__ dbeta, int lanes) {
+  using C = Chunk<T, kVector>;
+  constexpr int kChunks = kPackedElems / C::kW;
+  const long long planes = batch * channels;
+  const int nchunks = hw / C::kW;
+  const int lane = threadIdx.x & (lanes - 1);
+  const long long plane =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / lanes;
+  if (plane >= planes) return;
+  const bool aligned = aligned16(x) && aligned16(g) && aligned16(dx);
+  const long long off = plane * hw;
+  const int c = static_cast<int>(plane % channels);
+  const float mu = mean[plane], rs = rstd[plane], gm = gamma[c];
+  const float sum_gg = gm * total[plane];
+  const float sum_gg_xhat = gm * total[planes + plane];
+  const float k = rs / n;
+  typename C::Raw xs[kChunks], gs[kChunks];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = lane + j * lanes;
+    if (i < nchunks) {
+      xs[j] = C::load(x + off + i * C::kW, aligned);
+      gs[j] = C::load(g + off + i * C::kW, aligned);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = lane + j * lanes;
+    if (i < nchunks)
+      C::store(dx + off + i * C::kW,
+               band_dx_chunk<C>(xs[j], gs[j], mu, rs, gm, k, n, sum_gg, sum_gg_xhat), aligned);
+  }
+  if (plane < channels && lane == 0) band_channel_sums(local, batch, channels, c, dgamma, dbeta);
+}
+
+// Vector (kVector, H*W a multiple of 16 bytes) and element: block i takes
+// plane planes - 1 - i (the reverse of the apply launch); thread t takes
+// chunks t, t + blockDim.x, ..., kBandUnroll of them loaded before any is
+// summed; the threads' sums are added over each warp by shuffles, then over
+// the warps in order.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kBandThreads)
+band_bwd_sums_block(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean, const float* __restrict__ rstd,
+                    float* __restrict__ out, long long planes, int hw) {
+  using C = Chunk<T, kVector>;
+  __shared__ float2 warp_sums[kBandThreads / 32];
+  const long long plane = planes - 1 - blockIdx.x;
+  const int nchunks = hw / C::kW;
+  const int step = static_cast<int>(blockDim.x);
+  const bool aligned = aligned16(x) && aligned16(g);
+  const T* xp = x + plane * hw;
+  const T* gp = g + plane * hw;
+  const float mu = mean[plane], rs = rstd[plane];
+  float sg = 0.f, sgx = 0.f;
+  for (int base = threadIdx.x; base < nchunks; base += kBandUnroll * step) {
+    typename C::Raw xs[kBandUnroll], gs[kBandUnroll];
+#pragma unroll
+    for (int u = 0; u < kBandUnroll; ++u) {
+      const int i = base + u * step;
+      if (i < nchunks) {
+        xs[u] = C::load(xp + static_cast<long long>(i) * C::kW, aligned);
+        gs[u] = C::load(gp + static_cast<long long>(i) * C::kW, aligned);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBandUnroll; ++u)
+      if (base + u * step < nchunks) add_chunk<C>(xs[u], gs[u], mu, rs, sg, sgx);
+  }
+  sg = warp_sum(sg);
+  sgx = warp_sum(sgx);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = make_float2(sg, sgx);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < (step >> 5); ++w) {
+      a += warp_sums[w].x;
+      b += warp_sums[w].y;
+    }
+    out[plane] = a;
+    out[planes + plane] = b;
+  }
+}
+
+// The vector and element apply: block i takes plane i.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kBandThreads)
+band_bwd_apply_block(const T* __restrict__ x, const T* __restrict__ g,
+                     const float* __restrict__ gamma, const float* __restrict__ mean,
+                     const float* __restrict__ rstd, const float* __restrict__ local,
+                     const float* __restrict__ total, long long batch, int channels, int hw,
+                     float n, T* __restrict__ dx, float* __restrict__ dgamma,
+                     float* __restrict__ dbeta) {
+  using C = Chunk<T, kVector>;
   const long long planes = batch * channels;
   const long long plane = blockIdx.x;
+  const int nchunks = hw / C::kW;
+  const int step = static_cast<int>(blockDim.x);
+  const bool aligned = aligned16(x) && aligned16(g) && aligned16(dx);
   const int c = static_cast<int>(plane % channels);
   const T* xp = x + plane * hw;
   const T* gp = g + plane * hw;
   T* dp = dx + plane * hw;
-  const float m = mean[plane], inv = rstd[plane], gm = gamma[c];
+  const float mu = mean[plane], rs = rstd[plane], gm = gamma[c];
   const float sum_gg = gm * total[plane];
   const float sum_gg_xhat = gm * total[planes + plane];
-  const float k = inv / n;
-  for (long long i = threadIdx.x; i < hw; i += kThreads) {
-    const float xhat = (to_f32(xp[i]) - m) * inv;
-    const float gg = to_f32(gp[i]) * gm;
-    dp[i] = from_f32<T>(k * (n * gg - sum_gg - xhat * sum_gg_xhat));
-  }
-  if (plane < channels && threadIdx.x == 0) {  // batch row 0: channel c's band sums
-    float sg = 0.f, sgx = 0.f;
-    for (long long b = 0; b < batch; ++b) {
-      sg += local[b * channels + c];
-      sgx += local[planes + b * channels + c];
+  const float k = rs / n;
+  for (int base = threadIdx.x; base < nchunks; base += kBandUnroll * step) {
+    typename C::Raw xs[kBandUnroll], gs[kBandUnroll];
+#pragma unroll
+    for (int u = 0; u < kBandUnroll; ++u) {
+      const int i = base + u * step;
+      if (i < nchunks) {
+        xs[u] = C::load(xp + static_cast<long long>(i) * C::kW, aligned);
+        gs[u] = C::load(gp + static_cast<long long>(i) * C::kW, aligned);
+      }
     }
-    dgamma[c] = sgx;
-    dbeta[c] = sg;
+#pragma unroll
+    for (int u = 0; u < kBandUnroll; ++u) {
+      const int i = base + u * step;
+      if (i < nchunks)
+        C::store(dp + static_cast<long long>(i) * C::kW,
+                 band_dx_chunk<C>(xs[u], gs[u], mu, rs, gm, k, n, sum_gg, sum_gg_xhat),
+                 aligned);
+    }
   }
+  if (plane < channels && threadIdx.x == 0)
+    band_channel_sums(local, batch, channels, c, dgamma, dbeta);
+}
+
+// The band plan is valid for this shape: its kernel covers every element of
+// every plane once, within its registers and the grid.
+template <typename T>
+bool valid_band_plan(long long planes, long long hw, int variant, int lanes, int threads) {
+  constexpr long long kVec = 16 / sizeof(T);
+  if (planes <= 0 || hw <= 0 || hw > kBandMaxHw || threads < 32 || threads % 32 != 0)
+    return false;
+  switch (variant) {
+    case kBandPacked: {
+      const bool vec = hw % kVec == 0;
+      const long long nchunks = vec ? hw / kVec : hw;
+      const long long per_lane = vec ? kPackedElems / kVec : kPackedElems;
+      return lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
+             threads <= kPackedThreads && nchunks <= lanes * per_lane &&
+             (planes * lanes + threads - 1) / threads <= INT_MAX;
+    }
+    case kBandVector:
+      if (hw % kVec != 0) return false;
+      return lanes == threads && threads <= kBandThreads && planes <= INT_MAX;
+    case kBandElement:
+      return lanes == threads && threads <= kBandThreads && planes <= INT_MAX;
+    default:
+      return false;
+  }
+}
+
+unsigned int band_blocks(long long planes, int variant, int lanes, int threads) {
+  return static_cast<unsigned int>(variant == kBandPacked
+                                       ? (planes * lanes + threads - 1) / threads
+                                       : planes);
+}
+
+template <typename T>
+int launch_band_bwd_sums(const T* x, const T* g, const float* mean, const float* rstd,
+                         float* out, long long planes, long long hw, int variant, int lanes,
+                         int threads, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (!valid_band_plan<T>(planes, hw, variant, lanes, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = band_blocks(planes, variant, lanes, threads);
+  const int n = static_cast<int>(hw);
+  if (variant == kBandPacked) {
+    if (hw % kVec == 0)
+      band_bwd_sums_packed<T, true><<<blocks, threads, 0, s>>>(x, g, mean, rstd, out, planes, n,
+                                                              lanes);
+    else
+      band_bwd_sums_packed<T, false><<<blocks, threads, 0, s>>>(x, g, mean, rstd, out, planes,
+                                                               n, lanes);
+  } else if (variant == kBandVector) {
+    band_bwd_sums_block<T, true><<<blocks, threads, 0, s>>>(x, g, mean, rstd, out, planes, n);
+  } else {
+    band_bwd_sums_block<T, false><<<blocks, threads, 0, s>>>(x, g, mean, rstd, out, planes, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_band_bwd_apply(const T* x, const T* g, const float* gamma, const float* mean,
+                          const float* rstd, const float* local, const float* total,
+                          long long batch, int channels, long long hw, float n, T* dx,
+                          float* dgamma, float* dbeta, int variant, int lanes, int threads,
+                          void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long planes = batch * channels;
+  if (batch <= 0 || channels <= 0 || !valid_band_plan<T>(planes, hw, variant, lanes, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = band_blocks(planes, variant, lanes, threads);
+  const int m = static_cast<int>(hw);
+  if (variant == kBandPacked) {
+    if (hw % kVec == 0)
+      band_bwd_apply_packed<T, true><<<blocks, threads, 0, s>>>(
+          x, g, gamma, mean, rstd, local, total, batch, channels, m, n, dx, dgamma, dbeta,
+          lanes);
+    else
+      band_bwd_apply_packed<T, false><<<blocks, threads, 0, s>>>(
+          x, g, gamma, mean, rstd, local, total, batch, channels, m, n, dx, dgamma, dbeta,
+          lanes);
+  } else if (variant == kBandVector) {
+    band_bwd_apply_block<T, true><<<blocks, threads, 0, s>>>(
+        x, g, gamma, mean, rstd, local, total, batch, channels, m, n, dx, dgamma, dbeta);
+  } else {
+    band_bwd_apply_block<T, false><<<blocks, threads, 0, s>>>(
+        x, g, gamma, mean, rstd, local, total, batch, channels, m, n, dx, dgamma, dbeta);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 cudaError_t launched() { return cudaGetLastError(); }
@@ -1083,33 +1371,32 @@ SHM_BAND_APPLY(f32, float)
 SHM_BAND_APPLY(bf16, __nv_bfloat16)
 
 // x, g (planes, hw) of this band, the plane's mean and rstd -> out (2,
-// planes): each plane's band sums of g and of g * xhat.
+// planes): each plane's band sums of g and of g * xhat. The plan: variant
+// (0 packed, 1 vector, 2 element), the threads that own one plane (lanes),
+// threads per block. Returns cudaErrorInvalidValue, launching nothing, for a
+// plan the kernels cannot run at this shape; else cudaGetLastError().
 #define SHM_BAND_BWD_SUMS(SUFFIX, T)                                                      \
   extern "C" int shm_instance_norm_band_bwd_sums_##SUFFIX(                                \
       const T* x, const T* g, const float* mean, const float* rstd, float* out,           \
-      long long planes, long long hw, void* stream) {                                      \
-    if (bad_grid(planes) || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);      \
-    band_bwd_sums_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,             \
-                              static_cast<cudaStream_t>(stream)>>>(x, g, mean, rstd, out, \
-                                                                   planes, hw);           \
-    return static_cast<int>(launched());                                                  \
+      long long planes, long long hw, int variant, int lanes, int threads, void* stream) { \
+    return launch_band_bwd_sums(x, g, mean, rstd, out, planes, hw, variant, lanes, threads, \
+                                stream);                                                  \
   }
 SHM_BAND_BWD_SUMS(f32, float)
 SHM_BAND_BWD_SUMS(bf16, __nv_bfloat16)
 
 // local (2, planes): this band's sums; total: the row's; n: the whole plane's
-// count -> dx of this band, and dgamma, dbeta (channels) of this band.
+// count -> dx of this band, and dgamma, dbeta (channels) of this band; the
+// plan as for the sums launch, whose plane order this launch reverses.
 #define SHM_BAND_BWD_APPLY(SUFFIX, T)                                                     \
   extern "C" int shm_instance_norm_band_bwd_apply_##SUFFIX(                               \
       const T* x, const T* g, const float* gamma, const float* mean, const float* rstd,   \
       const float* local, const float* total, long long batch, int channels,              \
-      long long hw, float n, T* dx, float* dgamma, float* dbeta, void* stream) {          \
-    if (bad_grid(batch * channels) || hw <= 0 || channels <= 0)                           \
-      return static_cast<int>(cudaErrorInvalidValue);                                     \
-    band_bwd_apply_kernel<T><<<static_cast<unsigned int>(batch * channels), kThreads, 0,  \
-                               static_cast<cudaStream_t>(stream)>>>(                      \
-        x, g, gamma, mean, rstd, local, total, batch, channels, hw, n, dx, dgamma, dbeta);\
-    return static_cast<int>(launched());                                                  \
+      long long hw, float n, T* dx, float* dgamma, float* dbeta, int variant, int lanes,  \
+      int threads, void* stream) {                                                         \
+    return launch_band_bwd_apply(x, g, gamma, mean, rstd, local, total, batch, channels,  \
+                                 hw, n, dx, dgamma, dbeta, variant, lanes, threads,       \
+                                 stream);                                                 \
   }
 SHM_BAND_BWD_APPLY(f32, float)
 SHM_BAND_BWD_APPLY(bf16, __nv_bfloat16)

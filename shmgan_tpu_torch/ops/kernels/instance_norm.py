@@ -34,8 +34,12 @@ then one launch that merges them (Chan et al.'s pairwise update) and
 applies the affine (`band_apply`). Its backward takes the band's sums of g
 and g * xhat by one launch (`band_bwd_sums`), adds the row's in float32
 (`comm.sum_f32`), and forms dx, and this band's dgamma and dbeta, by one
-more (`band_bwd_apply`). Each step has its plain version beside it, and a
-CPU tensor runs those. `instance_norm_split(x, gamma, beta, eps, m)` is the
+more (`band_bwd_apply`); the first walks the planes in the reverse order of
+the second, so that the second starts on the planes still in L2.
+`_band_bwd_plan` picks both launches' variant (packed, vector, element) and
+block size from the band's shape alone, and the launches refuse a plan they
+cannot run. Each step has its plain version beside it, and a CPU tensor runs
+those. `instance_norm_split(x, gamma, beta, eps, m)` is the
 same arithmetic on a whole map in one process: each of its m bands through
 the same steps, the bands' moments and sums joined in rank order.
 
@@ -128,6 +132,63 @@ def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
                        _ceil_div(run, threads))
     return BwdPlan("streaming", 1, STREAM_THREADS, STREAM_THREADS, 1, width,
                    _ceil_div(nchunks, STREAM_THREADS))
+
+
+# The band backward's launch plan (`_band_bwd_plan`). Packed: bands of up
+# to BAND_PACKED_MAX elements, `lanes` threads a plane as the whole-plane
+# packed variant (a lane holds at most PACKED_ELEMS elements of x and of g),
+# in blocks of BAND_PACKED_THREADS. Vector (H*W a multiple of 16 bytes) and
+# element (one element a chunk): one block a plane, of BAND_MIN_THREADS to
+# BAND_MAX_THREADS threads, sized so that each thread takes about
+# BAND_CHUNKS chunks (the kernel loads BAND_UNROLL of them before it uses
+# them). The block sizes rest on `time_instance_norm.py --band --sweep` (an
+# H100, PERF.md §6): packed blocks of 128 threads were the fastest, or
+# within 2 % of it, at 14 of the step's 16 (band, dtype) pairs that pack;
+# a vector block of a quarter of the band's chunks at 10 of the 14 that do
+# not (at the other four, D's batch of 16, twice the threads won 2-13 %).
+# csrc/instance_norm.cu holds the same limits.
+BAND_PACKED_MAX = 32 * PACKED_ELEMS
+BAND_PACKED_THREADS = 128
+BAND_CHUNKS = 4
+BAND_UNROLL = 4
+BAND_MIN_THREADS = 32
+BAND_MAX_THREADS = 512
+_BAND_VARIANTS = {"packed": 0, "vector": 1, "element": 2}
+_INT_MAX = 2**31 - 1
+
+
+class BandPlan(NamedTuple):
+    variant: str           # "packed", "vector" or "element"
+    planes_per_block: int  # packed: threads // lanes; else 1
+    lanes: int             # threads that own one plane
+    threads: int           # threads per block
+    width: int             # elements per chunk: 16 bytes' worth (packed, vector), else 1
+    chunks: int            # chunks of a plane a thread takes at most
+
+
+def _band_bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BandPlan:
+    """Both launches of the band backward for a (b, c, h, w) band of `dtype`,
+    hw = h * w, from its shape alone: packed for bands of up to
+    BAND_PACKED_MAX elements (lanes = the band's chunks rounded up to a power
+    of 2, at most 32); else vector where hw is a multiple of 16 bytes and
+    element where it is not, one block a plane. Raises ValueError for an
+    empty shape or one past the kernels' grid."""
+    if b <= 0 or c <= 0 or hw <= 0:
+        raise ValueError(f"instance_norm band backward: empty shape ({b}, {c}, {hw})")
+    if b * c > _INT_MAX or hw > 2**30:
+        raise ValueError(f"instance_norm band backward: ({b}, {c}, {hw}) is past the "
+                         f"kernels' grid")
+    vec = 16 // dtype.itemsize
+    width = vec if hw % vec == 0 else 1
+    nchunks = hw // width
+    if hw <= BAND_PACKED_MAX:
+        lanes = min(32, _pow2_ceil(nchunks))
+        return BandPlan("packed", BAND_PACKED_THREADS // lanes, lanes, BAND_PACKED_THREADS,
+                        width, _ceil_div(nchunks, lanes))
+    threads = min(BAND_MAX_THREADS,
+                  max(BAND_MIN_THREADS, 32 * _ceil_div(nchunks, 32 * BAND_CHUNKS)))
+    return BandPlan("vector" if width == vec else "element", 1, threads, threads, width,
+                    _ceil_div(nchunks, threads))
 
 
 def kernel_name(kind: str, dtype: torch.dtype) -> str:
@@ -329,8 +390,8 @@ def _band_kernel_fns(dtype: torch.dtype):
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         sig = {"moments": [p, p, ll, ll, p],
                "apply": [p, p, p, p, i, ll, i, ll, f, p, p, p, p],
-               "bwd_sums": [p, p, p, p, p, ll, ll, p],
-               "bwd_apply": [p, p, p, p, p, p, p, ll, i, ll, f, p, p, p, p]}
+               "bwd_sums": [p, p, p, p, p, ll, ll, i, i, i, p],
+               "bwd_apply": [p, p, p, p, p, p, p, ll, i, ll, f, p, p, p, i, i, i, p]}
         fns = []
         for name, argtypes in sig.items():
             fn = getattr(lib, f"shm_instance_norm_band_{name}_{_SUFFIX[dtype]}")
@@ -340,10 +401,11 @@ def _band_kernel_fns(dtype: torch.dtype):
     return _band_fns[dtype]
 
 
-def _run(fn, what: str, *args) -> None:
+def _run(fn, what: str, *args, plan: Optional[BandPlan] = None) -> None:
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"instance_norm band {what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"instance_norm band {what} kernel launch failed"
+                           f"{f' ({plan})' if plan else ''}: CUDA error {err}")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -441,17 +503,24 @@ def band_bwd_sums_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     return torch.stack([gf.sum(dim=(2, 3)), (gf * xhat).sum(dim=(2, 3))])
 
 
+def _plan_args(plan: BandPlan) -> Tuple[int, int, int]:
+    return _BAND_VARIANTS[plan.variant], plan.lanes, plan.threads
+
+
 def band_bwd_sums(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
-                  rstd: torch.Tensor) -> torch.Tensor:
-    """`band_bwd_sums_plain` by one launch for a CUDA tensor."""
+                  rstd: torch.Tensor, plan: Optional[BandPlan] = None) -> torch.Tensor:
+    """`band_bwd_sums_plain` by one launch for a CUDA tensor, with `plan`
+    (default `_band_bwd_plan`'s), the planes from the last."""
     _check_band(x, g=g, mean=mean, rstd=rstd)
     if x.device.type == "cpu":
         return band_bwd_sums_plain(x, g, mean, rstd)
     b, c, h, w = x.shape
+    plan = plan or _band_bwd_plan(b, c, h * w, x.dtype)
     out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _run(_band_kernel_fns(x.dtype)[2], "backward sums", x.data_ptr(), g.data_ptr(),
-             mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), b * c, h * w, _stream(x))
+             mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), b * c, h * w,
+             *_plan_args(plan), _stream(x), plan=plan)
     launches["band_backward", x.dtype] += 1
     return out
 
@@ -474,13 +543,16 @@ def band_bwd_apply_plain(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
 
 def band_bwd_apply(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
                    mean: torch.Tensor, rstd: torch.Tensor, local: torch.Tensor,
-                   total: torch.Tensor, n: int
+                   total: torch.Tensor, n: int, plan: Optional[BandPlan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`band_bwd_apply_plain` by one launch for a CUDA tensor."""
+    """`band_bwd_apply_plain` by one launch for a CUDA tensor, with `plan`
+    (default `_band_bwd_plan`'s), the planes from the first: the reverse of
+    `band_bwd_sums`."""
     _check_band(x, g=g, gamma=gamma, mean=mean, rstd=rstd, local=local, total=total)
     if x.device.type == "cpu":
         return band_bwd_apply_plain(x, g, gamma, mean, rstd, local, total, n)
     b, c, h, w = x.shape
+    plan = plan or _band_bwd_plan(b, c, h * w, x.dtype)
     dx = torch.empty_like(x)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
@@ -488,7 +560,7 @@ def band_bwd_apply(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
         _run(_band_kernel_fns(x.dtype)[3], "backward apply", x.data_ptr(), g.data_ptr(),
              gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), local.data_ptr(),
              total.data_ptr(), b, c, h * w, float(n), dx.data_ptr(), dgamma.data_ptr(),
-             dbeta.data_ptr(), _stream(x))
+             dbeta.data_ptr(), *_plan_args(plan), _stream(x), plan=plan)
     launches["band_backward", x.dtype] += 1
     return dx, dgamma, dbeta
 

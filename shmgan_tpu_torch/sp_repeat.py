@@ -1,20 +1,23 @@
-"""Reads how repeatable the float32 train step on a 1 x 2 spatial mesh is
-against one rank's whole step, and what moves it.
+"""Reads how repeatable the float32 train step on a 1 x 2 mesh is against
+one rank's whole step, and what moves it.
 
-    python3 shmgan_tpu_torch/sp_repeat.py [--repeats 6] [--out FILE]
+    python3 shmgan_tpu_torch/sp_repeat.py [--mesh spatial|model] [--repeats 6] [--out FILE]
 
-On one card, at chip_smoke's spatial configuration (f32, the JAX defaults:
-128 px, filter 64, batch 8, weights from seed 0, chip_smoke's SP_SEED
-batch), each mode runs the step with debug_grads `repeats` times, each from
-a fresh state after chip_smoke's warm-up step (`_tp_steps`):
+On one card, at chip_smoke's configuration of the mesh (f32, the JAX
+defaults: 128 px, filter 64, batch 8, weights from seed 0): `--mesh
+spatial` (the default) is the `spatial` phase's 1 x 2 spatial mesh on its
+SP_SEED batch; `--mesh model` the `model_parallel` phase's 1 x 2 tensor
+mesh (tp_min_channels 256) on its TP_SEED batch. Each mode runs the step
+with debug_grads `repeats` times, each from a fresh state after
+chip_smoke's warm-up step (`_tp_steps`):
   one       one rank, the whole step, in this process (which joins no
             process group);
-  mesh      two gloo ranks on the card (chip_smoke.sp_rank's setting), the
-            code as it is;
+  mesh      two gloo ranks on the card (chip_smoke.sp_rank's or tp_rank's
+            setting), the code as it is;
   sync      the mesh with torch.cuda.synchronize() before and after every
-            collective of parallel/spatial.py (`_all_gather`,
-            `_all_reduce_f32`): no copy of gloo's can overlap the card's
-            work;
+            collective of the mesh's module (`_all_gather`,
+            `_all_reduce_f32` of parallel/spatial.py or parallel/tp.py):
+            no copy of gloo's can overlap the card's work;
   determ    one rank and the mesh with cuDNN deterministic (its benchmark
             is off throughout, PyTorch's default).
 Each run is read against the first `one` run (`determ`: the first
@@ -80,17 +83,23 @@ def _synced(fn):
     return call
 
 
-def _setting():
-    """chip_smoke's spatial f32 configuration, its batch, and a fresh whole
-    state from seed 0."""
+def _setting(mesh):
+    """chip_smoke's f32 configuration of `mesh` ("spatial" or "model"), its
+    batch, a fresh whole state from seed 0, the IN entry point the mesh's
+    step calls, and the module whose collectives `sync` wraps."""
     import chip_smoke as cs
     from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.parallel import spatial, tp
     from shmgan_tpu_torch.train.state import create_train_state
 
-    cfg = cs._sp_config("float32")
-    batches, _ = cs._tp_batches(cfg, 1, seed=cs.SP_SEED)
-    return cfg, batches, lambda: create_train_state(cfg, build_models(cfg, device="cuda",
-                                                                      seed=0))
+    if mesh == "spatial":
+        cfg, seed, spied, module = (cs._sp_config("float32"), cs.SP_SEED, "instance_norm_band",
+                                    spatial)
+    else:
+        cfg, seed, spied, module = cs._tp_config("float32"), cs.TP_SEED, "instance_norm", tp
+    batches, _ = cs._tp_batches(cfg, 1, seed=seed)
+    return (cfg, batches, lambda: create_train_state(cfg, build_models(cfg, device="cuda",
+                                                                       seed=0)), spied, module)
 
 
 def _record(readings, firsts, mode, ref, run):
@@ -107,7 +116,6 @@ def rank(workdir):
     each from a fresh state; rank 0 reads them against the one-rank firsts
     in <workdir>/one.pt. Writes <workdir>/rep<r>.pt (rank 0's readings)."""
     import chip_smoke as cs
-    from shmgan_tpu_torch.parallel import spatial
     from shmgan_tpu_torch.parallel.mesh import (maybe_initialize_distributed, rank as rank_of,
                                                 rank_layout, shutdown_distributed,
                                                 training_mesh)
@@ -117,26 +125,25 @@ def rank(workdir):
     if not maybe_initialize_distributed("gloo"):
         raise RuntimeError("sp_repeat: no launcher environment")
     r, readings, firsts = rank_of(), {}, {}
-    cfg, batches, fresh = _setting()
+    cfg, batches, fresh, spied, module = _setting(os.environ["SP_MESH"])
     layout = rank_layout(training_mesh(cfg))
     ones = torch.load(os.path.join(workdir, "one.pt"), weights_only=False) if r == 0 else {}
-    gather, reduce = spatial._all_gather, spatial._all_reduce_f32
+    gather, reduce = module._all_gather, module._all_reduce_f32
     try:
         for mode in MODES:
             torch.backends.cudnn.deterministic = mode == "determ"
             if mode == "sync":
-                spatial._all_gather, spatial._all_reduce_f32 = _synced(gather), _synced(reduce)
+                module._all_gather, module._all_reduce_f32 = _synced(gather), _synced(reduce)
             try:
                 for _ in range(repeats):
                     state = shard_state(fresh(), layout, cfg.model.image_size,
                                         cfg.mesh.tp_min_channels)
-                    run = _flat(cs._tp_steps(cfg, state, batches, layout,
-                                             "instance_norm_band")[1][0])
+                    run = _flat(cs._tp_steps(cfg, state, batches, layout, spied)[1][0])
                     if r == 0:
                         _record(readings, firsts, mode,
                                 ones["one determ" if mode == "determ" else "one"], run)
             finally:
-                spatial._all_gather, spatial._all_reduce_f32 = gather, reduce
+                module._all_gather, module._all_reduce_f32 = gather, reduce
         torch.save(readings, os.path.join(workdir, f"rep{r}.pt"))
     finally:
         torch.backends.cudnn.deterministic = False
@@ -145,6 +152,7 @@ def rank(workdir):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mesh", choices=("spatial", "model"), default="spatial")
     ap.add_argument("--repeats", type=int, default=6)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -155,7 +163,7 @@ def main(argv=None) -> int:
 
     # one rank's steps in this process, which joins no process group (a
     # step in a group of two would average over it)
-    cfg, batches, fresh = _setting()
+    cfg, batches, fresh, _, _ = _setting(args.mesh)
     readings, firsts = {}, {}
     for mode in ("one", "one determ"):
         torch.backends.cudnn.deterministic = mode == "one determ"
@@ -165,7 +173,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = False
     del batches
     torch.cuda.empty_cache()
-    os.environ["SP_REPEATS"] = str(args.repeats)
+    os.environ["SP_REPEATS"], os.environ["SP_MESH"] = str(args.repeats), args.mesh
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(firsts, os.path.join(tmp, "one.pt"))
         readings.update(cs._run_ranks(tmp, "shmgan_tpu_torch.sp_repeat.rank", cs.SP_RANKS,
@@ -175,7 +183,8 @@ def main(argv=None) -> int:
             print(f"{mode} {against}: " + "; ".join(
                 ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
                           for k, v in x.items()) for x in values))
-    line = json.dumps({"device": torch.cuda.get_device_name(0), "repeats": args.repeats,
+    line = json.dumps({"device": torch.cuda.get_device_name(0), "mesh": args.mesh,
+                       "repeats": args.repeats,
                        "readings": readings})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

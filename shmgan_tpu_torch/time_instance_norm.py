@@ -1,7 +1,7 @@
 """Times the instance-norm backward kernel of one checkout on the card, to
 compare commits.
 
-    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--sweep]
+    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--band] [--sweep]
 
 Imports `shmgan_tpu_torch` from DIR (default: the checkout this file is in),
 so the same timings can run against an older commit unpacked elsewhere; run
@@ -15,8 +15,20 @@ L2 flush, and their sums over the sites of one train step. With --sweep
 (a checkout that has `_bwd_plan`) it also times, at each shape, the resident
 variant at every block size from 32 to 512 threads in one block and in a
 cluster of two, and the streaming variant, beside the plan's choice: the
-measurement the plan's constants rest on. Prints one JSON line. Needs a CUDA
-card.
+measurement the plan's constants rest on.
+
+With --band it times the band backward instead (spatial sharding: the sums
+launch and the apply launch of `instance_norm_band_backward`, through a
+one-rank row, `spatial.LocalRow`) at every band shape the spatial train
+step gives it (`chip_smoke.SP_BAND_SHAPES`), both dtypes: `device_ms`,
+`device_cold_ms` and the bytes bound (x and g read once, dx written once)
+at each shape, and their sums over one rank's step weighted by calls a
+step. With --band --sweep (a checkout that has `_band_bwd_plan`) it also
+times, at each shape, the packed variant (bands of up to 256 elements) at
+64, 128 and 256 threads, and the vector (H*W a multiple of 16 bytes) and
+element variants at 32 to 512 threads, beside the plan's choice.
+
+Prints one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -52,9 +64,70 @@ def _sweep(cs, ink, plan, x, gamma, mean, rstd, dy):
     return out
 
 
+def _band_plans(ink, shape, dtype):
+    """Every band plan the sweep times at this (B, C, h, W): packed at 64 to
+    256 threads where the band fits, vector where H*W is a multiple of 16
+    bytes, and element, at 32 to 512 threads."""
+    b, c, h, w = shape
+    hw, vec = h * w, 16 // dtype.itemsize
+    plans = []
+    if hw <= ink.BAND_PACKED_MAX:
+        width = vec if hw % vec == 0 else 1
+        lanes = min(32, 1 << (hw // width - 1).bit_length())
+        plans += [ink.BandPlan("packed", t // lanes, lanes, t, width, -(-hw // width // lanes))
+                  for t in (64, 128, 256) if t >= lanes]
+    for variant, width in (("vector", vec), ("element", 1)):
+        if hw % width == 0:
+            plans += [ink.BandPlan(variant, 1, t, t, width, -(-hw // width // t))
+                      for t in (32, 64, 128, 256, 512)]
+    return plans
+
+
+def _band_main(cs, ink, args, dev, smi):
+    """--band: the band backward at chip_smoke.SP_BAND_SHAPES."""
+    import torch
+    from shmgan_tpu_torch.parallel.spatial import LocalRow
+
+    row, rows, totals = LocalRow(), [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(0)
+        name = str(dtype).split(".")[-1]
+        total = totals.setdefault(name, dict(device_ms=0.0, device_cold_ms=0.0, bound_ms=0.0))
+        for shape, calls in cs.SP_BAND_SHAPES:
+            b, c, h, w = shape
+            x, gamma, beta, dy = cs._in_inputs(dev, g, shape, dtype)
+            _, mean, rstd = ink.instance_norm_band_forward(x, gamma, beta, 1e-6, row)
+            call = lambda: ink.instance_norm_band_backward(x, dy, gamma, mean, rstd, row)  # noqa
+            bound_ms, _ = cs.bound(3 * x.numel() * x.element_size(), 10.0 * x.numel())
+            out = dict(dtype=name, shape=list(shape), calls_per_step=calls,
+                       device_ms=cs.device_ms(call, 50), device_cold_ms=cs.device_cold_ms(call),
+                       bound_ms=bound_ms)
+            if hasattr(ink, "_band_bwd_plan"):
+                plan = ink._band_bwd_plan(b, c, h * w, dtype)
+                out.update(variant=plan.variant, threads=plan.threads)
+                if args.sweep:
+                    n = h * w * row.m
+                    others = {}
+                    for p in _band_plans(ink, shape, dtype):
+                        def pair(p=p):
+                            local = ink.band_bwd_sums(x, dy, mean, rstd, p)
+                            return ink.band_bwd_apply(x, dy, gamma, mean, rstd, local, local,
+                                                      n, p)
+                        others[f"{p.variant}/{p.threads}"] = cs.device_ms(pair, 50)
+                    out["others"] = others
+            rows.append(out)
+            for k in total:
+                total[k] += calls * out[k]
+            del x, dy
+    print(json.dumps({"tree": args.tree, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "band": True, "per_step": totals, "rows": rows}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE), help="checkout whose package is timed")
+    ap.add_argument("--band", action="store_true",
+                    help="time the band backward at chip_smoke.SP_BAND_SHAPES")
     ap.add_argument("--sweep", action="store_true", help="also time other plans")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -71,6 +144,12 @@ def main() -> None:
     if not Path(ink.__file__).resolve().is_relative_to(tree):
         raise SystemExit(f"imported {ink.__file__}, not the package under {tree}")
     dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    if args.band:
+        args.tree = str(tree)
+        return _band_main(cs, ink, args, dev, smi)
     rows, totals = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(0)
@@ -93,9 +172,6 @@ def main() -> None:
             for k in total:
                 total[k] += sites * row[k]
             del x, dy
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip()
     print(json.dumps({"tree": str(tree), "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "per_step": totals, "rows": rows}))
 
