@@ -7,8 +7,9 @@ dtype).
 Phases (each prints its name before it starts and its seconds after):
   device      the card's name, count, CUDA version, nvidia-smi's name and
               power limit, and utils.device's report;
-  build       compiles csrc/*.cu with nvcc (one process per source) and prints
-              what ptxas reports;
+  build       compiles csrc/*.cu with nvcc and csrc/*.cc (the host batch
+              decoder) with the host C++ compiler, one process per source,
+              and prints each one's seconds and what ptxas reports;
   kernels     holds each kernel against its plain PyTorch version on the card
               at the shapes its path gives it: the IN forward at the serving
               shapes, the IN backward (and the forward with its stats) at every
@@ -166,6 +167,16 @@ Phases (each prints its name before it starts and its seconds after):
               the tree (24 PNGs, one preprocess launch), --mode test on a
               folder of every JPEG and GIF fixture (three PNGs each), and
               serving_models without a bundle answering one request;
+  native_loader the host batch decoder (csrc/host_loader.cc): its build
+              seconds; two 5-view trees of 8 scenes at 612x816, P6 and 24-bit
+              BMP, through PolarimetricDataset at 128 and 256 px
+              (used_native_decode, 5 decoder calls, the batch bit for bit
+              the decoder's plain numpy version); ms per image of the C++
+              batch at the dataset's worker count beside the codecs path on
+              the same files, with nvidia-smi's line (host numbers); cli
+              --mode train from the PPM tree (2 bf16 steps, exactly 2 x (46,
+              28, 1) launches) and cli --mode test on the BMP tree's I0
+              folder (one decoder call, 24 PNGs, (18, 1) launches);
   specseg_train the flagship trainer's phase A, f32: one SpecSeg train step
               on the card against one on the CPU (dr2 at 2 channels, batch
               32, 128 px, base 16; the optimizer's first moment, batch
@@ -196,7 +207,11 @@ Phases (each prints its name before it starts and its seconds after):
               f32 an eval, the backward's streaming launches counted; step
               ms, images/s, peak memory, seconds an eval and in its FIDs; the
               first eval beats the identity; best_bundle.msgpack reloaded and
-              serving one request;
+              serving one request; then a short second run (40 steps in
+              chunks of 20, one small eval) under --max_segment auto at a
+              budget of QG_SEGMENT_BUDGET_S: the segmenter must measure the
+              step and shrink the second chunk's segments (its summary and
+              the segments printed), and its launches are counted;
   keras_h5    the reference's Keras SpecSeg, tests/data/torch_h5/
               specseg_keras2.h5 (base 16, 1 channel, seeded), read through
               load_specseg_weights: sha256, each leaf's shape, sum and sum
@@ -457,14 +472,16 @@ def device_phase():
 
 
 def build_phase():
-    from shmgan_tpu_torch.runtime.build import build_all, find_nvcc
+    from shmgan_tpu_torch.runtime.build import build_all, find_cxx, find_nvcc, source_path
 
-    say(f"nvcc: {find_nvcc()}")
-    for name, (secs, log) in build_all().items():
-        say(f"built {name}.cu in {secs:.2f} s")
+    say(f"nvcc: {find_nvcc()}; host C++ compiler: {find_cxx()}")
+    built = build_all()
+    for name, (secs, log) in built.items():
+        say(f"built {source_path(name).name} in {secs:.2f} s")
         for line in log.splitlines():
             if "ptxas" in line:
                 say(f"  {line.strip()}")
+    return built
 
 
 def instance_norm_row(dev, g, dtype=torch.float32):
@@ -2326,6 +2343,107 @@ def train_cli_phase(bare):
         return _sum_counts(counts, served)
 
 
+# native_loader: the host batch decoder on two 5-view trees of camera-sized
+# files, PPM and 24-bit BMP
+NL_SCENES, NL_SHAPE, NL_SIZES = 8, (612, 816), (128, 256)
+
+
+def native_loader_phase(smi, built):
+    """The host batch decoder (csrc/host_loader.cc through
+    runtime/native_loader.py) on the card's host: its build, PolarimetricDataset
+    on a PPM and a BMP tree at 128 and 256 px against the decoder's plain
+    numpy version bit for bit, its ms per image beside the codecs path on
+    the same files, then cli --mode train (2 bf16 steps) from the PPM tree
+    and cli --mode test on the BMP tree's I0 folder."""
+    from shmgan_tpu_torch import cli
+    from shmgan_tpu_torch.config import DataConfig
+    from shmgan_tpu_torch.data.codecs import decode
+    from shmgan_tpu_torch.data.loader import PolarimetricDataset, decode_resize_batch
+    from shmgan_tpu_torch.data.synthetic import write_fixture_tree
+    from shmgan_tpu_torch.runtime import native_loader as nl
+
+    say(f"host_loader.cc built in {built['host_loader'][0]:.2f} s (the build phase, "
+        f"beside the kernels' nvcc)")
+    workers = DataConfig().num_workers
+    with tempfile.TemporaryDirectory() as root:
+        trees = {fmt: os.path.join(root, fmt) for fmt in ("ppm", "bmp")}
+        t0 = time.perf_counter()
+        for seed, (fmt, tree) in enumerate(trees.items()):
+            write_fixture_tree(tree, NL_SCENES, NL_SHAPE, seed=30 + seed, fmt=fmt)
+        say(f"two 5-view trees of {NL_SCENES} scenes at {NL_SHAPE[0]}x{NL_SHAPE[1]} (P6, "
+            f"24-bit BMP) written in {time.perf_counter() - t0:.2f} s")
+        rows = []
+        for fmt, tree in trees.items():
+            for size in NL_SIZES:
+                before = nl.calls
+                ds = PolarimetricDataset(DataConfig(data_dir=tree), size, NL_SCENES)
+                calls = nl.calls - before
+                batch = next(ds.iter_epoch())
+                paths = [p for fs in ds.files for p in fs]
+                want = np.stack([nl.decode_batch_plain(fs, size)[0] for fs in ds.files])
+                if not ds.used_native_decode or calls != 5 or not np.array_equal(batch, want):
+                    raise AssertionError(
+                        f"{fmt} at {size}: used_native_decode {ds.used_native_decode}, {calls} "
+                        f"library calls (5 expected), max |batch - plain| "
+                        f"{np.abs(batch - want).max():.3e}")
+                runs, codecs_runs = [], []
+                for _ in range(3):  # in turns, best of 3 each
+                    runs.append(_timed_ms(lambda: nl.decode_batch(paths, size, workers)))
+                    codecs_runs.append(_timed_ms(lambda: decode_resize_batch(
+                        paths, size, workers, allow_native=False)))
+                rows.append((fmt, size, min(runs) / len(paths), min(codecs_runs) / len(paths)))
+                say(f"{fmt} {NL_SHAPE[0]}x{NL_SHAPE[1]} -> {size}: PolarimetricDataset through "
+                    f"the C++ batch ({calls} calls of {NL_SCENES} files), bit for bit its plain "
+                    f"version; {len(paths)} files on {workers} workers, in turns: C++ batch "
+                    f"{[round(r, 2) for r in runs]} ms, codecs path "
+                    f"{[round(r, 2) for r in codecs_runs]} ms")
+        say(f"host decode, ms per image of a {NL_SHAPE[0]}x{NL_SHAPE[1]} file, best of 3 "
+            f"(the card's host; {smi}): " + "; ".join(
+                f"{fmt} -> {size}: C++ batch {n:.3f}, codecs path {c:.3f} ({c / n:.1f}x)"
+                for fmt, size, n, c in rows))
+
+        d = {k: os.path.join(root, k) for k in ("ckpt", "logs", "models", "results")}
+
+        def argv(mode, *extra):
+            return ["--mode", mode, "--data_dir", trees["ppm"], "--batch_size", str(NL_SCENES),
+                    "--checkpoint_save_step", "1", "--checkpoint_save_dir", d["ckpt"],
+                    "--log_dir", d["logs"], "--model_save_dir", d["models"],
+                    "--result_dir", d["results"], *extra]
+
+        before = nl.calls
+        _launch_counts(reset=True)
+        t0 = time.perf_counter()
+        cli.main(argv("train", "--num_epochs", "2"))
+        train_s = time.perf_counter() - t0
+        trained = _launch_counts(reset=True)
+        want = {k: 2 * n for k, n in step_launches(torch.bfloat16).items()}
+        metrics_rows = _rows(d["logs"])
+        say(f"cli --mode train from the PPM tree (128 px, bf16, 2 steps): {train_s:.2f} s of "
+            f"cli.main, {nl.calls - before} decoder calls, {len(metrics_rows)} metrics rows; "
+            f"launches {trained}")
+        if trained != want or nl.calls - before != 5 or not metrics_rows:
+            raise AssertionError(f"--mode train on the PPM tree launched {trained} (expected "
+                                 f"{want}) after {nl.calls - before} decoder calls")
+
+        before = nl.calls
+        t0 = time.perf_counter()
+        cli.main(argv("test", "--test_dir", os.path.join(trees["bmp"], "I0")))
+        test_s = time.perf_counter() - t0
+        tested = _launch_counts(reset=True)
+        want = {**{k: 0 for k in tested}, _in_name(torch.bfloat16): 18,
+                "fused_standardize_yuv": 1}
+        pngs = sorted(f for f in os.listdir(d["results"]) if f.endswith(".png"))
+        shape = decode(_read(os.path.join(d["results"], pngs[0]))).shape
+        say(f"cli --mode test on the BMP tree's I0 ({NL_SCENES} files): {test_s:.2f} s of "
+            f"cli.main, {nl.calls - before} decoder call, {len(pngs)} PNGs of {shape}; "
+            f"launches {tested}")
+        if tested != want or nl.calls - before != 1 or len(pngs) != 3 * NL_SCENES \
+                or shape != (128, 128, 3):
+            raise AssertionError(f"--mode test on the BMP folder: {len(pngs)} PNGs, launches "
+                                 f"{tested} (expected {want})")
+    return _sum_counts(trained, tested)
+
+
 # specseg_train: the flagship trainer's phase A at its full width
 SS_SIZE, SS_BATCH, SS_BASE, SS_CHUNK, SS_LR = 128, 32, 16, 100, 2e-4
 # (curriculum, in_channels, steps): the shipped 256-px bundle's recipe first;
@@ -2610,6 +2728,10 @@ QG_SIZE, QG_BATCH, QG_CHUNK = 256, 10, 50
 # read; evals at half of it (the first after 100 steps) and at the end
 QG_STEPS, QG_EVAL_EVERY = 150, 75
 QG_EVAL_N, QG_FID_DRAWS, QG_SMALL_BATCH = 64, 3, 2
+# a short second run under --max_segment auto at this budget: the first
+# chunk's two 10-step segments are the segmenter's first sample and its
+# first measure, and a budget under 10 steps' time shrinks the second chunk's
+QG_SEG_STEPS, QG_SEG_CHUNK, QG_SEGMENT_BUDGET_S = 40, 20, 0.5
 QG_RECIPE = ("--phase", "gan", "--image_size", str(QG_SIZE), "--batch", str(QG_BATCH),
              "--gan_curriculum", "dr", "--upsample_mode", "resize_conv", "--g_ema", "0.999",
              "--specseg_in_channels", "2")
@@ -2908,6 +3030,7 @@ def quality_gan_phase():
             raise AssertionError("phase B launched other kernels than predicted")
         if len(hist) != 2 or len(spy.evals) != 2 or not hist[0]["beats_identity"]:
             raise AssertionError(f"phase B's evals {hist}: the first must beat the identity")
+        seg_counts = _qg_segmented_run(qt, ss_path, root)
 
         # the best bundle reloaded and serving one request
         best = load_inference_bundle(os.path.join(out, "best_bundle.msgpack"))
@@ -2924,6 +3047,48 @@ def quality_gan_phase():
         if cal.shape != (8, QG_SIZE, QG_SIZE, 3) or not np.isfinite(cal).all() \
                 or served_counts["fused_standardize_yuv"] != 1:
             raise AssertionError("serving the best bundle failed")
+    return _sum_counts(counts, seg_counts)
+
+
+def _qg_segmented_run(qt, ss_path, root):
+    """A short run of the same recipe under --max_segment auto: the
+    segmenter measures the step in the first chunk and shrinks the second
+    chunk's segments below 10; the steps' and the final eval's launches."""
+    segmenters, lengths = [], []
+
+    class Segmenter(qt.AdaptiveSegmenter):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            segmenters.append(self)
+
+        def observe(self, length, wall_s):
+            lengths.append(length)
+            super().observe(length, wall_s)
+
+    argv = list(QG_RECIPE) + [
+        "--dtype", "bfloat16", "--chunk", str(QG_SEG_CHUNK), "--gan_steps", str(QG_SEG_STEPS),
+        "--eval_every", "1000", "--eval_n", "8", "--fid_draws", "1", "--init_from_bundle",
+        os.path.join(ROOT, BUNDLE), "--specseg_out", ss_path,
+        "--out", os.path.join(root, "gan_segmented"), "--max_segment", "auto",
+        "--segment_budget_s", str(QG_SEGMENT_BUDGET_S)]
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with mock.patch.object(qt, "AdaptiveSegmenter", Segmenter):
+        steps = qt.main(argv)["gan"]["train_steps"]
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(reset=True)
+    want = {k: QG_SEG_STEPS * n for k, n in gan_step_launches(torch.bfloat16).items()}
+    want[_in_name(torch.float32)] += 18   # the final eval: one chunk of 8 images
+    want["fused_standardize_yuv"] += 1
+    seg = segmenters[0] if segmenters else None
+    say(f"  --max_segment auto, budget {QG_SEGMENT_BUDGET_S} s, {QG_SEG_STEPS} steps in chunks "
+        f"of {QG_SEG_CHUNK}: {seg.summary() if seg else 'no segmenter'}; segments {lengths}; "
+        f"{wall:.2f} s of main; launches {counts}")
+    if len(segmenters) != 1 or steps != QG_SEG_STEPS or sum(lengths) != QG_SEG_STEPS \
+            or lengths[:2] != [10, 10] or max(lengths[2:]) >= 10 or seg.per_step_s is None:
+        raise AssertionError(f"the segmenter did not measure and shrink: segments {lengths}")
+    if counts != want:
+        raise AssertionError(f"the segmented run launched {counts}, expected {want}")
     return counts
 
 
@@ -4259,7 +4424,7 @@ def main() -> int:
     try:
         smi = phase("device", device_phase)
         current = "build"
-        phase("build", build_phase)
+        built = phase("build", build_phase)
         current = "kernels"
         rows = phase("kernels", kernels_phase)
         current = "serve"
@@ -4296,6 +4461,8 @@ def main() -> int:
         by_path["train_loop"] = phase("train_loop", train_loop_phase)
         current = "train_cli"
         by_path["train_cli"] = phase("train_cli", train_cli_phase, bare_bf16)
+        current = "native_loader"
+        by_path["native_loader"] = phase("native_loader", native_loader_phase, smi, built)
         current = "specseg_train"
         by_path["specseg_train"] = phase("specseg_train", specseg_train_phase)
         current = "quality_gan"

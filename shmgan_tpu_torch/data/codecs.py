@@ -5,6 +5,7 @@ native/loader.cc (`encode_png`).
     rgb = decode(data)                        # (H, W, 3) uint8
     rgb = resize_bilinear(rgb, (256, 256))    # Pillow's BILINEAR, exactly
     data = encode_png(u8)                     # (H, W) or (H, W, 1|3) uint8
+    data = encode_ppm(u8); encode_bmp(u8)     # PIL's P6/P5 and 24-bit BMP bytes
 
 `decode` dispatches on the file's signature and reads what PIL 12 reads of
 these formats, to PIL's `convert("RGB")` pixels:
@@ -217,13 +218,7 @@ def encode_png(img_u8: np.ndarray, level: int = 1) -> bytes:
     """An (H, W) or (H, W, 1|3) uint8 image as PNG: 8-bit grey or RGB, rows
     of filter 0, one zlib stream at `level` (1: fast, the serving default),
     as native/loader.cc writes it."""
-    img = np.asarray(img_u8)
-    if img.dtype != np.uint8:
-        raise ValueError(f"encode_png: expected uint8, got {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.ndim != 3 or img.shape[2] not in (1, 3) or 0 in img.shape:
-        raise ValueError(f"encode_png: expected (H, W) or (H, W, 1|3), got {img_u8.shape}")
+    img = _encodable(img_u8, "encode_png")
     h, w, c = img.shape
     raw = np.zeros((h, w * c + 1), np.uint8)
     raw[:, 1:] = img.reshape(h, w * c)
@@ -231,6 +226,41 @@ def encode_png(img_u8: np.ndarray, level: int = 1) -> bytes:
     return (PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
             + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + _png_chunk(b"IEND", b""))
+
+
+def encode_ppm(img_u8: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 1|3) uint8 as binary PGM (P5) or PPM (P6) of maxval
+    255, the bytes PIL's `save` writes."""
+    img = _encodable(img_u8, "encode_ppm")
+    h, w, c = img.shape
+    return b"P%d\n%d %d\n255\n" % (5 if c == 1 else 6, w, h) + img.tobytes()
+
+
+def encode_bmp(img_u8: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 as an uncompressed 24-bit bottom-up BMP, the bytes
+    PIL's `save` writes for an RGB image (96 dpi)."""
+    img = _encodable(img_u8, "encode_bmp")
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"encode_bmp: expected (H, W, 3), got {img_u8.shape}")
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    ppm = int(96 * 39.3701 + 0.5)
+    return (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, ppm, ppm, 0, 0)
+            + rows.tobytes())
+
+
+def _encodable(img_u8: np.ndarray, what: str) -> np.ndarray:
+    img = np.asarray(img_u8)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{what}: expected uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3) or 0 in img.shape:
+        raise ValueError(f"{what}: expected (H, W) or (H, W, 1|3), got {img_u8.shape}")
+    return img
 
 
 # -- PPM / PGM ------------------------------------------------------------------

@@ -1,37 +1,48 @@
-"""Image files in: the counterpart of shmgan_tpu/data/loader.py, decoding
-through data/codecs.py instead of PIL, to the same float32 arrays, for every
-format the JAX package reads (PNG, JPEG, GIF, PPM/PGM and BMP; the
-extensions of `list_images`). A batch from a JPEG tree equals JAX's bit for
-bit: the decoded pixels are PIL's and the resize is Pillow's BILINEAR.
+"""Image files in: the counterpart of shmgan_tpu/data/loader.py, to the same
+float32 arrays, for every format the JAX package reads (PNG, JPEG, GIF,
+PPM/PGM and BMP; the extensions of `list_images`).
 
   list_images, decode_resize, decode_original   one file, or a folder listed
-  decode_resize_batch    a list of files through a thread pool
+  decode_resize_batch    a list of files, routed as the JAX loader routes it
   PolarimetricDataset    the five aligned views (I0, I45, I90, I135, ED, or
                          the PSD naming), batches of (V, B, H, W, 3)
   SingleFolderDataset    one flat RGB folder for inference, (B, H, W, 3)
+
+Two decoders, chosen per list as JAX chooses them. A list whose every file
+ends in .ppm, .pgm or .bmp goes to the host batch decoder
+(runtime/native_loader.py, C++ threads): half-pixel bilinear without
+antialiasing (the reference's keras/TF resize), times the f32 1/255. Each
+file it refuses (RLE, palette or 16-bit BMP, maxval above 255, ...) then goes
+alone through `decode_resize`, as JAX's does. Any other list goes through a
+thread pool of `decode_resize`: data/codecs.py's decoders (PIL's pixels) and
+Pillow's BILINEAR, divided by 255, so a batch from a JPEG tree equals JAX's
+bit for bit. A PNM of maxval below 255 is scaled to 8 bits as PIL scales it
+on both routes, where JAX's native decoder copies its samples unscaled
+(ROADMAP Queue 3, deliberate differences).
 
 The five view folders are listed once and aligned by sorted file name; the
 decoded views are cached in RAM as float32; the ED view is the channel-wise
 minimum of the four polarised views when its folder is missing and
 `est_diffuse` is set. The order of an epoch and each process's share of a
-batch are the JAX package's. (Its native C++ batch decoder, host code, is
-not ported: ROADMAP Queue 1 item 9. That decoder copies the samples of a
-PNM of maxval below 255 unscaled where PIL scales them; the port follows
-PIL.)
+batch are the JAX package's. `used_native_decode` says whether the last
+decode of a dataset took the host batch decoder.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from shmgan_tpu_torch.config import DataConfig
 from shmgan_tpu_torch.data.codecs import decode, resize_bilinear
+from shmgan_tpu_torch.runtime import native_loader
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".gif")
+# what the host batch decoder takes: a list of these alone goes to it
+_NATIVE_EXTS = (".ppm", ".pgm", ".bmp")
 
 
 def list_images(directory: str) -> List[str]:
@@ -79,12 +90,25 @@ def decode_original(path: str) -> np.ndarray:
     return to_unit(_read(path))
 
 
-def decode_resize_batch(paths: List[str], image_size: int, num_workers: int = 4
-                        ) -> np.ndarray:
-    """Decode and resize a list of files on `num_workers` threads: (N, S, S, 3)
-    float32 in [0, 1]."""
+def _decode_batch(paths: List[str], image_size: int, num_workers: int,
+                  allow_native: bool) -> Tuple[np.ndarray, bool]:
+    """decode_resize_batch's array and whether the host batch decoder took it."""
+    if allow_native and paths and all(p.lower().endswith(_NATIVE_EXTS) for p in paths):
+        out, ok = native_loader.decode_batch(paths, image_size, num_threads=num_workers)
+        for i in np.flatnonzero(ok == 0):  # refused: JAX's per-file path
+            out[i] = decode_resize(paths[i], image_size)
+        return out, True
     with ThreadPoolExecutor(max_workers=num_workers) as ex:
-        return np.stack(list(ex.map(lambda p: decode_resize(p, image_size), paths)))
+        return np.stack(list(ex.map(lambda p: decode_resize(p, image_size), paths))), False
+
+
+def decode_resize_batch(paths: List[str], image_size: int, num_workers: int = 4,
+                        allow_native: bool = True) -> np.ndarray:
+    """Decode and resize a list of files: (N, S, S, 3) float32 in [0, 1].
+    Every file a PPM, PGM or BMP (and `allow_native`): the host batch decoder
+    on `num_workers` C++ threads, each file it refuses through
+    `decode_resize`; otherwise `decode_resize` on `num_workers` threads."""
+    return _decode_batch(paths, image_size, num_workers, allow_native)[0]
 
 
 def _with_ed(views: np.ndarray) -> np.ndarray:
@@ -104,6 +128,7 @@ class PolarimetricDataset:
         self.image_size = image_size
         self.batch_size = batch_size
         self.num_workers = num_workers or cfg.num_workers
+        self.used_native_decode = False
 
         names = cfg.psd_view_dirs if cfg.use_psd_naming else cfg.view_dirs
         self.view_names = list(names)
@@ -128,9 +153,12 @@ class PolarimetricDataset:
             self._cache = self._decode(list(range(n)))
 
     def _decode(self, idx) -> np.ndarray:
-        return _with_ed(np.stack([
-            decode_resize_batch([fs[i] for i in idx], self.image_size, self.num_workers)
-            for fs in self.files]))
+        views = []
+        for fs in self.files:
+            arr, self.used_native_decode = _decode_batch(
+                [fs[i] for i in idx], self.image_size, self.num_workers, True)
+            views.append(arr)
+        return _with_ed(np.stack(views))
 
     def _load_indices(self, idx: np.ndarray) -> np.ndarray:
         if self._cache is not None:
@@ -175,8 +203,10 @@ class SingleFolderDataset:
         self.batch_size = batch_size if image_size is not None else 1
         self.num_workers = num_workers
         self._cache: Optional[np.ndarray] = None
+        self.used_native_decode = False
         if cache and image_size is not None:
-            self._cache = decode_resize_batch(self.files, image_size, num_workers)
+            self._cache, self.used_native_decode = _decode_batch(self.files, image_size,
+                                                                 num_workers, True)
 
     def __len__(self) -> int:
         return len(self.files)

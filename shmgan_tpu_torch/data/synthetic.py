@@ -14,11 +14,11 @@ Highlights are strong (past saturation), anisotropic and lightly tinted.
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 
-from shmgan_tpu_torch.data.codecs import encode_png
+from shmgan_tpu_torch.data.codecs import encode_bmp, encode_png, encode_ppm
 
 _VIEW_ANGLES_DEG = (0.0, 45.0, 90.0, 135.0)
 
@@ -148,11 +148,14 @@ def synth_polar_batch(batch: int, image_size: int, seed: int = 0,
     return np.concatenate([v4, v4.min(axis=0, keepdims=True)], axis=0)
 
 
-def _save_png(arr: np.ndarray, path: str) -> None:
-    """An image in [0, 1] as an 8-bit PNG, truncated as
+_ENCODERS = {"png": encode_png, "ppm": encode_ppm, "bmp": encode_bmp}
+
+
+def _save_image(arr: np.ndarray, path: str, fmt: str = "png") -> None:
+    """An image in [0, 1] as an 8-bit PNG (or PPM, BMP), truncated as
     `(np.clip(a, 0, 1) * 255).astype(np.uint8)` truncates."""
     with open(path, "wb") as f:
-        f.write(encode_png((np.clip(arr, 0, 1) * 255).astype(np.uint8)))
+        f.write(_ENCODERS[fmt]((np.clip(arr, 0, 1) * 255).astype(np.uint8)))
 
 
 def write_triplet_fixture_tree(root: str, n_images: int, image_size: int,
@@ -171,20 +174,21 @@ def write_triplet_fixture_tree(root: str, n_images: int, image_size: int,
         views, diffuse, mask = synth_polar_scene(rng, image_size, image_size)
         img = camera_image(diffuse, views)
         if layout == "folder":
-            _save_png(img, os.path.join(root, "image", f"img_{i:05d}.png"))
-            _save_png(diffuse, os.path.join(root, "diffuse", f"img_{i:05d}.png"))
+            _save_image(img, os.path.join(root, "image", f"img_{i:05d}.png"))
+            _save_image(diffuse, os.path.join(root, "diffuse", f"img_{i:05d}.png"))
             if with_mask:
-                _save_png(np.repeat(mask, 3, axis=-1),
-                          os.path.join(root, "mask", f"img_{i:05d}.png"))
+                _save_image(np.repeat(mask, 3, axis=-1),
+                            os.path.join(root, "mask", f"img_{i:05d}.png"))
         else:
-            _save_png(img, os.path.join(root, f"img{i:05d}_A.png"))
-            _save_png(diffuse, os.path.join(root, f"img{i:05d}_T.png"))
+            _save_image(img, os.path.join(root, f"img{i:05d}_A.png"))
+            _save_image(diffuse, os.path.join(root, f"img{i:05d}_T.png"))
             if with_mask:
-                _save_png(np.clip(img - diffuse, 0, 1),
-                          os.path.join(root, f"img{i:05d}_S.png"))
+                _save_image(np.clip(img - diffuse, 0, 1),
+                            os.path.join(root, f"img{i:05d}_S.png"))
 
 
-def write_fixture_tree(root: str, n_images: int, image_size: int, seed: int = 0,
+def write_fixture_tree(root: str, n_images: int, image_size: Union[int, Tuple[int, int]],
+                       seed: int = 0,
                        view_dirs: Sequence[str] = ("I0", "I45", "I90", "I135", "ED"),
                        write_ed: bool = True, fmt: str = "png",
                        ed_mode: str = "min") -> None:
@@ -193,17 +197,19 @@ def write_fixture_tree(root: str, n_images: int, image_size: int, seed: int = 0,
 
     ed_mode: "min" writes ED as the channel-wise min of the 4 views (the
     reference's estimated diffuse); "diffuse" writes the scene's true diffuse
-    image. Only PNG is written (`fmt` "png"): the port has no other encoder.
+    image. `fmt` is "png", "ppm" or "bmp" (8-bit RGB, the bytes PIL writes).
+    `image_size` is the side of a square, or (height, width).
     """
-    if fmt != "png":
-        raise ValueError(f"write_fixture_tree writes png only, got fmt={fmt!r}")
+    if fmt not in _ENCODERS:
+        raise ValueError(f"write_fixture_tree writes png, ppm or bmp, got fmt={fmt!r}")
+    h, w = (image_size, image_size) if isinstance(image_size, int) else image_size
     rng = np.random.default_rng(seed)
     dirs = list(view_dirs) if write_ed else list(view_dirs[:4])
     for d in dirs:
         os.makedirs(os.path.join(root, d), exist_ok=True)
     for i in range(n_images):
-        views, diffuse, _ = synth_polar_scene(rng, image_size, image_size)
+        views, diffuse, _ = synth_polar_scene(rng, h, w)
         ed = diffuse if ed_mode == "diffuse" else views.min(axis=0)
         imgs = list(views) + ([ed] if write_ed else [])
         for d, img in zip(dirs, imgs):
-            _save_png(img, os.path.join(root, d, f"img_{i:05d}.{fmt}"))
+            _save_image(img, os.path.join(root, d, f"img_{i:05d}.{fmt}"), fmt)

@@ -32,8 +32,9 @@ model_parallel 1 it is the plain layout, as in the JAX package.
 
 Only `all_reduce`, `all_gather` and `broadcast` run on the tensors, so the
 path runs over NCCL, or over gloo with CUDA or CPU tensors. Flags the host
-decides (a signal, a deadline) are agreed over a gloo group on CPU tensors
-(`agree_any`), which waits on no device.
+decides (a signal, a deadline, a segment's wall time) are agreed over a
+gloo group on CPU tensors (`agree_any`, `agree_max`), which waits on no
+device.
 
 Serving is one process over a list of devices: infer.make_infer_fn's
 `data_parallel`; it ignores the model axis, as the JAX package's serving
@@ -355,6 +356,16 @@ def agree_any(flag: bool) -> bool:
     t = torch.tensor([int(bool(flag))], dtype=torch.int32)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_host_group)
     return bool(t.item())
+
+
+def agree_max(value: float) -> float:
+    """The largest of the ranks' values, agreed over the gloo group on a CPU
+    tensor (no device wait). Without a process group: the value."""
+    if not dist.is_initialized():
+        return float(value)
+    t = torch.tensor([float(value)], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_host_group)
+    return float(t.item())
 
 
 def barrier() -> None:

@@ -29,9 +29,8 @@ examples/quality_train.py. Two phases:
         --out runs/gan                       # the card
     ... --cpu                                # the CPU
 
-Flags keep the JAX script's names, choices and defaults. `--max_segment`,
-`--segment_budget_s` and `--pallas_in` have no effect: the port runs each
-chunk as it is and always takes its CUDA instance-norm kernel on the card.
+Flags keep the JAX script's names, choices and defaults. `--pallas_in` has
+no effect: the port always takes its CUDA instance-norm kernel on the card.
 
 `--data_parallel N` runs phase B on N ranks, one process a card, under a
 launcher (`torchrun --nproc_per_node N -m shmgan_tpu_torch.quality_train
@@ -64,6 +63,13 @@ after the last step (unless that step was just evaluated). Writes
 `quality_live.json` after every eval, the checkpoints (`--ckpt_dir`, default
 `<out>/ckpt`, the newest 3), `best_bundle.msgpack`, and
 `sample_{best,final}_{i}.png`. Both write `<out>/quality_summary.json`.
+Phase B splits each chunk into segments as JAX's `--max_segment` does: N
+steps each (`segment_plan`; -1 is 50 at 256 px and above, 0 the whole
+chunk), or `auto`, segments sized to `--segment_budget_s` from their
+measured time (train/segmenter.py). Each segment ends with a value fetch,
+and the deadline (`--max_hours`) is read there, so a run stops at most one
+segment past it. The steps and the final state are the same under any
+setting.
 """
 
 from __future__ import annotations
@@ -96,11 +102,12 @@ from shmgan_tpu_torch.models import build_models
 from shmgan_tpu_torch.models.specseg import SpecSeg
 from shmgan_tpu_torch.ops.specprior import specseg_net_input
 from shmgan_tpu_torch.ops.ssim import ssim as ssim_fn
-from shmgan_tpu_torch.parallel.mesh import (agree_any, is_main, local_device,
+from shmgan_tpu_torch.parallel.mesh import (agree_any, agree_max, is_main, local_device,
                                             maybe_initialize_distributed, rank,
                                             shutdown_distributed, training_mesh, world_size)
 from shmgan_tpu_torch.train.specseg_train import (create_specseg_state, iou,
                                                   make_specseg_train_step)
+from shmgan_tpu_torch.train.segmenter import AdaptiveSegmenter, run_segments, segment_plan
 from shmgan_tpu_torch.train.state import TrainState, broadcast_state, create_train_state
 from shmgan_tpu_torch.train.step import make_train_step, sample_draws
 from shmgan_tpu_torch.utils.viz import image_grid
@@ -123,9 +130,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chunk", type=int, default=100,
                    help="train steps between host synchronisations (log and probe cadence)")
     p.add_argument("--max_segment", type=str, default="-1",
-                   help="JAX: device-program length of a chunk; no effect here")
+                   help="phase B: split each chunk into segments of at most this many "
+                        "steps: an int, -1 (50 at image_size >= 256, off below), 0 (off), "
+                        "or 'auto', segments sized from the measured step time to fit "
+                        "--segment_budget_s; each segment ends with a host "
+                        "synchronisation and a read of the --max_hours deadline")
     p.add_argument("--segment_budget_s", type=float, default=25.0,
-                   help="JAX: with --max_segment auto; no effect here")
+                   help="with --max_segment auto: target wall-clock seconds a segment "
+                        "(shrinks at once above 40 s)")
     p.add_argument("--phase", choices=["both", "specseg", "gan"], default="both")
     # Phase A
     p.add_argument("--specseg_steps", type=int, default=4000)
@@ -201,9 +213,9 @@ def log(msg: str) -> None:
 
 
 def resolve_segment(max_segment: int, image_size: int) -> int:
-    """JAX's device-program length of a chunk (0 = the whole chunk): -1 is
-    50 steps at image_size >= 256 and off below. The port runs each chunk as
-    it is; it only reports the value."""
+    """The segment length of a chunk (0 = the whole chunk): -1 is 50 steps at
+    image_size >= 256 and off below, as in the JAX script; `--max_segment
+    auto` replaces this table with the AdaptiveSegmenter."""
     if max_segment < 0:
         return 50 if image_size >= 256 else 0
     return max_segment
@@ -597,31 +609,57 @@ def run_gan_phase(a: argparse.Namespace, cfg: Config, specseg_vars: Optional[Dic
     # evals since the best checkpoint, from the resumed history
     evals_since_best = sum(1 for e in history if e.get("step", 0) > best.get("step", 0)) \
         if best.get("psnr", -1.0) > 0 else 0
-    seg = str(a.max_segment).strip().lower()
-    log(f"[gan] chunks of {a.chunk} steps run as they are (--max_segment {seg}: "
-        f"{seg if seg == 'auto' else resolve_segment(int(seg), a.image_size)} in JAX, no "
-        f"effect here)")
-    done = state.step
-    t0 = chunk_t0 = time.perf_counter()
-    last_rate = 0.0
-    while done < a.gan_steps and not agree_any(time.time() >= deadline):
-        k = min(a.chunk, a.gan_steps - done)
-        for s in range(done, done + k):
+    seg_arg = str(a.max_segment).strip().lower()
+    segmenter = None
+    if seg_arg == "auto":
+        segmenter = AdaptiveSegmenter(
+            budget_s=a.segment_budget_s,
+            init_steps=resolve_segment(-1, a.image_size) or min(a.chunk, 100))
+        seg = 0
+        log(f"[gan] adaptive segmenting: {segmenter.summary()}")
+    else:
+        seg = resolve_segment(int(seg_arg), a.image_size)
+        if seg and seg < a.chunk:
+            log(f"[gan] chunk {a.chunk} run as segments of <= {seg} steps")
+
+    def program(s0: int, kk: int):
+        nonlocal state
+        for s in range(s0, s0 + kk):
             # the global batch and its draws, cut to this rank's block
             gen = stream(a.seed, GAN_STREAM + s, device)
             views = views_fn(gen, b, h, w, ed_mode=a.ed_mode,
                              camera_swap_prob=a.camera_swap_prob)
             draws = sample_draws(cfg, gen, v, b, h, w).shard(rank_index, world)
             state, metrics = step_fn(state, local_batch(views, rank_index, world), draws, 1)
-        tg = float(metrics["total_G"])  # the chunk's synchronisation
+        return metrics
+
+    def observe(kk: int, wall: float) -> None:
+        # the slowest rank's time, so that every rank plans the same segments
+        segmenter.observe(kk, agree_max(wall))
+
+    def past_deadline() -> bool:
+        return agree_any(time.time() >= deadline)
+
+    done = state.step
+    t0 = chunk_t0 = time.perf_counter()
+    last_rate = 0.0
+    while done < a.gan_steps and not past_deadline():
+        k = min(a.chunk, a.gan_steps - done)
+        segments = segmenter.plan(done, k) if segmenter else segment_plan(done, k, seg)
+        # each segment ends with a synchronisation; the deadline is read at each end
+        metrics, k = run_segments(segments, program, lambda m: float(m["total_G"]),
+                                  observe if segmenter else None, past_deadline)
+        # the last segment's metrics feed the log line: the newest step's
+        tg = float(metrics["total_G"])  # synchronised at the last segment's end
         now = time.perf_counter()
         last_rate = k * b / (now - chunk_t0)
         chunk_t0 = now
         prev_done, done = done, done + k
         if done % (a.chunk * 10) < a.chunk:
             g1 = float(metrics["G1_L1"]) if "G1_L1" in metrics else float("nan")
+            seg_note = f" | {segmenter.summary()}" if segmenter else ""
             log(f"[gan {done}/{a.gan_steps}] total_G={tg:.2f} G1_L1={g1:.4f} "
-                f"({last_rate:.0f} img/s)")
+                f"({last_rate:.0f} img/s){seg_note}")
         if done // a.eval_every > prev_done // a.eval_every:
             plateau = False
             if main:

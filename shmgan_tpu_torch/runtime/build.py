@@ -1,18 +1,28 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
-Each `csrc/<name>.cu` becomes its own `_build/lib<name>-<hash>.so`, compiled by
-`nvcc` for `sm_90a` with a plain C interface and loaded with `ctypes`. No
-PyTorch header is included, so a build takes seconds. The hash covers the
-source and the flags, so a stale library is never loaded. All missing
-libraries are compiled at once, one `nvcc` process for each source.
+Each `csrc/<name>.cu` and `csrc/<name>.cc` becomes its own
+`_build/lib<name>-<hash>.so`, loaded with `ctypes`, each with a plain C
+interface and no PyTorch header, so a build takes seconds:
+
+  .cu  the card's kernels, compiled by `nvcc` for `sm_90a`;
+  .cc  host code (the batch decoder), compiled by the host C++ compiler,
+       `$CXX` or else `g++`, with floating-point contraction off so that it
+       repeats its plain numpy version bit for bit, and no `-march=native`.
+
+The hash covers the source and the flags, and for host code the compiler
+(its resolved path and `--version`), so a stale library, or one that another
+compiler built, is never loaded. All missing libraries are compiled at once, one compiler process for
+each source. A failed build raises with the compiler's output.
 
 `load(name)` builds on first use; `build_all()` builds every source up front
-and returns, for each, the seconds it took and what `ptxas -v` reported.
+and returns, for each, the seconds it took and what the compiler reported
+(`ptxas -v` for a kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,6 +37,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -50,46 +61,82 @@ def find_nvcc() -> str:
         f"{CSRC} at first use.")
 
 
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX, else g++, found on $PATH."""
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if not found:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found: set CXX or put g++ on "
+                           f"PATH. The port's host code is compiled from {CSRC} at first use.")
+    return found
+
+
 def sources() -> List[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    return sorted(p.stem for p in CSRC.glob("*.c[cu]"))
+
+
+def source_path(name: str) -> Path:
+    """csrc/<name>.cu or csrc/<name>.cc."""
+    for suffix in (".cu", ".cc"):
+        path = CSRC / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no source {name}.cu or {name}.cc under {CSRC}")
+
+
+def _flags(src: Path) -> List[str]:
+    return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_identity(compiler: str) -> str:
+    """The compiler's path and what `--version` prints."""
+    out = subprocess.run([compiler, "--version"], capture_output=True, text=True)
+    return f"{compiler}\n{out.stdout}"
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source_path(name)
+    key = " ".join(_flags(src))
+    if src.suffix == ".cc":  # bit-for-bit parity rests on what the compiler does
+        key += "\n" + _compiler_identity(find_cxx())
+    digest = hashlib.sha256(src.read_bytes() + key.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _compile(names: List[str]) -> Dict[str, Tuple[float, str]]:
-    """Run one nvcc per source, all at once; raise if any fails."""
-    nvcc = find_nvcc()
+    """Run one compiler process per source, all at once; raise if any fails."""
+    jobs = []  # every compiler is found before any process starts
+    for name in names:
+        src, out = source_path(name), library_path(name)
+        compiler = find_nvcc() if src.suffix == ".cu" else find_cxx()
+        jobs.append((name, src, out, compiler))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
+    for name, src, out, compiler in jobs:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       tmp, out, f"{os.path.basename(compiler)} {src.name}")
     report, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for name, (proc, tmp, out, what) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
+            failed.append(f"--- {what} (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         report[name] = (time.perf_counter() - t0, log)
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
     return report
 
 
 def build_all() -> Dict[str, Tuple[float, str]]:
-    """Compile every csrc/*.cu whose library is missing.
+    """Compile every csrc/*.cu and csrc/*.cc whose library is missing.
 
-    Returns {name: (seconds, nvcc output)}; a library that was already built
+    Returns {name: (seconds, compiler output)}; a library that was already built
     reports (0.0, "up to date")."""
     with _lock:
         missing = [n for n in sources() if not library_path(n).exists()]
@@ -98,7 +145,7 @@ def build_all() -> Dict[str, Tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, building it if needed."""
+    """The loaded library of csrc/<name>.cu or .cc, building it if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

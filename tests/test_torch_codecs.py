@@ -285,25 +285,27 @@ def test_pnm_every_maxval_is_pils(magic, maxval):
     np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
 
 
-def test_pnm_below_255_follows_pil_not_the_native_loader(tmp_path):
-    """JAX's decode_resize_batch sends PPM batches through native/loader.cc
-    when it builds, which copies a maxval-100 raster unscaled; PIL (JAX's
-    other path) scales it. The port keeps one decoder and follows PIL."""
+def test_pnm_below_255_scales_as_pil_then_resizes_as_the_native_loader(tmp_path):
+    """JAX's decode_resize_batch sends PPM batches through native/loader.cc,
+    which copies a maxval-100 raster unscaled. The port's batch decoder
+    scales the samples as PIL does and then resizes as loader.cc does: JAX's
+    native resize of PIL's samples, within 1e-6 (JAX's library may contract
+    its lerps into FMAs)."""
     from shmgan_tpu.data.loader import decode_resize_batch as j_decode_resize_batch
-    from shmgan_tpu.runtime.native_loader import native_available
+    from shmgan_tpu.runtime import native_loader as jnl
     from shmgan_tpu_torch.data.loader import decode_resize_batch
 
+    assert jnl.build_native()
     px = np.random.default_rng(12).integers(0, 101, (20, 24, 3)).astype(np.uint8)
     path = str(tmp_path / "m100.ppm")
     with open(path, "wb") as f:
         f.write(b"P6\n24 20\n100\n" + px.tobytes())
     got = decode_resize_batch([path], 16, num_workers=1)
-    via_pil, used_native = j_decode_resize_batch([path], 16, num_workers=1, allow_native=False)
-    assert not used_native
-    np.testing.assert_array_equal(got, via_pil)
-    if native_available():
-        via_native, used_native = j_decode_resize_batch([path], 16, num_workers=1)
-        assert used_native and np.abs(via_native - got).max() > 0.3   # 100 read as 100/255
+    with Image.open(path) as im:
+        pil_samples = np.asarray(im.convert("RGB"))
+    np.testing.assert_allclose(got[0], jnl.resize_normalize(pil_samples, 16), rtol=0, atol=1e-6)
+    via_native, used_native = j_decode_resize_batch([path], 16, num_workers=1)
+    assert used_native and np.abs(via_native - got).max() > 0.3   # 100 read as 100/255
 
 
 # -- BMP variants -------------------------------------------------------------------

@@ -17,6 +17,8 @@ one process, at 32 px, filter 8, SpecSeg base 4, global batch 4, f32.
          first moments, (1 - b1) x the clipped gradient, within
          tests/test_torch_train_step.py's gradient tolerances, and the
          parameters within 2 * lr.
+  agree  the host agreements phase B makes at a segment's end: the largest
+         of the ranks' times, and a flag one rank sets.
 """
 
 import json
@@ -67,7 +69,7 @@ def runs(tmp_path_factory):
     torch.save(_loop_sections(str(work / "two"), tree), work / "loop.pt")
     torch.save(GAN_ARGS + ["--data_parallel", "2", "--out", str(work / "gan_two")],
                work / "gan.pt")
-    ranks = spawn_ranks(work, ["loop", "gan"])
+    ranks = spawn_ranks(work, ["loop", "gan", "agree"])
 
     one = {}
     cfg = make_config(_loop_sections(str(work / "one"), tree))
@@ -82,6 +84,10 @@ def runs(tmp_path_factory):
 def _rows(root):
     with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def test_ranks_agree_on_a_segment_time_and_a_flag(runs):
+    assert [r["agree"] for r in runs["ranks"]] == [{"max": 1.25, "any": True, "none": False}] * 2
 
 
 def test_loop_checkpoints_and_resumes_on_two_ranks(runs):

@@ -6,8 +6,12 @@ step, the command line's train, export and test modes on a tiny tree, the
 data-parallel layout, device report and a two-shard engine, two SpecSeg steps
 of the flagship trainer's phase A, two GAN steps of its phase B on the DR
 curriculum with an eval, galleries and the best bundle, the reference's Keras
-h5 read and an hdf5 dump written, the plots and the profiling hooks) where
-those modules cannot be imported.
+h5 read and an hdf5 dump written, the plots and the profiling hooks, a PPM
+tree through the host batch decoder) where those modules cannot be imported.
+The host batch decoder is the port's own: the library a native batch loads
+is built from shmgan_tpu_torch/csrc/ into shmgan_tpu_torch/_build/, and no
+source of the port or chip_smoke.py names the JAX package's native/ library,
+its source or its Makefile outside a docstring.
 
 orbax_to_torch.py, the Orbax converter, is the one file outside tests/ that
 imports both packages, and nothing of the port or chip_smoke.py reaches it."""
@@ -50,6 +54,31 @@ def test_no_banned_import_in_sources():
         for mod in _imported_modules(path):
             if mod.split(".")[0] in BANNED:
                 found.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not found, found
+
+
+def _code_strings(path):
+    """The string constants of a source, docstrings left out."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.value
+
+
+def test_no_source_reaches_the_jax_native_library():
+    found = []
+    for path in _port_sources():
+        for text in _code_strings(path):
+            if "libshmgan_native" in text or "native/" in text or "/loader.cc" in text \
+                    or text in ("loader.cc", "Makefile"):
+                found.append(f"{os.path.relpath(path, REPO)}: {text[:60]!r}")
     assert not found, found
 
 
@@ -158,6 +187,25 @@ def test_port_runs_with_banned_modules_blocked():
                   "--diffuse_dir", os.path.join(root, "tree", "ED")] + common, device="cpu")
         with open(os.path.join(root, "results", "metrics.jsonl")) as f:
             assert len(f.readlines()) == 5
+
+        # a PPM tree through the host batch decoder: the port's own library
+        from shmgan_tpu_torch.config import DataConfig
+        from shmgan_tpu_torch.data.loader import PolarimetricDataset
+        from shmgan_tpu_torch.runtime import build, native_loader
+
+        write_fixture_tree(os.path.join(root, "ppm"), 2, 16, fmt="ppm")
+        ds = PolarimetricDataset(DataConfig(data_dir=os.path.join(root, "ppm")),
+                                 image_size=8, batch_size=2)
+        assert ds.used_native_decode and native_loader.calls == 5
+        lib = os.path.realpath(native_loader._lib._name)
+        assert lib == str(build.library_path("host_loader")), lib
+        assert lib.startswith(os.path.realpath("shmgan_tpu_torch/_build") + os.sep), lib
+        assert build.source_path("host_loader") == build.CSRC / "host_loader.cc"
+        assert os.path.realpath(build.CSRC) == os.path.realpath("shmgan_tpu_torch/csrc")
+        with open("/proc/self/maps") as f:
+            mapped = {{line.split()[-1] for line in f if line.rstrip().endswith(".so")}}
+        assert lib in mapped
+        assert not [m for m in mapped if m.startswith(os.path.realpath("native") + os.sep)]
 
         # the flagship trainer's phase A: 2 SpecSeg steps on device-made DR scenes
         from shmgan_tpu_torch import quality_train

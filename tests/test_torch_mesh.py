@@ -103,8 +103,8 @@ def test_data_parallel_without_a_launcher_raises(tmp_path, monkeypatch):
 def test_one_rank_group(monkeypatch):
     """In a one-rank gloo group: data_parallel -1 and 1 are the world size,
     2 is not, nor is a model axis of 2; the collectives keep every value
-    (sum over one rank, / 1) and agree_any reads the flag; the rank's
-    layout is (0, 0)."""
+    (sum over one rank, / 1), agree_any reads the flag and agree_max the
+    value; the rank's layout is (0, 0)."""
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
@@ -127,6 +127,7 @@ def test_one_rank_group(monkeypatch):
         mesh.broadcast_(tensors)
         assert all(torch.equal(a, b) for a, b in zip(tensors, before))
         assert mesh.agree_any(True) and not mesh.agree_any(False)
+        assert mesh.agree_max(2.5) == 2.5
         mesh.barrier()
     finally:
         mesh.shutdown_distributed()
@@ -147,6 +148,7 @@ def test_collectives_without_a_group():
     mesh.broadcast_([t])
     mesh.barrier()
     assert torch.equal(t, torch.ones(3)) and mesh.agree_any(True) and not mesh.agree_any(False)
+    assert mesh.agree_max(2.5) == 2.5
     assert mesh.local_device("cuda") == torch.device("cuda")
 
 

@@ -537,6 +537,54 @@ def test_phase_gan_resumes_at_the_saved_step(tmp_path):
     assert CheckpointManager(str(tmp_path / "ckpt")).all_steps() == [2, 4, 6]
 
 
+def test_phase_gan_segments_end_in_the_same_state(tmp_path, capsys, monkeypatch):
+    """--max_segment 0 (the whole chunk), 2 and auto at a 1 ms budget split
+    one chunk of 6 steps three ways (6; 2+2+2; 5+1, each segment ended by a
+    synchronisation) and end in the same checkpoint bit for bit; the auto
+    run logs its plan and, with the chunk's line, the segmenter's summary."""
+    seen = []
+
+    class Spy(qt.AdaptiveSegmenter):
+        def observe(self, length, wall_s):
+            seen.append(length)
+            super().observe(length, wall_s)
+
+    monkeypatch.setattr(qt, "AdaptiveSegmenter", Spy)
+    states = {}
+    for seg in ("0", "2", "auto"):
+        qt.main(_gan_argv(tmp_path / seg, "--gan_steps", "6", "--chunk", "100",
+                          "--eval_every", "6", "--fid_draws", "1", "--max_segment", seg,
+                          "--segment_budget_s", "0.001"))
+        states[seg] = (tmp_path / seg / "ckpt" / "6" / "state.msgpack").read_bytes()
+    log = capsys.readouterr().out
+    assert states["0"] == states["2"] == states["auto"]
+    assert seen == [5, 1]
+    assert "[gan] chunk 100 run as segments of <= 2 steps" in log
+    summary = "segment=100 (unmeasured, budget 0s)"   # min(chunk, 100), not yet moved
+    assert f"[gan] adaptive segmenting: {summary}" in log
+    assert any(line.endswith(f"img/s) | {summary}") and "[gan 6/6]" in line
+               for line in log.splitlines())
+
+
+def test_phase_gan_stops_at_a_segment_end_past_the_deadline(tmp_path, monkeypatch):
+    """The deadline is read at every segment's end: when the ranks agree it
+    has passed after the first of three 2-step segments, the chunk ends
+    there, and the run evaluates and saves at step 2, not 6."""
+    flags = []
+
+    def agree_any(flag):
+        flags.append(flag)
+        return len(flags) > 1   # the deadline passes during the first segment
+
+    monkeypatch.setattr(qt, "agree_any", agree_any)
+    summary = qt.main(_gan_argv(tmp_path, "--gan_steps", "6", "--chunk", "6", "--eval_every",
+                                "100", "--fid_draws", "1", "--max_segment", "2"))["gan"]
+    assert summary["train_steps"] == 2 and summary["final"]["step"] == 2
+    # read before the chunk, after its first segment, and again before the next chunk
+    assert flags == [False, False, False]
+    assert CheckpointManager(str(tmp_path / "ckpt")).all_steps() == [2]
+
+
 def test_phase_both_on_the_cpu(tmp_path, jax_run):
     summary = qt.main(_gan_argv(tmp_path, "--phase", "both", "--specseg_batch", "2",
                                 "--specseg_steps", "2", "--specseg_in_channels", "2",

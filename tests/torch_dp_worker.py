@@ -19,6 +19,9 @@ writing `<workdir>/<job>_<rank>.pt`:
          again, resuming from its checkpoint, for 2 more; the parameters
          after each;
   gan    `quality_train.main` with the arguments of gan.pt.
+  agree  `agree_max` of a value that differs by rank, and `agree_any` of a
+         flag only the last rank sets (how phase B's ranks agree on a
+         segment's time and on the deadline).
   tp_step    every case of tp_step_cases.pt (as step's, with a mesh in its
          config): the whole state cut to this rank's slices
          (`shard_state`), one step on its data index's block; the
@@ -132,6 +135,13 @@ def job_gan(workdir):
 
     quality_train.main(torch.load(os.path.join(workdir, "gan.pt"), weights_only=False))
     return {}
+
+
+def job_agree(workdir):
+    from shmgan_tpu_torch.parallel.mesh import agree_any, agree_max
+
+    last = rank() == world_size() - 1
+    return {"max": agree_max(0.25 + rank()), "any": agree_any(last), "none": agree_any(False)}
 
 
 def spawn_ranks(workdir, jobs, world=2, timeout=240):
@@ -379,7 +389,7 @@ def job_sp_loop(workdir):
     return out
 
 
-JOBS = {"step": job_step, "feed": job_feed, "loop": job_loop, "gan": job_gan,
+JOBS = {"step": job_step, "feed": job_feed, "loop": job_loop, "gan": job_gan, "agree": job_agree,
         "tp_step": job_tp_step, "tp_loop": job_tp_loop, "tp_cli": job_tp_cli,
         "sp_step": job_sp_step, "sp_units": job_sp_units, "sp_loop": job_sp_loop}
 
