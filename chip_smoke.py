@@ -12,7 +12,14 @@ Phases (each prints its name before it starts and its seconds after):
               and prints each one's seconds and what ptxas reports;
   kernels     holds each kernel against its plain PyTorch version on the card
               at the shapes its path gives it: the IN forward at the serving
-              shapes, the IN backward (and the forward with its stats) at every
+              shapes, at every IN shape of the train step (with the stats
+              its backward reads) and at the native shapes (the 640x832
+              bucket at batch 2, 1536x2048 at batch 1), each shape's plan
+              printed, a repeat call bit for bit and, where the plan keeps
+              the two-pass kernel's map, the two-pass variant bit for bit,
+              then on unaligned storage (the two-pass variant), and every
+              variant (packed, resident, split, two-pass) reached; the IN
+              backward (and the forward with its stats) at every
               IN shape of the train step (repeat calls bit for bit), each with
               f32 and with bf16 activations, and autograd through the kernels
               (the path the models take) against autograd through the plain
@@ -274,6 +281,17 @@ TRAIN_IN_SHAPES = [
     ((80, 64, 64, 64), 1), ((80, 128, 32, 32), 1), ((80, 256, 16, 16), 1),
     ((80, 512, 8, 8), 1), ((80, 1024, 4, 4), 1)]
 
+# (B, C, H, W) of G's 18 IN sites at native resolution, and their count in
+# one G call: the 640x832 bucket at batch 2 (serve_native's 612x816 photos)
+# and a 2048x1536 photo at batch 1 (formats)
+NATIVE_IN_SHAPES = [
+    ((2, 64, 640, 832), 4), ((2, 128, 320, 416), 4), ((2, 256, 160, 208), 4),
+    ((2, 512, 80, 104), 4), ((2, 512, 40, 52), 2),
+    ((1, 64, 1536, 2048), 4), ((1, 128, 768, 1024), 4), ((1, 256, 384, 512), 4),
+    ((1, 512, 192, 256), 4), ((1, 512, 96, 128), 2)]
+# the IN forward's variants (ops/kernels/instance_norm._fwd_plan), each of
+# which the kernels phase must reach in both dtypes
+FWD_VARIANTS = ("packed", "resident", "split", "two_pass")
 # an IN backward shape above the resident limit, in both dtypes: the
 # streaming variant, checked but not counted in the per-step sums
 IN_STREAM_SHAPE = (2, 16, 256, 256)
@@ -484,37 +502,71 @@ def build_phase():
     return built
 
 
-def instance_norm_row(dev, g, dtype=torch.float32):
-    """The IN forward at the serving shapes, activations in `dtype`."""
-    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
-
-    name = _in_name(dtype)
+def _forward_check(ink, x, gamma, beta, stats, seen):
+    """The IN forward of x by `_fwd_plan`'s plan: against the plain version
+    (IN_TOL, IN_TOL_BF16), a repeat call bit for bit, and, where the plan
+    keeps the two-pass kernel's map, bit for bit against the two-pass
+    variant (y, and with `stats` the mean and rstd). Adds the variant to
+    `seen`; returns (error, plan)."""
+    b, c, h, w = x.shape
+    name, dtype = _in_name(x.dtype), x.dtype
     tol = IN_TOL if dtype == torch.float32 else IN_TOL_BF16
-    rows = []
+    plan = ink.fwd_plan_for(x)
+    got = ink._forward(x, gamma, beta, 1e-6, stats)
+    again = ink._forward(x, gamma, beta, 1e-6, stats)
+    ref = ink.instance_norm_plain(x, gamma, beta, 1e-6)
+    torch.cuda.synchronize()
+    err = (got[0].float() - ref.float()).abs().max().item()
+    ok = torch.allclose(got[0].float(), ref.float(), **tol)
+    same = all(a is None or torch.equal(a, r) for a, r in zip(got, again))
+    kept = ink.keeps_two_pass_bits(plan)
+    vec = 16 // x.element_size()
+    if kept:
+        two = ink._launch_forward(x, gamma, beta, 1e-6, stats, ink.two_pass_plan(h * w, vec))
+        kept_ok = all(a is None or torch.equal(a, t) for a, t in zip(got, two))
+        del two
+    per_sm = ink.forward_blocks_per_sm(plan, dtype)
+    unaligned = x.data_ptr() % 16 != 0
+    say(f"{name} {tuple(x.shape)}{' (with stats)' if stats else ''}"
+        f"{' x one element past an aligned base' if unaligned else ''}: plan {plan.variant}, "
+        f"{plan.lanes} threads a plane, {plan.threads} a block, cluster {plan.cluster}, "
+        f"{plan.chunks} chunks a thread, {plan.rounds} round(s), {per_sm} blocks per SM; "
+        f"max_abs_err={err:.3e} tol rtol={tol['rtol']:.3g} atol={tol['atol']} "
+        f"{'ok' if ok else 'FAIL'}; repeat {'bit-identical' if same else 'FAIL'}"
+        + (f"; two-pass {'bit-identical' if kept_ok else 'FAIL'}" if kept else
+           "; its own map (no two-pass bits)"))
+    if not (ok and same and (kept_ok if kept else True)):
+        raise AssertionError(f"{name} {plan.variant} disagrees at {tuple(x.shape)}: err={err} "
+                             f"repeat={same} two-pass={kept_ok if kept else None}")
+    seen.add(plan.variant)
+    return err, plan
+
+
+def _forward_rows(ink, dev, g, dtype, shapes, stats, seen):
+    """The IN forward at `shapes` ((B, C, H, W), sites): each checked
+    (_forward_check) and timed: ms, device_ms, device_cold_ms, the plain
+    version, F.instance_norm and the bytes bound; with `stats` the launch
+    the autograd path makes (mean and rstd written too). Returns (rows, sums
+    weighted by sites, worst error, bounds by)."""
     keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms")
     total = dict.fromkeys(keys, 0.0)
-    bound_by, worst = set(), 0.0
-    for shape, sites in IN_SHAPES:
+    rows, bound_by, worst = [], set(), 0.0
+    for shape, sites in shapes:
         b, c, h, w = shape
         # post-leaky-relu-like activations: mean and spread comparable
         x = F.leaky_relu(torch.randn(shape, device=dev, generator=g) + 0.5, 0.2).to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
         beta = 0.02 * torch.randn(c, device=dev, generator=g)
-        y = ink.instance_norm(x, gamma, beta, 1e-6).float()
-        ref = ink.instance_norm_plain(x, gamma, beta, 1e-6).float()
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        ok = torch.allclose(y, ref, **tol)
-        say(f"{name} {shape}: max_abs_err={err:.3e} tol rtol={tol['rtol']:.3g} "
-            f"atol={tol['atol']} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} kernel disagrees at {shape}: {err}")
-        del y, ref
-        iters = 20 if x.numel() > 1 << 24 else 100
-        kernel = lambda: ink.instance_norm(x, gamma, beta, 1e-6)  # noqa: E731
+        err, plan = _forward_check(ink, x, gamma, beta, stats, seen)
+        iters = 5 if x.numel() > 1 << 26 else 20 if x.numel() > 1 << 24 else 100
+        if stats:
+            kernel = lambda: ink._forward(x, gamma, beta, 1e-6, True)  # noqa: E731
+        else:
+            kernel = lambda: ink.instance_norm(x, gamma, beta, 1e-6)  # noqa: E731
         library = lambda: F.instance_norm(x, weight=gamma, bias=beta, eps=1e-6)  # noqa: E731
-        bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * 4, 5 * x.numel())
+        out_bytes = (2 * b * c * 4 if stats else 0) + 2 * c * 4
+        bms, by = bound(2 * x.numel() * x.element_size() + out_bytes, 5 * x.numel())
         row = dict(ms=time_ms(kernel, iters), device_ms=device_ms(kernel, iters),
                    device_cold_ms=device_cold_ms(kernel),
                    plain_ms=time_ms(lambda: ink.instance_norm_plain(x, gamma, beta, 1e-6),
@@ -526,24 +578,68 @@ def instance_norm_row(dev, g, dtype=torch.float32):
             f"({share(bms, row['device_cold_ms'])}) plain_ms={row['plain_ms']:.4f} "
             f"F.instance_norm_ms={row['library_ms']:.4f} "
             f"F.instance_norm_device_ms={row['library_device_ms']:.4f} bound_ms={bms:.4f} "
-            f"({by}) sites_per_G={sites}")
+            f"({by}) sites={sites}")
         bound_by.add(by)
         worst = max(worst, err)
-        rows.append(dict(shape=list(shape), sites_per_g_call=sites, max_abs_err=err, **row))
+        rows.append(dict(shape=list(shape), sites=sites, variant=plan.variant,
+                         threads=plan.threads, cluster=plan.cluster, chunks=plan.chunks,
+                         rounds=plan.rounds, max_abs_err=err, **row))
         for k in keys:
             total[k] += sites * row[k]
         del x
-    say(f"{name} per G call: ms={total['ms']:.4f} ({share(total['bound_ms'], total['ms'])}) "
+    return rows, total, worst, bound_by
+
+
+def _say_total(name, what, total):
+    say(f"{name} {what}: ms={total['ms']:.4f} ({share(total['bound_ms'], total['ms'])}) "
         f"device_ms={total['device_ms']:.4f} ({share(total['bound_ms'], total['device_ms'])}) "
         f"device_cold_ms={total['device_cold_ms']:.4f} "
         f"({share(total['bound_ms'], total['device_cold_ms'])}) "
         f"F.instance_norm_device_ms={total['library_device_ms']:.4f} "
         f"bound_ms={total['bound_ms']:.4f}")
+
+
+def instance_norm_row(dev, g, dtype=torch.float32):
+    """The IN forward, activations in `dtype`, at the serving shapes (the
+    row's numbers: one G call at b8, 256 px), then at the train step's
+    shapes with the stats its backward reads, and at the native shapes
+    (batch 2 at the 640x832 bucket, batch 1 at 1536x2048), each shape's plan
+    printed and checked (_forward_check); then unaligned storage (the
+    two-pass variant). Fails unless every variant was reached."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    name, seen = _in_name(dtype), set()
+    rows, total, worst, bound_by = _forward_rows(ink, dev, g, dtype, IN_SHAPES, False, seen)
+    _say_total(name, "per G call", total)
+    # the rows above keep the draws of earlier versions of this script
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    train, train_total, err, _ = _forward_rows(ink, dev, g2, dtype, TRAIN_IN_SHAPES, True, seen)
+    worst = max(worst, err)
+    _say_total(name, "per train step (46 launches, with stats)", train_total)
+    native, native_total = [], {}
+    for label, part in (("batch 2, 640x832", NATIVE_IN_SHAPES[:5]),
+                        ("batch 1, 1536x2048", NATIVE_IN_SHAPES[5:])):
+        rows_n, native_total[label], err, _ = _forward_rows(ink, dev, g2, dtype, part, False,
+                                                            seen)
+        native += rows_n
+        worst = max(worst, err)
+        _say_total(name, f"per native G call, {label}", native_total[label])
+    for shape in IN_UNALIGNED_SHAPES:
+        x, gamma, beta, _ = _in_inputs(dev, g2, shape, dtype, unaligned=True)
+        if x.data_ptr() % 16 == 0:
+            raise AssertionError(f"{name} {shape}: x is 16-byte aligned")
+        worst = max(worst, _forward_check(ink, x, gamma, beta, True, seen)[0])
+        del x
+    say(f"{name} variants reached: {sorted(seen)}")
+    if not set(FWD_VARIANTS) <= seen:
+        raise AssertionError(f"{name}: variants {sorted(seen)}, expected {FWD_VARIANTS}")
     return dict(name=name, route="cuda", dtype=str(dtype).split(".")[-1],
                 source="shmgan_tpu_torch/csrc/instance_norm.cu",
                 replaces="shmgan_tpu/ops/pallas/instance_norm.py:197",
                 launches=0, max_abs_err=worst, **total, bound_by="/".join(sorted(bound_by)),
-                per="the 18 launches of one G call at batch 8, 256 px", shapes=rows)
+                per="the 18 launches of one G call at batch 8, 256 px", shapes=rows,
+                train_shapes=train, per_train_step=train_total, native_shapes=native,
+                per_native_g_call=native_total)
 
 
 def library_backward_ms(x, gamma, beta, dy, iters):
@@ -4299,9 +4395,9 @@ def _keras_h5_profile(root):
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    found = {label: sum(part in n for n in names) for label, part in (
-        ("IN forward", "instance_norm_kernel"), ("IN backward", "instance_norm_bwd_"),
-        ("preprocess", "standardize_yuv"))}
+    found = {label: sum(any(p in n for p in parts) for n in names) for label, parts in (
+        ("IN forward", ("instance_norm_fwd_", "instance_norm_kernel")),
+        ("IN backward", ("instance_norm_bwd_",)), ("preprocess", ("standardize_yuv",)))}
     regions = sum(e.get("name") == KERAS_H5_REGION for e in events)
     say(f"trace of one bf16 train step: {os.path.getsize(prof.trace_path)} bytes, "
         f"{len(names)} CUDA kernel events, of them {found}; the annotate region "

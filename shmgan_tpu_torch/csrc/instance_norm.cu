@@ -41,10 +41,42 @@
 // stores are 16 bytes a thread (4 floats or 8 bf16) when H*W allows it; when
 // a base is not 16-byte aligned the same 16 bytes move one element at a time.
 //
-// Forward: one 256-thread block per plane, two passes over it: pass 1
-// merges the threads' moments with warp shuffles, then shared memory
-// across warps; pass 2 reads again and writes. The second read hits L2 only
-// while the planes in flight fit the 50 MB L2.
+// Forward: one launch a call, of one of four variants that the wrapper
+// (ops/kernels/instance_norm.py, _fwd_plan) picks from the shape alone and
+// passes in; the launch refuses a plan it cannot run (cudaErrorInvalidValue):
+//   - two-pass (instance_norm_kernel), the first design: one 256-thread
+//     block per plane; thread t folds chunks t, t + 256, ... in order, the
+//     block merges the threads' moments (warp shuffles, then the warps in
+//     order through shared memory), then reads the plane again and writes.
+//     The second read hits L2 only while the planes in flight fit the 50 MB
+//     L2 (at 256 x 256 and 128 x 128 they do not). It takes what the others
+//     do not: H*W not a multiple of 16 bytes, or x not 16-byte aligned; and
+//     tensors small enough to stay in L2 whose planes would take 4 or more
+//     chunks a thread in registers, where its 8 blocks an SM beat resident's
+//     2 to 4;
+//   - packed, planes of up to 64 chunks of 16 bytes (16 x 16, 8 x 8, 4 x 4):
+//     `lanes` threads (a power of 2, at most 32) own one plane, many planes
+//     a block, the plane's moments a __shfl_xor_sync butterfly within its
+//     segment of the warp: no block barrier;
+//   - resident, planes whose x the registers of one block, or of a cluster
+//     of up to 8 blocks, hold: read once from device memory into registers,
+//     merged (warps through shared memory, the cluster's blocks through
+//     distributed shared memory in rank order), normalised from the
+//     registers and written once. Several planes of up to 256 chunks share
+//     a block;
+//   - split, planes too large for that, or too few to fill the card: a
+//     cluster of up to 8 blocks shares each plane, each block folds its part
+//     in rounds of 16-byte loads, the parts are merged through distributed
+//     shared memory, then each block normalises its part: the last round
+//     from its registers, the others read again, the latest first, while
+//     they may still be in L2.
+// Without a cluster, packed and resident keep the two-pass kernel's thread
+// -> chunk map and its merge sequence (below), so their y, mean and rstd
+// are the two-pass kernel's bit for bit: the train step's shapes, all up to
+// 128 x 128, take them. They make the same merges on the same values, so
+// this holds whatever __fdividef(n, n) rounds to. No variant needs a launch
+// attribute set: clusters have at most 8 blocks (the portable size) and
+// shared memory is static, under 48 KB.
 //
 // Backward: each thread loads its share of x and g once, keeps it in
 // registers while the plane's two sums are reduced, and computes and stores
@@ -682,14 +714,376 @@ __global__ void channel_sums_kernel(const float* __restrict__ sum_gxhat,
   dbeta[c] = b;
 }
 
+// ------------------------------------------------------ forward variants
+
+// The forward plan's variant, as the wrapper passes it.
+enum FwdVariant { kFwdPacked = 0, kFwdResident = 1, kFwdSplit = 2, kFwdTwoPass = 3 };
+
+constexpr int kFwdPackedThreads = 256;  // threads of a packed block, at most
+constexpr int kFwdPackedChunks = 2;     // 16-byte chunks a packed lane holds, at most
+constexpr int kFwdThreads = 512;        // threads of a resident or split block, at most
+constexpr int kFwdMaxCluster = 8;       // blocks a plane: the portable cluster size
+
+// y of one 16-byte chunk, as the two-pass kernel computes it.
+template <typename C>
+__device__ __forceinline__ typename C::Raw normalise(typename C::Raw r, float mean, float scale,
+                                                     float bias) {
+  float v[C::kW];
+  C::unpack(r, v);
+#pragma unroll
+  for (int k = 0; k < C::kW; ++k) v[k] = fmaf(v[k] - mean, scale, bias);
+  return C::pack(v);
+}
+
+// Packed: thread t of the grid is lane t % lanes of plane t / lanes, and lane
+// l holds chunks l, l + lanes, ... (kChunks slots; a second only where lanes
+// is 32). The two-pass kernel's thread 32 k + l holds chunk 32 k + l, and its
+// warp k merges by a butterfly over offsets 16 .. 1, then the block merges the
+// warps in order from empty moments. Here slot k has moments of its own and a
+// butterfly of its own over the plane's segment, and the slots' results, read
+// from the segment's first lane, are merged in k order from empty moments:
+// the same operations on the same values, so the same bits (the two-pass
+// butterfly's steps wider than a segment merge empty moments into lanes of
+// the segment, which changes no bit, and its empty warps likewise). Every
+// thread of a warp takes part in the shuffles, those past the last plane with
+// empty moments.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kFwdPackedThreads)
+instance_norm_fwd_packed(const T* __restrict__ x, const float* __restrict__ gamma,
+                         const float* __restrict__ beta, T* __restrict__ y,
+                         float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                         long long planes, int channels, int hw, int lanes, float eps) {
+  using C = Chunk<T, true>;
+  const int nchunks = hw / C::kW;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int head = (threadIdx.x & 31) & ~(lanes - 1);  // the segment's first lane
+  const long long plane =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / lanes;
+  const bool live = plane < planes;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + plane * hw);
+  const int c = static_cast<int>(plane % channels);
+  const float gm = live ? gamma[c] : 0.f;  // read while x is in flight
+  const float bias = live ? beta[c] : 0.f;
+  uint4 xs[kChunks];
+  Moments part[kChunks];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    part[k] = Moments{0.f, 0.f, 0.f};
+    if (live && lane + k * lanes < nchunks) xs[k] = __ldg(xv + lane + k * lanes);
+  }
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    if (live && lane + k * lanes < nchunks) {
+      float v[C::kW];
+      C::unpack(xs[k], v);
+      fold<C::kW>(part[k], v);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+      const float n = __shfl_xor_sync(0xffffffffu, part[k].n, o);
+      const float m = __shfl_xor_sync(0xffffffffu, part[k].mean, o);
+      const float q = __shfl_xor_sync(0xffffffffu, part[k].m2, o);
+      merge(part[k], n, m, q);
+    }
+  }
+  Moments acc{0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const float n = __shfl_sync(0xffffffffu, part[k].n, head);
+    const float m = __shfl_sync(0xffffffffu, part[k].mean, head);
+    const float q = __shfl_sync(0xffffffffu, part[k].m2, head);
+    merge(acc, n, m, q);
+  }
+  if (!live) return;
+  const float var = fmaxf(acc.m2 / static_cast<float>(hw), 0.f);
+  const float rstd = rsqrtf(var + eps);
+  const float scale = gm * rstd;
+  if (mean_out != nullptr && lane == 0) {
+    mean_out[plane] = acc.mean;
+    rstd_out[plane] = rstd;
+  }
+  uint4* yv = reinterpret_cast<uint4*>(y + plane * hw);
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    if (lane + k * lanes < nchunks)
+      yv[lane + k * lanes] = normalise<C>(xs[k], acc.mean, scale, bias);
+  }
+}
+
+// Resident and split. Without a cluster, group g of `lanes` threads of block
+// i owns plane i * (blockDim.x / lanes) + g; in a cluster (lanes ==
+// blockDim.x) block `rank` of plane i's cluster owns chunks [rank * run,
+// min((rank + 1) * run, H*W / kW)) of it. Thread l of a group holds, in round
+// r, chunks r * lanes * kChunks + l + lanes * k of its run, k < kChunks, and
+// folds them in that order: with one block of 256 threads to a plane, the
+// two-pass kernel's thread l folds the same chunks in the same order. A group
+// merges its warps' moments in order from empty moments (the two-pass
+// kernel's block_moments, whose warps past the group's are empty), a cluster
+// its blocks' in rank order. One round (resident): x is read once and
+// normalised from the registers. More (split): the rounds before the last are
+// read again for the output, the latest first.
+template <typename T, int kChunks, bool kCluster>
+__global__ void __launch_bounds__(kFwdThreads, kChunks <= 2 ? 4 : kChunks == 4 ? 3 : 1)
+instance_norm_fwd_blocks(const T* __restrict__ x, const float* __restrict__ gamma,
+                         const float* __restrict__ beta, T* __restrict__ y,
+                         float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                         long long planes, int channels, long long hw, int lanes, int run,
+                         float eps) {
+  using C = Chunk<T, true>;
+  __shared__ float sn[kFwdThreads / 32], sm[kFwdThreads / 32], sq[kFwdThreads / 32];
+  __shared__ float3 parts[kFwdMaxCluster];  // slot r: block r's moments
+  __shared__ float2 plane_stats[kFwdThreads / 32];  // a group's mean and M2
+
+  unsigned int rank = 0, nrank = 1;
+  if constexpr (kCluster) {
+    // Half of a barrier that only says this block has started: no block may
+    // touch another's shared memory before that one runs.
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = cluster.block_rank();
+    nrank = cluster.num_blocks();
+  }
+  const int group = threadIdx.x / lanes;
+  const int l = threadIdx.x - group * lanes;
+  const long long plane =
+      kCluster ? static_cast<long long>(blockIdx.x / nrank)
+               : static_cast<long long>(blockIdx.x) * (blockDim.x / lanes) + group;
+  const bool live = plane < planes;
+  const long long first = static_cast<long long>(rank) * run;
+  const int n = live ? static_cast<int>(min(static_cast<long long>(run), hw / C::kW - first)) : 0;
+  const int step = lanes * kChunks;  // chunks of a round
+  const uint4* xv = reinterpret_cast<const uint4*>(x + plane * hw) + first;
+  const int c = static_cast<int>(plane % channels);
+  const float gm = live ? gamma[c] : 0.f;  // read while x is in flight
+  const float bias = live ? beta[c] : 0.f;
+
+  Moments acc{0.f, 0.f, 0.f};
+  uint4 xs[kChunks];
+  int last = -1;  // this thread's last round
+  for (int base = l; base < n; base += step) {
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      if (base + k * lanes < n) xs[k] = __ldg(xv + base + k * lanes);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (base + k * lanes < n) {
+        float v[C::kW];
+        C::unpack(xs[k], v);
+        fold<C::kW>(acc, v);
+      }
+    }
+    ++last;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float nb = __shfl_xor_sync(0xffffffffu, acc.n, o);
+    const float mb = __shfl_xor_sync(0xffffffffu, acc.mean, o);
+    const float qb = __shfl_xor_sync(0xffffffffu, acc.m2, o);
+    merge(acc, nb, mb, qb);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    sn[warp] = acc.n;
+    sm[warp] = acc.mean;
+    sq[warp] = acc.m2;
+  }
+  __syncthreads();
+  // The group's first warp merges its warps (and, in a cluster, the blocks)
+  // and hands the result to the others through shared memory: the same
+  // merges as every thread of the two-pass kernel makes, made once.
+  const bool first_warp = l < 32;
+  if (first_warp) {
+    acc = Moments{0.f, 0.f, 0.f};
+    const int w0 = group * (lanes >> 5);
+    for (int w = w0; w < w0 + (lanes >> 5); ++w) merge(acc, sn[w], sm[w], sq[w]);
+  }
+  if constexpr (kCluster) {
+    // Thread r writes this block's moments into slot `rank` of block r
+    // (DSMEM); after the barrier each block reads only its own shared memory,
+    // so none has to wait for the others before it exits.
+    cg::cluster_group cluster = cg::this_cluster();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // all blocks run
+    if (threadIdx.x < nrank)
+      *cluster.map_shared_rank(&parts[rank], threadIdx.x) = make_float3(acc.n, acc.mean, acc.m2);
+    cluster.sync();
+    if (first_warp) {
+      acc = Moments{0.f, 0.f, 0.f};
+      for (unsigned int r = 0; r < nrank; ++r) merge(acc, parts[r].x, parts[r].y, parts[r].z);
+    }
+  }
+  if (l == 0) plane_stats[group] = make_float2(acc.mean, acc.m2);
+  __syncthreads();
+  acc.mean = plane_stats[group].x;
+  acc.m2 = plane_stats[group].y;
+  if (!live) return;
+
+  const float var = fmaxf(acc.m2 / static_cast<float>(hw), 0.f);
+  const float rstd = rsqrtf(var + eps);
+  const float scale = gm * rstd;
+  if (mean_out != nullptr && rank == 0 && l == 0) {
+    mean_out[plane] = acc.mean;
+    rstd_out[plane] = rstd;
+  }
+  uint4* yv = reinterpret_cast<uint4*>(y + plane * hw) + first;
+  for (int r = last; r >= 0; --r) {
+    const int base = l + r * step;
+    if (r != last) {
+#pragma unroll
+      for (int k = 0; k < kChunks; ++k)
+        if (base + k * lanes < n) xs[k] = __ldg(xv + base + k * lanes);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      if (base + k * lanes < n) yv[base + k * lanes] = normalise<C>(xs[k], acc.mean, scale, bias);
+  }
+}
+
+bool pow2(long long v) { return v > 0 && (v & (v - 1)) == 0; }
+
+bool host_aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The forward plan is valid for this shape and these pointers: the kernel it
+// names covers every element of every plane once, within its registers, the
+// grid and (but for two-pass) 16-byte loads. Resident means one round a
+// thread, split more than one.
+template <typename T>
+bool valid_fwd_plan(long long planes, long long hw, int variant, int lanes, int threads,
+                    int cluster, int chunks, bool aligned) {
+  constexpr long long kVec = 16 / sizeof(T);
+  if (planes <= 0 || hw <= 0 || threads < 32 || threads % 32 != 0) return false;
+  if (variant == kFwdTwoPass)
+    return threads == kThreads && lanes == kThreads && cluster == 1 && planes <= INT_MAX;
+  if (hw % kVec != 0 || !aligned || hw > INT_MAX) return false;
+  const long long nchunks = hw / kVec;
+  if (variant == kFwdPacked)
+    return pow2(lanes) && lanes <= 32 && threads <= kFwdPackedThreads && threads % lanes == 0 &&
+           cluster == 1 && chunks >= 1 && chunks <= kFwdPackedChunks &&
+           nchunks <= static_cast<long long>(lanes) * chunks &&
+           (planes * lanes + threads - 1) / threads <= INT_MAX;
+  if (variant != kFwdResident && variant != kFwdSplit) return false;
+  if (threads > kFwdThreads || lanes < 32 || lanes % 32 != 0 || lanes > threads ||
+      threads % lanes != 0 || cluster < 1 || cluster > kFwdMaxCluster ||
+      (cluster > 1 && lanes != threads) || !pow2(chunks) || chunks > 16)
+    return false;
+  const long long run = (nchunks + cluster - 1) / cluster;
+  const long long blocks = cluster > 1 ? planes * cluster
+                                       : (planes + threads / lanes - 1) / (threads / lanes);
+  if ((cluster - 1) * run >= nchunks || blocks > INT_MAX) return false;
+  const long long rounds = (run + static_cast<long long>(lanes) * chunks - 1) /
+                           (static_cast<long long>(lanes) * chunks);
+  return variant == kFwdResident ? rounds == 1 : rounds > 1;
+}
+
+template <typename T, int kChunks>
+cudaError_t launch_fwd_blocks(const T* x, const float* gamma, const float* beta, T* y,
+                              float* mean, float* rstd, long long planes, int channels,
+                              long long hw, int lanes, int threads, int cluster, float eps,
+                              cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int run = static_cast<int>((hw / kVec + cluster - 1) / cluster);
+  if (cluster == 1) {
+    const unsigned int blocks =
+        static_cast<unsigned int>((planes + threads / lanes - 1) / (threads / lanes));
+    instance_norm_fwd_blocks<T, kChunks, false><<<blocks, threads, 0, s>>>(
+        x, gamma, beta, y, mean, rstd, planes, channels, hw, lanes, run, eps);
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(planes * cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, instance_norm_fwd_blocks<T, kChunks, true>, x, gamma, beta, y,
+                            mean, rstd, planes, channels, hw, lanes, run, eps);
+}
+
 template <typename T>
 int launch_forward(const T* x, const float* gamma, const float* beta, T* y, float* mean,
                    float* rstd, long long planes, int channels, long long hw, float eps,
-                   void* stream) {
-  instance_norm_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, gamma, beta, y, mean, rstd,
-                                                                 channels, hw, eps);
-  return static_cast<int>(cudaGetLastError());
+                   int variant, int lanes, int threads, int cluster, int chunks, void* stream) {
+  if (channels <= 0 ||
+      !valid_fwd_plan<T>(planes, hw, variant, lanes, threads, cluster, chunks,
+                         host_aligned16(x) && host_aligned16(y)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (variant == kFwdTwoPass) {
+    instance_norm_kernel<T><<<static_cast<unsigned int>(planes), kThreads, 0, s>>>(
+        x, gamma, beta, y, mean, rstd, channels, hw, eps);
+  } else if (variant == kFwdPacked) {
+    const unsigned int blocks = static_cast<unsigned int>((planes * lanes + threads - 1) / threads);
+    if (chunks == 1)
+      instance_norm_fwd_packed<T, 1><<<blocks, threads, 0, s>>>(
+          x, gamma, beta, y, mean, rstd, planes, channels, static_cast<int>(hw), lanes, eps);
+    else
+      instance_norm_fwd_packed<T, 2><<<blocks, threads, 0, s>>>(
+          x, gamma, beta, y, mean, rstd, planes, channels, static_cast<int>(hw), lanes, eps);
+  } else {
+    switch (chunks) {
+      case 1:
+        err = launch_fwd_blocks<T, 1>(x, gamma, beta, y, mean, rstd, planes, channels, hw, lanes,
+                                      threads, cluster, eps, s);
+        break;
+      case 2:
+        err = launch_fwd_blocks<T, 2>(x, gamma, beta, y, mean, rstd, planes, channels, hw, lanes,
+                                      threads, cluster, eps, s);
+        break;
+      case 4:
+        err = launch_fwd_blocks<T, 4>(x, gamma, beta, y, mean, rstd, planes, channels, hw, lanes,
+                                      threads, cluster, eps, s);
+        break;
+      case 8:
+        err = launch_fwd_blocks<T, 8>(x, gamma, beta, y, mean, rstd, planes, channels, hw, lanes,
+                                      threads, cluster, eps, s);
+        break;
+      default:
+        err = launch_fwd_blocks<T, 16>(x, gamma, beta, y, mean, rstd, planes, channels, hw,
+                                       lanes, threads, cluster, eps, s);
+    }
+  }
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// Blocks of the forward plan's kernel that fit on one SM at once.
+template <typename T, int kChunks>
+cudaError_t fwd_blocks_per_sm(int cluster, int threads, int* count) {
+  return cluster > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           count, instance_norm_fwd_blocks<T, kChunks, true>, threads, 0)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           count, instance_norm_fwd_blocks<T, kChunks, false>, threads, 0);
+}
+
+template <typename T>
+int forward_blocks_per_sm(int variant, int threads, int cluster, int chunks, int* count) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == kFwdTwoPass) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(count, instance_norm_kernel<T>, threads, 0);
+  } else if (variant == kFwdPacked) {
+    err = chunks == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            count, instance_norm_fwd_packed<T, 1>, threads, 0)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            count, instance_norm_fwd_packed<T, 2>, threads, 0);
+  } else if (variant == kFwdResident || variant == kFwdSplit) {
+    switch (chunks) {
+      case 1: err = fwd_blocks_per_sm<T, 1>(cluster, threads, count); break;
+      case 2: err = fwd_blocks_per_sm<T, 2>(cluster, threads, count); break;
+      case 4: err = fwd_blocks_per_sm<T, 4>(cluster, threads, count); break;
+      case 8: err = fwd_blocks_per_sm<T, 8>(cluster, threads, count); break;
+      case 16: err = fwd_blocks_per_sm<T, 16>(cluster, threads, count); break;
+      default: break;
+    }
+  }
+  return static_cast<int>(err);
 }
 
 // The plan is valid for this shape: the kernel it names covers every element
@@ -805,19 +1199,37 @@ int backward_blocks_per_sm(int variant, int vector, int threads, int cluster, in
 }  // namespace
 
 // planes = B * C. mean / rstd: (B * C) outputs, or both null when the caller
-// needs no backward. Returns cudaGetLastError() after the launch.
+// needs no backward. The plan: variant (0 packed, 1 resident, 2 split, 3
+// two-pass), the threads that own one plane in a block (lanes), threads per
+// block, blocks per plane (cluster), 16-byte chunks a thread holds (chunks).
+// One launch on `stream`. Returns cudaErrorInvalidValue, launching nothing,
+// for a plan the kernels cannot run at this shape (or, but for two-pass, on
+// x or y off a 16-byte boundary); else the launch's error.
 extern "C" int shm_instance_norm_f32(const float* x, const float* gamma, const float* beta,
                                      float* y, float* mean, float* rstd, long long planes,
-                                     int channels, long long hw, float eps, void* stream) {
-  return launch_forward(x, gamma, beta, y, mean, rstd, planes, channels, hw, eps, stream);
+                                     int channels, long long hw, float eps, int variant,
+                                     int lanes, int threads, int cluster, int chunks,
+                                     void* stream) {
+  return launch_forward(x, gamma, beta, y, mean, rstd, planes, channels, hw, eps, variant, lanes,
+                        threads, cluster, chunks, stream);
 }
 
 // The same with x and y in bf16; gamma, beta, mean and rstd stay float.
 extern "C" int shm_instance_norm_bf16(const __nv_bfloat16* x, const float* gamma,
                                       const float* beta, __nv_bfloat16* y, float* mean,
                                       float* rstd, long long planes, int channels, long long hw,
-                                      float eps, void* stream) {
-  return launch_forward(x, gamma, beta, y, mean, rstd, planes, channels, hw, eps, stream);
+                                      float eps, int variant, int lanes, int threads,
+                                      int cluster, int chunks, void* stream) {
+  return launch_forward(x, gamma, beta, y, mean, rstd, planes, channels, hw, eps, variant, lanes,
+                        threads, cluster, chunks, stream);
+}
+
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the forward kernel a plan
+// launches, into *count.
+extern "C" int shm_instance_norm_fwd_blocks_per_sm(int bf16, int variant, int threads,
+                                                   int cluster, int chunks, int* count) {
+  return bf16 ? forward_blocks_per_sm<__nv_bfloat16>(variant, threads, cluster, chunks, count)
+              : forward_blocks_per_sm<float>(variant, threads, cluster, chunks, count);
 }
 
 // The backward of shm_instance_norm_f32 for a (batch, channels, hw) tensor:

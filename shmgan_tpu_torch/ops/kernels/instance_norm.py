@@ -10,11 +10,17 @@ otherwise the forward kernel alone. There is no other fallback.
 
 The kernels replace the TPU kernel `shmgan_tpu/ops/pallas/instance_norm.py`
 (`instance_norm_pallas`) and its custom VJP (`_fwd` / `_bwd`). The forward
-kernel takes one-pass moments of x less the plane's first element and
-forms x - mean before the affine, so that a flat plane cancels in neither;
-the plain version takes two-pass moments, as the JAX package's
-`instance_norm_reference` does; the two agree to rounding.
+kernels take one-pass moments by per-thread Welford folds merged pairwise
+(Chan et al.) and form x - mean before the affine, so that a flat plane
+cancels in neither; the plain version takes two-pass moments, as the JAX
+package's `instance_norm_reference` does; the two agree to rounding.
 `instance_norm_backward_plain` transcribes `_bwd`.
+
+The forward has four variants (packed, resident, split, two-pass);
+`_fwd_plan` picks one from the shape alone (two-pass also for x off a
+16-byte boundary), with its threads, cluster and registers, and the launch
+takes the plan and refuses one it cannot run. Packed, and resident without a
+cluster, keep the two-pass kernel's bits.
 
 Dtypes follow the TPU kernel's: the activations x, y, g and dx are all
 float32 or all bfloat16, gamma, beta and the saved mean and rstd are float32,
@@ -54,6 +60,7 @@ call), so a run can show its path went through the kernels;
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -134,6 +141,127 @@ def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
                    _ceil_div(nchunks, STREAM_THREADS))
 
 
+# The forward's launch plan (`_fwd_plan`), in 16-byte chunks of a plane.
+# Packed: planes of up to 32 * FWD_PACKED_CHUNKS chunks, `lanes` threads a
+# plane in blocks of FWD_PACKED_THREADS (64 to 256 read within 5 % of each
+# other at every packed shape of the sweep below). Resident at the two-pass kernel's
+# map (TWO_PASS_THREADS threads a plane): planes of up to TWO_PASS_THREADS *
+# FWD_CHUNKS chunks (128 x 128 in f32, 128 x 256 in bf16), each thread
+# holding up to FWD_CHUNKS of them (a power of 2: the kernel's register
+# arrays), or, for up to TWO_PASS_THREADS chunks, several planes a block of
+# `lanes` = the plane's chunks rounded up to a warp; while the tensor has at
+# least FWD_MIN_BLOCKS planes to fill the card (two blocks an SM of the
+# H100's 132). There, a tensor of at most FWD_L2_BYTES whose threads would
+# hold FWD_L2_CHUNKS chunks or more takes two-pass instead: it stays in the
+# 50 MB L2 between the conv that writes it and this launch, so the second
+# read hits L2, and two-pass keeps 8 blocks an SM where resident keeps 2 to
+# 4 (resident read 5-33 % slower at the five such shapes of the serving,
+# native and train lists). Otherwise a cluster of up to FWD_MAX_CLUSTER
+# blocks of up to FWD_THREADS a plane (the portable cluster size: no
+# attribute to set):
+# resident where its blocks' registers hold the plane at up to
+# FWD_CLUSTER_CHUNKS chunks a thread, else split, its blocks folding their
+# parts in rounds of FWD_SPLIT_CHUNKS chunks a thread, in blocks of
+# FWD_SPLIT_THREADS where a part has FWD_SPLIT_WIDE chunks or more. Two-pass:
+# H*W not a multiple of 16 bytes, or x off a 16-byte boundary. The cluster
+# and split limits rest on `time_instance_norm.py --forward --sweep` (an
+# H100, PERF.md §6): 16 chunks a thread in a cluster beat 8 at every shape
+# that a cluster holds but one (5 % at 256 x 256 in f32); split blocks of
+# 512 threads beat 256 by 5-10 % at parts of 16,384 chunks and more, and
+# lost at smaller ones. csrc/instance_norm.cu holds the kernels' own limits
+# (512 threads, 16 chunks, 8 blocks, packed 2 chunks a lane).
+FWD_PACKED_CHUNKS = 2
+FWD_PACKED_THREADS = 256
+FWD_THREADS = 256
+FWD_CHUNKS = 16
+FWD_MIN_BLOCKS = 264
+FWD_L2_BYTES = 24 * 2**20
+FWD_L2_CHUNKS = 4
+FWD_MAX_CLUSTER = 8
+FWD_CLUSTER_CHUNKS = 16
+FWD_SPLIT_CHUNKS = 16
+FWD_SPLIT_THREADS = 512
+FWD_SPLIT_WIDE = 16384
+TWO_PASS_THREADS = 256
+_FWD_VARIANTS = {"packed": 0, "resident": 1, "split": 2, "two_pass": 3}
+
+
+class FwdPlan(NamedTuple):
+    variant: str           # "packed", "resident", "split" or "two_pass"
+    planes_per_block: int  # threads // lanes without a cluster; 1 with one
+    lanes: int             # threads that own one plane in a block
+    threads: int           # threads per block
+    cluster: int           # blocks per plane (resident, split); else 1
+    width: int             # elements per chunk: 16 bytes' worth, or 1 (two-pass's
+                           # element path)
+    chunks: int            # chunks a thread holds in registers (two-pass: 1)
+    rounds: int            # times a thread fills them (split > 1; two-pass: its visits)
+
+
+def keeps_two_pass_bits(plan: FwdPlan) -> bool:
+    """True where the plan's kernel folds and merges as the two-pass kernel
+    does, so that its y, mean and rstd are the two-pass kernel's bit for
+    bit: two-pass itself, packed, and resident or split without a cluster
+    at its block."""
+    return plan.cluster == 1 and (
+        plan.variant in ("two_pass", "packed") or plan.lanes == TWO_PASS_THREADS
+        or plan.chunks * plan.rounds == 1)
+
+
+def two_pass_plan(hw: int, width: int) -> FwdPlan:
+    """The two-pass kernel's plan for planes of hw elements, `width` of them a
+    chunk: 16 bytes' worth where H*W is a multiple of that and x is aligned,
+    else 1."""
+    return FwdPlan("two_pass", 1, TWO_PASS_THREADS, TWO_PASS_THREADS, 1, width, 1,
+                   _ceil_div(hw // width, TWO_PASS_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(b: int, c: int, hw: int, dtype: torch.dtype, aligned: bool = True) -> FwdPlan:
+    """The forward kernel's launch for a (b, c, H*W) tensor of `dtype`, from
+    its shape alone (`aligned`: x starts on a 16-byte boundary): packed,
+    resident at the two-pass map, a cluster resident or split, or two-pass
+    (the limits above). Raises ValueError for an empty shape or one past the
+    kernels' grid. Cached: the wrapper asks at every call."""
+    if b <= 0 or c <= 0 or hw <= 0:
+        raise ValueError(f"instance_norm: empty shape ({b}, {c}, {hw})")
+    planes = b * c
+    if planes > _INT_MAX or hw > _INT_MAX:
+        raise ValueError(f"instance_norm: ({b}, {c}, {hw}) is past the kernels' grid")
+    vec = 16 // dtype.itemsize
+    if not aligned or hw % vec:
+        return two_pass_plan(hw, 1)
+    nchunks = hw // vec
+    if nchunks <= 32 * FWD_PACKED_CHUNKS:
+        lanes = min(32, _pow2_ceil(nchunks))
+        return FwdPlan("packed", FWD_PACKED_THREADS // lanes, lanes, FWD_PACKED_THREADS, 1,
+                       vec, _ceil_div(nchunks, lanes), 1)
+    if nchunks <= TWO_PASS_THREADS * FWD_CHUNKS and planes >= FWD_MIN_BLOCKS:
+        if nchunks <= TWO_PASS_THREADS:
+            lanes = 32 * _ceil_div(nchunks, 32)
+            per = TWO_PASS_THREADS // lanes
+            return FwdPlan("resident", per, lanes, lanes * per, 1, vec, 1, 1)
+        chunks = _pow2_ceil(_ceil_div(nchunks, TWO_PASS_THREADS))
+        if chunks >= FWD_L2_CHUNKS and planes * hw * dtype.itemsize <= FWD_L2_BYTES:
+            return two_pass_plan(hw, vec)
+        return FwdPlan("resident", 1, TWO_PASS_THREADS, TWO_PASS_THREADS, 1, vec, chunks, 1)
+    # a cluster: enough blocks to hold the plane, or to fill the card
+    need = max(_ceil_div(nchunks, FWD_THREADS * FWD_CLUSTER_CHUNKS),
+               _ceil_div(FWD_MIN_BLOCKS, planes))
+    cluster = min(FWD_MAX_CLUSTER, _pow2_ceil(need))
+    while cluster > 1 and (cluster - 1) * _ceil_div(nchunks, cluster) >= nchunks:
+        cluster //= 2
+    run = _ceil_div(nchunks, cluster)
+    threads = min(FWD_THREADS, 32 * _ceil_div(run, 32))
+    per_thread = _ceil_div(run, threads)
+    if per_thread <= FWD_CLUSTER_CHUNKS:
+        chunks = _pow2_ceil(per_thread)
+        return FwdPlan("resident", 1, threads, threads, cluster, vec, chunks, 1)
+    threads = FWD_SPLIT_THREADS if run >= FWD_SPLIT_WIDE else FWD_THREADS
+    return FwdPlan("split", 1, threads, threads, cluster, vec, FWD_SPLIT_CHUNKS,
+                   _ceil_div(run, threads * FWD_SPLIT_CHUNKS))
+
+
 # The band backward's launch plan (`_band_bwd_plan`). Packed: bands of up
 # to BAND_PACKED_MAX elements, `lanes` threads a plane as the whole-plane
 # packed variant (a lane holds at most PACKED_ELEMS elements of x and of g),
@@ -198,14 +326,15 @@ def kernel_name(kind: str, dtype: torch.dtype) -> str:
 
 
 def _kernel_fns(dtype: torch.dtype):
-    """(forward, backward) C functions for activations of `dtype`."""
+    """(forward, backward, backward occupancy, forward occupancy) C functions
+    for activations of `dtype`."""
     if dtype not in _fns:
         from shmgan_tpu_torch.runtime.build import load
 
         lib = load("instance_norm")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fwd = getattr(lib, f"shm_instance_norm_{_SUFFIX[dtype]}")
-        fwd.argtypes = [p, p, p, p, p, p, ll, i, ll, ctypes.c_float, p]
+        fwd.argtypes = [p, p, p, p, p, p, ll, i, ll, ctypes.c_float, i, i, i, i, i, p]
         fwd.restype = i
         bwd = getattr(lib, f"shm_instance_norm_bwd_{_SUFFIX[dtype]}")
         bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ll, i, i, i, i, p]
@@ -213,7 +342,11 @@ def _kernel_fns(dtype: torch.dtype):
         lib.shm_instance_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i,
                                                             ctypes.POINTER(i)]
         lib.shm_instance_norm_bwd_blocks_per_sm.restype = i
-        _fns[dtype] = (fwd, bwd, lib.shm_instance_norm_bwd_blocks_per_sm)
+        lib.shm_instance_norm_fwd_blocks_per_sm.argtypes = [i, i, i, i, i,
+                                                            ctypes.POINTER(i)]
+        lib.shm_instance_norm_fwd_blocks_per_sm.restype = i
+        _fns[dtype] = (fwd, bwd, lib.shm_instance_norm_bwd_blocks_per_sm,
+                       lib.shm_instance_norm_fwd_blocks_per_sm)
     return _fns[dtype]
 
 
@@ -265,11 +398,11 @@ def _check(acts: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> No
                                  f"{x.device}, got {t.dtype} on {t.device}")
 
 
-def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
-             with_stats: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                        Optional[torch.Tensor]]:
-    """One launch of the forward kernel; with_stats also returns the (B, C)
-    mean and rstd."""
+def _launch_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                    with_stats: bool, plan: FwdPlan
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One launch of the forward kernel with the given plan, on checked CUDA
+    tensors; with_stats also returns the (B, C) mean and rstd."""
     b, c, h, w = x.shape
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"instance_norm: gamma/beta must be ({c},), got "
@@ -285,11 +418,28 @@ def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: floa
         err = _kernel_fns(x.dtype)[0](
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr() if with_stats else None, rstd.data_ptr() if with_stats else None,
-            b * c, c, h * w, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+            b * c, c, h * w, float(eps), _FWD_VARIANTS[plan.variant], plan.lanes, plan.threads,
+            plan.cluster, plan.chunks, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"instance_norm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"instance_norm kernel launch failed ({plan}): CUDA error {err}")
     launches["forward", x.dtype] += 1
     return y, mean, rstd
+
+
+def fwd_plan_for(x: torch.Tensor) -> FwdPlan:
+    """`_fwd_plan` for a (B, C, H, W) tensor, two-pass where x is off a
+    16-byte boundary."""
+    b, c, h, w = x.shape
+    return _fwd_plan(b, c, h * w, x.dtype, aligned=x.data_ptr() % 16 == 0)
+
+
+def _forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+             with_stats: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                        Optional[torch.Tensor]]:
+    """One launch of the forward kernel, with `_fwd_plan`'s plan; with_stats
+    also returns the (B, C) mean and rstd."""
+    plan = fwd_plan_for(x) if x.numel() else None
+    return _launch_forward(x, gamma, beta, eps, with_stats, plan)
 
 
 def _launch_backward(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
@@ -322,6 +472,18 @@ def blocks_per_sm(plan: BwdPlan, dtype: torch.dtype) -> int:
     err = _kernel_fns(dtype)[2](int(dtype == torch.bfloat16), _VARIANTS[plan.variant],
                                 int(plan.width == vec), plan.threads, plan.cluster,
                                 ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
+                           f"CUDA error {err}")
+    return count.value
+
+
+def forward_blocks_per_sm(plan: FwdPlan, dtype: torch.dtype) -> int:
+    """How many blocks of the plan's forward kernel fit on one SM of the
+    current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    count = ctypes.c_int(0)
+    err = _kernel_fns(dtype)[3](int(dtype == torch.bfloat16), _FWD_VARIANTS[plan.variant],
+                                plan.threads, plan.cluster, plan.chunks, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
                            f"CUDA error {err}")

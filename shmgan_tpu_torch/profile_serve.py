@@ -40,7 +40,7 @@ from shmgan_tpu_torch.ops.kernels import preprocess as pre
 from shmgan_tpu_torch.serve import BatchInferenceEngine
 
 # device kernel names of the port's kernels, by the key of their share
-OUR_KERNELS = {"instance_norm_ms": ("instance_norm_kernel",),
+OUR_KERNELS = {"instance_norm_ms": ("instance_norm_kernel", "instance_norm_fwd_"),
                "instance_norm_backward_ms": ("instance_norm_bwd_", "channel_sums_kernel"),
                "preprocess_ms": ("standardize_yuv",)}
 CONV_MARKERS = ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "winograd", "fft")

@@ -1,7 +1,7 @@
-"""Times the instance-norm backward kernel of one checkout on the card, to
-compare commits.
+"""Times the instance-norm kernels of one checkout on the card, to compare
+commits.
 
-    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--band] [--sweep]
+    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--forward | --band] [--sweep]
 
 Imports `shmgan_tpu_torch` from DIR (default: the checkout this file is in),
 so the same timings can run against an older commit unpacked elsewhere; run
@@ -27,6 +27,22 @@ step. With --band --sweep (a checkout that has `_band_bwd_plan`) it also
 times, at each shape, the packed variant (bands of up to 256 elements) at
 64, 128 and 256 threads, and the vector (H*W a multiple of 16 bytes) and
 element variants at 32 to 512 threads, beside the plan's choice.
+
+With --forward it times the forward (`_forward`, one launch a call) at
+the serving shapes (`chip_smoke.IN_SHAPES`, b8 at 256 px), the native
+shapes (`chip_smoke.NATIVE_IN_SHAPES`, batch 2 at the 640x832 bucket and
+batch 1 at 1536x2048) and the train step's (`chip_smoke.TRAIN_IN_SHAPES`,
+with the stats the backward reads), both dtypes: `device_ms`,
+`device_cold_ms`, the bytes bound (x read once, y written once) and
+`F.instance_norm`'s `device_ms` at each shape, and their sums over one G
+call (serving, each native batch) and one train step. With --forward
+--sweep (a checkout that has `_fwd_plan`) it also times, at each shape,
+every plan the kernels accept among: packed at 64 to 256 threads, resident
+at the two-pass map (several planes a block at 1, 2 and 4 planes), a
+cluster of 2, 4 or 8 blocks of 128 to 512 threads (resident where its
+registers hold the plane, else split at 4, 8 or 16 chunks a thread), and
+two-pass, beside the plan's choice: the measurement the plan's limits rest
+on.
 
 Prints one JSON line. Needs a CUDA card.
 """
@@ -123,11 +139,106 @@ def _band_main(cs, ink, args, dev, smi):
                       "nvidia_smi": smi, "band": True, "per_step": totals, "rows": rows}))
 
 
+def _fwd_plans(ink, shape, dtype):
+    """Every forward plan the --forward --sweep times at this (B, C, H, W),
+    for x on a 16-byte boundary."""
+    b, c, h, w = shape
+    hw, vec = h * w, 16 // dtype.itemsize
+    plans = [ink.two_pass_plan(hw, vec if hw % vec == 0 else 1)]
+    if hw % vec:
+        return plans
+    n = hw // vec
+
+    def blocks(lanes, threads, cluster, chunks):
+        run = -(-n // cluster)
+        rounds = -(-run // (lanes * chunks))
+        return ink.FwdPlan("resident" if rounds == 1 else "split",
+                           threads // lanes if cluster == 1 else 1, lanes, threads, cluster,
+                           vec, chunks, rounds)
+
+    if n <= 32 * ink.FWD_PACKED_CHUNKS:
+        lanes = min(32, 1 << (n - 1).bit_length())
+        plans += [ink.FwdPlan("packed", t // lanes, lanes, t, 1, vec, -(-n // lanes), 1)
+                  for t in (64, 128, 256) if t >= lanes]
+    if n <= 256:
+        lanes = 32 * -(-n // 32)
+        plans += [blocks(lanes, lanes * k, 1, 1) for k in (1, 2, 4) if lanes * k <= 512]
+    for lanes in (32, 64, 128, 256):  # one block or a group a plane, at other maps
+        per = -(-n // lanes)
+        if lanes < n and per <= 16:
+            ch = 1 << (per - 1).bit_length()
+            plans += [blocks(lanes, t, 1, ch) for t in (128, 256, 512) if t >= lanes]
+    for k in (2, 4, 8):
+        run = -(-n // k)
+        if (k - 1) * run >= n:
+            continue
+        for t in (128, 256, 512):
+            per = -(-run // t)
+            if per <= 16:
+                plans.append(blocks(t, t, k, 1 << (per - 1).bit_length()))
+            else:
+                plans += [blocks(t, t, k, ch) for ch in (4, 8, 16)]
+    return plans
+
+
+def _fwd_main(cs, ink, args, dev, smi):
+    """--forward: the forward at the serving, native and train shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    groups = [("serving", cs.IN_SHAPES, False), ("native_b2", cs.NATIVE_IN_SHAPES[:5], False),
+              ("native_b1", cs.NATIVE_IN_SHAPES[5:], False),
+              ("train", cs.TRAIN_IN_SHAPES, True)]
+    rows, totals = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(0)
+        name = str(dtype).split(".")[-1]
+        for group, shapes, stats in groups:
+            total = totals.setdefault(f"{group}_{name}", dict(
+                device_ms=0.0, device_cold_ms=0.0, bound_ms=0.0, library_device_ms=0.0))
+            for shape, sites in shapes:
+                b, c, h, w = shape
+                x, gamma, beta, _ = cs._in_inputs(dev, g, shape, dtype)
+                call = lambda: ink._forward(x, gamma, beta, 1e-6, stats)  # noqa: E731
+                iters = 5 if x.numel() > 1 << 26 else 10 if x.numel() > 1 << 24 else 50
+                bound_ms, _ = cs.bound(2 * x.numel() * x.element_size(), 5.0 * x.numel())
+                row = dict(dtype=name, group=group, shape=list(shape), sites=sites,
+                           device_ms=cs.device_ms(call, iters),
+                           device_cold_ms=cs.device_cold_ms(call), bound_ms=bound_ms,
+                           library_device_ms=cs.device_ms(lambda: F.instance_norm(
+                               x, weight=gamma, bias=beta, eps=1e-6), iters))
+                if hasattr(ink, "_fwd_plan"):
+                    plan = ink._fwd_plan(b, c, h * w, dtype)
+                    row.update(variant=plan.variant, lanes=plan.lanes, threads=plan.threads,
+                               cluster=plan.cluster, chunks=plan.chunks, rounds=plan.rounds)
+                    if args.sweep:
+                        others = {}
+                        for p in _fwd_plans(ink, shape, dtype):
+                            key = (f"{p.variant}/{p.lanes}/{p.threads}/{p.cluster}/"
+                                   f"{p.chunks}")
+                            try:
+                                ink._launch_forward(x, gamma, beta, 1e-6, stats, p)
+                            except RuntimeError:  # the kernels refuse this plan here
+                                continue
+                            others[key] = cs.device_ms(lambda p=p: ink._launch_forward(
+                                x, gamma, beta, 1e-6, stats, p), iters)
+                        row["others"] = others
+                rows.append(row)
+                print(json.dumps(row), file=sys.stderr, flush=True)
+                for k in total:
+                    total[k] += sites * row[k]
+                del x
+    print(json.dumps({"tree": args.tree, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "forward": True, "sums": totals, "rows": rows}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE), help="checkout whose package is timed")
     ap.add_argument("--band", action="store_true",
                     help="time the band backward at chip_smoke.SP_BAND_SHAPES")
+    ap.add_argument("--forward", action="store_true",
+                    help="time the forward at the serving, native and train shapes")
     ap.add_argument("--sweep", action="store_true", help="also time other plans")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -147,9 +258,11 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
+    args.tree = str(tree)
     if args.band:
-        args.tree = str(tree)
         return _band_main(cs, ink, args, dev, smi)
+    if args.forward:
+        return _fwd_main(cs, ink, args, dev, smi)
     rows, totals = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(0)

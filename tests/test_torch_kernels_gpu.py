@@ -245,6 +245,48 @@ class TestKernelsOnCard:
         for ta, tb in zip(a[1:], b[1:]):
             torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-3, atol=1e-3)
 
+    # every variant of the forward in both dtypes: packed (8x8, 16x16), resident
+    # at the two-pass map (two planes a block in bf16 at 32x32; one block at
+    # 64x64), in a cluster (few planes), split (planes past a cluster's
+    # registers), two-pass (H*W not a multiple of 16 bytes)
+    FWD_CASES = [(300, 1, 8, 8), (300, 1, 16, 16), (300, 1, 32, 32), (300, 1, 64, 64),
+                 (1, 4, 64, 64), (1, 2, 256, 512), (3, 5, 7, 9)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    @pytest.mark.parametrize("shape", FWD_CASES, ids=lambda v: "x".join(map(str, v)))
+    def test_instance_norm_forward_variants(self, cuda, shape, dtype):
+        b, c, h, w = shape
+        plan = ink._fwd_plan(b, c, h * w, dtype)
+        g = torch.Generator(device=cuda).manual_seed(10)
+        x = (torch.randn(shape, device=cuda, generator=g) + 0.5).to(dtype)
+        gamma = torch.rand(c, device=cuda, generator=g) + 0.5
+        beta = torch.randn(c, device=cuda, generator=g) * 0.1
+        before = dict(ink.launches)
+        got = ink._forward(x, gamma, beta, 1e-6, True)
+        assert launched(before) == {("forward", dtype): 1}
+        again = ink._forward(x, gamma, beta, 1e-6, True)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))  # no atomics
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else self.BF16_TOL
+        torch.testing.assert_close(got[0].float(), ink.instance_norm_plain(
+            x, gamma, beta).float(), **tol)
+        if ink.keeps_two_pass_bits(plan):
+            two = ink._launch_forward(x, gamma, beta, 1e-6, True,
+                                      ink.two_pass_plan(h * w, 16 // x.element_size()))
+            assert all(torch.equal(a, t) for a, t in zip(got, two))
+
+    def test_instance_norm_forward_refuses_a_plan_it_cannot_run(self, cuda):
+        x = torch.randn(2, 8, 64, 64, device=cuda)
+        gamma, beta = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+        plan = ink._fwd_plan(2, 8, 64 * 64, torch.float32)
+        for bad in (plan._replace(threads=2 * plan.threads), plan._replace(lanes=48),
+                    plan._replace(variant="split")):
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                ink._launch_forward(x, gamma, beta, 1e-6, False, bad)
+        with pytest.raises(RuntimeError, match="CUDA error 1"):  # x off 16 bytes
+            ink._launch_forward(x.flatten()[1:].view(1, 1, 1, -1)[..., :4096 * 8 - 4],
+                                gamma[:1], beta[:1], 1e-6, False,
+                                ink._fwd_plan(1, 1, 4096 * 8 - 4, torch.float32))
+
     # every variant of the backward kernel in both dtypes: shape, then (variant,
     # blocks per plane) in f32 and in bf16; packed with 16-byte chunks and with
     # single elements (H*W not a multiple of 16 bytes), resident in one block
