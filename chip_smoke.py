@@ -219,6 +219,25 @@ Phases (each prints its name before it starts and its seconds after):
               budget of QG_SEGMENT_BUDGET_S: the segmenter must measure the
               step and shrink the second chunk's segments (its summary and
               the segments printed), and its launches are counted;
+  evaluators  the checkpoint evaluators at the trained 256-px bundle's
+              width, f32 as the scripts force it, each run through the
+              kernels and again under plain_versions(): ood_eval on the
+              bundle (32 OOD scenes at b8, part B on a synthetic 3 x 10
+              results grid written by codecs.encode_png and patched in as
+              data/ood.reference_photo_crops), quality_eval at its default
+              --batch 16 on a CheckpointManager checkpoint of the bundle's
+              G and SpecSeg (32 images), mask_ab on three committed SpecSeg
+              nets (benchmarks/quality_r3_dr/specseg_dr.msgpack, 1 channel;
+              benchmarks/quality_r4_chroma/specseg_chroma_s25 and _s26, 2
+              channels, as an arm) with --tta --prior and an ensemble:
+              launches exactly (18 f32 IN forwards and a preprocess an
+              infer call, a preprocess a mask call: 144 and 32), every
+              output and mask probability within SERVE_ATOL, each JSON value
+              within its tolerance (the EV_* constants), each script's
+              seconds beside nvidia-smi's line; the IN forward checked and
+              timed at quality_eval's five batch-16 shapes
+              (EVAL_IN_SHAPES); estimate_diffuse_native on the card's host
+              against numpy's minimum, bit for bit;
   keras_h5    the reference's Keras SpecSeg, tests/data/torch_h5/
               specseg_keras2.h5 (base 16, 1 channel, seeded), read through
               load_specseg_weights: sha256, each leaf's shape, sum and sum
@@ -245,6 +264,7 @@ non-zero before the last line. Needs a CUDA card; imports no JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -4313,6 +4333,434 @@ def spatial_phase(smi):
     return _sum_counts(steps, loop), _sp_rows(shapes, in_worst, pre_worst)
 
 
+# evaluators: the checkpoint evaluators (quality_eval, ood_eval, mask_ab) on
+# the card at the 256-px bundle's width, f32 as the scripts force it, each
+# run through the kernels and again under plain_versions(). ood_eval on the
+# bundle with part B on a synthetic 3 x 10 grid (written by codecs.encode_png,
+# patched in as data/ood.reference_photo_crops); quality_eval at its default
+# --batch 16 on a checkpoint of the bundle's G and SpecSeg; mask_ab on the
+# committed SpecSeg nets (mask_ab's defaults: 128 px, 64 OOD scenes)
+EV_OOD_N, EV_OOD_BATCH = 32, 8
+EV_QUALITY_N = 32
+EV_NETS = {"dr": "benchmarks/quality_r3_dr/specseg_dr.msgpack",
+           "s25": "benchmarks/quality_r4_chroma/specseg_chroma_s25.msgpack",
+           "s26": "benchmarks/quality_r4_chroma/specseg_chroma_s26.msgpack"}
+EV_PHOTOS, EV_CELL, EV_GUTTER = 10, 96, 6
+# G's 18 IN sites at quality_eval's batch 16, 256 px (none timed before)
+EVAL_IN_SHAPES = [((16, 64, 256, 256), 4), ((16, 128, 128, 128), 4), ((16, 256, 64, 64), 4),
+                  ((16, 512, 32, 32), 4), ((16, 512, 16, 16), 2)]
+# kernels vs plain versions, per JSON value beyond its rounding (4 decimals,
+# FID 5, the outside-mask PSNR 2): PSNR QG_PSNR_ATOL dB, SSIM QG_SSIM_ATOL,
+# evaluate_pair's table EV_TABLE_RTOL relative; FID within EV_FID_RTOL
+# relative plus the float32 rounding of the covariances' null space
+# (_ev_fid_tolerance); thresholded-mask figures by the share of the pixels
+# that flip, each within SERVE_ATOL of its threshold
+EV_TABLE_RTOL, EV_FID_RTOL = 1e-3, 1e-2
+
+
+def _ev_grid(path):
+    """A 3 x EV_PHOTOS grid PNG as the reference's results figure lays it
+    out: photos (seeded scenes with highlights), masks (white where a
+    scene is near white), outputs (the scene dimmed there), white gutters,
+    and a narrow label left of each row that the width rule drops."""
+    from shmgan_tpu_torch.data.codecs import encode_png
+
+    rng = np.random.default_rng(21)
+    photos = scenes(EV_PHOTOS, EV_CELL, EV_CELL, rng)
+    masks = np.repeat((photos.mean(-1, keepdims=True) > 0.8).astype(np.float32), 3, -1)
+    rows = [photos, masks * 0.9, photos * (1.0 - 0.4 * masks)]
+    c, g = EV_CELL, EV_GUTTER
+    im = np.full((3 * c + 4 * g, 20 + EV_PHOTOS * (c + g) + 2 * g, 3), 255, np.uint8)
+    for r, cells in enumerate(rows):
+        y = g + r * (c + g)
+        im[y:y + c, g:g + 20] = 90
+        for i, cell in enumerate(cells):
+            x = 2 * g + 20 + i * (c + g)
+            im[y:y + c, x:x + c] = np.round(cell * 255.0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(encode_png(im))
+
+
+def _ev_fid_tolerance(fa, fb):
+    """1e-4 of tr Sa + tr Sb, and for each eigenvalue of Sa or Sb at or
+    under D eps of its largest (dead features, or fewer images than
+    features) twice sqrt(eps lam_a lam_b): what float32 rounding may leave
+    of it in sqrt(Sa) Sb sqrt(Sa)."""
+    from shmgan_tpu_torch.eval.fid import _cov
+
+    sa, sb = _cov(fa.double().cpu()), _cov(fb.double().cpu())
+    eps = float(torch.finfo(torch.float32).eps)
+    spectra = [torch.linalg.eigvalsh(s) for s in (sa, sb)]
+    null = max(int((e <= fa.shape[1] * eps * e[-1]).sum()) for e in spectra)
+    lam = float(spectra[0][-1] * spectra[1][-1])
+    return 1e-4 * float(torch.trace(sa) + torch.trace(sb)) + 2 * null * (eps * lam) ** 0.5
+
+
+def _ev_share(k, n):
+    """How far k pixels of a mask that counts n can move a share of n."""
+    return 2.0 * k / max(float(n) - k, 1.0)
+
+
+def _ev_flips(a, b, t):
+    """Pixels whose masks a > t and b > t differ; each must lie within
+    SERVE_ATOL of t."""
+    differ = (a > t) != (b > t)
+    if not np.all(np.abs(b[differ] - t) <= SERVE_ATOL):
+        raise AssertionError(f"a pixel more than {SERVE_ATOL} from the threshold {t} flipped")
+    return int(differ.sum())
+
+
+def _ev_within(got, want, tol, path):
+    """got against want: floats within tol (a tree of want's layout, or one
+    number for a subtree), anything else equal; returns the worst |diff|."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} against {sorted(want)}")
+        return max([_ev_within(got[k], want[k], tol.get(k, 0.0) if isinstance(tol, dict)
+                               else tol, f"{path}/{k}") for k in want] + [0.0])
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {got} against {want}")
+        return max([_ev_within(g, w, tol, f"{path}/{i}")
+                    for i, (g, w) in enumerate(zip(got, want))] + [0.0])
+    if isinstance(want, float):
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"{path}: {got} against {want}, tolerance {tol}")
+        return abs(got - want)
+    if got != want:
+        raise AssertionError(f"{path}: {got} against {want}")
+    return 0.0
+
+
+class _EvSpy:
+    """The evaluators' inference outputs (Evaluator.infer), FID features and
+    mask probabilities (mask_ab's mask functions), in call order."""
+
+    def __init__(self):
+        from shmgan_tpu_torch import mask_ab
+        from shmgan_tpu_torch.eval import quality
+
+        self._quality, self._mask_ab = quality, mask_ab
+        self.outputs, self.feats, self.probs = [], [], []
+
+    @contextmanager
+    def patched(self):
+        quality, mask_ab = self._quality, self._mask_ab
+        infer, fid, make = (quality.Evaluator.infer, quality.frechet_distance,
+                            mask_ab.make_mask_fn)
+
+        def spy_infer(ev, rgb):
+            out = infer(ev, rgb)
+            self.outputs.append(out)
+            return out
+
+        def spy_fid(fa, fb):
+            self.feats.append((fa, fb))
+            return fid(fa, fb)
+
+        def spy_make(cfg, **kw):
+            fn = make(cfg, **kw)
+
+            def mask_fn(*args):
+                out = fn(*args)
+                self.probs.append(out.float().cpu().numpy())
+                return out
+            return mask_fn
+
+        with mock.patch.object(quality.Evaluator, "infer", spy_infer), \
+                mock.patch.object(quality, "frechet_distance", spy_fid), \
+                mock.patch.object(mask_ab, "make_mask_fn", spy_make):
+            yield self
+
+
+def _ev_table(k, p, spy_k, spy_p, label):
+    """quality_eval's identity, calibrated and composited blocks, kernels
+    (k) against plain (p): the worst differences."""
+    from shmgan_tpu_torch.eval.fid import frechet_distance
+
+    worst = {"psnr": 0.0, "ssim": 0.0, "table": 0.0, "fid_rel": 0.0}
+    for i, key in enumerate(("identity_baseline", "gen_calibrated", "gen_composited")):
+        bk, bp = k[key], p[key]
+        fa, fb = spy_p.feats[i]
+        fid_tol = EV_FID_RTOL * bp["fid"] + _ev_fid_tolerance(fa, fb)
+        tol = {"psnr": QG_PSNR_ATOL + 1e-4, "ssim": QG_SSIM_ATOL + 1e-4, "fid": fid_tol + 1e-5,
+               "reference_style": {m: EV_TABLE_RTOL * abs(v) + 1e-4
+                                   for m, v in bp["reference_style"].items()}}
+        _ev_within(bk, bp, tol, f"{label}/{key}")
+        if bk["fid"] != round(float(frechet_distance(*spy_k.feats[i])), 5):
+            raise AssertionError(f"{label}/{key}: the JSON's FID is not its features'")
+        worst["psnr"] = max(worst["psnr"], abs(bk["psnr"] - bp["psnr"]))
+        worst["ssim"] = max(worst["ssim"], abs(bk["ssim"] - bp["ssim"]))
+        worst["fid_rel"] = max(worst["fid_rel"], abs(bk["fid"] - bp["fid"]) / max(bp["fid"], 1e-12))
+        worst["table"] = max(worst["table"], max(
+            abs(bk["reference_style"][m] - v) / max(abs(v), 1e-12)
+            for m, v in bp["reference_style"].items()))
+    return worst
+
+
+def _ev_outputs(spy_k, spy_p, label):
+    """Every inference output, kernels against plain, within SERVE_ATOL."""
+    worst = {}
+    for ok, op in zip(spy_k.outputs, spy_p.outputs, strict=True):
+        for key, v in op.items():
+            worst[key] = max(worst.get(key, 0.0), float(np.abs(ok[key] - v).max()))
+    say(f"  {label} outputs, kernels vs plain: max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {SERVE_ATOL})")
+    if not all(v <= SERVE_ATOL for v in worst.values()):
+        raise AssertionError(f"{label}: the outputs differ by {worst}")
+    return max(worst.values())
+
+
+def _ev_photo_part(k, p, spy_k, spy_p, crops):
+    """ood_eval's part B, kernels against plain: the mask figures by the
+    pixels that flip at 0.5, the luma drop and the outside-mask PSNR by the
+    outputs' differences as well."""
+    n = EV_OOD_N
+    mk = np.concatenate([o["mask"] for o in spy_k.outputs])[n:]
+    mp = np.concatenate([o["mask"] for o in spy_p.outputs])[n:]
+    flips = _ev_flips(mk, mp, 0.5)
+    pred, ref = mp > 0.5, crops["ref_masks"] > 0.5
+    tol = {"mask_iou_vs_reference": (pred | ref).sum(),
+           "mask_precision_vs_reference": pred.sum(), "mask_recall_vs_reference": ref.sum(),
+           "mask_predicted_fraction": pred.size, "mask_reference_fraction": pred.size}
+    tol = {key: 1e-4 + _ev_share(flips, m) for key, m in tol.items()}
+    inside, outside = int(pred.sum()), pred.size - int(pred.sum())
+    tol["per_output"] = {}
+    for name, key in (("calibrated", "gen_rgb_calibrated"), ("composited", "gen_rgb_composited"),
+                      ("reference_output", None)):
+        d = 0.0 if key is None else float(np.abs(
+            np.concatenate([o[key] for o in spy_k.outputs])[n:]
+            - np.concatenate([o[key] for o in spy_p.outputs])[n:]).max())
+        # luma (weights summing to 1) moves by at most d; a flipped pixel's
+        # luma difference lies in [-1, 1], its squared error in [0, 1] a channel
+        mse = 10.0 ** (-p["per_output"][name]["outside_mask_psnr_vs_input"] / 10.0)
+        dmse = (flips + flips * mse) / max(outside - flips, 1) + 2 * d
+        if not dmse < mse:
+            raise AssertionError(f"ood_eval {name}: {flips} flipped pixels and outputs {d} "
+                                 f"apart leave the outside-mask PSNR unbounded")
+        tol["per_output"][name] = {
+            "specular_luma_drop": 1e-4 + d + _ev_share(flips, inside),
+            "outside_mask_psnr_vs_input": 1e-2 - 10 * np.log10(1 - dmse / mse)}
+    _ev_within(k, p, tol, "ood_eval/reference_photos")
+    return flips
+
+
+def _ev_mask_rows(k, p, probs_k, probs_p, ood_mask, ref_masks):
+    """mask_ab's rows, kernels against plain: each thresholded figure within
+    its rounding and the share of the pixels that flip in its denominator;
+    an arm's mean and seeds within its seeds' tolerance, its sd within
+    sqrt(2) of it. Returns the flipped pixels summed over every figure's
+    mask (a pixel counts once for each figure it moves)."""
+    from shmgan_tpu_torch import mask_ab
+
+    thresholds = [float(t) for t in mask_ab.THRESH_GRID]
+    flipped = 0
+
+    def iou_tol(a, b, ref, t):
+        nonlocal flipped
+        f = _ev_flips(a, b, t)
+        flipped += f
+        pred, rb = b > t, ref > 0.5
+        return {"iou": 1e-4 + _ev_share(f, (pred | rb).sum()),
+                "precision": 1e-4 + _ev_share(f, pred.sum()),
+                "recall": 1e-4 + _ev_share(f, rb.sum()),
+                "pred_fraction": 1e-4 + _ev_share(f, pred.size)}
+
+    calls = iter(zip(probs_k, probs_p, strict=True))
+    pairs = {name: (next(calls), next(calls)) for name in list(p["nets"])[:12]}
+    for v in ("", "+tta", "+prior", "+tta+prior"):
+        members = [pairs[m + v] for m in ("dr", "chroma#0")]
+        pairs["both" + v] = tuple(tuple(np.mean([m[i][s] for m in members], axis=0)
+                                        for s in (0, 1)) for i in (0, 1))
+    tols = {}
+    for name, row in p["nets"].items():
+        if k["nets"][name]["ood_selected_threshold"] != row["ood_selected_threshold"]:
+            raise AssertionError(f"mask_ab {name}: another OOD-selected threshold")
+        (ood_k, ood_p), (ph_k, ph_p) = pairs[name]
+        t_sel = row["ood_selected_threshold"]
+        union = ((ph_p > 0.5) | (ref_masks > 0.5)).sum()
+        f05 = _ev_flips(ph_k, ph_p, 0.5)
+        tols[name] = {
+            "synthetic_ood_vs_gt": iou_tol(ood_k, ood_p, ood_mask, 0.5),
+            "ood_iou_by_threshold": {str(t): iou_tol(ood_k, ood_p, ood_mask, t)["iou"]
+                                     for t in thresholds},
+            "real_photos_vs_reference_masks": iou_tol(ph_k, ph_p, ref_masks, 0.5),
+            "real_photos_at_ood_threshold": iou_tol(ph_k, ph_p, ref_masks, t_sel),
+            "photo_iou_by_threshold": {str(t): iou_tol(ph_k, ph_p, ref_masks, t)["iou"]
+                                       for t in thresholds},
+            "photo_iou_by_dilation": {str(r): 1e-4 + _ev_share(f05 * (2 * r + 1) ** 2, union)
+                                      for r in (1, 2, 3)}}
+    arms = {}
+    for name, agg in p["arms"].items():
+        seeds = [tols[f"chroma#{i}{name[len('chroma'):]}"] for i in (0, 1)]
+        arms[name] = {s: {m: {"mean": t, "sd": 2 ** 0.5 * t + 1e-4, "seeds": t} for m in figs
+                          for t in [max(sd[s][m] for sd in seeds)]}
+                      for s, figs in agg.items() if isinstance(figs, dict)}
+    _ev_within(k, p, {"nets": tols, "arms": arms}, "mask_ab")
+    return flipped
+
+
+def evaluators_phase(smi):
+    """The checkpoint evaluators on the card, through the kernels against the
+    plain versions, launches exactly; the evaluators' IN forward shapes
+    checked and timed; the host's estimate_diffuse_native against numpy."""
+    import functools
+
+    from shmgan_tpu_torch import mask_ab, ood_eval, quality_eval
+    from shmgan_tpu_torch.checkpoint import CheckpointManager, load_inference_bundle
+    from shmgan_tpu_torch.config import Config
+    from shmgan_tpu_torch.convert import load_inference_weights
+    from shmgan_tpu_torch.data import ood
+    from shmgan_tpu_torch.models import build_models
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+    from shmgan_tpu_torch.profile_serve import plain_versions
+    from shmgan_tpu_torch.runtime import native_loader as nl
+    from shmgan_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    rows, total, worst_in, _ = _forward_rows(
+        ink, dev, torch.Generator(device=dev).manual_seed(16), torch.float32, EVAL_IN_SHAPES,
+        False, set())
+    _say_total(_in_name(torch.float32), "per G call at batch 16, 256 px (quality_eval)", total)
+
+    rng = np.random.default_rng(7)
+    views = rng.random((4, 612, 816, 3), dtype=np.float32)
+    t0 = time.perf_counter()
+    native = nl.estimate_diffuse_native(views)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = nl.estimate_diffuse_plain(views)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    say(f"estimate_diffuse_native (4, 612, 816, 3) on the card's host: {native_ms:.3f} ms, "
+        f"numpy {plain_ms:.3f} ms, bit for bit {np.array_equal(native, plain)}; {smi}")
+    if not np.array_equal(native, plain):
+        raise AssertionError("estimate_diffuse_native differs from numpy's minimum")
+
+    bundle_path = os.path.join(ROOT, BUNDLE)
+    bundle = load_inference_bundle(bundle_path)
+    nets = {k: os.path.join(ROOT, v) for k, v in EV_NETS.items()}
+    counts, secs = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        grid = os.path.join(root, "results.png")
+        _ev_grid(grid)
+        crops = ood.reference_photo_crops(256, path=grid)
+        if crops is None or crops["inputs"].shape[0] != EV_PHOTOS:
+            raise AssertionError("the synthetic grid did not cut into its photos")
+        # the checkpoint of the bundle's G and SpecSeg quality_eval restores
+        cfg = Config()
+        cfg.model = dataclasses.replace(cfg.model, image_size=256, upsample_mode="resize_conv",
+                                        specseg_in_channels=2, compute_dtype="float32")
+        models = build_models(cfg, device="cuda", seed=3)
+        load_inference_weights(models[0], models[2], bundle[0], bundle[1])
+        state = create_train_state(cfg, models)
+        state.step = int(bundle[2]["step"])
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(root, "ckpt")).save(state)
+        save_s = time.perf_counter() - t0
+        del state, models, bundle
+        torch.cuda.empty_cache()
+
+        runs = {
+            "ood_eval": (ood_eval.main, ["--bundle", bundle_path, "--eval_n", str(EV_OOD_N),
+                                         "--batch", str(EV_OOD_BATCH)]),
+            "quality_eval": (quality_eval.main, [
+                "--ckpt_dir", os.path.join(root, "ckpt"), "--image_size", "256",
+                "--upsample_mode", "resize_conv", "--specseg_in_channels", "2",
+                "--eval_n", str(EV_QUALITY_N)]),
+            "mask_ab": (mask_ab.main, [
+                "--nets", f"dr={nets['dr']}", "--arms", f"chroma={nets['s25']},{nets['s26']}",
+                "--ensembles", "both=dr+chroma#0", "--tta", "--prior"])}
+        results = {}
+        for name, (main, argv) in runs.items():
+            for path in ("kernels", "plain"):
+                out = os.path.join(root, f"{name}_{path}")
+                args = argv + ["--out", out + ("/ab.json" if name == "mask_ab" else "")]
+                spy = _EvSpy()
+                _launch_counts(reset=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with spy.patched(), mock.patch.object(
+                        ood, "reference_photo_crops",
+                        functools.partial(ood.reference_photo_crops, path=grid)), \
+                        (plain_versions() if path == "plain" else nullcontext()):
+                    result = main(args)
+                torch.cuda.synchronize()
+                secs[name, path] = time.perf_counter() - t0
+                got = _launch_counts(reset=True)
+                if name == "mask_ab":
+                    with open(args[-1]) as f:
+                        result = json.load(f)
+                results[name, path] = (result, spy)
+                if path == "kernels":
+                    counts[name] = got
+                say(f"{name} ({path}): {secs[name, path]:.2f} s, launches {got}")
+
+        want_calls = {"ood_eval": -(-EV_OOD_N // EV_OOD_BATCH) - (-EV_PHOTOS // EV_OOD_BATCH),
+                      "quality_eval": -(-EV_QUALITY_N // 16), "mask_ab": 0}
+        for name, calls in want_calls.items():
+            masks = 3 * 4 * 2 if name == "mask_ab" else 0
+            want = {**{k: 0 for k in counts[name]}, _in_name(torch.float32): 18 * calls,
+                    "fused_standardize_yuv": calls + masks}
+            say(f"  {name} launches {counts[name]} (expected {want}: {calls} infer calls of "
+                f"18 IN forwards and a preprocess, {masks} mask calls of a preprocess)")
+            if counts[name] != want:
+                raise AssertionError(f"{name} launched {counts[name]}, expected {want}")
+
+        (ok_, sk), (op, sp) = results["ood_eval", "kernels"], results["ood_eval", "plain"]
+        out_err = _ev_outputs(sk, sp, "ood_eval")
+        if ok_["reference_photos"] is None or ok_["reference_photos"]["n"] != EV_PHOTOS:
+            raise AssertionError("ood_eval skipped its part B")
+        worst_a = _ev_table(ok_["synthetic_ood"], op["synthetic_ood"], sk, sp, "ood_eval")
+        flips_b = _ev_photo_part(ok_["reference_photos"], op["reference_photos"], sk, sp, crops)
+        if (ok_["checkpoint_step"], ok_["image_size"]) != (op["checkpoint_step"],
+                                                            op["image_size"]):
+            raise AssertionError("ood_eval's runs read other weights")
+        a = op["synthetic_ood"]
+        say(f"  ood_eval part A (kernels vs plain): worst |PSNR| {worst_a['psnr']:.2e} dB, "
+            f"|SSIM| {worst_a['ssim']:.2e}, table {worst_a['table']:.2e} relative, FID "
+            f"{worst_a['fid_rel']:.2e} relative; part B {flips_b} mask pixels flipped at 0.5; "
+            f"calibrated PSNR {a['gen_calibrated']['psnr']} SSIM {a['gen_calibrated']['ssim']} "
+            f"FID {a['gen_calibrated']['fid']}, identity PSNR {a['identity_baseline']['psnr']}"
+            f"; photo mask IoU {op['reference_photos']['mask_iou_vs_reference']}")
+
+        (qk, sqk), (qp, sqp) = results["quality_eval", "kernels"], results["quality_eval", "plain"]
+        out_err = max(out_err, _ev_outputs(sqk, sqp, "quality_eval"))
+        worst_q = _ev_table(qk, qp, sqk, sqp, "quality_eval")
+        if (qk["checkpoint_step"], qk["eval_n"]) != (qp["checkpoint_step"], qp["eval_n"]):
+            raise AssertionError("quality_eval's runs read other checkpoints")
+        say(f"  quality_eval (kernels vs plain): worst |PSNR| {worst_q['psnr']:.2e} dB, "
+            f"|SSIM| {worst_q['ssim']:.2e}, table {worst_q['table']:.2e}, FID "
+            f"{worst_q['fid_rel']:.2e} relative; step {qp['checkpoint_step']}: calibrated "
+            f"PSNR {qp['gen_calibrated']['psnr']} FID {qp['gen_calibrated']['fid']} (beats "
+            f"identity {qp['gen_calibrated']['beats_identity']}), identity PSNR "
+            f"{qp['identity_baseline']['psnr']} FID {qp['identity_baseline']['fid']}")
+
+        (mk, smk), (mp_, smp) = results["mask_ab", "kernels"], results["mask_ab", "plain"]
+        if len(smk.probs) != 3 * 4 * 2 or len(smp.probs) != len(smk.probs):
+            raise AssertionError(f"mask_ab made {len(smk.probs)} mask calls, expected 24")
+        prob_err = max(float(np.abs(a - b).max()) for a, b in zip(smk.probs, smp.probs))
+        if not prob_err <= SERVE_ATOL:
+            raise AssertionError(f"mask_ab's probabilities differ by {prob_err}")
+        ood_mask = ood.synth_ood_set(64, 128, seed=mask_ab.OOD_SEED)[2]
+        ref128 = ood.reference_photo_crops(128, path=grid)["ref_masks"]
+        flips_m = _ev_mask_rows(mk, mp_, smk.probs, smp.probs, ood_mask, ref128)
+        say(f"  mask_ab (kernels vs plain): probabilities max_abs_err {prob_err:.3e} (tol "
+            f"{SERVE_ATOL}), {flips_m} pixel-threshold flips; rows {list(mp_['nets'])}; "
+            f"dr photo IoU {mp_['nets']['dr']['real_photos_vs_reference_masks']['iou']}, "
+            f"arm chroma+prior photo IoU "
+            f"{mp_['arms']['chroma+prior']['real_photos_vs_reference_masks']['iou']}")
+    say(f"evaluators on {smi}: checkpoint save {save_s:.2f} s; "
+        + "; ".join(f"{n} {secs[n, 'kernels']:.2f} s through the kernels, "
+                    f"{secs[n, 'plain']:.2f} s plain" for n in runs)
+        + f"; outputs max_abs_err {out_err:.3e}; IN forward rows max_abs_err {worst_in:.3e}")
+    for row in rows:
+        say(f"  IN forward {tuple(row['shape'])} x{row['sites']}: {row['variant']}, "
+            f"device_ms {row['device_ms']:.4f} ({share(row['bound_ms'], row['device_ms'])}), "
+            f"cold {row['device_cold_ms']:.4f}, plain {row['plain_ms']:.4f}, F.instance_norm "
+            f"{row['library_device_ms']:.4f}")
+    return _sum_counts(*counts.values())
+
+
 # keras_h5: the reference's Keras SpecSeg (tests/data/torch_h5/, its README
 # holds the file's sha256 and each leaf's shape and exactly rounded sums) on
 # the command line's train, export and serve paths; KERAS_H5_SCENES scenes
@@ -4563,6 +5011,8 @@ def main() -> int:
         by_path["specseg_train"] = phase("specseg_train", specseg_train_phase)
         current = "quality_gan"
         by_path["quality_gan"] = phase("quality_gan", quality_gan_phase)
+        current = "evaluators"
+        by_path["evaluators"] = phase("evaluators", evaluators_phase, smi)
         current = "keras_h5"
         by_path["keras_h5"] = phase("keras_h5", keras_h5_phase, smi)
     except Exception:

@@ -1,9 +1,11 @@
 // Host batch decoder: a pool of threads that decodes 8-bit PPM/PGM, BMP and
 // raw RGB8 files, resizes each bilinearly to the training resolution and
-// scales it to [0, 1] float32, straight into the caller's (n, H, W, 3) batch.
+// scales it to [0, 1] float32, straight into the caller's (n, H, W, 3) batch;
+// and the channel-wise minimum of a stack of views.
 //
 // The counterpart of the JAX package's native/loader.cc (its decoders at
-// :40-160, ResizeNormalize at :170-201), written anew for the port: it
+// :40-160, ResizeNormalize at :170-201, shmgan_estimate_diffuse at
+// :308-316), written anew for the port: it
 // accepts and refuses the same files and repeats the same float32 arithmetic
 // in the same order. One deliberate difference: a PNM of maxval below 255 is
 // scaled to 8 bits as PIL scales it (round(v / maxval * 255), half to even,
@@ -253,6 +255,16 @@ void shm_resize_normalize(const uint8_t* data, int h, int w, int c, int out_h, i
   img.data.assign(data, data + static_cast<size_t>(h) * w * c);
   img.ok = true;
   ResizeNormalize(img, out_h, out_w, out);
+}
+
+// The channel-wise minimum over v aligned images of `size` floats each,
+// (v, size) -> (size): the pseudo-diffuse estimate of a polarisation stack.
+void shm_estimate_diffuse(const float* views, int v, int64_t size, float* out) {
+  std::memcpy(out, views, sizeof(float) * size);
+  for (int i = 1; i < v; ++i) {
+    const float* src = views + static_cast<int64_t>(i) * size;
+    for (int64_t j = 0; j < size; ++j) out[j] = std::min(out[j], src[j]);
+  }
 }
 
 }  // extern "C"

@@ -8,15 +8,29 @@ piecewise-flat backgrounds (Voronoi cells or stripes), hard-edged
 super-Gaussian plateaus and thin curved glints, untinted highlights,
 vignetting and a per-image gamma. Ground truth (diffuse and mask) exists.
 
-`reference_photo_crops` (the reference's results figure cut into crops) is
-not ported: the figure is not in the repository (ROADMAP Queue 1 item 9).
+`reference_photo_crops` cuts the reference's results figure (a 3 x 10 grid
+of input photographs, the reference SpecSeg's masks and the reference
+SHMGAN's outputs, with white gutters) into arrays, as the JAX function
+does: the file is read through data/codecs.py (PIL's `convert("RGB")`
+pixels) and each cell resized by `codecs.resize_bilinear` (Pillow's
+BILINEAR, exactly). The figure is not in the repository; where it is absent
+the function returns None, and the evaluators then skip their real-photo
+part.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
+
+from shmgan_tpu_torch.data.codecs import decode, resize_bilinear
+
+# the JAX package's default: the reference repository checked out in the
+# home directory, its assets/results.png
+REFERENCE_RESULTS_PNG = os.path.join(os.path.expanduser("~"), "reference", "assets",
+                                     "results.png")
 
 
 def _voronoi_cells(rng: np.random.Generator, h: int, w: int,
@@ -108,3 +122,51 @@ def synth_ood_set(n: int, image_size: int, seed: int = 0
         gts.append(diff)
         masks.append(mask)
     return np.stack(ins), np.stack(gts), np.stack(masks)
+
+
+# -- real photographs from the reference's results figure ------------------------------
+
+def _content_runs(mean_profile: np.ndarray, thresh: float = 250.0) -> List[Tuple[int, int]]:
+    """Split a 1-D brightness profile into content spans (start, stop)
+    separated by near-white gutters (above `thresh`); spans of 16 pixels or
+    fewer are dropped."""
+    white = mean_profile > thresh
+    spans, start = [], None
+    for i, w in enumerate(white):
+        if not w and start is None:
+            start = i
+        if w and start is not None:
+            spans.append((start, i))
+            start = None
+    if start is not None:
+        spans.append((start, len(white)))
+    return [s for s in spans if s[1] - s[0] > 16]
+
+
+def reference_photo_crops(image_size: int, path: str = REFERENCE_RESULTS_PNG
+                          ) -> Optional[dict]:
+    """The reference results grid cut into cells, each resized to
+    image_size: {"inputs": (N, S, S, 3), "ref_masks": (N, S, S, 1),
+    "ref_outputs": (N, S, S, 3)}, float32 in [0, 1]; None when the file is
+    absent or holds fewer than 3 row spans or 2 column spans. Rows: the input
+    photos, the reference SpecSeg's masks (the cell's channel mean), the
+    reference SHMGAN's outputs. A column span at or under 0.6 of the median
+    width (the rotated row labels) is dropped."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        im = decode(f.read())
+    col_spans = _content_runs(im.mean(axis=(0, 2)))
+    row_spans = _content_runs(im.mean(axis=(1, 2)))
+    if len(row_spans) < 3 or len(col_spans) < 2:
+        return None
+    med = float(np.median([c1 - c0 for c0, c1 in col_spans]))
+    col_spans = [s for s in col_spans if (s[1] - s[0]) > 0.6 * med]
+
+    def cells(row: int) -> np.ndarray:
+        r0, r1 = row_spans[row]
+        return np.stack([resize_bilinear(im[r0:r1, c0:c1], (image_size, image_size))
+                         .astype(np.float32) / 255.0 for c0, c1 in col_spans])
+
+    return {"inputs": cells(0), "ref_masks": cells(1).mean(axis=-1, keepdims=True),
+            "ref_outputs": cells(2)}

@@ -35,8 +35,11 @@ from typing import Dict, List, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+# a host call to a __device__ function is an error, not a warning: nvcc's
+# default lets it build, and the process dies silently at the launch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Werror", "cross-execution-space-call"]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
 
 _lock = threading.Lock()

@@ -12,6 +12,10 @@ counterpart of shmgan_tpu/runtime/native_loader.py and its native/loader.cc.
       the tests hold the C++ resize alone against JAX's, apart from any
       decoder.
 
+  estimate_diffuse_native(views)
+      (V, ...) float32 -> the channel-wise minimum over the V views, the
+      pseudo-diffuse estimate of a polarisation stack, in one C++ pass.
+
 `data/loader.decode_resize_batch` sends a list here when every file is a
 PPM, PGM or BMP, as the JAX package's loader does. The library is compiled
 from the port's own source by runtime/build.py at first use (`$CXX` or g++);
@@ -20,14 +24,12 @@ The calls release the GIL. `calls` counts the library's calls.
 
 `decode_batch_plain` and `resize_normalize_plain` are the same decoders and
 the same float32 arithmetic in numpy, in the same order: the C++ repeats them
-bit for bit (its build turns off floating-point contraction). The tests and
-chip_smoke.py hold the library against them.
+bit for bit (its build turns off floating-point contraction), and
+`estimate_diffuse_plain` is numpy's minimum (the same values on finite
+input). The tests and chip_smoke.py hold the library against them.
 
-The JAX module's two other functions have counterparts already:
-`encode_png` is `data/codecs.encode_png` (the same filter-0 rows in one zlib
-stream), and `estimate_diffuse_native`, which nothing in the JAX package
-calls, is the datasets' channel-wise minimum of the four views
-(`data/loader._with_ed`).
+The JAX module's other function has a counterpart already: `encode_png` is
+`data/codecs.encode_png` (the same filter-0 rows in one zlib stream).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import numpy as np
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
-calls = 0  # calls into the library (decode_batch and resize_normalize)
+calls = 0  # calls into the library (decode_batch, resize_normalize, estimate_diffuse_native)
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -63,6 +65,8 @@ def _library() -> ctypes.CDLL:
                 _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 _F32P]
             lib.shm_resize_normalize.restype = None
+            lib.shm_estimate_diffuse.argtypes = [_F32P, ctypes.c_int, ctypes.c_int64, _F32P]
+            lib.shm_estimate_diffuse.restype = None
             _lib = lib
     return _lib
 
@@ -125,6 +129,24 @@ def resize_normalize(img_u8: np.ndarray, image_size: int) -> np.ndarray:
     out = np.zeros((image_size, image_size, 3), np.float32)
     _library().shm_resize_normalize(img.ctypes.data_as(_U8P), h, w, c, image_size,
                                     image_size, out.ctypes.data_as(_F32P))
+    _count()
+    return out
+
+
+def estimate_diffuse_native(views: np.ndarray) -> np.ndarray:
+    """(V, ...) float32 -> the channel-wise minimum over the V views, by the
+    library. Raises RuntimeError("native library unavailable") when the
+    library does not build or load, as the JAX function does."""
+    try:
+        lib = _library()
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError("native library unavailable") from e
+    views = np.ascontiguousarray(views, np.float32)
+    if views.ndim < 1 or views.shape[0] == 0:
+        raise ValueError(f"expected (V, ...) with V >= 1 views, got {views.shape}")
+    out = np.empty(views.shape[1:], np.float32)
+    lib.shm_estimate_diffuse(views.ctypes.data_as(_F32P), views.shape[0], out.size,
+                             out.ctypes.data_as(_F32P))
     _count()
     return out
 
@@ -268,3 +290,8 @@ def decode_batch_plain(paths: List[str], image_size: int) -> Tuple[np.ndarray, n
             out[i] = resize_normalize_plain(img, image_size)
             status[i] = 1
     return out, status
+
+
+def estimate_diffuse_plain(views: np.ndarray) -> np.ndarray:
+    """estimate_diffuse_native in numpy: views.min(axis=0), in float32."""
+    return np.asarray(views, np.float32).min(axis=0)
