@@ -24,9 +24,12 @@ Phases (each prints its name before it starts and its seconds after):
               f32 and with bf16 activations, and autograd through the kernels
               (the path the models take) against autograd through the plain
               version at those shapes; the backward's plan (variant, threads,
-              blocks per SM) at each shape, its streaming variant at one larger
-              shape and its packed and resident variants on unaligned storage,
-              checked the same way; the preprocess kernel in both its
+              blocks per SM, clusters at once) at each shape, its streaming
+              variant at one larger shape (above 8 blocks' registers) and its
+              packed and resident variants on unaligned storage, checked the
+              same way; the backward again at every IN shape of the phase-B
+              step (256 px, b10: 256 x 256 planes in clusters of 8 blocks in
+              f32, 4 in bf16), checked and timed; the preprocess kernel in both its
               variants, at both cluster sizes, on an unaligned input, at the
               native path's bucket (2, 640, 832, 3) (streaming, timed too), and
               call against call, bit for bit. It times kernel, plain version, the
@@ -204,14 +207,16 @@ Phases (each prints its name before it starts and its seconds after):
               EMA at 0.999, 2-channel SpecSeg): one step at 256 px, b10,
               through the kernels against the plain versions by the gap
               rule, and one in f32 at b2 by the train step's rule (the IN
-              backward's streaming variant in both dtypes); one oracle chunk
+              backward's launches by variant exactly as `_bwd_plan` plans the
+              step's shapes: G's 256 x 256 sites in clusters, none
+              streaming); one oracle chunk
               (8 images, f32) on the card against the CPU; then
               quality_train.main --phase gan warm-started from the bundle
               (its SpecSeg written as the frozen net's file) for QG_STEPS
               steps with two evals of 3 draws of 64 images: launches exactly
               QG_STEPS x (46, 46, 1) in training (G1 is live in this recipe,
               so its 18 IN sites have a backward too) and draws x 8 x (18, 1)
-              f32 an eval, the backward's streaming launches counted; step
+              f32 an eval, the backward's launches counted by variant; step
               ms, images/s, peak memory, seconds an eval and in its FIDs; the
               first eval beats the identity; best_bundle.msgpack reloaded and
               serving one request; then a short second run (40 steps in
@@ -312,9 +317,10 @@ NATIVE_IN_SHAPES = [
 # the IN forward's variants (ops/kernels/instance_norm._fwd_plan), each of
 # which the kernels phase must reach in both dtypes
 FWD_VARIANTS = ("packed", "resident", "split", "two_pass")
-# an IN backward shape above the resident limit, in both dtypes: the
-# streaming variant, checked but not counted in the per-step sums
-IN_STREAM_SHAPE = (2, 16, 256, 256)
+# an IN backward shape above the resident limit (8 blocks' registers), in
+# both dtypes: the streaming variant, checked but not counted in the
+# per-step sums
+IN_STREAM_SHAPE = (1, 2, 512, 512)
 # IN backward shapes checked on storage one element past an aligned base
 # (packed and resident variants)
 IN_UNALIGNED_SHAPES = [(16, 512, 8, 8), (16, 64, 64, 64)]
@@ -776,34 +782,35 @@ def _backward_extra_checks(ink, name, dev, dtype, tol, ptol):
     return worst
 
 
-def instance_norm_backward_row(dev, g, dtype=torch.float32):
-    """The IN backward at every IN shape of the train step, activations in
-    `dtype`: its plan, against its plain version (from the forward kernel's
-    own mean and rstd), repeat calls bit for bit, autograd through the kernels
-    against autograd through the plain version, and timed; the forward (with
-    its stats) checked and its device time beside it. Then the streaming
-    variant and unaligned storage (_backward_extra_checks), not timed."""
-    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
-
-    name = _in_name(dtype, "backward")
-    # (y and dx, dgamma and dbeta)
-    tol, ptol = (IN_TOL, IN_TOL) if dtype == torch.float32 else (IN_TOL_BF16, IN_PARAM_TOL_BF16)
-
+def _backward_rows(ink, name, dev, g, dtype, shapes, tol, ptol):
+    """The IN backward at `shapes` ((B, C, H, W), calls a step), activations
+    in `dtype`: its plan (blocks per SM and, for a cluster, the clusters the
+    card runs at once), against its plain version (from the forward kernel's
+    own mean and rstd), repeat calls bit for bit, autograd through the
+    kernels against autograd through the plain version (_backward_check),
+    and timed; the forward (with its stats) checked and its device time
+    beside it. Returns (rows, sums weighted by calls, worst error, bounds
+    by)."""
     rows = []
     keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "forward_device_ms")
     total = dict.fromkeys(keys, 0.0)
     bound_by, worst = set(), 0.0
-    for shape, sites in TRAIN_IN_SHAPES:
+    for shape, sites in shapes:
         b, c, h, w = shape
         x, gamma, beta, dy = _in_inputs(dev, g, shape, dtype)
         plan = ink._bwd_plan(b, c, h * w, dtype)
         per_sm = ink.blocks_per_sm(plan, dtype)
+        clusters = ink.max_active_clusters(plan, dtype) if plan.cluster > 1 else None
         say(f"{name} {shape} plan: {plan.variant}, {plan.lanes} threads a plane, "
-            f"{plan.threads} a block, cluster {plan.cluster}, {per_sm} blocks per SM")
+            f"{plan.threads} a block, cluster {plan.cluster}, {plan.chunks} chunks a thread, "
+            f"{per_sm} blocks per SM"
+            + (f", {clusters} clusters at once" if clusters is not None else ""))
+        if clusters == 0:
+            raise AssertionError(f"{name} {shape}: the card runs no cluster of {plan}")
         err, mean, rstd = _backward_check(ink, name, shape, x, gamma, beta, dy, tol, ptol)
         worst = max(worst, err)
-        iters = 10 if x.numel() > 1 << 24 else 50
+        iters = 5 if x.numel() > 1 << 26 else 10 if x.numel() > 1 << 24 else 50
         kernel = lambda: ink.instance_norm_backward(x, gamma, mean, rstd, dy)  # noqa: E731
         lib_ms, lib_dev_ms = library_backward_ms(x, gamma, beta, dy, iters)
         bms, by = bound(3 * x.numel() * x.element_size() + (2 * b * c + 3 * c) * 4,
@@ -823,25 +830,54 @@ def instance_norm_backward_row(dev, g, dtype=torch.float32):
             f"forward_device_ms={row['forward_device_ms']:.4f} sites_per_step={sites}")
         bound_by.add(by)
         rows.append(dict(shape=list(shape), sites_per_step=sites, variant=plan.variant,
-                         threads=plan.threads, cluster=plan.cluster, blocks_per_sm=per_sm,
+                         threads=plan.threads, cluster=plan.cluster, chunks=plan.chunks,
+                         blocks_per_sm=per_sm, max_active_clusters=clusters,
                          max_abs_err=err, **row))
         for k in keys:
             total[k] += sites * row[k]
-        del x, dy
-    worst = max(worst, _backward_extra_checks(ink, name, dev, dtype, tol, ptol))
-    say(f"{name} per train step: ms={total['ms']:.4f} "
+        del x, dy, mean, rstd
+    torch.cuda.empty_cache()
+    return rows, total, worst, bound_by
+
+
+def _say_backward_total(name, what, total, launches):
+    say(f"{name} {what}: ms={total['ms']:.4f} "
         f"device_ms={total['device_ms']:.4f} ({share(total['bound_ms'], total['device_ms'])}) "
         f"device_cold_ms={total['device_cold_ms']:.4f} "
         f"({share(total['bound_ms'], total['device_cold_ms'])}) "
         f"F.instance_norm_backward_device_ms={total['library_device_ms']:.4f} "
-        f"bound_ms={total['bound_ms']:.4f}; the forward's 28 matching launches "
+        f"bound_ms={total['bound_ms']:.4f}; the forward's {launches} matching launches "
         f"device_ms={total['forward_device_ms']:.4f}")
+
+
+def instance_norm_backward_row(dev, g, dtype=torch.float32):
+    """The IN backward at every IN shape of the train step, activations in
+    `dtype` (_backward_rows: the row's numbers); then the streaming variant
+    and unaligned storage (_backward_extra_checks), not timed; then every IN
+    shape of the phase-B step at 256 px, batch 10 (`qg_in_shapes`: its 256 x
+    256 planes take a cluster of 8 blocks in f32, 4 in bf16), on draws of
+    their own, checked and timed the same way."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    name = _in_name(dtype, "backward")
+    # (y and dx, dgamma and dbeta)
+    tol, ptol = (IN_TOL, IN_TOL) if dtype == torch.float32 else (IN_TOL_BF16, IN_PARAM_TOL_BF16)
+    rows, total, worst, bound_by = _backward_rows(ink, name, dev, g, dtype, TRAIN_IN_SHAPES,
+                                                  tol, ptol)
+    worst = max(worst, _backward_extra_checks(ink, name, dev, dtype, tol, ptol))
+    _say_backward_total(name, "per train step", total, 28)
+    qg = torch.Generator(device=dev).manual_seed(3)
+    qg_rows, qg_total, err, by = _backward_rows(ink, name, dev, qg, dtype,
+                                                qg_in_shapes(QG_BATCH), tol, ptol)
+    _say_backward_total(name, f"per phase-B step (46 launches, b{QG_BATCH}, {QG_SIZE} px)",
+                        qg_total, 46)
     return dict(name=name, route="cuda", dtype=str(dtype).split(".")[-1],
                 source="shmgan_tpu_torch/csrc/instance_norm.cu",
                 replaces="shmgan_tpu/ops/pallas/instance_norm.py:225",
-                launches=0, max_abs_err=worst, **total, bound_by="/".join(sorted(bound_by)),
+                launches=0, max_abs_err=max(worst, err), **total,
+                bound_by="/".join(sorted(bound_by | by)),
                 per="the 28 backward launches of one train step at batch 8, 128 px",
-                shapes=rows)
+                shapes=rows, phase_b_shapes=qg_rows, per_phase_b_step=qg_total)
 
 
 def preprocess_checks(dev, g):
@@ -2864,14 +2900,33 @@ QG_RECIPE = ("--phase", "gan", "--image_size", str(QG_SIZE), "--batch", str(QG_B
 QG_PSNR_ATOL, QG_SSIM_ATOL, QG_FEAT_RTOL = 1e-2, 1e-4, 1e-4
 
 
+def qg_in_shapes(b, s=QG_SIZE):
+    """(B, C, H, W) of the phase-B step's 46 IN sites at s px and batch b,
+    with their calls a step, forward and backward alike (G1 is live): G1 (b)
+    and the cyclic G (5b), 18 sites each; live D (2b) and frozen D (11b), 5
+    each."""
+    g = [(64, s, 4), (128, s // 2, 4), (256, s // 4, 4), (512, s // 8, 4), (512, s // 16, 2)]
+    d = [(64 << k, s >> (k + 1), 1) for k in range(5)]
+    return ([((n, c, h, h), k) for n in (b, 5 * b) for c, h, k in g]
+            + [((n, c, h, h), k) for n in (2 * b, 11 * b) for c, h, k in d])
+
+
 def gan_step_launches(dtype):
     """Launches of one phase-B step: G1 is live (live_g1), so all 46 IN
     sites have a backward."""
     return {**step_launches(dtype), _in_name(dtype, "backward"): 46}
 
 
+def _bwd_variant(plan, dtype):
+    """A plan's key in the variant counts: variant/dtype, with /K<blocks>
+    after the variant where it takes a cluster."""
+    k = f"/K{plan.cluster}" if plan.cluster > 1 else ""
+    return f"{plan.variant}{k}/{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+
+
 class _BwdVariants:
-    """Counts the IN backward's launches by (variant, activation dtype)."""
+    """Counts the IN backward's launches by (variant, cluster, activation
+    dtype)."""
 
     def __init__(self):
         self.counts = {}
@@ -2882,11 +2937,23 @@ class _BwdVariants:
         real = ink._launch_backward
 
         def launch(x, gamma, mean, rstd, g, plan):
-            key = f"{plan.variant}/{'bf16' if x.dtype == torch.bfloat16 else 'f32'}"
+            key = _bwd_variant(plan, x.dtype)
             self.counts[key] = self.counts.get(key, 0) + 1
             return real(x, gamma, mean, rstd, g, plan)
 
         return mock.patch.object(ink, "_launch_backward", launch)
+
+
+def qg_bwd_variants(b, dtype):
+    """The IN backward's launches of one phase-B step at batch b by
+    `_bwd_variant`, as `_bwd_plan` plans `qg_in_shapes(b)`."""
+    from shmgan_tpu_torch.ops.kernels import instance_norm as ink
+
+    out = {}
+    for (n, c, h, w), calls in qg_in_shapes(b):
+        key = _bwd_variant(ink._bwd_plan(n, c, h * w, dtype), dtype)
+        out[key] = out.get(key, 0) + calls
+    return out
 
 
 def _qg_cfg(dtype):
@@ -2965,9 +3032,18 @@ def _qg_step_checks(bundle):
             out["f32_variants"] = runs["float32", "kernels"][2]
         del runs
         torch.cuda.empty_cache()
-    for key, dtype in (("bf16_variants", "bf16"), ("f32_variants", "f32")):
-        if not out[key].get(f"streaming/{dtype}"):
-            raise AssertionError(f"no streaming IN backward in the {dtype} step: {out[key]}")
+    # the 8 calls at G's 256 x 256 sites (G1 and the cyclic G) take a cluster
+    # of 4 blocks in bf16, 8 in f32; nothing streams
+    for key, b, dtype, cluster in (("bf16_variants", QG_BATCH, torch.bfloat16, 4),
+                                   ("f32_variants", QG_SMALL_BATCH, torch.float32, 8)):
+        want = qg_bwd_variants(b, dtype)
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        say(f"phase-B step {name}, b{b}: IN backward variants {out[key]}, expected {want}")
+        if (out[key] != want or want.get(f"resident/K{cluster}/{name}") != 8
+                or any(k.startswith("streaming") for k in want)):
+            raise AssertionError(f"phase-B step {name} b{b}: IN backward variants {out[key]}, "
+                                 f"expected {want} with 8 resident/K{cluster}/{name}, "
+                                 f"no streaming")
     return out["bf16_variants"]
 
 

@@ -92,17 +92,22 @@
 //     plane's segment of the warp, with no block barrier. One block per
 //     plane spent two barriers on 16 elements, in up to 81,920 blocks;
 //   - resident, larger planes whose H*W is a multiple of 16 bytes and whose
-//     x fits 2 x 512 threads x 4 chunks of 16 bytes (128x128 in f32, 32,768
-//     elements in bf16): a block of 64 to 512 threads, or a cluster of 2
-//     blocks of 512, holds the plane; the sums go through shared memory
-//     across warps and, in a cluster, through distributed shared memory,
-//     where each block writes its partial into a slot of every block and,
-//     after one cluster barrier, adds the slots in rank order (as
-//     csrc/preprocess.cu). Two blocks of 512 fit on an SM (64 registers a
-//     thread);
-//   - streaming, anything larger (or larger than 256 elements with H*W not a
-//     multiple of 16 bytes): one 256-thread block per plane in two passes,
-//     which reads x and g twice.
+//     x fits 8 x 512 threads x 4 chunks of 16 bytes (256x256 in f32, 131,072
+//     elements in bf16): a block of 64 to 512 threads, or a cluster of up to
+//     8 blocks (the portable cluster size: no non-portable attribute),
+//     holds the plane; the sums go through shared memory across warps and,
+//     in a cluster, through distributed shared memory, where each block
+//     writes its partial into a slot of every block and, after one cluster
+//     barrier, adds the slots in rank order (as csrc/preprocess.cu). At 4
+//     chunks a thread two blocks of 512 fit on an SM (64 registers a
+//     thread), at 8 chunks two blocks of 256 (112 registers); a cluster of 8
+//     takes 4 SMs of one GPC. Above two blocks the wrapper gives a thread 32
+//     elements: 4 chunks of bf16 in blocks of 512, 8 chunks of f32 in
+//     blocks of 256. Phase B's 256x256 planes, which the streaming variant
+//     reads twice, are read once here;
+//   - streaming, anything larger (512x512 training), or larger than 256
+//     elements with H*W not a multiple of 16 bytes: one 256-thread block per
+//     plane in two passes, which reads x and g twice.
 // dgamma and dbeta: each plane's two sums go into a (B, C) scratch; a
 // second, small launch adds the B rows of each channel in order. Every sum
 // is taken in a fixed order: repeat calls are bit-identical.
@@ -328,8 +333,12 @@ enum Variant { kPacked = 0, kResident = 1, kStreaming = 2 };
 constexpr int kPackedThreads = 256;    // threads of a packed block, at most
 constexpr int kPackedElems = 8;        // elements of x (and of g) a packed lane holds, at most
 constexpr int kResidentThreads = 512;  // threads of a resident block, at most
-constexpr int kResidentChunks = 4;     // 16-byte chunks of x (and of g) a resident thread holds
-constexpr int kResidentMaxCluster = 2;
+// 16-byte chunks of x (and of g) a resident thread holds: 4 (64 registers a
+// thread, two blocks of 512 an SM) or, at most, 8 (112 registers, two blocks
+// of 256)
+constexpr int kResidentChunks = 4;
+constexpr int kResidentMaxChunks = 8;
+constexpr int kResidentMaxCluster = 8;  // blocks a plane: the portable cluster size
 
 // 16 bytes of T at p, as raw bits: one vector load where every base is
 // 16-byte aligned, else one element at a time.
@@ -515,9 +524,10 @@ instance_norm_bwd_packed(const T* __restrict__ x, const T* __restrict__ g,
 
 // Resident: block `rank` of the plane's cluster (rank 0 without one) owns
 // chunks [rank * run, min((rank + 1) * run, H*W / kW)) of it, and its thread
-// t holds chunks t, t + blockDim.x, ... of that run, at most kResidentChunks.
-template <typename T, bool kCluster>
-__global__ void __launch_bounds__(kResidentThreads, 2)
+// t holds chunks t, t + blockDim.x, ... of that run, at most kChunks. A
+// cluster's blocks add their sums in rank order, each from its own slots.
+template <typename T, bool kCluster, int kChunks>
+__global__ void __launch_bounds__(kResidentThreads, kChunks <= kResidentChunks ? 2 : 1)
 instance_norm_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
                            const float* __restrict__ gamma, const float* __restrict__ mean,
                            const float* __restrict__ rstd, T* __restrict__ dx,
@@ -544,9 +554,9 @@ instance_norm_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
   const float mu = mean[plane];
   const float rs = rstd[plane];
 
-  uint4 xs[kResidentChunks], gs[kResidentChunks];
+  uint4 xs[kChunks], gs[kChunks];
 #pragma unroll
-  for (int k = 0; k < kResidentChunks; ++k) {
+  for (int k = 0; k < kChunks; ++k) {
     const int i = threadIdx.x + k * blockDim.x;
     if (i < n) {
       xs[k] = C::load(x + off + i * C::kW, aligned);
@@ -555,7 +565,7 @@ instance_norm_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
   }
   float sg = 0.f, sgx = 0.f;
 #pragma unroll
-  for (int k = 0; k < kResidentChunks; ++k) {
+  for (int k = 0; k < kChunks; ++k) {
     if (threadIdx.x + k * blockDim.x < n) add_chunk<C>(xs[k], gs[k], mu, rs, sg, sgx);
   }
   sg = warp_sum(sg);
@@ -594,7 +604,7 @@ instance_norm_bwd_resident(const T* __restrict__ x, const T* __restrict__ g,
   const float mg = sg * inv_n;
   const float mgx = sgx * inv_n;
 #pragma unroll
-  for (int c = 0; c < kResidentChunks; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     const int i = threadIdx.x + c * blockDim.x;
     if (i < n)
       C::store(dx + off + i * C::kW, dx_chunk<C>(xs[c], gs[c], mu, rs, k, mg, mgx), aligned);
@@ -1109,7 +1119,7 @@ bool valid_plan(long long planes, long long hw, int variant, int lanes, int thre
         return false;
       const long long nchunks = hw / kVec;
       const long long run = (nchunks + cluster - 1) / cluster;
-      return run <= static_cast<long long>(threads) * kResidentChunks &&
+      return run <= static_cast<long long>(threads) * kResidentMaxChunks &&
              (cluster - 1) * run < nchunks;
     }
     case kStreaming:
@@ -1117,6 +1127,43 @@ bool valid_plan(long long planes, long long hw, int variant, int lanes, int thre
     default:
       return false;
   }
+}
+
+// The launch of a resident plan of `cluster` blocks of `threads` a plane:
+// a cluster attribute where cluster > 1.
+cudaLaunchConfig_t resident_config(long long planes, int threads, int cluster, cudaStream_t s,
+                                   cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(planes * cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+template <typename T, int kChunks>
+cudaError_t launch_bwd_resident(const T* x, const T* g, const float* gamma, const float* mean,
+                                const float* rstd, T* dx, float* sum_gxhat, float* sum_g,
+                                long long planes, int channels, int hw, int threads,
+                                int cluster, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int run = (hw / kVec + cluster - 1) / cluster;
+  if (cluster == 1) {
+    instance_norm_bwd_resident<T, false, kChunks>
+        <<<static_cast<unsigned int>(planes), threads, 0, s>>>(
+            x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, channels, hw, run);
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = resident_config(planes, threads, cluster, s, &attr);
+  return cudaLaunchKernelEx(&cfg, instance_norm_bwd_resident<T, true, kChunks>, x, g, gamma,
+                            mean, rstd, dx, sum_gxhat, sum_g, channels, hw, run);
 }
 
 template <typename T>
@@ -1143,26 +1190,16 @@ int launch_backward(const T* x, const T* g, const float* gamma, const float* mea
           x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, planes, channels,
           static_cast<int>(hw), lanes);
   } else if (variant == kResident) {
-    const int run = static_cast<int>((hw / kVec + cluster - 1) / cluster);
-    if (cluster == 1) {
-      instance_norm_bwd_resident<T, false><<<static_cast<unsigned int>(planes), threads, 0, s>>>(
-          x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, channels, static_cast<int>(hw), run);
-    } else {
-      cudaLaunchAttribute attr;
-      attr.id = cudaLaunchAttributeClusterDimension;
-      attr.val.clusterDim.x = static_cast<unsigned int>(cluster);
-      attr.val.clusterDim.y = 1;
-      attr.val.clusterDim.z = 1;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(static_cast<unsigned int>(planes * cluster));
-      cfg.blockDim = dim3(threads);
-      cfg.dynamicSmemBytes = 0;
-      cfg.stream = s;
-      cfg.attrs = &attr;
-      cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, instance_norm_bwd_resident<T, true>, x, g, gamma, mean,
-                               rstd, dx, sum_gxhat, sum_g, channels, static_cast<int>(hw), run);
-    }
+    // the kernel's register arrays: kResidentChunks, or kResidentMaxChunks
+    // where a thread holds more
+    const long long run = (hw / kVec + cluster - 1) / cluster;
+    err = (run + threads - 1) / threads > kResidentChunks
+              ? launch_bwd_resident<T, kResidentMaxChunks>(
+                    x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, planes, channels,
+                    static_cast<int>(hw), threads, cluster, s)
+              : launch_bwd_resident<T, kResidentChunks>(
+                    x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, planes, channels,
+                    static_cast<int>(hw), threads, cluster, s);
   } else {
     instance_norm_bwd_streaming<T><<<static_cast<unsigned int>(planes), kThreads, 0, s>>>(
         x, g, gamma, mean, rstd, dx, sum_gxhat, sum_g, channels, hw);
@@ -1176,9 +1213,21 @@ int launch_backward(const T* x, const T* g, const float* gamma, const float* mea
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the plan's kernel that fit on one SM at once.
+// The resident kernel a plan of `chunks` chunks a thread launches.
+template <typename T, bool kCluster>
+const void* resident_kernel(int chunks) {
+  return chunks > kResidentChunks
+             ? reinterpret_cast<const void*>(
+                   instance_norm_bwd_resident<T, kCluster, kResidentMaxChunks>)
+             : reinterpret_cast<const void*>(
+                   instance_norm_bwd_resident<T, kCluster, kResidentChunks>);
+}
+
+// Blocks of the plan's kernel that fit on one SM at once (resident: at
+// `chunks` chunks a thread).
 template <typename T>
-int backward_blocks_per_sm(int variant, int vector, int threads, int cluster, int* count) {
+int backward_blocks_per_sm(int variant, int vector, int threads, int cluster, int chunks,
+                           int* count) {
   cudaError_t err = cudaErrorInvalidValue;
   if (variant == kPacked)
     err = vector ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1186,14 +1235,26 @@ int backward_blocks_per_sm(int variant, int vector, int threads, int cluster, in
                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                        count, instance_norm_bwd_packed<T, false>, threads, 0);
   else if (variant == kResident)
-    err = cluster > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            count, instance_norm_bwd_resident<T, true>, threads, 0)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            count, instance_norm_bwd_resident<T, false>, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        count, cluster > 1 ? resident_kernel<T, true>(chunks) : resident_kernel<T, false>(chunks),
+        threads, 0);
   else if (variant == kStreaming)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         count, instance_norm_bwd_streaming<T>, threads, 0);
   return static_cast<int>(err);
+}
+
+// Clusters of a resident plan of `cluster` blocks (> 1) that the device runs
+// at once.
+template <typename T>
+int backward_max_active_clusters(int threads, int cluster, int chunks, int* count) {
+  if (cluster < 2 || cluster > kResidentMaxCluster || threads < 32 ||
+      threads > kResidentThreads || chunks < 1 || chunks > kResidentMaxChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = resident_config(cluster, threads, cluster, nullptr, &attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, resident_kernel<T, true>(chunks), &cfg));
 }
 
 }  // namespace
@@ -1260,11 +1321,24 @@ extern "C" int shm_instance_norm_bwd_bf16(const __nv_bfloat16* x, const __nv_bfl
 }
 
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor of the backward kernel a plan
-// launches (vector: H*W a multiple of 16 bytes), into *count.
+// launches (vector: H*W a multiple of 16 bytes; chunks: 16-byte chunks a
+// resident thread holds), into *count.
 extern "C" int shm_instance_norm_bwd_blocks_per_sm(int bf16, int variant, int vector,
-                                                   int threads, int cluster, int* count) {
-  return bf16 ? backward_blocks_per_sm<__nv_bfloat16>(variant, vector, threads, cluster, count)
-              : backward_blocks_per_sm<float>(variant, vector, threads, cluster, count);
+                                                   int threads, int cluster, int chunks,
+                                                   int* count) {
+  return bf16 ? backward_blocks_per_sm<__nv_bfloat16>(variant, vector, threads, cluster, chunks,
+                                                      count)
+              : backward_blocks_per_sm<float>(variant, vector, threads, cluster, chunks, count);
+}
+
+// cudaOccupancyMaxActiveClusters of a resident backward plan with a cluster
+// of `cluster` blocks of `threads`, `chunks` chunks a thread, into *count;
+// cudaErrorInvalidValue for a plan without a cluster or past the kernel's
+// limits.
+extern "C" int shm_instance_norm_bwd_max_active_clusters(int bf16, int threads, int cluster,
+                                                         int chunks, int* count) {
+  return bf16 ? backward_max_active_clusters<__nv_bfloat16>(threads, cluster, chunks, count)
+              : backward_max_active_clusters<float>(threads, cluster, chunks, count);
 }
 
 // ------------------------------------------------------------------ bands

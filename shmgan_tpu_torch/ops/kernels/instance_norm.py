@@ -29,8 +29,11 @@ dtype and dgamma, dbeta in float32. A CUDA tensor of any other dtype (float16,
 float64) raises.
 
 The backward kernel has three variants (packed, resident, streaming);
-`_bwd_plan` picks one from the shape alone, with its threads, and the
-launch takes the plan and refuses one it cannot run.
+`_bwd_plan` picks one from the shape alone, with its threads and its
+cluster (resident: up to 8 blocks a plane, so phase B's 256 x 256 planes are
+read once in both dtypes; streaming, which reads x and g twice, only above
+that or for H*W off 16 bytes), and the launch takes the plan and refuses
+one it cannot run.
 
 Bands (parallel/spatial.py): `instance_norm_band(x, gamma, beta, eps, comm)`
 normalises a band of rows of every plane, the planes spread over the ranks
@@ -84,14 +87,24 @@ launches: Dict[Tuple[str, torch.dtype], int] = {(k, d): 0 for k in KINDS for d i
 # least RESIDENT_MIN_THREADS (at 32x32 bf16 planes 64 threads of 2 chunks
 # each ran faster on the H100 than 128 of one: time_instance_norm.py
 # --sweep, PERF.md §6), and a plane takes at most RESIDENT_MAX_CLUSTER
-# blocks. Streaming: the rest, in STREAM_THREADS-thread blocks that read the
-# plane twice. csrc/instance_norm.cu holds the same limits.
+# blocks, the portable cluster size (256 x 256 in f32, 131,072 elements in
+# bf16). Above two blocks a thread holds CLUSTER_ELEMS elements: 4 chunks
+# of bf16 in blocks of RESIDENT_THREADS, or 8 of f32 in blocks of half as
+# many (RESIDENT_MAX_CHUNKS, the kernel's wide form: 112 registers a thread,
+# two blocks of 256 an SM), so a block holds as many chunks either way. At
+# phase B's 256 x 256 planes 8 chunks of f32 in 256 threads read 9-16 %
+# faster than 4 in 512, and 4 chunks of bf16 in 512 threads 0.4-2 % faster
+# than any other plan (time_instance_norm.py --phase-b --sweep, an H100,
+# PERF.md §6). Streaming: the rest, in STREAM_THREADS-thread blocks that
+# read the plane twice. csrc/instance_norm.cu holds the same limits.
 PACKED_ELEMS = 8
 PACKED_THREADS = 256
 RESIDENT_CHUNKS = 4
+RESIDENT_MAX_CHUNKS = 8
+CLUSTER_ELEMS = 32
 RESIDENT_THREADS = 512
 RESIDENT_MIN_THREADS = 64
-RESIDENT_MAX_CLUSTER = 2
+RESIDENT_MAX_CLUSTER = 8
 STREAM_THREADS = 256
 _VARIANTS = {"packed": 0, "resident": 1, "streaming": 2}
 
@@ -120,7 +133,9 @@ def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
     its shape alone. Packed for planes of up to 32 * PACKED_ELEMS elements:
     lanes = the plane's chunks rounded up to a power of 2, at most 32; resident
     where the plane's 16-byte chunks fit RESIDENT_MAX_CLUSTER blocks'
-    registers; streaming otherwise."""
+    registers, in the fewest blocks that hold them (a cluster where that is
+    more than one; above two, CLUSTER_ELEMS elements a thread); streaming
+    otherwise."""
     if b <= 0 or c <= 0 or hw <= 0:
         raise ValueError(f"instance_norm_backward: empty shape ({b}, {c}, {hw})")
     vec = 16 // dtype.itemsize
@@ -133,8 +148,9 @@ def _bwd_plan(b: int, c: int, hw: int, dtype: torch.dtype) -> BwdPlan:
     cluster = _ceil_div(nchunks, RESIDENT_THREADS * RESIDENT_CHUNKS)
     if width == vec and cluster <= RESIDENT_MAX_CLUSTER:
         run = _ceil_div(nchunks, cluster)
-        threads = min(RESIDENT_THREADS,
-                      max(RESIDENT_MIN_THREADS, 32 * _ceil_div(run, 32 * RESIDENT_CHUNKS)))
+        per = RESIDENT_CHUNKS if cluster <= 2 else CLUSTER_ELEMS // vec
+        threads = min(RESIDENT_THREADS * RESIDENT_CHUNKS // per,
+                      max(RESIDENT_MIN_THREADS, 32 * _ceil_div(run, 32 * per)))
         return BwdPlan("resident", 1, threads * cluster, threads, cluster, width,
                        _ceil_div(run, threads))
     return BwdPlan("streaming", 1, STREAM_THREADS, STREAM_THREADS, 1, width,
@@ -326,8 +342,8 @@ def kernel_name(kind: str, dtype: torch.dtype) -> str:
 
 
 def _kernel_fns(dtype: torch.dtype):
-    """(forward, backward, backward occupancy, forward occupancy) C functions
-    for activations of `dtype`."""
+    """(forward, backward, backward occupancy, forward occupancy, backward
+    cluster occupancy) C functions for activations of `dtype`."""
     if dtype not in _fns:
         from shmgan_tpu_torch.runtime.build import load
 
@@ -339,14 +355,18 @@ def _kernel_fns(dtype: torch.dtype):
         bwd = getattr(lib, f"shm_instance_norm_bwd_{_SUFFIX[dtype]}")
         bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ll, i, i, i, i, p]
         bwd.restype = i
-        lib.shm_instance_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i,
+        lib.shm_instance_norm_bwd_blocks_per_sm.argtypes = [i, i, i, i, i, i,
                                                             ctypes.POINTER(i)]
         lib.shm_instance_norm_bwd_blocks_per_sm.restype = i
+        lib.shm_instance_norm_bwd_max_active_clusters.argtypes = [i, i, i, i,
+                                                                  ctypes.POINTER(i)]
+        lib.shm_instance_norm_bwd_max_active_clusters.restype = i
         lib.shm_instance_norm_fwd_blocks_per_sm.argtypes = [i, i, i, i, i,
                                                             ctypes.POINTER(i)]
         lib.shm_instance_norm_fwd_blocks_per_sm.restype = i
         _fns[dtype] = (fwd, bwd, lib.shm_instance_norm_bwd_blocks_per_sm,
-                       lib.shm_instance_norm_fwd_blocks_per_sm)
+                       lib.shm_instance_norm_fwd_blocks_per_sm,
+                       lib.shm_instance_norm_bwd_max_active_clusters)
     return _fns[dtype]
 
 
@@ -471,10 +491,22 @@ def blocks_per_sm(plan: BwdPlan, dtype: torch.dtype) -> int:
     count = ctypes.c_int(0)
     err = _kernel_fns(dtype)[2](int(dtype == torch.bfloat16), _VARIANTS[plan.variant],
                                 int(plan.width == vec), plan.threads, plan.cluster,
-                                ctypes.byref(count))
+                                plan.chunks, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: "
                            f"CUDA error {err}")
+    return count.value
+
+
+def max_active_clusters(plan: BwdPlan, dtype: torch.dtype) -> int:
+    """How many clusters of a resident backward plan with a cluster (more
+    than one block a plane) the current device runs at once
+    (cudaOccupancyMaxActiveClusters); 0 means the cluster cannot run."""
+    count = ctypes.c_int(0)
+    err = _kernel_fns(dtype)[4](int(dtype == torch.bfloat16), plan.threads, plan.cluster,
+                                plan.chunks, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({plan}): CUDA error {err}")
     return count.value
 
 

@@ -1,7 +1,8 @@
 """Times the instance-norm kernels of one checkout on the card, to compare
 commits.
 
-    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR] [--forward | --band] [--sweep]
+    python3 shmgan_tpu_torch/time_instance_norm.py [--tree DIR]
+        [--forward | --band | --phase-b] [--sweep]
 
 Imports `shmgan_tpu_torch` from DIR (default: the checkout this file is in),
 so the same timings can run against an older commit unpacked elsewhere; run
@@ -27,6 +28,18 @@ step. With --band --sweep (a checkout that has `_band_bwd_plan`) it also
 times, at each shape, the packed variant (bands of up to 256 elements) at
 64, 128 and 256 threads, and the vector (H*W a multiple of 16 bytes) and
 element variants at 32 to 512 threads, beside the plan's choice.
+
+With --phase-b it times the backward (`instance_norm_backward`) at the
+phase-B step's 46 IN sites (`chip_smoke.qg_in_shapes`: 256 px, batch 10,
+in bf16 and in f32, and the G1 sites of chip_smoke's f32 step at batch 2):
+its plan, `device_ms`, `device_cold_ms`, the plain version's `ms`, the
+bytes bound (x and g read once, dx written once) and autograd through
+`F.instance_norm` (`device_ms` through a retained graph) at each shape,
+and their sums over one step weighted by calls a step. With --phase-b
+--sweep it also times, at each shape above two resident blocks' registers
+(the 256 x 256 planes), every resident plan the kernels accept among
+clusters of 1 to 8 blocks of 128, 256 or 512 threads (4 or 8 chunks a
+thread), and the streaming variant, beside the plan's choice.
 
 With --forward it times the forward (`_forward`, one launch a call) at
 the serving shapes (`chip_smoke.IN_SHAPES`, b8 at 256 px), the native
@@ -59,13 +72,20 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def _sweep(cs, ink, plan, x, gamma, mean, rstd, dy):
-    """device_ms of each other plan the kernels accept at this shape:
-    {"variant/threads/cluster": ms}."""
+def _sweep(cs, ink, plan, x, gamma, mean, rstd, dy, clusters=(1, 2),
+           threads=(32, 64, 128, 256, 512), iters=50):
+    """device_ms of each other plan the kernels accept at this shape, among
+    resident plans of `clusters` blocks of `threads` (as many chunks a thread
+    as the run needs) and streaming: {"variant/threads/cluster": ms}, a
+    resident key of 8 chunks a thread ending in "/c8"."""
     vec = 16 // x.element_size()
     nchunks = x.shape[2] * x.shape[3] // vec
-    others = [ink.BwdPlan("resident", 1, t * k, t, k, vec, -(-nchunks // k // t))
-              for k in (1, 2) for t in (32, 64, 128, 256, 512)]
+    others = []
+    for k in clusters:
+        run = -(-nchunks // k)
+        if (k - 1) * run < nchunks:
+            others += [ink.BwdPlan("resident", 1, t * k, t, k, vec, -(-run // t))
+                       for t in threads]
     others.append(ink.BwdPlan("streaming", 1, 256, 256, 1, vec, -(-nchunks // 256)))
     out = {}
     for p in others:
@@ -75,9 +95,57 @@ def _sweep(cs, ink, plan, x, gamma, mean, rstd, dy):
             ink._launch_backward(x, gamma, mean, rstd, dy, p)
         except RuntimeError:  # the kernels refuse this plan at this shape
             continue
-        out[f"{p.variant}/{p.threads}/{p.cluster}"] = cs.device_ms(
-            lambda: ink._launch_backward(x, gamma, mean, rstd, dy, p), 50)
+        wide = p.variant == "resident" and p.chunks > 4
+        key = f"{p.variant}/{p.threads}/{p.cluster}" + ("/c8" if wide else "")
+        out[key] = cs.device_ms(lambda: ink._launch_backward(x, gamma, mean, rstd, dy, p), iters)
     return out
+
+
+def _phase_b_main(cs, ink, args, dev, smi):
+    """--phase-b: the backward at the phase-B step's shapes."""
+    import torch
+
+    groups = [("phase_b", torch.bfloat16, cs.qg_in_shapes(cs.QG_BATCH)),
+              ("phase_b", torch.float32, cs.qg_in_shapes(cs.QG_BATCH)),
+              ("phase_b_b2_g1", torch.float32, cs.qg_in_shapes(cs.QG_SMALL_BATCH)[:1])]
+    keys = ("device_ms", "device_cold_ms", "plain_ms", "bound_ms", "library_device_ms")
+    rows, totals = [], {}
+    for group, dtype, shapes in groups:
+        g = torch.Generator(device=dev).manual_seed(0)
+        name = str(dtype).split(".")[-1]
+        total = totals.setdefault(f"{group}_{name}", dict.fromkeys(keys, 0.0))
+        for shape, calls in shapes:
+            b, c, h, w = shape
+            x, gamma, beta, dy = cs._in_inputs(dev, g, shape, dtype)
+            _, mean, rstd = ink._forward(x, gamma, beta, 1e-6, with_stats=True)
+            call = lambda: ink.instance_norm_backward(x, gamma, mean, rstd, dy)  # noqa: E731
+            iters = 5 if x.numel() > 1 << 26 else 10 if x.numel() > 1 << 24 else 50
+            bound_ms, _ = cs.bound(3 * x.numel() * x.element_size() + (2 * b * c + 3 * c) * 4,
+                                   10 * x.numel())
+            row = dict(group=group, dtype=name, shape=list(shape), calls_per_step=calls,
+                       device_ms=cs.device_ms(call, iters),
+                       device_cold_ms=cs.device_cold_ms(call),
+                       plain_ms=cs.time_ms(lambda: ink.instance_norm_backward_plain(
+                           x, gamma, mean, rstd, dy), iters),
+                       bound_ms=bound_ms,
+                       library_device_ms=cs.library_backward_ms(x, gamma, beta, dy, iters)[1])
+            if hasattr(ink, "_bwd_plan"):
+                plan = ink._bwd_plan(b, c, h * w, dtype)
+                row.update(variant=plan.variant, threads=plan.threads, cluster=plan.cluster,
+                           chunks=plan.chunks)
+                two_blocks = 2 * ink.RESIDENT_THREADS * ink.RESIDENT_CHUNKS
+                if args.sweep and h * w // (16 // x.element_size()) > two_blocks:
+                    row["others"] = _sweep(cs, ink, plan, x, gamma, mean, rstd, dy,
+                                           clusters=range(1, 9), threads=(128, 256, 512),
+                                           iters=iters)
+            rows.append(row)
+            print(json.dumps(row), file=sys.stderr, flush=True)
+            for k in keys:
+                total[k] += calls * row[k]
+            del x, dy, mean, rstd
+            torch.cuda.empty_cache()
+    print(json.dumps({"tree": args.tree, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "phase_b": True, "per_step": totals, "rows": rows}))
 
 
 def _band_plans(ink, shape, dtype):
@@ -239,6 +307,8 @@ def main() -> None:
                     help="time the band backward at chip_smoke.SP_BAND_SHAPES")
     ap.add_argument("--forward", action="store_true",
                     help="time the forward at the serving, native and train shapes")
+    ap.add_argument("--phase-b", action="store_true",
+                    help="time the backward at the phase-B step's 46 IN sites")
     ap.add_argument("--sweep", action="store_true", help="also time other plans")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -263,6 +333,8 @@ def main() -> None:
         return _band_main(cs, ink, args, dev, smi)
     if args.forward:
         return _fwd_main(cs, ink, args, dev, smi)
+    if args.phase_b:
+        return _phase_b_main(cs, ink, args, dev, smi)
     rows, totals = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(0)

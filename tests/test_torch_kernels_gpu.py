@@ -290,7 +290,8 @@ class TestKernelsOnCard:
     # every variant of the backward kernel in both dtypes: shape, then (variant,
     # blocks per plane) in f32 and in bf16; packed with 16-byte chunks and with
     # single elements (H*W not a multiple of 16 bytes), resident in one block
-    # and in a cluster of two, streaming with both
+    # and in clusters of 2 to 8 (phase B's 256 x 256 planes: 8 in f32, 4 in
+    # bf16), streaming above 8 blocks' registers and off 16 bytes
     VARIANT_CASES = [
         ((2, 64, 8, 8), ("packed", 1), ("packed", 1)),
         ((2, 32, 16, 16), ("packed", 1), ("packed", 1)),
@@ -299,8 +300,12 @@ class TestKernelsOnCard:
         ((2, 64, 32, 32), ("resident", 1), ("resident", 1)),
         ((2, 16, 64, 64), ("resident", 1), ("resident", 1)),
         ((2, 8, 128, 128), ("resident", 2), ("resident", 1)),
-        ((1, 4, 128, 256), ("streaming", 1), ("resident", 2)),
-        ((2, 16, 256, 256), ("streaming", 1), ("streaming", 1)),
+        ((1, 4, 128, 256), ("resident", 4), ("resident", 2)),
+        ((1, 2, 200, 200), ("resident", 5), ("resident", 3)),
+        ((1, 2, 192, 224), ("resident", 6), ("resident", 3)),
+        ((1, 3, 224, 224), ("resident", 7), ("resident", 4)),
+        ((2, 16, 256, 256), ("resident", 8), ("resident", 4)),
+        ((1, 2, 512, 512), ("streaming", 1), ("streaming", 1)),
         ((1, 2, 33, 33), ("streaming", 1), ("streaming", 1))]
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -361,15 +366,55 @@ class TestKernelsOnCard:
                ink.BwdPlan("resident", 1, 128, 128, 1, 4, 1)._replace(lanes=64),
                ink.BwdPlan("streaming", 1, 128, 128, 1, 4, 1),
                good._replace(variant="streaming")]
+        # a cluster of 9 (past the portable 8) where 9 x 512 threads would
+        # hold the plane; more than 8 chunks a thread; a cluster on H*W off
+        # 16 bytes
+        big = torch.randn(1, 1, 256, 256, device=cuda)
+        odd = torch.randn(1, 1, 33, 33, device=cuda)
+        one = torch.ones(1, 1, device=cuda)
+        plan = ink._bwd_plan(1, 1, 256 * 256, torch.float32)
+        assert (plan.variant, plan.cluster) == ("resident", 8)
+        bad_big = [plan._replace(cluster=9, lanes=9 * 512),
+                   plan._replace(cluster=2, lanes=1024, chunks=16),
+                   plan._replace(cluster=4, threads=256, lanes=1024, chunks=16)]
+        bad_odd = [ink.BwdPlan("resident", 1, 2 * 64, 64, 2, 1, 5),
+                   ink.BwdPlan("resident", 1, 2 * 64, 64, 2, 4, 2)]
         before = dict(ink.launches)
-        for plan in bad:
-            with pytest.raises(RuntimeError):
-                ink._launch_backward(x, gamma, stats, stats, x, plan)
+        for t, p, cases in ((x, stats, bad), (big, one, bad_big), (odd, one, bad_odd)):
+            for plan in cases:
+                with pytest.raises(RuntimeError, match="CUDA error 1"):
+                    ink._launch_backward(t, gamma[:t.shape[1]], p, p, t, plan)
         assert launched(before) == {}
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    def test_backward_at_eight_chunks_a_thread(self, cuda, dtype):
+        """A resident plan made by hand with 8 chunks a thread (the kernel's
+        wide form, which the sweep times) against the plain version."""
+        shape = (2, 3, 256, 256)
+        vec = 16 // dtype.itemsize
+        nchunks = 256 * 256 // vec
+        cluster = nchunks // (512 * 8)
+        plan = ink.BwdPlan("resident", 1, 512 * cluster, 512, cluster, vec, 8)
+        g = torch.Generator(device=cuda).manual_seed(10)
+        x = (torch.randn(shape, device=cuda, generator=g) + 0.5).to(dtype)
+        dy = torch.randn(shape, device=cuda, generator=g).to(dtype)
+        gamma = torch.rand(3, device=cuda, generator=g) + 0.5
+        _, mean, rstd = ink._forward(x, gamma, torch.zeros_like(gamma), 1e-6, with_stats=True)
+        got = ink._launch_backward(x, gamma, mean, rstd, dy, plan)
+        again = ink._launch_backward(x, gamma, mean, rstd, dy, plan)
+        ref = ink.instance_norm_backward_plain(x, gamma, mean, rstd, dy)
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else self.BF16_TOL
+        torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+        for a, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-3)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))
+        assert ink.blocks_per_sm(plan, dtype) >= 1
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
     def test_resident_plans_fit_two_blocks_per_sm(self, cuda, dtype):
-        for hw in (32 * 32, 64 * 64, 128 * 128):
+        for hw in (32 * 32, 64 * 64, 128 * 128, 256 * 256):
             plan = ink._bwd_plan(40, 64, hw, dtype)
             assert plan.variant == "resident"
             assert ink.blocks_per_sm(plan, dtype) >= 2
+            if plan.cluster > 1:  # the card runs such clusters at once
+                assert ink.max_active_clusters(plan, dtype) >= 1
