@@ -62,8 +62,11 @@ Phases (each prints its name before it starts and its seconds after):
               shape;
   formats     every committed codec fixture (tests/data/torch_codecs/: JPEG
               baseline, progressive, subsampled, restart, greyscale, odd
-              sizes and two photos; GIF; 16-bit and Adam7 PNG; 16-bit and
-              maxval-100 P6; palette and RLE8 BMP) decoded on the host
+              sizes, CMYK, YCCK and two photos; GIF; WebP lossy, lossless,
+              RGBA and animated; TIFF LZW RGB, Deflate 16-bit grey,
+              PackBits palette and planar with predictor; 16-bit and Adam7
+              PNG; 16-bit and maxval-100 P6, ASCII P3; palette and RLE8
+              BMP) decoded on the host
               against PIL's pixels (the PNG beside it), exactly, with the
               decode ms of each beside the PNG decode of the same pixels;
               the 612x816 and 2048x1536 JPEG photos through
@@ -74,15 +77,17 @@ Phases (each prints its name before it starts and its seconds after):
               subprocess (batch 8, a 20 ms window): /healthz by a deadline,
               PNGs at size=256 with each output=, at size=native, resized
               from 612x816, the 612x816 JPEG fixture at size=256 and
-              size=native and a GIF fixture, each within one level of an
-              in-process engine's pixels (of PIL's pixels for a JPEG or
-              GIF); host decode ms of the JPEG and GIF bodies; 16
+              size=native, a GIF fixture, and the lossy WebP, LZW TIFF and
+              CMYK JPEG fixtures at size=256 and size=native, each within
+              one level of an in-process engine's pixels (of PIL's pixels
+              for a photo format); host decode ms of those bodies; 16
               concurrent requests in fewer device calls than requests;
               request ms and requests/s; the server's kernel
               launches from /stats; host PNG and resize ms. The server is
               terminated in any case;
   serve_folder process_folder and watch_folder(max_iterations=3), square and
-              native, on ten PNGs and every JPEG, GIF, 16-bit PNG and BMP
+              native, on ten PNGs and every JPEG, GIF, 16-bit PNG, BMP,
+              WebP and TIFF (both named .png: read by their bytes) and P3
               fixture: the files written, their shapes, the square job's
               pixels against process_images', launches;
   data_parallel two ranks of one gloo group on the one card (NCCL refuses
@@ -334,10 +339,16 @@ NATIVE_SHAPES = [(256, 256), (300, 452), (612, 816)]
 # the committed codec fixtures (tests/data/torch_codecs/): each file beside
 # <name>.png, the pixels PIL's convert("RGB") gives for it
 CODEC_DIR = os.path.join(ROOT, "tests", "data", "torch_codecs")
-CODEC_FIXTURES = 26
+CODEC_FIXTURES = 37
 FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg")
-# serve_folder's extra inputs: every JPEG and GIF fixture, the 16-bit PNGs, the BMPs
-FOLDER_FORMATS = (".jpg", ".gif", "16.png", ".bmp")
+# serve_folder's extra inputs: every JPEG and GIF fixture, the 16-bit PNGs, the
+# BMPs, the WebPs and TIFFs (named .png: list_images keeps JAX's extensions, and
+# a file is decoded by its bytes), the ASCII P3
+FOLDER_FORMATS = (".jpg", ".gif", "16.png", ".bmp", ".webp", ".tif", "p3.ppm")
+# serve_http's photo bodies beside the 612x816 JPEG and the GIF, each POSTed at
+# size=256 and size=native
+HTTP_PHOTO_FORMATS = (("64x48 WebP", "webp_lossy.webp"), ("64x48 TIFF", "tiff_lzw_rgb.tif"),
+                      ("64x48 CMYK JPEG", "cmyk.jpg"))
 
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
@@ -1412,10 +1423,12 @@ def serve_http_phase():
     a subprocess (batch 8, a 20 ms window): /healthz within a deadline; PNGs
     made by the port's encoder from seeded scenes POSTed at size=256 with
     each output=, at size=native, and resized from 612x816, and the 612x816
-    JPEG fixture (at size=256 and size=native) and a GIF fixture; each
-    response's pixels within one level of an in-process engine's on the
-    same decoded input (for a JPEG or GIF, PIL's pixels); the host decode
-    ms of the JPEG and GIF bodies; 16 concurrent requests in fewer device calls than requests;
+    JPEG fixture (at size=256 and size=native), a GIF fixture, and the
+    HTTP_PHOTO_FORMATS fixtures (WebP, TIFF, CMYK JPEG) at size=256 and
+    size=native; each response's pixels within one level of an in-process
+    engine's on the same decoded input (for a photo format, PIL's pixels);
+    the host decode ms of those bodies; 16 concurrent requests in fewer
+    device calls than requests;
     request ms and requests/s; the server's own kernel launches (/stats).
     The server is terminated in any case."""
     import base64
@@ -1456,7 +1469,8 @@ def serve_http_phase():
 
     fixtures = codec_fixtures()
     jpeg, gif = fixtures["photo_612x816.jpg"], fixtures["palette.gif"]
-    for label, (data, _) in (("JPEG 612x816", jpeg), ("GIF 256x256", gif)):
+    photos = [(label, fixtures[name]) for label, name in HTTP_PHOTO_FORMATS]
+    for label, (data, _) in [("JPEG 612x816", jpeg), ("GIF 256x256", gif)] + photos:
         dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
         say(f"host decode of the {label} body ({len(data)} bytes): median "
             f"{np.median(dec):.2f} ms over 5")
@@ -1497,7 +1511,7 @@ def serve_http_phase():
             before = json.loads(_http(url + "/stats")[2])
 
             # (query, output, label, body, the PNG of its decoded pixels): the
-            # in-process engine reads the PNG of PIL's pixels of a JPEG or GIF body
+            # in-process engine reads the PNG of PIL's pixels of a photo body
             pngs = [(q, o, f"{img.shape[0]}x{img.shape[1]} PNG", encode_png(img))
                     for q, o, img in (
                         ("size=256", "image", square), ("size=256", "composited", square),
@@ -1507,7 +1521,9 @@ def serve_http_phase():
             checks = [(q, o, label, body, body) for q, o, label, body in pngs] + [
                 ("size=256", "image", "612x816 JPEG", *jpeg),
                 ("size=native", "image", "612x816 JPEG", *jpeg),
-                ("size=256", "image", "256x256 GIF", *gif)]
+                ("size=256", "image", "256x256 GIF", *gif)] + [
+                (q, "image", label, *body) for label, body in photos
+                for q in ("size=256", "size=native")]
             worst = 0
             for query, output, label, body, ref_body in checks:
                 size = "native" if query == "size=native" else 256
@@ -1598,9 +1614,15 @@ def _timed_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def _listed_ext(name):
+    ext = os.path.splitext(name)[1]
+    return ".png" if ext in (".webp", ".tif") else ext
+
+
 def serve_folder_phase(bundle):
     """10 PNGs (five 256x256, five 300x452) and the codec fixtures of
-    FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs) through
+    FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs, the WebPs
+    and TIFFs named .png, the P3) through
     process_folder and watch_folder(max_iterations=3), square (256) and
     native, bf16 on the trained bundle: the files written (names, shapes),
     the square job's pixels against the same engine's process_images,
@@ -1619,8 +1641,9 @@ def serve_folder_phase(bundle):
     rng = np.random.default_rng(5)
     inputs = {f"photo{i:02d}.png": encode_png((img * 255).astype(np.uint8)) for i, img in
               enumerate(list(scenes(5, 256, 256, rng)) + list(scenes(5, 300, 452, rng)))}
-    # fixtures as fx_<name>_<ext>.<ext>: palette.gif and palette.bmp write distinct outputs
-    inputs.update({"fx_" + n.replace(".", "_") + os.path.splitext(n)[1]: data
+    # fixtures as fx_<name>_<ext>.<ext>: palette.gif and palette.bmp write distinct
+    # outputs; a WebP or TIFF as .png, an extension list_images keeps
+    inputs.update({"fx_" + n.replace(".", "_") + _listed_ext(n): data
                    for n, (data, _) in codec_fixtures().items() if n.endswith(FOLDER_FORMATS)})
     file_of = {os.path.splitext(n)[0]: n for n in inputs}
     names = sorted(file_of)

@@ -7,16 +7,23 @@ native/loader.cc (`encode_png`).
     data = encode_png(u8)                     # (H, W) or (H, W, 1|3) uint8
     data = encode_ppm(u8); encode_bmp(u8)     # PIL's P6/P5 and 24-bit BMP bytes
 
-`decode` dispatches on the file's signature and reads what PIL 12 reads of
-these formats, to PIL's `convert("RGB")` pixels:
+`decode` dispatches on the file's signature, as `Image.open` does (never on
+its name), and reads what PIL 12 reads of these formats, to PIL's
+`convert("RGB")` pixels:
 
-  - JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1 or
-    3 components (data/jpeg.py);
+  - JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1,
+    3 or 4 components (CMYK, and YCCK by Adobe's transform 2, inverted as
+    PIL reads them) (data/jpeg.py);
   - GIF: the first frame, global or local colour table, interlaced or not
     (data/gif.py);
+  - WebP: lossy (VP8), lossless (VP8L), VP8X with alpha and metadata, an
+    animation's first frame (data/webp.py);
+  - TIFF: baseline, the first IFD, strips and tiles, none/PackBits/LZW/
+    Deflate, predictor 2, grey, RGB, palette and CMYK (data/tiff.py);
   - PNG: every colour type at every bit depth, 16 bits included, Adam7
     interlaced or not, every row filter;
-  - PPM (P6) and PGM (P5) at every maxval, 16-bit samples included;
+  - PNM: binary P6 (PPM) and P5 (PGM) at every maxval, 16-bit samples
+    included; plain P3 and P2; bilevel P1 and P4 (PBM);
   - BMP: 1-, 4- and 8-bit palettes, 16-bit 555 and 565, 24-bit, 32-bit, the
     BITFIELDS layouts PIL knows, RLE8 and RLE4, bottom-up or top-down, the
     Windows headers and OS/2's BITMAPCOREHEADER.
@@ -26,11 +33,17 @@ the same way: grey is replicated, alpha and transparency are dropped, a
 palette is looked up (zeros past its end); a 16-bit grey PNG and a PGM of
 maxval above 255 clip at 255 (PIL's modes I;16 and I), a 16-bit RGB or
 grey+alpha PNG keeps the high byte, a PPM of maxval other than 255 is
-scaled by round(v / maxval * 255). What PIL does not decode either, JPEG's
-arithmetic coding, 12-bit, lossless, hierarchical and CMYK files among it,
-raises ValueError, as does input that is truncated, corrupt or not an
-image, and, from its header before anything is allocated, an image of more
-pixels than PIL opens (`check_size`).
+scaled by round(v / maxval * 255).
+
+Formats PIL opens that the port does not decode raise a ValueError that
+names them where their signature does: AVIF, JPEG 2000, PSD, QOI, ICO/CUR,
+DDS, SGI, PCX, PFM, TGA (by its footer), ICNS, MSP, XBM (`_UNPORTED`), and the
+variants of a ported format the port does not read, each by name (JPEG's
+arithmetic coding, which PIL's libjpeg-turbo decodes, 12-bit, lossless and
+hierarchical JPEG; the TIFF codes and layouts data/tiff.py lists). So does
+input that is truncated, corrupt or not an image, and, from its header
+before anything is allocated, an image of more pixels than PIL opens
+(`check_size`).
 """
 
 from __future__ import annotations
@@ -64,15 +77,31 @@ def check_size(kind: str, w: int, h: int) -> None:
                          f"{2 * MAX_IMAGE_PIXELS} PIL opens")
 
 
+# formats PIL opens that the port does not decode, by their signatures:
+# (offset, bytes, name)
+_UNPORTED = (
+    (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"),
+    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
+    (0, b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"),
+    (0, b"8BPS", "PSD"), (0, b"qoif", "QOI"), (0, b"DDS ", "DDS"),
+    (0, b"\x00\x00\x01\x00", "ICO"), (0, b"\x00\x00\x02\x00", "CUR"),
+    (0, b"\x01\xda", "SGI"), (0, b"icns", "ICNS"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
+    (0, b"#define", "XBM"), (0, b"Pf", "PFM"),
+)
+
+
 def decode(data: bytes) -> np.ndarray:
-    """Encoded image bytes -> (H, W, 3) uint8 RGB."""
-    from shmgan_tpu_torch.data.gif import decode_gif     # both import check_size
+    """Encoded image bytes -> (H, W, 3) uint8 RGB. The format is told by its
+    signature, as `Image.open` tells it, never by a file name."""
+    from shmgan_tpu_torch.data.gif import decode_gif     # each imports check_size
     from shmgan_tpu_torch.data.jpeg import decode_jpeg
+    from shmgan_tpu_torch.data.tiff import TIFF_SIGNATURES, decode_tiff
+    from shmgan_tpu_torch.data.webp import decode_webp
 
     data = bytes(data)
     if data.startswith(PNG_SIGNATURE):
         return _decode_png(data)
-    if data[:2] in (b"P5", b"P6"):
+    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
         return _decode_pnm(data)
     if data[:2] == b"BM":
         return _decode_bmp(data)
@@ -80,8 +109,19 @@ def decode(data: bytes) -> np.ndarray:
         return decode_jpeg(data)
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return decode_gif(data)
-    raise ValueError("unrecognised image format: the port decodes PNG, JPEG, GIF, "
-                     "PPM/PGM (P5, P6) and BMP")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data)
+    if data[:4] in TIFF_SIGNATURES:
+        return decode_tiff(data)
+    if data[-18:] == b"TRUEVISION-XFILE.\x00":    # before CUR: a TGA may start alike
+        raise ValueError("TGA: PIL opens this format, the port does not decode it")
+    for offset, magic, name in _UNPORTED:
+        if data[offset:offset + len(magic)] == magic:
+            raise ValueError(f"{name}: PIL opens this format, the port does not decode it")
+    if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"):
+        raise ValueError("PCX: PIL opens this format, the port does not decode it")
+    raise ValueError("unrecognised image format: the port decodes PNG, JPEG, GIF, WebP, "
+                     "TIFF, PNM (P1-P6) and BMP")
 
 
 # -- PNG ------------------------------------------------------------------------
@@ -263,49 +303,127 @@ def _encodable(img_u8: np.ndarray, what: str) -> np.ndarray:
     return img
 
 
-# -- PPM / PGM ------------------------------------------------------------------
+# -- PNM (PBM, PGM, PPM) ------------------------------------------------------------
+
+_PNM_WHITESPACE = b" \t\n\x0b\x0c\r"
+
+
+def _pnm_token(data: bytes, pos: int) -> Tuple[bytes, int]:
+    """PpmImagePlugin._read_token: skip whitespace, read up to the next
+    whitespace byte (consumed); a `#` drops the rest of its line, newline
+    included, and the token goes on after it."""
+    token = b""
+    while len(token) <= 10:
+        ch = data[pos:pos + 1]
+        pos += 1
+        if not ch:
+            break
+        if ch in _PNM_WHITESPACE:
+            if token:
+                break
+        elif ch == b"#":
+            while data[pos:pos + 1] and data[pos:pos + 1] not in b"\r\n":
+                pos += 1
+            pos += 1
+        else:
+            token += ch
+    if not token:
+        raise ValueError("PNM: truncated header")
+    if len(token) > 10 or not token.isdigit():
+        raise ValueError(f"PNM: bad header token {token[:16]!r}")
+    return token, pos
+
+
+def _pnm_uncommented(body: bytes) -> bytes:
+    """The raster of a plain (ASCII) PNM with its comments taken out, as
+    PpmPlainDecoder takes them: from `#` to the next CR or LF, that byte
+    included, the text on either side joined."""
+    parts, pos = [], 0
+    while True:
+        start = body.find(b"#", pos)
+        if start < 0:
+            parts.append(body[pos:])
+            return b"".join(parts)
+        parts.append(body[pos:start])
+        ends = [e for e in (body.find(b"\n", start), body.find(b"\r", start)) if e >= 0]
+        if not ends:
+            return b"".join(parts)
+        pos = min(ends) + 1
+
 
 def _decode_pnm(data: bytes) -> np.ndarray:
-    """Binary P6 (RGB) or P5 (grey) at any maxval below 65536; header tokens
-    separated by whitespace, `#` comments to the end of the line, one
-    whitespace byte before the raster; samples of two bytes, big-endian,
-    past maxval 255. As PIL reads them: maxval 255 as stored, P5 at 65535 as
-    stored (mode I), any other maxval through PIL's PpmDecoder, round(v /
-    maxval * 255) (P6, P5 up to 255) or * 65535 (P5 past 255, mode I);
-    `convert("RGB")` then clips mode I at 255."""
-    pos, tokens = 2, []
-    while len(tokens) < 3:
-        token = b""
-        while pos < len(data):
-            ch = data[pos:pos + 1]
-            pos += 1
-            if ch in b" \t\n\r\x0b\x0c":
-                if token:
-                    break
-            elif ch == b"#":
-                while pos < len(data) and data[pos:pos + 1] not in b"\r\n":
-                    pos += 1
-            else:
-                token += ch
-        if not token:
-            raise ValueError("PNM: truncated header")
-        if not token.isdigit():
-            raise ValueError(f"PNM: bad header token {token[:16]!r}")
+    """PBM, PGM and PPM as PpmImagePlugin reads them.
+
+    Binary P6 (RGB) and P5 (grey) at any maxval below 65536, samples of two
+    bytes, big-endian, past 255: maxval 255 as stored, P5 at 65535 as stored
+    (mode I), any other maxval through PIL's PpmDecoder, round(v / maxval *
+    255) (P6, P5 up to 255) or * 65535 (P5 past 255, mode I); `convert("RGB")`
+    then clips mode I at 255. Plain P3 and P2 (PpmPlainDecoder): decimal
+    samples, each scaled by round(v / maxval * 255), or * 65535 for a P2 past
+    maxval 255; a sample past maxval is refused. P1 (plain) and P4 (packed
+    rows, most significant bit first): 1 is black, 0 white. Header tokens are
+    separated by whitespace, `#` comments run to the end of their line, and
+    one whitespace byte ends the header."""
+    magic = data[:6]
+    for i, b in enumerate(magic):
+        if b in _PNM_WHITESPACE:
+            magic = magic[:i]
+            break
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        raise ValueError(f"PNM: unknown magic number {magic!r}")
+    pos = len(magic) + 1
+    tokens = []
+    for _ in range(2 if magic in (b"P1", b"P4") else 3):
+        token, pos = _pnm_token(data, pos)
         tokens.append(int(token))
-    w, h, maxval = tokens
+    w, h = tokens[:2]
+    check_size("PNM", w, h)
+    if w <= 0 or h <= 0:
+        raise ValueError("PNM: empty image")
+    if magic in (b"P1", b"P4"):
+        if magic == b"P4":
+            stride = (w + 7) // 8
+            if len(data) - pos < stride * h:
+                raise ValueError("PNM: truncated raster")
+            rows = np.frombuffer(data, np.uint8, count=stride * h, offset=pos).reshape(h, stride)
+            bits = np.unpackbits(rows, axis=1)[:, :w]
+        else:
+            digits = b"".join(_pnm_uncommented(data[pos:]).split())
+            if digits.translate(None, b"01"):
+                raise ValueError("PNM: a P1 sample is not 0 or 1")
+            digits = digits[:w * h]
+            if len(digits) < w * h:
+                raise ValueError("PNM: truncated raster")
+            bits = (np.frombuffer(digits, np.uint8) - 48).reshape(h, w)
+        return np.repeat(np.where(bits[..., None] == 1, 0, 255).astype(np.uint8), 3, -1)
+    maxval = tokens[2]
     if not 0 < maxval < 65536:
         raise ValueError(f"PNM: maxval {maxval} is outside (0, 65536)")
-    bands = 3 if data[:2] == b"P6" else 1
-    size = 1 if maxval < 256 else 2
+    bands = 3 if magic in (b"P3", b"P6") else 1
     n = w * h * bands
-    check_size("PNM", w, h)
-    if w <= 0 or h <= 0 or len(data) - pos < n * size:
-        raise ValueError("PNM: truncated raster")
-    px = np.frombuffer(data, np.uint8 if size == 1 else ">u2", count=n, offset=pos)
-    px = px.reshape(h, w, bands).astype(np.int64)
     out_max = 65535 if bands == 1 and maxval > 255 else 255
-    if maxval != out_max:
-        px = np.minimum(out_max, np.round(px / maxval * out_max).astype(np.int64))
+    if magic in (b"P2", b"P3"):
+        words = _pnm_uncommented(data[pos:]).split()
+        if len(words) < n:
+            raise ValueError("PNM: truncated raster")
+        values = []
+        for word in words[:n]:
+            if len(word) > 10:
+                raise ValueError(f"PNM: sample token too long ({word[:11]!r})")
+            v = int(word)
+            if not 0 <= v <= maxval:
+                raise ValueError(f"PNM: sample {v} is outside [0, maxval {maxval}]")
+            values.append(v)
+        px = np.asarray(values, np.int64).reshape(h, w, bands)
+        px = np.round(px / maxval * out_max).astype(np.int64)
+    else:
+        size = 1 if maxval < 256 else 2
+        if len(data) - pos < n * size:
+            raise ValueError("PNM: truncated raster")
+        px = np.frombuffer(data, np.uint8 if size == 1 else ">u2", count=n, offset=pos)
+        px = px.reshape(h, w, bands).astype(np.int64)
+        if maxval != out_max:
+            px = np.minimum(out_max, np.round(px / maxval * out_max).astype(np.int64))
     px = np.minimum(px, 255).astype(np.uint8)
     return np.repeat(px, 3, axis=-1) if bands == 1 else px
 

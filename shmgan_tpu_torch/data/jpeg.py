@@ -5,15 +5,18 @@ decompression (islow IDCT, fancy upsampling), pixel for pixel.
     rgb = decode_jpeg(data)     # (H, W, 3) uint8; a greyscale file replicated
 
 Read: baseline and extended sequential Huffman (SOF0, SOF1) and progressive
-Huffman (SOF2) files of 8-bit samples with 1 or 3 components, integral
+Huffman (SOF2) files of 8-bit samples with 1, 3 or 4 components, integral
 sampling factors, restart intervals, 8- and 16-bit quantisation tables.
 APPn and COM segments are skipped, EXIF orientation is not applied (PIL's
 `Image.open` does not apply it either); an Adobe APP14 segment of transform
 0, or component ids 'R', 'G', 'B', means RGB samples, as libjpeg decides.
+Four components are CMYK (Adobe transform 0, or no Adobe segment) or YCCK
+(any other transform; jdcolor.c's ycck_cmyk_convert), which PIL reads as
+Adobe's inverted CMYK ("CMYK;I") and turns to RGB with its cmyk2rgb.
 Refused with a ValueError that names the feature: arithmetic coding
-(SOF9-SOF15, DAC), 12-bit precision, lossless (SOF3) and hierarchical
-(SOF5-SOF7, DHP) JPEG, 4-component (CMYK/YCCK) files. A file cut short or
-corrupt raises ValueError (PIL raises OSError there).
+(SOF9-SOF15, DAC; PIL's libjpeg-turbo has that decoder, the port does not),
+12-bit precision, lossless (SOF3) and hierarchical (SOF5-SOF7, DHP) JPEG.
+A file cut short or corrupt raises ValueError (PIL raises OSError there).
 
 Two halves:
 
@@ -475,9 +478,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 (body[3] << 8) | body[4], body[5]
             if precision != 8:
                 raise ValueError(f"JPEG: {precision}-bit precision is not decoded by the port")
-            if nc == 4:
-                raise ValueError("JPEG: 4-component (CMYK/YCCK) files are not decoded by the port")
-            if nc not in (1, 3):
+            if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG: {nc}-component files are not decoded by the port")
             if height == 0:
                 raise ValueError("JPEG: a height defined by a DNL marker is not decoded "
@@ -597,6 +598,8 @@ def _reconstruct(comps: List[_Component], frame, jfif: bool, adobe: Optional[int
     planes = [_upsample(_plane(c), c, hmax, vmax, width, height) for c in comps]
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, -1)
+    if len(planes) == 4:
+        return _cmyk_to_rgb(planes, adobe)
     # jdapimin.c default_decompress_parms: JFIF, then Adobe, then component ids
     if jfif:
         rgb = False
@@ -607,3 +610,23 @@ def _reconstruct(comps: List[_Component], frame, jfif: bool, adobe: Optional[int
     if rgb:
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+def _cmyk_to_rgb(planes: List[np.ndarray], adobe: Optional[int]) -> np.ndarray:
+    """Four components, as libjpeg reads them (jdapimin.c: Adobe transform 0
+    or no Adobe segment is CMYK, any other transform YCCK, which jdcolor.c's
+    ycck_cmyk_convert turns to CMYK), then as PIL takes them: inverted
+    (JpegImagePlugin's rawmode "CMYK;I", Adobe's convention) and through
+    Convert.c's cmyk2rgb, nk - nk * c / 255 with nk = 255 - k, in its
+    MULDIV255 rounding."""
+    c, m, y, k = (p.astype(np.int64) for p in planes)
+    if adobe is not None and adobe != 0:
+        lum, cb, cr = c, m - 128, y - 128
+        c = 255 - (lum + ((_fix(1.40200) * cr + _ONE_HALF) >> _SCALEBITS))
+        m = 255 - (lum + ((-_fix(0.34414) * cb + _ONE_HALF - _fix(0.71414) * cr)
+                          >> _SCALEBITS))
+        y = 255 - (lum + ((_fix(1.77200) * cb + _ONE_HALF) >> _SCALEBITS))
+    cmy = 255 - np.clip(np.stack([c, m, y], -1), 0, 255)
+    nk = k[..., None]                  # 255 - the inverted k
+    t = cmy * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

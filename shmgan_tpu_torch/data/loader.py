@@ -1,6 +1,7 @@
 """Image files in: the counterpart of shmgan_tpu/data/loader.py, to the same
-float32 arrays, for every format the JAX package reads (PNG, JPEG, GIF,
-PPM/PGM and BMP; the extensions of `list_images`).
+float32 arrays, for every format the JAX package reads through PIL (the
+extensions of `list_images`; each file decoded by its bytes, whatever its
+name: PNG, JPEG, GIF, WebP, TIFF, PNM P1-P6, BMP).
 
   list_images, decode_resize, decode_original   one file, or a folder listed
   decode_resize_batch    a list of files, routed as the JAX loader routes it
@@ -12,8 +13,9 @@ Two decoders, chosen per list as JAX chooses them. A list whose every file
 ends in .ppm, .pgm or .bmp goes to the host batch decoder
 (runtime/native_loader.py, C++ threads): half-pixel bilinear without
 antialiasing (the reference's keras/TF resize), times the f32 1/255. Each
-file it refuses (RLE, palette or 16-bit BMP, maxval above 255, ...) then goes
-alone through `decode_resize`, as JAX's does. Any other list goes through a
+file it refuses (RLE, palette or 16-bit BMP, maxval above 255, an ASCII
+P3/P2 or a P1/P4 PNM, ...) then goes alone through `decode_resize`, as
+JAX's goes to PIL. Any other list goes through a
 thread pool of `decode_resize`: data/codecs.py's decoders (PIL's pixels) and
 Pillow's BILINEAR, divided by 255, so a batch from a JPEG tree equals JAX's
 bit for bit. A PNM of maxval below 255 is scaled to 8 bits as PIL scales it

@@ -16,7 +16,11 @@ widened exactly to float32 on the host, where the JAX engine hands back an
 
 `native_resolution=True` serves each image at its own (h, w)
 (`process_images_native`, infer.make_native_infer_fn); `outputs` restricts
-the outputs computed and copied back (infer.make_infer_fn).
+the outputs computed and copied back (infer.make_infer_fn). Folder jobs
+list the JAX package's extensions (data/loader.list_images) and decode
+each file by its bytes (data/codecs.decode: PNG, JPEG, GIF, WebP, TIFF,
+PNM, BMP), so a `.png`-named WebP is served as JAX serves it; a file that
+does not decode (yet) is retried on the next poll.
 `data_parallel=n` splits every device call of `batch_size` (the global
 batch, which n must divide) into n shards over `devices` (default cuda:0..n-1,
 or n copies of the CPU when `device` is the CPU), each with its replica of

@@ -7,8 +7,11 @@ Endpoints:
   GET  /stats                     request counters, latency EMA, device calls,
                                   native-shape budget, the port's kernel
                                   launches in this process (JSON)
-  POST /v1/specfree               body: an encoded image (PNG, PPM/PGM, BMP;
-                                  data/codecs.py)
+  POST /v1/specfree               body: an encoded image in any format
+                                  data/codecs.decode reads (PNG, JPEG incl.
+                                  CMYK/YCCK, GIF, WebP lossy/lossless/
+                                  animated, baseline TIFF, PNM P1-P6, BMP),
+                                  told by its bytes, as JAX's PIL tells it
        ?size=<px>|native          a square resize to <px> (a multiple of 16 in
                                   [16, 2048]; default cfg.model.image_size, or
                                   native with cfg.eval.native_resolution), or
@@ -19,8 +22,10 @@ Endpoints:
                                   mask-composited PNG, the mask PNG, or JSON
                                   with both PNGs base64-encoded
   400 for a bad request (body, size, output, an image that is truncated,
-  corrupt or of a kind PIL does not read either, the native-shape budget
-  spent), 404 for an unknown path, 500 when inference fails.
+  corrupt, of a kind PIL does not read either, or of one PIL reads and the
+  port does not, named in the body: AVIF, JPEG 2000, PSD, TGA, ...; the
+  native-shape budget spent), 404 for an unknown path, 500 when inference
+  fails.
 
 One device, many request threads: decode and encode run on the request
 threads, every device call (warm-ups included) under EnginePool.device_lock.

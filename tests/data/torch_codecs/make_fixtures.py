@@ -4,9 +4,10 @@ one `<name>.png`: PIL's `Image.open(fixture).convert("RGB")` pixels.
     PYTHONPATH=. python tests/data/torch_codecs/make_fixtures.py
 
 The images are camera images of `synth_polar_scene` (seeded), so the
-fixtures are the same on every run of the same PIL and libjpeg-turbo. The
-formats PIL does not write (16-bit RGB and Adam7 PNG, 16-bit and maxval-100
-P6, RLE8 BMP) are written by the small writers below.
+fixtures are the same on every run of the same PIL, libjpeg-turbo, libwebp
+and libtiff. The formats PIL does not write (16-bit RGB and Adam7 PNG,
+16-bit and maxval-100 P6, RLE8 BMP, a planar TIFF with the horizontal
+predictor, YCCK JPEG, ASCII P3) are written by the small writers below.
 """
 
 import io
@@ -77,6 +78,41 @@ def rle8_bmp(idx, palette):
     return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + pal + bytes(body)
 
 
+def planar_tiff(rgb):
+    """A little-endian TIFF of (h, w, 3) uint8: planar configuration 2 (one
+    plane a sample), each plane in strips of 16 rows, horizontal predictor
+    (2), Deflate (8)."""
+    h, w, _ = rgb.shape
+    strips = []
+    for c in range(3):
+        for y in range(0, h, 16):
+            rows = rgb[y:y + 16, :, c].astype(np.int16)
+            diff = np.concatenate([rows[:, :1], np.diff(rows, axis=1)], 1) % 256
+            strips.append(zlib.compress(diff.astype(np.uint8).tobytes(), 9))
+    offsets, pos = [], 8
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    n = len(strips)
+    arrays = struct.pack(f"<{n}I", *offsets) + struct.pack(f"<{n}I", *map(len, strips))
+    ifd_at = pos + len(arrays) + 6
+    tags = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, 3, pos + len(arrays)), (259, 3, 1, 8),
+            (262, 3, 1, 2), (273, 4, n, pos), (277, 3, 1, 3), (278, 3, 1, 16),
+            (279, 4, n, pos + 4 * n), (284, 3, 1, 2), (317, 3, 1, 2)]
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", t, k, c) + (struct.pack("<HH", v, 0) if k == 3 and c == 1
+                                        else struct.pack("<I", v)) for t, k, c, v in tags)
+    return (b"II*\x00" + struct.pack("<I", ifd_at) + b"".join(strips) + arrays
+            + struct.pack("<HHH", 8, 8, 8) + ifd + b"\x00" * 4)
+
+
+def ycck(cmyk_jpeg):
+    """PIL's CMYK JPEG with its Adobe segment's transform set to 2: the same
+    coefficients read as YCCK."""
+    i = cmyk_jpeg.index(b"Adobe")
+    return cmyk_jpeg[:i + 11] + b"\x02" + cmyk_jpeg[i + 12:]
+
+
 def fixtures():
     cam = u8(scene(256, 256, 1))
     im = Image.fromarray(cam)
@@ -118,6 +154,29 @@ def fixtures():
     palette = np.array(pal.getpalette()[:600], np.uint8).reshape(-1, 3)
     palette = np.concatenate([palette, np.zeros((256 - len(palette), 3), np.uint8)])
     out["rle8.bmp"] = rle8_bmp(np.asarray(pal), palette)
+    small = u8(scene(48, 64, 7))
+    sm = Image.fromarray(small)
+    alpha = Image.fromarray(u8(scene(48, 64, 8))[..., 0])
+    rgba = sm.copy()
+    rgba.putalpha(alpha)
+    out["webp_lossy.webp"] = pil(sm, "WEBP", quality=80, method=4)
+    out["webp_lossless.webp"] = pil(sm, "WEBP", lossless=True, method=6, exact=True)
+    out["webp_rgba.webp"] = pil(rgba, "WEBP", quality=80)
+    out["webp_animated.webp"] = pil(sm, "WEBP", quality=80, save_all=True, duration=100,
+                                    append_images=[Image.fromarray(small[::-1])])
+    out["tiff_lzw_rgb.tif"] = pil(sm, "TIFF", compression="tiff_lzw")
+    out["tiff_deflate_grey16.tif"] = pil(
+        Image.fromarray((scene(48, 64, 9)[..., 0] * 400).astype(np.uint16)), "TIFF",
+        compression="tiff_adobe_deflate")                   # values past 255: PIL clips
+    out["tiff_packbits_palette.tif"] = pil(sm.quantize(64), "TIFF", compression="packbits")
+    out["tiff_planar.tif"] = planar_tiff(small)
+    cmyk = pil(sm.convert("CMYK"), "JPEG", quality=85)
+    out["cmyk.jpg"] = cmyk
+    out["ycck.jpg"] = ycck(cmyk)
+    p3 = u8(scene(24, 32, 10))
+    out["p3.ppm"] = (b"P3\n# ASCII PPM\n32 24\n255\n"
+                     + "\n".join(" ".join(map(str, row)) for row in p3.reshape(24, -1)).encode()
+                     + b"\n")
     return out
 
 

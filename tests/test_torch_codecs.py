@@ -2,12 +2,17 @@
 (data/loader.py) against PIL and the JAX package's loader, on the CPU:
 decoded pixels equal PIL's `convert("RGB")` for every PNG colour type with
 every row filter, 16-bit and Adam7-interlaced PNGs, PPM and PGM at every
-maxval, the BMP variants PIL reads and GIF; `decode_resize` equals JAX's
-(Pillow's BILINEAR) exactly at up- and downscales; PNGs the port writes read
-back under PIL; what neither decodes, and input that is truncated or
-corrupt, raises ValueError. (JPEG has its own file, test_torch_jpeg.py.)"""
+maxval, plain P3 and P2 and bilevel P1 and P4, the BMP variants PIL reads
+and GIF; `decode_resize` equals JAX's (Pillow's BILINEAR) exactly at up-
+and downscales, on WebP, TIFF, CMYK JPEG and ASCII PNM files too; a P3 tree
+loads as JAX's does; PNGs the port writes read back under PIL; formats PIL
+opens and the port does not are refused by name; what neither decodes, and
+input that is truncated or corrupt, raises ValueError. (JPEG, WebP and
+TIFF have files of their own: test_torch_jpeg.py, test_torch_webp.py,
+test_torch_tiff.py.)"""
 
 import io
+import os
 import struct
 import zlib
 
@@ -15,11 +20,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from shmgan_tpu.config import DataConfig as JDataConfig
+from shmgan_tpu.data.loader import PolarimetricDataset as JPolarimetricDataset
 from shmgan_tpu.data.loader import decode_original as j_decode_original
 from shmgan_tpu.data.loader import decode_resize as j_decode_resize
 from shmgan_tpu.data.loader import list_images as j_list_images
+from shmgan_tpu_torch.config import DataConfig
 from shmgan_tpu_torch.data import codecs
-from shmgan_tpu_torch.data.loader import decode_original, decode_resize, list_images
+from shmgan_tpu_torch.data.loader import (PolarimetricDataset, decode_original, decode_resize,
+                                          list_images)
 
 
 def _photo(h, w, seed=0):
@@ -166,11 +175,18 @@ def _formerly_refused():
         "interlaced png": _png(_photo(11, 13, seed=9), 2, 8, interlace=1),
         "16-bit ppm": b"P6\n2 2\n65535\n" + bytes(range(0, 240, 10)),
         "8-bit bmp": _pil_bytes(img.convert("L"), "BMP"),
+        "cmyk jpeg": _pil_bytes(img.convert("CMYK"), "JPEG"),
+        "lossy webp": _pil_bytes(img, "WEBP", quality=80),
+        "lossless webp": _pil_bytes(img, "WEBP", lossless=True),
+        "lzw tiff": _pil_bytes(img, "TIFF", compression="tiff_lzw"),
+        "p3 ppm": b"P3\n2 1\n255\n1 2 3 4 5 6\n",
+        "p4 pbm": _pil_bytes(img.convert("1"), "PPM"),
     }
 
 
 @pytest.mark.parametrize("case", ["jpeg", "gif", "16-bit png", "interlaced png", "16-bit ppm",
-                                  "8-bit bmp"])
+                                  "8-bit bmp", "cmyk jpeg", "lossy webp", "lossless webp",
+                                  "lzw tiff", "p3 ppm", "p4 pbm"])
 def test_formerly_refused_input_decodes_like_pil(case):
     data = _formerly_refused()[case]
     np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
@@ -520,7 +536,6 @@ def _unsupported():
         "12-bit jpeg": _jpeg_with(lambda d, i: d[:i + 4] + b"\x0c" + d[i + 5:]),
         "lossless jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc3" + d[i + 2:]),
         "hierarchical jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc5" + d[i + 2:]),
-        "cmyk jpeg": _pil_bytes(img.convert("CMYK"), "JPEG"),
         "truncated gif": gif[:len(gif) * 2 // 3],
         "truncated bmp": bmp[:len(bmp) - 20],
         "bmp bad bitfields": _bmp(2, 2, 32, bytes(16), compression=3,
@@ -553,7 +568,29 @@ def _bombs():
                + codecs._png_chunk(b"IEND", b""),
         "pnm": f"P5\n{big} {big}\n255\n".encode() + bytes(1 << 16),
         "bmp": _bmp(big, big, 8, bytes(64), palette=bytes(1024)),
+        # VP8L's sizes are 14-bit: 16383 x 16383 is the most a header claims
+        "webp": _webp_vp8l_header(16383, 16383),
+        "tiff": _tiff_header(big, big),
     }
+
+
+def _webp_vp8l_header(w, h):
+    """A lossless WebP whose header claims w x h, over a 1x1 image's data."""
+    one = _pil_bytes(Image.fromarray(np.zeros((1, 1, 3), np.uint8)), "WEBP", lossless=True)
+    (n,) = struct.unpack_from("<I", one, 16)
+    vp8l = b"\x2f" + ((w - 1) | ((h - 1) << 14)).to_bytes(4, "little") + one[25:20 + n]
+    vp8l += b"\0" * (len(vp8l) & 1)
+    return (b"RIFF" + struct.pack("<I", 12 + len(vp8l)) + b"WEBPVP8L"
+            + struct.pack("<I", len(vp8l)) + vp8l)
+
+
+def _tiff_header(w, h):
+    """An uncompressed RGB TIFF header that claims w x h, and 3 bytes of data."""
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (262, 3, 2), (273, 4, 8), (277, 3, 3),
+            (278, 4, 1), (279, 4, 3)]
+    ifd = struct.pack("<H", len(tags)) + b"".join(struct.pack("<HHII", t, k, 1, v)
+                                                  for t, k, v in tags) + bytes(4)
+    return b"II*\x00" + struct.pack("<I", 12) + bytes(4) + ifd
 
 
 @pytest.mark.parametrize("case", list(_bombs()))
@@ -579,3 +616,155 @@ def test_png_inflates_no_further_than_its_scanlines():
             + codecs._png_chunk(b"IDAT", idat) + codecs._png_chunk(b"IEND", b""))
     np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
     np.testing.assert_array_equal(codecs.decode(data), img)
+
+
+def test_webp_canvas_past_the_limit_is_refused_from_its_header():
+    """A VP8X canvas of 65535 x 65535 (its sizes are 24-bit): refused before
+    the frame is read."""
+    u24 = lambda v: v.to_bytes(3, "little")        # noqa: E731
+    vp8x = bytes(4) + u24(65534) + u24(65534)
+    data = b"RIFF" + struct.pack("<I", 4 + 18 + 8) + b"WEBPVP8X" + struct.pack("<I", 10) + vp8x
+    data += b"VP8L" + bytes(4)
+    with pytest.raises(ValueError, match="65535x65535 .* PIL opens"):
+        codecs.decode(data)
+
+
+# -- plain and bilevel PNM ----------------------------------------------------------
+
+def _plain_pnms():
+    rng = np.random.default_rng(21)
+    out = {}
+    for maxval in (1, 7, 100, 255, 256, 1000, 65535):
+        v = rng.integers(0, maxval + 1, (5, 9, 3))
+        out[f"p3 maxval {maxval}"] = (b"P3\n# a comment\n9 5\n%d\n" % maxval
+                                      + b" ".join(b"%d" % x for x in v.ravel()) + b"\n")
+        out[f"p2 maxval {maxval}"] = (b"P2 9 5 %d\r\n" % maxval
+                                      + b"\n".join(b"%d" % x for x in v[..., 0].ravel()))
+    v = rng.integers(0, 256, (4, 6, 3))
+    lines = [b" ".join(b"%d" % x for x in row) for row in v.reshape(4, -1)]
+    out["p3 comments between rows"] = b"P3 6 4 255\n" + b" # note\n".join(lines)
+    out["p3 comment joins two tokens"] = b"P3\n2 1\n255\n1#x\n2 3 4 5 6 7\n"
+    bits = rng.integers(0, 2, (5, 13))
+    out["p1 packed"] = b"P1\n13 5\n" + b"".join(b"%d" % x for x in bits.ravel())
+    out["p1 spaced, comment"] = (b"P1 13 5\n# c\n" + b" ".join(b"%d" % x for x in bits.ravel())
+                                 + b"\n")
+    img = Image.fromarray(_photo(7, 13, seed=22)).convert("1")
+    out["p4 odd width"] = _pil_bytes(img, "PPM")
+    out["p4 comment in header"] = b"P4\n# c\n8 2\n" + bytes([0b10110001, 0b01001110])
+    return out
+
+
+@pytest.mark.parametrize("case", list(_plain_pnms()))
+def test_plain_and_bilevel_pnm_are_pils(case):
+    data = _plain_pnms()[case]
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+
+
+@pytest.mark.parametrize("data,match", [
+    (b"P3\n2 1\n100\n1 2 3 4 5 101\n", "outside"),
+    (b"P3\n2 1\n255\n1 2 3 4 5\n", "truncated"),
+    (b"P1\n2 2\n1 0 2 1\n", "not 0 or 1"),
+    (b"P1\n3 2\n1 0 1\n", "truncated"),
+    (b"P4\n9 2\n\x00\x00\x00", "truncated"),
+    (b"P3\n1 1\n255\n12345678901 0 0", "too long"),
+], ids=["past maxval", "p3 cut short", "bad p1 digit", "p1 cut short", "p4 cut short",
+        "long token"])
+def test_bad_plain_pnm_raises(data, match):
+    with pytest.raises(ValueError, match=match):
+        codecs.decode(data)
+
+
+# -- formats PIL opens that the port does not ---------------------------------------
+
+def _psd(img):
+    """A minimal PSD: RGB, 8 bits, raw planar image data."""
+    h, w, _ = img.shape
+    return (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + bytes(12)
+            + struct.pack(">H", 0) + img.transpose(2, 0, 1).tobytes())
+
+
+def _unported():
+    img = Image.fromarray(_photo(16, 16, seed=23))
+    return {
+        "AVIF": _pil_bytes(img, "AVIF"),
+        "JPEG 2000": _pil_bytes(img, "JPEG2000"),
+        "TGA": _pil_bytes(img, "TGA"),
+        "QOI": _pil_bytes(img, "QOI"),
+        "ICO": _pil_bytes(img, "ICO"),
+        "DDS": _pil_bytes(img, "DDS"),
+        "SGI": _pil_bytes(img, "SGI"),
+        "PCX": _pil_bytes(img, "PCX"),
+        "PFM": _pil_bytes(img.convert("F"), "PPM"),
+        "PSD": _psd(_photo(8, 8, seed=23)),
+        "ICNS": _pil_bytes(img, "ICNS"),
+        "MSP": _pil_bytes(img.convert("1"), "MSP"),
+        "XBM": _pil_bytes(img.convert("1"), "XBM"),
+    }
+
+
+@pytest.mark.parametrize("name", list(_unported()))
+def test_formats_pil_opens_and_the_port_does_not_are_refused_by_name(name):
+    data = _unported()[name]
+    assert _pil_rgb(data).shape[2] == 3
+    with pytest.raises(ValueError, match=f"{name}.*PIL opens this format"):
+        codecs.decode(data)
+
+
+# -- the loader on the new formats --------------------------------------------------
+
+def _photo_files():
+    img = Image.fromarray(_photo(45, 61, seed=24))
+    return {
+        "lossy.webp": _pil_bytes(img, "WEBP", quality=80),
+        "lossless.webp": _pil_bytes(img, "WEBP", lossless=True),
+        "lzw.tif": _pil_bytes(img, "TIFF", compression="tiff_lzw"),
+        "cmyk.jpg": _pil_bytes(img.convert("CMYK"), "JPEG", quality=85),
+        "p3.ppm": b"P3\n61 45\n255\n" + b" ".join(b"%d" % v for v in _photo(45, 61, 24).ravel()),
+        "p4.ppm": _pil_bytes(img.convert("1"), "PPM"),
+    }
+
+
+@pytest.mark.parametrize("name", list(_photo_files()))
+@pytest.mark.parametrize("image_size", [16, 64])
+def test_photo_formats_decode_resize_and_original_equal_jax(tmp_path, name, image_size):
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(_photo_files()[name])
+    np.testing.assert_array_equal(decode_resize(path, image_size),
+                                  j_decode_resize(path, image_size))
+    np.testing.assert_array_equal(decode_original(path), j_decode_original(path))
+
+
+def test_only_jaxs_extensions_are_listed_and_a_file_is_read_by_its_bytes(tmp_path):
+    """A .webp or .tif file is not listed, as in JAX; a WebP named .png is,
+    and decodes as JAX's PIL decodes it."""
+    files = _photo_files()
+    for name, data in (("a.webp", files["lossy.webp"]), ("b.tif", files["lzw.tif"]),
+                       ("c.png", files["lossy.webp"]), ("d.jpg", files["lzw.tif"])):
+        (tmp_path / name).write_bytes(data)
+    listed = list_images(str(tmp_path))
+    assert listed == j_list_images(str(tmp_path))
+    assert [os.path.basename(p) for p in listed] == ["c.png", "d.jpg"]
+    for p in listed:
+        np.testing.assert_array_equal(decode_original(p), j_decode_original(p))
+
+
+def test_polarimetric_dataset_on_an_ascii_ppm_tree_is_jaxs(tmp_path):
+    """Five view folders of P3 files: both loaders' native decoders refuse
+    them and each goes alone through the per-file path (PIL's, in JAX), to
+    the same batches."""
+    rng = np.random.default_rng(25)
+    for d in ("I0", "I45", "I90", "I135", "ED"):
+        os.makedirs(tmp_path / d)
+        for i in range(4):
+            v = rng.integers(0, 256, (20, 24, 3))
+            (tmp_path / d / f"img_{i:05d}.ppm").write_bytes(
+                b"P3\n24 20\n255\n" + b"\n".join(b"%d" % x for x in v.ravel()))
+    cfg = DataConfig(data_dir=str(tmp_path), cache_in_memory=False)
+    jcfg = JDataConfig(data_dir=str(tmp_path), cache_in_memory=False)
+    mine = PolarimetricDataset(cfg, 16, 2, num_workers=2)
+    theirs = JPolarimetricDataset(jcfg, 16, 2, num_workers=2)
+    got, want = list(mine.iter_epoch(None)), list(theirs.iter_epoch(None))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))

@@ -1,13 +1,14 @@
 """The port's JPEG decoder (data/jpeg.py) against PIL (libjpeg-turbo), on the
 CPU: seeded images written by PIL at every quality, subsampling,
 `optimize`, `progressive`, restart interval, 16-bit quantisation tables,
-greyscale, Adobe RGB, EXIF orientation and odd sizes decode to PIL's
-`convert("RGB")` pixels exactly; so do files of hand-made coefficients at
-the sampling layouts PIL's encoder does not write (h1v2, 4:1:1, mixed
-chroma factors, planes 1 and 2 samples wide). The kinds PIL does not decode
-either raise ValueError naming the feature; a file cut short raises. A
-JPEG tree goes through `decode_resize`, `decode_original` and
-`PolarimetricDataset` to the JAX loader's float32 arrays bit for bit."""
+greyscale, Adobe RGB, CMYK and YCCK (Adobe's inverted convention, as PIL
+reads it), EXIF orientation and odd sizes decode to PIL's `convert("RGB")`
+pixels exactly; so do files of hand-made coefficients at the sampling
+layouts PIL's encoder does not write (h1v2, 4:1:1, mixed chroma factors,
+planes 1 and 2 samples wide, four components). The kinds the port refuses
+raise ValueError naming the feature; a file cut short raises. A JPEG tree
+goes through `decode_resize`, `decode_original` and `PolarimetricDataset`
+to the JAX loader's float32 arrays bit for bit."""
 
 import io
 import os
@@ -223,6 +224,7 @@ def _coefs(width, height, factors, seed):
     ((2, 2), (1, 2), (2, 2)),          # h2v1 chroma, full-size chroma
     ((1, 1), (1, 1), (1, 1)),
     ((2, 2),),                         # greyscale with 2x2 factors: one block an MCU
+    ((2, 2), (1, 1), (1, 1), (2, 2)),  # CMYK (no Adobe segment), C and K full size
 ], ids=str)
 @pytest.mark.parametrize("size", [(1, 1), (2, 3), (5, 4), (24, 17), (40, 33)], ids=str)
 def test_hand_made_sampling_layouts(factors, size):
@@ -260,11 +262,30 @@ def test_refused_kinds_name_their_feature(name, fn, match):
         decode_jpeg(_patched(fn))
 
 
-def test_cmyk_is_refused():
+def _adobe(data, transform):
+    """The file with its Adobe segment's transform set to `transform`, or
+    without the segment (None)."""
+    i = data.index(b"\xff\xee")
+    n = int.from_bytes(data[i + 2:i + 4], "big")
+    if transform is None:
+        return data[:i] + data[i + 2 + n:]
+    return data[:i + 15] + bytes([transform]) + data[i + 16:]
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("adobe", ["cmyk", "ycck", "transform 1", "no adobe segment"])
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_cmyk_and_ycck_decode_like_pil(adobe, progressive, subsampling):
+    """PIL writes CMYK with an Adobe segment of transform 0; the same
+    coefficients under transform 2 (or 1, which libjpeg also takes as YCCK)
+    are YCCK, and without the segment CMYK again."""
     buf = io.BytesIO()
-    Image.fromarray(_photo(16, 16, seed=9)).convert("CMYK").save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        decode_jpeg(buf.getvalue())
+    Image.fromarray(_photo(37, 53, seed=9)).convert("CMYK").save(
+        buf, format="JPEG", quality=85, progressive=progressive, subsampling=subsampling)
+    data = buf.getvalue()
+    assert data[data.index(b"Adobe") + 11] == 0
+    data = _adobe(data, {"cmyk": 0, "ycck": 2, "transform 1": 1, "no adobe segment": None}[adobe])
+    _same_as_pil(data)
 
 
 @pytest.mark.parametrize("progressive", [False, True])

@@ -133,16 +133,17 @@ def test_decode_batch_matches_jax_and_its_plain_version(tmp_path, kind, size):
 
 def test_codec_fixtures_flags_match_jax():
     names = sorted(f for f in os.listdir(FIXTURES) if f.endswith((".bmp", ".ppm")))
-    assert names == ["p6_16bit.ppm", "p6_maxval100.ppm", "palette.bmp", "rle8.bmp"]
+    assert names == ["p3.ppm", "p6_16bit.ppm", "p6_maxval100.ppm", "palette.bmp", "rle8.bmp"]
     paths = [os.path.join(FIXTURES, f) for f in names]
     (got, ok), (plain, ok_plain), (want, ok_jax) = _three_ways(paths, 64)
-    assert ok.tolist() == ok_plain.tolist() == ok_jax.tolist() == [0, 1, 0, 0]
+    # the ASCII P3 is refused too: it goes to the per-file path, as JAX's goes to PIL
+    assert ok.tolist() == ok_plain.tolist() == ok_jax.tolist() == [0, 0, 1, 0, 0]
     np.testing.assert_array_equal(got, plain)
-    assert not got[[0, 2, 3]].any() and not want[[0, 2, 3]].any()
-    with Image.open(paths[1]) as im:     # PIL scales maxval 100 to 255
+    assert not got[[0, 1, 3, 4]].any() and not want[[0, 1, 3, 4]].any()
+    with Image.open(paths[2]) as im:     # PIL scales maxval 100 to 255
         scaled = np.asarray(im.convert("RGB"))
-    np.testing.assert_allclose(got[1], jnl.resize_normalize(scaled, 64), rtol=0, atol=TOL)
-    assert np.abs(got[1] - want[1]).max() > 0.3      # JAX's reads 100 as 100/255
+    np.testing.assert_allclose(got[2], jnl.resize_normalize(scaled, 64), rtol=0, atol=TOL)
+    assert np.abs(got[2] - want[2]).max() > 0.3      # JAX's reads 100 as 100/255
 
 
 def _refused():

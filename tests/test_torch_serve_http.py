@@ -153,7 +153,7 @@ def test_bad_requests_are_400(server, query, body):
 
 
 def test_jpeg_is_400_with_a_reason(server):
-    """A JPEG of a kind PIL does not decode either (arithmetic coding, SOF9)
+    """A JPEG of a kind the port does not decode (arithmetic coding, SOF9)
     is refused with the feature named."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, format="JPEG")
@@ -165,20 +165,39 @@ def test_jpeg_is_400_with_a_reason(server):
     assert exc.value.code == 400 and "JPEG" in error and "arithmetic coding" in error
 
 
+def _photo_body(arr, fmt):
+    """arr (h, w, 3) uint8 encoded as `fmt`: a PIL format name, "CMYK JPEG",
+    "TIFF" (LZW) or "P3" (an ASCII PPM)."""
+    if fmt == "P3":
+        h, w, _ = arr.shape
+        return b"P3\n%d %d\n255\n" % (w, h) + b" ".join(b"%d" % v for v in arr.ravel())
+    im = Image.fromarray(arr)
+    kw = {"CMYK JPEG": dict(format="JPEG"), "TIFF": dict(format="TIFF", compression="tiff_lzw"),
+          "WEBP": dict(format="WEBP", quality=80)}.get(fmt, dict(format=fmt))
+    buf = io.BytesIO()
+    (im.convert("CMYK") if fmt == "CMYK JPEG" else im).save(buf, **kw)
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("fmt,query,shape", [("JPEG", "", (48, 40)), ("GIF", "", (48, 40)),
-                                             ("JPEG", "?size=native", (40, 56))])
+                                             ("JPEG", "?size=native", (40, 56)),
+                                             ("WEBP", "", (48, 40)),
+                                             ("WEBP", "?size=native", (40, 56)),
+                                             ("TIFF", "", (48, 40)),
+                                             ("CMYK JPEG", "?size=native", (40, 56)),
+                                             ("P3", "", (40, 56))])
 def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
-    """A JPEG or GIF body gives 200, within one level of the engine given
-    PIL's decoded pixels (resized as the server resizes)."""
+    """A JPEG, GIF, WebP, TIFF, CMYK JPEG or ASCII PPM body gives 200,
+    within one level of the engine given PIL's decoded pixels (resized as
+    the server resizes)."""
     url, run = running
     yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
     arr = np.stack([yy * 5, xx * 4, (yy + xx) * 3], -1).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, format=fmt)
-    with _post(url + "/v1/specfree" + query, buf.getvalue()) as r:
+    body = _photo_body(arr, fmt)
+    with _post(url + "/v1/specfree" + query, body) as r:
         assert r.status == 200
         got = _image(r.read())
-    with Image.open(buf) as im:
+    with Image.open(io.BytesIO(body)) as im:
         pixels = np.asarray(im.convert("RGB"))
     native = query == "?size=native"
     eng = BatchInferenceEngine(tiny_cfg(), *run.models, batch_size=1, outputs=HTTP_OUTPUTS,
@@ -192,6 +211,31 @@ def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
     want = (np.clip(want, 0, 1) * 255).astype(np.uint8)
     assert got.shape == want.shape
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "CMYK JPEG", "P3"])
+@pytest.mark.parametrize("size", [256, "native"])
+def test_request_decode_equals_jaxs_on_photo_formats(fmt, size):
+    """serve_http._decode_request_image against the JAX package's (PIL's
+    open, convert and BILINEAR resize), exactly."""
+    from shmgan_tpu.serve_http import _decode_request_image as j_decode_request_image
+
+    rng = np.random.default_rng(31)
+    yy, xx = np.mgrid[0:45, 0:61]
+    arr = np.clip(np.stack([yy * 5, xx * 4, (yy + xx) * 3], -1) + rng.normal(0, 9, (45, 61, 3)),
+                  0, 255).astype(np.uint8)
+    body = _photo_body(arr, fmt)
+    np.testing.assert_array_equal(_decode_request_image(body, size),
+                                  j_decode_request_image(body, size))
+
+
+@pytest.mark.parametrize("body,name", [(b"8BPS" + bytes(40), "PSD"),
+                                       (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
+                                        "JPEG 2000")], ids=["psd", "jp2"])
+def test_a_format_pil_opens_and_the_port_does_not_is_400_naming_it(server, body, name):
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        _post(server + "/v1/specfree", body)
+    assert exc.value.code == 400 and name in json.loads(exc.value.read())["error"]
 
 
 @pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/v2/specfree")])

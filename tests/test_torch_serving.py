@@ -240,8 +240,9 @@ def test_folder_jobs_match_the_jax_engine(weights, tmp_path, native):
 
 
 def _write_formats(root, seed):
-    """A folder of the formats a camera or an editor writes, and a JPEG cut
-    short (PIL refuses it too)."""
+    """A folder of the formats a camera or an editor writes (a WebP named
+    .png among them: PIL, and the port, tell a file by its bytes), and a
+    JPEG cut short (PIL refuses it too)."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:40, 0:48]
@@ -260,25 +261,30 @@ def _write_formats(root, seed):
         data = f.read()
     with open(os.path.join(root, "g_cut_short.jpg"), "wb") as f:
         f.write(data[:len(data) // 2])
+    im.save(os.path.join(root, "h_webp_named.png"), format="WEBP", quality=80)
+    im.convert("CMYK").save(os.path.join(root, "i_cmyk.jpg"), quality=85)
+    with open(os.path.join(root, "j_ascii.ppm"), "wb") as f:
+        f.write(b"P3\n48 40\n255\n" + b" ".join(b"%d" % v for v in arr.ravel()))
 
 
 @pytest.mark.parametrize("native", [False, True], ids=["square", "native"])
 def test_folder_jobs_on_photo_formats_match_the_jax_engine(weights, tmp_path, native):
-    """JPEG, GIF, 16-bit PNG, palette BMP and 16-bit PPM inputs: the port's
-    folder job writes the JAX engine's files, pixels within one level; the
-    JPEG cut short is skipped by both."""
+    """JPEG, GIF, 16-bit PNG, palette BMP, 16-bit PPM, a .png-named WebP, a
+    CMYK JPEG and an ASCII PPM: the port's folder job writes the JAX
+    engine's files, pixels within one level; the JPEG cut short is skipped
+    by both."""
     jcfg, cfg = _configs()
     in_dir = str(tmp_path / "in")
     _write_formats(in_dir, seed=29)
     kw = dict(batch_size=2, native_resolution=native, outputs=("gen_rgb_calibrated", "mask"))
     jeng = JEngine(jcfg, *weights, **kw)
-    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 6
+    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 9
     gen, specseg = _port(cfg, weights)
     eng = BatchInferenceEngine(cfg, gen, specseg, device="cpu", **kw)
-    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 6
+    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 9
     eng.close()
     want, got = _read_dir(str(tmp_path / "jax")), _read_dir(str(tmp_path / "port"))
-    assert len(want) == 12 and list(got) == list(want)
+    assert len(want) == 18 and list(got) == list(want)
     for f in want:
         assert got[f].shape == want[f].shape, f
         assert np.abs(got[f] - want[f]).max() <= 1, f
