@@ -11,15 +11,18 @@ native/loader.cc (`encode_png`).
 its name), and reads what PIL 12 reads of these formats, to PIL's
 `convert("RGB")` pixels:
 
-  - JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1,
-    3 or 4 components (CMYK, and YCCK by Adobe's transform 2, inverted as
-    PIL reads them) (data/jpeg.py);
+  - JPEG: baseline, extended sequential and progressive, Huffman or
+    arithmetic coding, and lossless (SOF3), 8-bit, 1, 3 or 4 components
+    (CMYK, and YCCK by Adobe's transform 2, inverted as PIL reads them)
+    (data/jpeg.py);
   - GIF: the first frame, global or local colour table, interlaced or not
     (data/gif.py);
   - WebP: lossy (VP8), lossless (VP8L), VP8X with alpha and metadata, an
     animation's first frame (data/webp.py);
-  - TIFF: baseline, the first IFD, strips and tiles, none/PackBits/LZW/
-    Deflate, predictor 2, grey, RGB, palette and CMYK (data/tiff.py);
+  - TIFF: the first IFD, strips and tiles, none/PackBits/LZW/Deflate/LZMA/
+    Zstd/JPEG/CCITT (Modified Huffman, T.4, T.6), predictors 2 and 3, grey
+    at 1-16 bits, float and signed samples, RGB, palette, CMYK at 8 and 16
+    bits, YCbCr and CIELab (data/tiff.py, data/zstd.py, data/ccitt.py);
   - PNG: every colour type at every bit depth, 16 bits included, Adam7
     interlaced or not, every row filter;
   - PNM: binary P6 (PPM) and P5 (PGM) at every maxval, 16-bit samples
@@ -38,9 +41,9 @@ scaled by round(v / maxval * 255).
 Formats PIL opens that the port does not decode raise a ValueError that
 names them where their signature does: AVIF, JPEG 2000, PSD, QOI, ICO/CUR,
 DDS, SGI, PCX, PFM, TGA (by its footer), ICNS, MSP, XBM (`_UNPORTED`), and the
-variants of a ported format the port does not read, each by name (JPEG's
-arithmetic coding, which PIL's libjpeg-turbo decodes, 12-bit, lossless and
-hierarchical JPEG; the TIFF codes and layouts data/tiff.py lists). So does
+variants of a ported format the port does not read, each by name (12-bit,
+hierarchical and lossless arithmetic-coded JPEG, which PIL refuses too; the
+TIFF codes and layouts data/tiff.py lists). So does
 input that is truncated, corrupt or not an image, and, from its header
 before anything is allocated, an image of more pixels than PIL opens
 (`check_size`).

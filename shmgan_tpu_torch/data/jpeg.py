@@ -4,25 +4,35 @@ decompression (islow IDCT, fancy upsampling), pixel for pixel.
 
     rgb = decode_jpeg(data)     # (H, W, 3) uint8; a greyscale file replicated
 
-Read: baseline and extended sequential Huffman (SOF0, SOF1) and progressive
-Huffman (SOF2) files of 8-bit samples with 1, 3 or 4 components, integral
-sampling factors, restart intervals, 8- and 16-bit quantisation tables.
-APPn and COM segments are skipped, EXIF orientation is not applied (PIL's
-`Image.open` does not apply it either); an Adobe APP14 segment of transform
-0, or component ids 'R', 'G', 'B', means RGB samples, as libjpeg decides.
+Read: baseline and extended sequential Huffman (SOF0, SOF1), progressive
+Huffman (SOF2), arithmetic-coded sequential and progressive (SOF9, SOF10,
+with DAC's conditioning, as libjpeg-turbo's jdarith.c decodes them) files
+of 8-bit samples with 1, 3 or 4 components, integral sampling factors,
+restart intervals, 8- and 16-bit quantisation tables; lossless files
+(SOF3, predictors 1-7, a point transform, unsubsampled components, as
+libjpeg-turbo 3's jdlossls.c undifferences them). APPn and COM segments
+are skipped, EXIF orientation is not applied (PIL's `Image.open` does not
+apply it either); an Adobe APP14 segment of transform 0, or component ids
+'R', 'G', 'B', means RGB samples, as libjpeg decides, and so does a
+lossless file with neither JFIF nor Adobe segment (libjpeg-turbo 3).
 Four components are CMYK (Adobe transform 0, or no Adobe segment) or YCCK
 (any other transform; jdcolor.c's ycck_cmyk_convert), which PIL reads as
 Adobe's inverted CMYK ("CMYK;I") and turns to RGB with its cmyk2rgb.
-Refused with a ValueError that names the feature: arithmetic coding
-(SOF9-SOF15, DAC; PIL's libjpeg-turbo has that decoder, the port does not),
-12-bit precision, lossless (SOF3) and hierarchical (SOF5-SOF7, DHP) JPEG.
-A file cut short or corrupt raises ValueError (PIL raises OSError there).
+`jpeg_planes` gives a stream's upsampled components without colour
+conversion, after a tables-only stream (JPEG-in-TIFF). Refused with a
+ValueError that names the feature: 12-bit precision, hierarchical JPEG
+(SOF5-SOF7, DHP, SOF13-SOF15) and lossless arithmetic coding (SOF11),
+which PIL's libjpeg-turbo refuses too; a lossless file of YCbCr samples
+(libjpeg-turbo converts no colour in lossless mode, so PIL refuses it
+too); subsampled lossless components. A file cut short or corrupt raises
+ValueError (PIL raises OSError there).
 
 Two halves:
 
-  - entropy decoding (`_decode_scan`, sequential and progressive scans): a
-    per-symbol Python loop over 16-bit lookahead tables that fills one flat
-    int32 coefficient buffer a component (64 coefficients a block, zigzag
+  - entropy decoding (`_decode_scan` for Huffman, `_decode_scan_arith` for
+    the QM coder, `_decode_lossless`): a per-symbol Python loop over 16-bit
+    lookahead tables or statistics bins that fills one flat int32
+    coefficient buffer a component (64 coefficients a block, zigzag
     order) for the whole image. Its inputs are plain lists and buffers, so
     it can move to C unchanged in what it reads and writes;
   - the back half (`_reconstruct`): dequantisation, libjpeg's integer islow
@@ -50,14 +60,18 @@ _NATURAL = np.array([
 _ZIGZAG = np.argsort(_NATURAL)        # natural position -> zigzag index
 
 _REFUSED = {
-    0xC3: "lossless JPEG (SOF3)",
-    0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
-    0xC7: "hierarchical JPEG (SOF7)", 0xDE: "hierarchical JPEG (DHP)",
-    0xC9: "arithmetic coding (SOF9)", 0xCA: "arithmetic coding (SOF10)",
-    0xCB: "arithmetic coding (SOF11)", 0xCC: "arithmetic coding (DAC)",
-    0xCD: "arithmetic coding (SOF13)", 0xCE: "arithmetic coding (SOF14)",
-    0xCF: "arithmetic coding (SOF15)",
+    0xC5: "hierarchical JPEG (SOF5), which PIL's libjpeg-turbo refuses too",
+    0xC6: "hierarchical JPEG (SOF6), which PIL's libjpeg-turbo refuses too",
+    0xC7: "hierarchical JPEG (SOF7), which PIL's libjpeg-turbo refuses too",
+    0xDE: "hierarchical JPEG (DHP), which PIL's libjpeg-turbo refuses too",
+    0xCB: "lossless arithmetic-coded JPEG (SOF11), which PIL's libjpeg-turbo refuses too",
+    0xCD: "hierarchical arithmetic-coded JPEG (SOF13), which PIL's libjpeg-turbo refuses too",
+    0xCE: "hierarchical arithmetic-coded JPEG (SOF14), which PIL's libjpeg-turbo refuses too",
+    0xCF: "hierarchical arithmetic-coded JPEG (SOF15), which PIL's libjpeg-turbo refuses too",
 }
+# start-of-frame markers read: marker -> (progressive, arithmetic, lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
+        0xC9: (False, True, False), 0xCA: (True, True, False), 0xC3: (False, False, True)}
 # a marker after any fill bytes: every 0xFF not followed by a stuffed 0x00
 _MARKER = re.compile(rb"\xff+([^\x00\xff])")
 
@@ -71,11 +85,12 @@ def _fix(x: float) -> int:
 
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "quant", "bw", "bh", "coefs", "dw", "dh")
+    __slots__ = ("cid", "h", "v", "tq", "quant", "bw", "bh", "coefs", "dw", "dh", "samples")
 
     def __init__(self, cid, h, v, tq):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
         self.quant = None     # latched at the component's first scan, as libjpeg does
+        self.samples = None   # a lossless frame's decoded plane
 
 
 def _segment(data: bytes, pos: int) -> Tuple[int, bytes]:
@@ -288,6 +303,333 @@ def _decode_scan(segments: List[bytes], order: List[Tuple[int, int]], blocks_per
             raise ValueError("JPEG: truncated (entropy-coded data ends early)")
 
 
+# jaricom.c: the QM coder's probability states (ITU-T T.81 Table D.2), each
+# (Qe, next state after an LPS, next state after an MPS, switch MPS), and
+# state 113, the fixed estimate of one half (ITU-T T.851)
+_QE = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0),
+)
+# a state byte: bit 7 the MPS, bits 0-6 the state index (jdarith.c's packing)
+_AQE = [q for q, _, _, _ in _QE]
+_ANL = [(sw << 7) | lps for _, lps, _, sw in _QE]
+_ANM = [mps for _, _, mps, _ in _QE]
+_FIXED = 113
+_DC_BINS, _AC_BINS = 64, 256
+
+
+class _Arith:
+    """jdarith.c's decoder over one restart interval: arith_decode reads
+    one binary decision in a statistics bin (an index into `stats`, a
+    bytearray of state bytes), fed zeros past the end of the data as
+    libjpeg feeds them at a marker."""
+    __slots__ = ("data", "pos", "c", "a", "ct")
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.c, self.a, self.ct = data, 0, 0, 0, -16
+
+    def decode(self, stats: bytearray, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if self.pos < len(self.data):
+                    byte = self.data[self.pos]
+                    self.pos += 1
+                else:
+                    byte = 0
+                c = (c << 8) | byte
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000          # two initial bytes read
+            a <<= 1
+        sv = stats[i]
+        qe = _AQE[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                stats[i] = (sv & 0x80) ^ _ANM[sv & 0x7F]
+            else:
+                a = qe
+                stats[i] = (sv & 0x80) ^ _ANL[sv & 0x7F]
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ _ANL[sv & 0x7F]
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) ^ _ANM[sv & 0x7F]
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_magnitude(d: _Arith, st: bytearray, i: int, upper: int) -> int:
+    """Figures F.23 and F.24: a nonzero value's magnitude category from bin
+    i (then `upper`'s chain), and its magnitude bits 14 bins on: |v| - 1."""
+    m = d.decode(st, i)
+    if m:
+        if upper < 0:                       # DC: the category chain starts at X1 = 20
+            i = 20
+            while d.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise ValueError("JPEG: corrupt data (arithmetic magnitude overflow)")
+                i += 1
+        elif d.decode(st, i):
+            m <<= 1
+            i = upper
+            while d.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise ValueError("JPEG: corrupt data (arithmetic magnitude overflow)")
+                i += 1
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if d.decode(st, i):
+            v |= m
+        m >>= 1
+    return v
+
+
+def _decode_scan_arith(segments: List[bytes], order: List[Tuple[int, int]],
+                       blocks_per_mcu: int, restart: int, comps: List[array],
+                       dc_tbl: List[int], ac_tbl: List[int], cond: Dict[int, int],
+                       ss: int, se: int, ah: int, al: int, progressive: bool) -> None:
+    """Decode one arithmetic-coded scan into the coefficient buffers, as
+    libjpeg-turbo's jdarith.c does: sequential blocks (decode_mcu) or the
+    four progressive kinds, statistics zeroed at the scan's start and at
+    every restart. `cond` holds DAC's conditioning values (DC tables 0-3:
+    L | U << 4, default 0x10; AC tables 16-19: K, default 5)."""
+    n_blocks = len(order)
+    per_seg = restart * blocks_per_mcu if restart else n_blocks
+    if len(segments) < -(-n_blocks // per_seg):
+        raise ValueError("JPEG: truncated (restart intervals missing)")
+    do_dc = not progressive or (ss == 0 and ah == 0)
+    do_ac = not progressive or ss > 0
+    p1, m1 = 1 << al, -1 << al
+    fixed = bytearray([_FIXED])
+    for si in range(-(-n_blocks // per_seg)):
+        d = _Arith(segments[si])
+        dc_stats = {t: bytearray(_DC_BINS) for t in set(dc_tbl) if t >= 0} if do_dc else {}
+        ac_stats = {t: bytearray(_AC_BINS) for t in set(ac_tbl) if t >= 0} if do_ac else {}
+        last = [0] * len(comps)
+        ctx = [0] * len(comps)
+        for ci, base in order[si * per_seg:(si + 1) * per_seg]:
+            out = comps[ci]
+            if not progressive or ss == 0:
+                if progressive and ah:          # DC refinement: one bit, fixed estimate
+                    if d.decode(fixed, 0):
+                        out[base] |= p1
+                    continue
+                st, t = dc_stats[dc_tbl[ci]], dc_tbl[ci]
+                i = ctx[ci]
+                if d.decode(st, i) == 0:
+                    ctx[ci] = 0
+                else:
+                    sign = d.decode(st, i + 1)
+                    m_i = i + 2 + sign
+                    v = _arith_magnitude(d, st, m_i, -1)
+                    mag = 1 << (v.bit_length() - 1) if v else 0   # Figure F.23's m
+                    lo, hi = cond.get(t, 0x10) & 15, cond.get(t, 0x10) >> 4
+                    if mag < (1 << lo) >> 1:
+                        ctx[ci] = 0
+                    elif mag > (1 << hi) >> 1:
+                        ctx[ci] = 12 + sign * 4
+                    else:
+                        ctx[ci] = 4 + sign * 4
+                    v += 1
+                    last[ci] = (last[ci] + (-v if sign else v)) & 0xFFFF
+                dc = last[ci] - 0x10000 if last[ci] & 0x8000 else last[ci]
+                if progressive:
+                    out[base] = dc << al
+                    continue
+                out[base] = dc
+            st, t = ac_stats[ac_tbl[ci]], ac_tbl[ci]
+            kx = cond.get(16 + t, 5)
+            if not progressive:
+                k = 0
+                while k < 63:
+                    i = 3 * k
+                    if d.decode(st, i):
+                        break                       # EOB
+                    while True:
+                        k += 1
+                        if d.decode(st, i + 1):
+                            break
+                        i += 3
+                        if k >= 63:
+                            raise ValueError("JPEG: corrupt data (arithmetic spectral "
+                                             "overflow)")
+                    sign = d.decode(fixed, 0)
+                    v = _arith_magnitude(d, st, i + 2, 189 if k <= kx else 217) + 1
+                    out[base + k] = -v if sign else v
+                continue
+            if ah == 0:                              # AC first
+                k = ss
+                while k <= se:
+                    i = 3 * (k - 1)
+                    if d.decode(st, i):
+                        break
+                    while not d.decode(st, i + 1):
+                        i += 3
+                        k += 1
+                        if k > se:
+                            raise ValueError("JPEG: corrupt data (arithmetic spectral "
+                                             "overflow)")
+                    sign = d.decode(fixed, 0)
+                    v = _arith_magnitude(d, st, i + 2, 189 if k <= kx else 217) + 1
+                    out[base + k] = (-v if sign else v) * p1
+                    k += 1
+                continue
+            # AC refinement (decode_mcu_AC_refine)
+            kex = se
+            while kex > 0 and not out[base + kex]:
+                kex -= 1
+            k = ss
+            while k <= se:
+                i = 3 * (k - 1)
+                if k > kex and d.decode(st, i):
+                    break
+                while True:
+                    c = out[base + k]
+                    if c:
+                        if d.decode(st, i + 2):
+                            out[base + k] = c + (m1 if c < 0 else p1)
+                        break
+                    if d.decode(st, i + 1):
+                        out[base + k] = m1 if d.decode(fixed, 0) else p1
+                        break
+                    i += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError("JPEG: corrupt data (arithmetic spectral overflow)")
+                k += 1
+
+
+def _decode_lossless(segments: List[bytes], comps: List[_Component], scan: List[int],
+                     luts: List[Optional[List[int]]], restart: int, psv: int, pt: int,
+                     width: int, height: int) -> None:
+    """One lossless (SOF3) scan, as libjpeg-turbo 3's jdlhuff.c and
+    jdlossls.c decode it: each sample's difference Huffman-coded as a DC
+    difference (category 16: 32768), the scan's components interleaved one
+    sample each; then undifferenced row by row modulo 2 ** 16 with
+    predictor `psv` (the first row of the scan and of each restart
+    interval from its left neighbour, its first sample from
+    2 ** (7 - pt); each row's first sample from the one above), and
+    scaled by 2 ** pt into 8-bit samples."""
+    n = width * height
+    if restart and restart % width:
+        raise ValueError("JPEG: a lossless restart interval that is not whole rows is refused "
+                         "by PIL's libjpeg-turbo too")
+    per_seg = restart if restart else n
+    if len(segments) < -(-n // per_seg):
+        raise ValueError("JPEG: truncated (restart intervals missing)")
+    diffs = [array("i", [0]) * n for _ in scan]
+    for si in range(-(-n // per_seg)):
+        seg = segments[si]
+        words = _words(seg)
+        wi, acc, nb = 0, 0, 0
+        try:
+            for m in range(si * per_seg, min(n, (si + 1) * per_seg)):
+                for j, ci in enumerate(scan):
+                    if nb < 32:
+                        acc = ((acc & ((1 << nb) - 1)) << 32) | words[wi]
+                        wi += 1
+                        nb += 32
+                    e = luts[ci][(acc >> (nb - 16)) & 0xFFFF]
+                    if not e:
+                        raise ValueError("JPEG: corrupt data (bad Huffman code)")
+                    nb -= e >> 8
+                    s = e & 0xFF
+                    if s == 16:
+                        val = 32768
+                    elif s:
+                        if s > 16:
+                            raise ValueError("JPEG: corrupt data (lossless difference "
+                                             "category)")
+                        nb -= s
+                        val = (acc >> nb) & ((1 << s) - 1)
+                        if val < (1 << (s - 1)):
+                            val -= (1 << s) - 1
+                    else:
+                        val = 0
+                    diffs[j][m] = val
+        except IndexError:
+            raise ValueError("JPEG: truncated (entropy-coded data ends early)") from None
+        if 32 * wi - nb > 8 * len(seg):
+            raise ValueError("JPEG: truncated (entropy-coded data ends early)")
+    first_rows = set(range(0, height, per_seg // width))
+    for j, ci in enumerate(scan):
+        d, out = diffs[j], [0] * n
+        for y in range(height):
+            row = y * width
+            if y in first_rows:             # undifference_first_row: predictor 1
+                ra = (d[row] + (1 << (7 - pt))) & 0xFFFF
+                out[row] = ra
+                for x in range(1, width):
+                    ra = (d[row + x] + ra) & 0xFFFF
+                    out[row + x] = ra
+                continue
+            up = row - width
+            rb = out[up]
+            ra = (d[row] + rb) & 0xFFFF
+            out[row] = ra
+            for x in range(1, width):
+                rc, rb = rb, out[up + x]
+                if psv == 1:
+                    pred = ra
+                elif psv == 2:
+                    pred = rb
+                elif psv == 3:
+                    pred = rc
+                elif psv == 4:
+                    pred = ra + rb - rc
+                elif psv == 5:
+                    pred = ra + ((rb - rc) >> 1)
+                elif psv == 6:
+                    pred = rb + ((ra - rc) >> 1)
+                else:
+                    pred = (ra + rb) >> 1
+                ra = (d[row + x] + pred) & 0xFFFF
+                out[row + x] = ra
+        plane = (np.asarray(out, np.int64) << pt) & 0xFF
+        comps[ci].samples = plane.reshape(height, width).astype(np.int32)
+
+
 def _scan_order(comps: List[_Component], scan: List[int], hmax: int, vmax: int,
                 width: int, height: int) -> Tuple[List[Tuple[int, int]], int]:
     """(component, block offset) in coding order, and blocks an MCU. One
@@ -431,7 +773,7 @@ def _upsample(p: np.ndarray, c: _Component, hmax: int, vmax: int, width: int,
     return x[:height, :width]
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     """jdcolor.c ycc_rgb_convert with its tables (SCALEBITS 16)."""
     cb = cb.astype(np.int64) - 128
     cr = cr.astype(np.int64) - 128
@@ -446,14 +788,35 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB."""
-    data = bytes(data)
+    return _reconstruct(*_read(bytes(data)))
+
+
+def jpeg_planes(data: bytes, tables: bytes = b"", limit=None) -> List[np.ndarray]:
+    """A JPEG stream's components, each upsampled to the full frame (int32,
+    (H, W)), with no colour conversion: what libjpeg gives for an unknown
+    colour space (libtiff's JPEG codec). `tables` is a tables-only stream
+    (TIFF's JPEGTables) read before `data`, which may then omit its
+    quantisation and Huffman tables; a frame wider or taller than `limit`
+    (w, h) is refused before anything is allocated for it."""
+    comps, frame, _, _ = _read(bytes(data), bytes(tables), limit)
+    return _planes(comps, frame)
+
+
+def _read(data: bytes, tables: bytes = b"", limit=None):
+    """Parse and entropy-decode a JPEG stream (after a tables-only stream,
+    if given): (components, frame, JFIF seen, Adobe transform)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("JPEG: no SOI marker")
     qtables: Dict[int, List[int]] = {}
     dc_tabs: Dict[int, List[int]] = {}
     ac_tabs: Dict[int, List[int]] = {}
+    if tables:
+        if tables[:2] != b"\xff\xd8":
+            raise ValueError("JPEG: tables without an SOI marker")
+        _tables_only(tables, qtables, dc_tabs, ac_tabs)
     comps: List[_Component] = []
-    frame = None           # (width, height, progressive)
+    frame = None           # (width, height, progressive, arithmetic, lossless)
+    cond: Dict[int, int] = {}      # DAC: table index -> conditioning value
     restart = 0
     jfif, adobe = False, None
     pos = 2
@@ -469,7 +832,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if marker in (0x01,) or 0xD0 <= marker <= 0xD8:
             continue                                   # TEM, stray RSTn/SOI: no body
         pos, body = _segment(data, pos)
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in _SOF:
             if frame is not None:
                 raise ValueError("JPEG: corrupt data (two frames)")
             if len(body) < 6:
@@ -477,7 +840,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             precision, height, width, nc = body[0], (body[1] << 8) | body[2], \
                 (body[3] << 8) | body[4], body[5]
             if precision != 8:
-                raise ValueError(f"JPEG: {precision}-bit precision is not decoded by the port")
+                raise ValueError(f"JPEG: {precision}-bit precision is not decoded by the port"
+                                 + (" (PIL's libjpeg-turbo, built for 8 bits, refuses it "
+                                    "too)" if precision == 12 else ""))
             if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG: {nc}-component files are not decoded by the port")
             if height == 0:
@@ -486,6 +851,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if width == 0 or len(body) < 6 + 3 * nc:
                 raise ValueError("JPEG: corrupt frame header")
             check_size("JPEG", width, height)
+            if limit and (width > limit[0] or height > limit[1]):
+                raise ValueError(f"TIFF: a JPEG strip or tile of {width}x{height}, past its "
+                                 f"{limit[0]}x{limit[1]}, is refused by libtiff too")
             for i in range(nc):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 h, v = hv >> 4, hv & 15
@@ -503,29 +871,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c.bw = -(-width // (8 * hmax)) * c.h
                 c.bh = -(-height // (8 * vmax)) * c.v
                 c.coefs = array("i", [0]) * (64 * c.bw * c.bh)
-            frame = (width, height, marker == 0xC2)
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                if i + 17 > len(body):
-                    raise ValueError("JPEG: corrupt Huffman table")
-                tc_th, counts = body[i], body[i + 1:i + 17]
-                n = sum(counts)
-                symbols = body[i + 17:i + 17 + n]
-                if len(symbols) != n or (tc_th & 15) > 3 or tc_th >> 4 > 1:
-                    raise ValueError("JPEG: corrupt Huffman table")
-                (ac_tabs if tc_th >> 4 else dc_tabs)[tc_th & 15] = _huffman_lut(counts, symbols)
-                i += 17 + n
-        elif marker == 0xDB:
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                size = 128 if pq else 64
-                if pq > 1 or tq > 3 or i + 1 + size > len(body):
-                    raise ValueError("JPEG: corrupt quantisation table")
-                raw = np.frombuffer(body, ">u2" if pq else np.uint8, 64, i + 1)
-                qtables[tq] = raw.astype(np.int64).tolist()
-                i += 1 + size
+            frame = (width, height) + _SOF[marker]
+            if frame[4] and any((c.h, c.v) != (1, 1) for c in comps):
+                raise ValueError("JPEG: lossless JPEG with subsampled components is not "
+                                 "decoded by the port")
+        elif marker in (0xC4, 0xDB):
+            _table(marker, body, qtables, dc_tabs, ac_tabs)
+        elif marker == 0xCC:                           # DAC: arithmetic conditioning
+            if len(body) % 2:
+                raise ValueError("JPEG: corrupt DAC segment")
+            for i in range(0, len(body), 2):
+                index, val = body[i], body[i + 1]
+                if index >= 32 or index < 16 and (val & 15) > (val >> 4):
+                    raise ValueError("JPEG: corrupt DAC segment")
+                cond[index] = val
         elif marker == 0xDD:
             if len(body) < 2:
                 raise ValueError("JPEG: corrupt restart interval")
@@ -538,21 +897,66 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: corrupt data (scan before frame)")
-            pos = _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart)
+            pos = _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart, cond)
     if frame is None:
         raise ValueError("JPEG: no frame")
-    return _reconstruct(comps, frame, jfif, adobe)
+    return comps, frame, jfif, adobe
 
 
-def _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart) -> int:
+def _table(marker, body, qtables, dc_tabs, ac_tabs) -> None:
+    """A DHT (0xC4) or DQT (0xDB) segment's tables into the dicts."""
+    i = 0
+    if marker == 0xC4:
+        while i < len(body):
+            if i + 17 > len(body):
+                raise ValueError("JPEG: corrupt Huffman table")
+            tc_th, counts = body[i], body[i + 1:i + 17]
+            n = sum(counts)
+            symbols = body[i + 17:i + 17 + n]
+            if len(symbols) != n or (tc_th & 15) > 3 or tc_th >> 4 > 1:
+                raise ValueError("JPEG: corrupt Huffman table")
+            (ac_tabs if tc_th >> 4 else dc_tabs)[tc_th & 15] = _huffman_lut(counts, symbols)
+            i += 17 + n
+        return
+    while i < len(body):
+        pq, tq = body[i] >> 4, body[i] & 15
+        size = 128 if pq else 64
+        if pq > 1 or tq > 3 or i + 1 + size > len(body):
+            raise ValueError("JPEG: corrupt quantisation table")
+        raw = np.frombuffer(body, ">u2" if pq else np.uint8, 64, i + 1)
+        qtables[tq] = raw.astype(np.int64).tolist()
+        i += 1 + size
+
+
+def _tables_only(data, qtables, dc_tabs, ac_tabs) -> None:
+    """A tables-only stream (SOI, DQT and DHT segments, EOI)."""
+    pos = 2
+    while True:
+        m = _MARKER.search(data, pos)
+        if m is None:
+            raise ValueError("JPEG: truncated tables (no EOI marker)")
+        marker, pos = m.group(1)[0], m.end()
+        if marker == 0xD9:
+            return
+        if 0xD0 <= marker <= 0xD8 or marker == 0x01:
+            continue
+        pos, body = _segment(data, pos)
+        if marker in (0xC4, 0xDB):
+            _table(marker, body, qtables, dc_tabs, ac_tabs)
+        elif 0xC0 <= marker <= 0xCF or marker == 0xDA:
+            raise ValueError("JPEG: a frame or scan in a tables-only stream")
+
+
+def _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart, cond) -> int:
     """One scan: its header, then its entropy-coded data. Returns the
     position of the marker after it."""
-    width, height, progressive = frame
+    width, height, progressive, arith, lossless = frame
     ns = body[0] if body else 0
     if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
         raise ValueError("JPEG: corrupt scan header")
     ids = {c.cid: i for i, c in enumerate(comps)}
     scan, dcl, acl = [], [None] * len(comps), [None] * len(comps)
+    dct, act = [-1] * len(comps), [-1] * len(comps)
     ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
     for i in range(ns):
@@ -563,11 +967,19 @@ def _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart) -> i
         scan.append(ci)
         c = comps[ci]
         if c.quant is None:
-            if c.tq not in qtables:
+            if lossless:
+                c.quant = [1] * 64
+            elif c.tq not in qtables:
                 raise ValueError("JPEG: corrupt data (quantisation table missing)")
-            c.quant = qtables[c.tq]
-        need_dc = not progressive or (ss == 0 and ah == 0)
-        need_ac = not progressive or ss > 0
+            else:
+                c.quant = qtables[c.tq]
+        need_dc = lossless or not progressive or (ss == 0 and ah == 0)
+        need_ac = not lossless and (not progressive or ss > 0)
+        if (t >> 4) > 3 or (t & 15) > 3:
+            raise ValueError("JPEG: corrupt scan header (table index)")
+        dct[ci], act[ci] = t >> 4, t & 15
+        if arith:
+            continue
         if need_dc:
             if (t >> 4) not in dc_tabs:
                 raise ValueError("JPEG: corrupt data (Huffman table missing)")
@@ -579,37 +991,60 @@ def _sos(data, pos, body, comps, frame, qtables, dc_tabs, ac_tabs, restart) -> i
     if progressive:
         if ss == 0 and se != 0 or ss > se or se > 63 or (ss > 0 and ns != 1) or al > 13:
             raise ValueError("JPEG: corrupt progressive scan parameters")
+    segments, end = _scan_segments(data, pos)
+    if lossless:
+        if not 1 <= ss <= 7 or al > 7:
+            raise ValueError("JPEG: corrupt lossless scan parameters")
+        _decode_lossless(segments, comps, scan, dcl, restart, ss, al, width, height)
+        return end
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     order, per_mcu = _scan_order(comps, scan, hmax, vmax, width, height)
-    segments, end = _scan_segments(data, pos)
-    _decode_scan(segments, order, per_mcu, restart, [c.coefs for c in comps], dcl, acl,
-                 ss, se, ah, al, progressive)
+    if arith:
+        _decode_scan_arith(segments, order, per_mcu, restart, [c.coefs for c in comps],
+                           dct, act, cond, ss, se, ah, al, progressive)
+    else:
+        _decode_scan(segments, order, per_mcu, restart, [c.coefs for c in comps], dcl, acl,
+                     ss, se, ah, al, progressive)
     return end
+
+
+def _planes(comps: List[_Component], frame) -> List[np.ndarray]:
+    width, height = frame[:2]
+    if any(c.quant is None for c in comps):
+        raise ValueError("JPEG: truncated (a component has no scan)")
+    if frame[4]:
+        return [c.samples for c in comps]
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    return [_upsample(_plane(c), c, hmax, vmax, width, height) for c in comps]
 
 
 def _reconstruct(comps: List[_Component], frame, jfif: bool, adobe: Optional[int]
                  ) -> np.ndarray:
-    width, height, _ = frame
-    if any(c.quant is None for c in comps):
-        raise ValueError("JPEG: truncated (a component has no scan)")
-    hmax = max(c.h for c in comps)
-    vmax = max(c.v for c in comps)
-    planes = [_upsample(_plane(c), c, hmax, vmax, width, height) for c in comps]
+    planes = _planes(comps, frame)
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, -1)
     if len(planes) == 4:
+        if frame[4] and adobe:
+            raise ValueError("JPEG: a lossless YCCK file is refused by PIL too (libjpeg-turbo "
+                             "converts no colour in lossless mode)")
         return _cmyk_to_rgb(planes, adobe)
     # jdapimin.c default_decompress_parms: JFIF, then Adobe, then component ids
+    # ('R', 'G', 'B'), and libjpeg-turbo 3 takes lossless files as RGB otherwise
     if jfif:
         rgb = False
     elif adobe is not None:
         rgb = adobe == 0
     else:
-        rgb = [c.cid for c in comps] == [82, 71, 66]
+        rgb = [c.cid for c in comps] == [82, 71, 66] or frame[4]
     if rgb:
         return np.stack(planes, -1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+    if frame[4]:
+        raise ValueError("JPEG: a lossless file of YCbCr samples (a JFIF or Adobe segment) is "
+                         "refused by PIL too (libjpeg-turbo converts no colour in lossless "
+                         "mode)")
+    return ycc_to_rgb(*planes)
 
 
 def _cmyk_to_rgb(planes: List[np.ndarray], adobe: Optional[int]) -> np.ndarray:

@@ -1,43 +1,66 @@
-"""Baseline TIFF decoding in numpy and the standard library: what the JAX
-package gets from PIL's `Image.open(...).convert("RGB")` (TiffImagePlugin,
-with libtiff for every compressed file), pixel for pixel.
+"""TIFF decoding in numpy and the standard library: what the JAX package gets
+from PIL's `Image.open(...).convert("RGB")` (TiffImagePlugin, with libtiff
+for every compressed file), pixel for pixel.
 
     rgb = decode_tiff(data)     # (H, W, 3) uint8
 
 Read: the first IFD only, as PIL opens it; byte order II and MM, classic
 TIFF and BigTIFF; strips and tiles; planar configuration 1 (chunky) and 2
 (one plane a sample); compression none (1), PackBits (32773), LZW (5, the
-early-change codes every writer since TIFF 6.0 uses) and Deflate (8,
-32946); the horizontal predictor (2) at 8 and 16 bits, with LZW and Deflate
-(libtiff reads the tag for no other code); FillOrder 2 (bits reversed in
-each byte, undone before decompression) where PIL reads it: uncompressed
-and PackBits, not at every depth (`decode_tiff` refuses the rest).
+early-change codes every writer since TIFF 6.0 uses), Deflate (8, 32946),
+LZMA (34925, Python's lzma module; refused by name where it is missing),
+Zstd (50000, data/zstd.py), JPEG (7, each strip or tile a JPEG stream
+after the JPEGTables tag's tables, data/jpeg.py) and the CCITT fax codes:
+Modified Huffman (2), T.4 one- and two-dimensional (3, T4Options) and T.6
+(4) (data/ccitt.py); the horizontal predictor (2) at 8, 16 and 32 bits and
+the floating-point predictor (3) with LZW, Deflate, LZMA and Zstd (libtiff
+reads the tag for no other code); FillOrder 2 (bits reversed in each byte,
+undone before decompression) where PIL reads it.
 
 Photometric interpretations, as PIL's OPEN_INFO maps them and `convert`
 then turns them to RGB:
 
   - min-is-white (0) and min-is-black (1) at 1, 2, 4 and 8 bits, min-is-white
     inverted (PIL's "1;I", "L;2I", "L;4I", "L;I"), 2 and 4 bits scaled by 85
-    and 17; 16 bits (PIL's I;16 and I;16B, min-is-white little-endian only,
-    and not inverted, as PIL reads it), clipped at 255; grey + alpha (LA);
+    and 17; 12 bits (PIL's I;12, little-endian min-is-black) and 16 bits
+    (I;16 and I;16B, min-is-white little-endian only, and not inverted, as
+    PIL reads it), clipped at 255; grey + alpha (LA);
+  - sample formats: 32-bit float (F; clipped to 0..255, then truncated, NaN
+    0; min-is-white not inverted), signed 16 and 32 bits and unsigned 32
+    bits (little-endian only) as PIL's I, clipped; signed 8 bits read as
+    unsigned; big-endian 32-bit and signed 16-bit samples through libtiff
+    byte-swapped, as PIL unpacks libtiff's host-order samples;
   - RGB at 8 and 16 bits (16: the high byte), with extra samples dropped:
     unassociated or unspecified alpha as stored, associated alpha
     (ExtraSamples 1, PIL's "RGBa") divided out first, v * 255 // a, zero
     where a is zero;
   - palette (3) at 1, 2, 4 and 8 bits, the ColorMap's 16-bit entries // 256;
-  - separated CMYK (5) at 8 bits, through PIL's cmyk2rgb.
+  - separated CMYK (5) at 8 and 16 bits (16: the high byte), through PIL's
+    cmyk2rgb;
+  - YCbCr (6): JPEG-compressed, converted by libjpeg (PIL sets
+    JPEGCOLORMODE_RGB: fancy upsampling, jdcolor's tables); otherwise
+    through libtiff's RGBA interface, which PIL uses for it: subsampling
+    1, 2 or 4 across by 1, 2 or 4 down (as libtiff lists them), each block's
+    chroma replicated, libtiff's fixed-point tables from YCbCrCoefficients
+    and ReferenceBlackWhite, and its short read of a strip whose block row
+    does not divide by the vertical subsampling;
+  - CIELab (8), through PIL's LAB -> RGB, which is LittleCMS's
+    (lab_to_rgb).
 
 The Orientation tag is applied (TiffImagePlugin's load_end calls
 ImageOps.exif_transpose). Refused with a ValueError that names the
-variant: JPEG-in-TIFF (6, 7), the CCITT codes (2, 3, 4), the other codes
-PIL hands to libtiff (ThunderScan, SGILog, LZMA, Zstd, WebP), YCbCr and
-CIELab photometric, 12-bit, 16-bit CMYK, signed and float samples; and any
-layout PIL refuses too ("unknown pixel mode"). A file cut short or corrupt
-raises ValueError.
+variant: old-style JPEG-in-TIFF (6), ThunderScan, SGILog and raw 16-bit
+words (which PIL's libtiff reads), WebP (which it does not), CCITT
+uncompressed mode, uncompressed YCbCr and the YCbCr layouts libtiff's RGBA
+interface has no case for (PIL refuses them too), JPEG-in-TIFF of other
+than 8-bit chunky grey, RGB, YCbCr, CMYK or CIELab, a Zstd frame that needs
+a dictionary; and any layout PIL refuses ("unknown pixel mode", saying so).
+A file cut short or corrupt raises ValueError.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from typing import Dict, List, Tuple
@@ -49,20 +72,22 @@ from shmgan_tpu_torch.data.codecs import check_size
 TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 
 _COMPRESSION_REFUSED = {
-    2: "CCITT modified Huffman (compression 2)", 3: "CCITT Group 3 fax (compression 3)",
-    4: "CCITT Group 4 fax (compression 4)", 6: "old-style JPEG-in-TIFF (compression 6)",
-    7: "JPEG-in-TIFF (compression 7)", 32771: "raw 16-bit words (compression 32771)",
+    6: "old-style JPEG-in-TIFF (compression 6)",
+    32771: "raw 16-bit words (compression 32771)",
     32809: "ThunderScan (compression 32809)", 34676: "SGILog (compression 34676)",
-    34677: "SGILog24 (compression 34677)", 34925: "LZMA (compression 34925)",
-    50000: "Zstd (compression 50000)", 50001: "WebP (compression 50001)",
+    34677: "SGILog24 (compression 34677)", 50001: "WebP (compression 50001)",
 }
-_PHOTOMETRIC_REFUSED = {6: "YCbCr photometric", 8: "CIELab photometric",
-                        4: "transparency-mask photometric"}
+_JPEG, _LZMA, _ZSTD, _FAX = 7, 34925, 50000, (2, 3, 4)
+# the codes whose strips libtiff bit-reverses for FillOrder 2 (the fax codes
+# read their bits in fill order themselves, to the same effect)
+_BITREV_CODECS = (1, 32773, 5, 8, 32946, _LZMA, _ZSTD) + _FAX
 # tag -> name of the tags the decoder reads
 _WIDTH, _LENGTH, _BPS, _COMPRESSION, _PHOTO, _FILL = 256, 257, 258, 259, 262, 266
 _STRIP_OFFSETS, _ORIENTATION, _SPP, _ROWS, _STRIP_COUNTS = 273, 274, 277, 278, 279
 _PLANAR, _PREDICTOR, _COLORMAP, _TILE_W, _TILE_H = 284, 317, 320, 322, 323
 _TILE_OFFSETS, _TILE_COUNTS, _EXTRA, _FORMAT = 324, 325, 338, 339
+_JPEG_TABLES, _YCC_COEFFS, _YCC_SUB, _REF_BW = 347, 529, 530, 532
+_T4_OPTIONS = 292
 # TIFF field type -> (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
@@ -103,7 +128,12 @@ def _ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
             (value_at,) = struct.unpack_from(bo + count_fmt, data, value_at)
         if value_at + nbytes > len(data):
             raise ValueError(f"TIFF: tag {tag} points past the end of the file")
-        if kind in (2, 5, 10, 11, 12):      # text, rationals, floats: not read here
+        if kind in (5, 10):                 # rationals, as libtiff reads them: float
+            pairs = struct.unpack_from(bo + code * count, data, value_at)
+            tags[tag] = tuple(float(np.float32(a / b)) if b else 0.0
+                              for a, b in zip(pairs[::2], pairs[1::2]))
+            continue
+        if kind in (2, 11, 12):             # text, floats: not read here
             tags[tag] = ()
             continue
         tags[tag] = struct.unpack_from(bo + code * count, data, value_at) if count else ()
@@ -192,20 +222,24 @@ def _mode(bo: str, photo: int, fmt: tuple, fill: int, bps: tuple, extra: tuple) 
     n = len(bps)
     if fill not in (1, 2):
         raise ValueError(f"TIFF: FillOrder {fill} is refused by PIL too")
-    if fmt == (3,):
-        raise ValueError("TIFF: float samples are not decoded by the port")
-    if fmt == (2,):
-        raise ValueError("TIFF: signed samples are not decoded by the port")
+    if fmt == (3,) and photo in (0, 1) and bps == (32,) and extra == () and fill == 1:
+        return "float"                              # PIL's F;32F, F;32BF
+    if fmt == (2,) and photo == 1 and extra == () and fill == 1:
+        if bps == (8,):
+            return "grey"                           # PIL reads it as unsigned L
+        if bps in ((16,), (32,)):
+            return "int"                            # I;16S, I;32S and their MM forms
     if fmt != (1,):
-        raise ValueError(f"TIFF: SampleFormat {fmt} is refused by PIL too")
+        raise ValueError(f"TIFF: SampleFormat {fmt} at {bps} bits, photometric {photo}, is "
+                         "refused by PIL too (unknown pixel mode)")
     if photo in (0, 1) and n == 1 and extra == ():
         b = bps[0]
-        if b == 12:
-            raise ValueError("TIFF: 12-bit grey is not decoded by the port")
         if b in (1, 2, 4, 8):
             return "grey"
         if b == 16 and (bo == "<" and (photo == 1 or fill == 1) or photo == 1 and fill == 1):
             return "grey16"
+        if bo == "<" and photo == 1 and fill == 1 and b in (12, 32):
+            return "grey12" if b == 12 else "int"  # I;12 and I;32N (read as signed)
     if photo == 1 and bps == (8, 8) and extra == (2,) and fill == 1:
         return "grey_alpha"
     if photo == 2 and fill in (1, 2) and bps == (8, 8, 8) and extra == ():
@@ -225,14 +259,17 @@ def _mode(bo: str, photo: int, fmt: tuple, fill: int, bps: tuple, extra: tuple) 
         return "palette"
     if photo == 3 and fill == 1 and bps == (8, 8) and extra in ((0,), (2,)):
         return "palette"
-    if photo == 5 and fill == 1:
-        if bps == (8,) * 4 and extra == () or bps == (8,) * 5 and extra == (0,) or (
-                bps == (8,) * 6 and extra == (0, 0)):
-            return "cmyk"
-        if bps == (16,) * 4 and extra == ():
-            raise ValueError("TIFF: 16-bit CMYK is not decoded by the port")
-    if photo in _PHOTOMETRIC_REFUSED:
-        raise ValueError(f"TIFF: {_PHOTOMETRIC_REFUSED[photo]} is not decoded by the port")
+    if photo == 5 and fill == 1 and (
+            bps == (8,) * 4 and extra == () or bps == (8,) * 5 and extra == (0,)
+            or bps == (8,) * 6 and extra == (0, 0) or bps == (16,) * 4 and extra == ()):
+        return "cmyk"
+    if photo == 6 and fill == 1 and extra == () and bps in ((8,), (8, 8, 8)):
+        return "grey" if n == 1 else "ycbcr"
+    if photo == 8 and fill == 1 and extra == () and bps == (8, 8, 8):
+        return "lab"
+    if photo == 4:
+        raise ValueError("TIFF: transparency-mask photometric (4) is refused by PIL too "
+                         "(unknown pixel mode)")
     raise ValueError(f"TIFF: the layout photometric {photo}, {bps} bits, extra samples "
                      f"{extra}, FillOrder {fill} is refused by PIL too (unknown pixel mode)")
 
@@ -243,17 +280,29 @@ def _unpredict(rows: np.ndarray, spp: int, bits: int, bo: str) -> np.ndarray:
     h = rows.shape[0]
     if bits == 8:
         return np.cumsum(rows.reshape(h, -1, spp), axis=1, dtype=np.uint8).reshape(h, -1)
-    s = rows.copy().view(bo + "u2").reshape(h, -1, spp)
-    s = np.cumsum(s, axis=1, dtype=np.uint16)
-    return s.astype(bo + "u2").view(np.uint8).reshape(h, -1)
+    u = {16: np.uint16, 32: np.uint32}[bits]
+    s = rows.copy().view(f"{bo}u{bits // 8}").reshape(h, -1, spp)
+    s = np.cumsum(s, axis=1, dtype=u)
+    return s.astype(f"{bo}u{bits // 8}").view(np.uint8).reshape(h, -1)
 
 
-def _samples(rows: np.ndarray, w: int, spp: int, bits: int, bo: str) -> np.ndarray:
+def _samples(rows: np.ndarray, w: int, spp: int, bits: int, bo: str, mode: str) -> np.ndarray:
     """(h, row bytes) uint8 -> (h, w, spp) samples: uint8 at up to 8 bits
-    (packed depths unpacked, most significant first), uint16 at 16."""
+    (packed depths unpacked, most significant first), uint16 at 12 and 16
+    (int16 for signed samples), int32 or float32 at 32."""
     h = rows.shape[0]
-    if bits == 16:
-        return rows[:, :2 * w * spp].copy().view(bo + "u2").astype(np.uint16).reshape(h, w, spp)
+    if bits in (16, 32):
+        kind = {"float": "f", "int": "i"}.get(mode, "u")
+        native = _DTYPES.get((mode, bits), np.uint16)
+        return rows[:, :bits // 8 * w * spp].copy().view(f"{bo}{kind}{bits // 8}").astype(
+            native).reshape(h, w, spp)
+    if bits == 12:                      # PIL's I;12: two samples in three bytes
+        n = w * spp
+        b = rows[:, :3 * (-(-n // 2))].astype(np.uint16)
+        b = np.pad(b, ((0, 0), (0, (-b.shape[1]) % 3))).reshape(h, -1, 3)
+        pair = np.stack([(b[..., 0] << 4) | (b[..., 1] >> 4),
+                         ((b[..., 1] & 15) << 8) | b[..., 2]], -1).reshape(h, -1)
+        return pair[:, :n].reshape(h, w, spp)
     if bits < 8:
         shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
         rows = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)
@@ -278,7 +327,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
     compression = _one(tags, _COMPRESSION, 1)
     if compression in _COMPRESSION_REFUSED:
         raise ValueError(f"TIFF: {_COMPRESSION_REFUSED[compression]} is not decoded by the port")
-    if compression not in _DECOMPRESS:
+    if compression not in _DECOMPRESS and compression not in (_JPEG, _LZMA, _ZSTD) + _FAX:
         raise ValueError(f"TIFF: compression {compression} is refused by PIL too")
     photo = _one(tags, _PHOTO, 0)
     planar = _one(tags, _PLANAR, 1)
@@ -305,7 +354,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
             compression == 1 or extra[0] == 0 and _TILE_OFFSETS not in tags):
         raise ValueError(f"TIFF: {'uncompressed' if compression == 1 else 'striped'} planar "
                          f"samples with extra sample {extra[0]} are refused by PIL too")
-    if fill == 2 and (compression not in (1, 32773) or compression == 32773 and bits == 1
+    if fill == 2 and compression not in _BITREV_CODECS:
+        raise ValueError(f"TIFF: FillOrder 2 with compression {compression} is not decoded by "
+                         "the port")
+    if fill == 2 and (compression == 32773 and bits == 1
                       or compression == 1 and (mode == "palette" and bits < 8
                                                or mode == "grey" and photo == 0 and bits == 8)):
         raise ValueError(f"TIFF: FillOrder 2 with compression {compression} at {bits} bits "
@@ -313,15 +365,46 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if planar == 2 and bits == 16 and compression == 1:
         raise ValueError("TIFF: uncompressed 16-bit planar samples (which PIL unpacks as 8-bit "
                          "planes) are not decoded by the port")
-    # libtiff reads the Predictor tag for LZW and Deflate only
-    predictor = _one(tags, _PREDICTOR, 1) if compression in (5, 8, 32946) else 1
-    if predictor == 3:
-        raise ValueError("TIFF: the floating-point predictor (3) is not decoded by the port")
-    if predictor not in (1, 2):
+    if planar == 2 and bits in (12, 32) and compression == 1:
+        raise ValueError(f"TIFF: uncompressed {bits}-bit planar samples are not decoded by "
+                         "the port")
+    sub = (1, 1)
+    if mode == "ycbcr":
+        sub = tuple(tags.get(_YCC_SUB, (2, 2)))[:2]
+        if compression == 1:
+            raise ValueError("TIFF: uncompressed YCbCr is refused by PIL too (it unpacks "
+                             "4 bytes a pixel: 'image file is truncated')")
+        if planar == 2 and (compression == _JPEG or sub != (1, 1)):
+            raise ValueError("TIFF: planar YCbCr other than uncompressed-layout 1x1 is not "
+                             "decoded by the port")
+        if compression != _JPEG and sub not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1),
+                                                 (4, 2), (4, 4)):
+            raise ValueError(f"TIFF: YCbCr subsampling {sub} is refused by PIL too "
+                             "(libtiff's RGBA interface has no such case)")
+    elif mode == "grey" and photo == 6 and compression not in (1, _JPEG):
+        raise ValueError("TIFF: one-sample YCbCr through libtiff is refused by PIL too")
+    if compression == _JPEG:
+        if bits != 8 or mode not in ("grey", "rgb", "cmyk", "ycbcr", "lab") or planar != 1 \
+                or fmt != (1,) or extra != ():
+            raise ValueError(f"TIFF: JPEG-in-TIFF at {bits} bits, photometric {photo}, "
+                             f"planar {planar}, is not decoded by the port")
+    if compression in _FAX and (bps != (1,) or photo not in (0, 1) or planar != 1):
+        raise ValueError(f"TIFF: CCITT data of {bps} bits, photometric {photo}, is refused by "
+                         "libtiff too (Group 3/4 codes are 1 bit a pixel)")
+    # libtiff reads the Predictor tag for LZW, Deflate, LZMA and Zstd only
+    predictor = _one(tags, _PREDICTOR, 1) if compression in (5, 8, 32946, _LZMA, _ZSTD) else 1
+    if predictor not in (1, 2, 3):
         raise ValueError(f"TIFF: predictor {predictor} is refused by libtiff too")
-    if predictor == 2 and bits not in (8, 16):
+    if predictor == 2 and bits not in (8, 16, 32):
         raise ValueError(f"TIFF: the horizontal predictor at {bits} bits is refused by "
                          "libtiff too")
+    if predictor == 3 and mode != "float":
+        raise ValueError("TIFF: the floating-point predictor (3) on integer samples is "
+                         "refused by libtiff too")
+    if predictor == 2 and mode == "ycbcr" and sub != (1, 1):
+        raise ValueError("TIFF: the horizontal predictor on subsampled YCbCr is not decoded "
+                         "by the port")
+    tables = bytes(tags.get(_JPEG_TABLES, ())) if compression == _JPEG else b""
 
     if _TILE_OFFSETS in tags:
         tw, th = _one(tags, _TILE_W, 0), _one(tags, _TILE_H, 0)
@@ -343,32 +426,271 @@ def decode_tiff(data: bytes) -> np.ndarray:
         if compression != 1:
             raise ValueError("TIFF: compressed data without byte counts")
         counts = [len(data)] * len(offsets)
-    row_bytes = (tw * chunk_spp * bits + 7) // 8
-    out = np.zeros((planes, h, w, chunk_spp), np.uint16 if bits == 16 else np.uint8)
-    decompress = _DECOMPRESS[compression]
+    # the chunk decoder turns YCbCr to RGB (libjpeg, or libtiff's RGBA interface)
+    out_spp, out_mode = chunk_spp, mode
+    if mode == "ycbcr":
+        out_spp, out_mode = (3 if planar == 1 else 1), "rgb"
+    out = np.zeros((planes, h, w, out_spp), _DTYPES.get((mode, bits), np.uint8))
     for plane in range(planes):
         for i, (x0, y0) in enumerate(grid):
             k = plane * len(grid) + i
             rows_here = th if _TILE_OFFSETS in tags else min(th, h - y0)
-            need = rows_here * row_bytes
             src = data[offsets[k]:offsets[k] + counts[k]]
-            if fill == 2 and compression in (1, 32773):
-                src = src.translate(_BIT_REVERSE)
-            raw = decompress(src, need)
-            if len(raw) < need:
-                raise ValueError("TIFF: truncated strip or tile data")
-            rows = np.frombuffer(raw, np.uint8, count=need).reshape(rows_here, row_bytes)
-            if predictor == 2:
-                rows = _unpredict(rows, chunk_spp, bits, bo)
-            px = _samples(rows, tw, chunk_spp, bits, bo)
+            if compression == _JPEG:
+                px = _jpeg_chunk(src, tables, tw, rows_here, th, mode)
+            else:
+                px = _raw_chunk(src, compression, fill, tw, rows_here, chunk_spp, bits, bo,
+                                predictor, mode, sub, tags, _TILE_OFFSETS not in tags)
             ch, cw = min(th, h - y0), min(tw, w - x0)
             out[plane, y0:y0 + ch, x0:x0 + cw] = px[:ch, :cw]
     px = np.concatenate(list(out), axis=-1) if planes > 1 else out[0]
-    rgb = _to_rgb(px, mode, photo, bits, tags)
+    if mode == "ycbcr" and planar == 2:
+        px = _ycbcr_to_rgb(px[..., 0], px[..., 1], px[..., 2], tags)
+    if mode in ("float", "int") and bo == ">" and compression != 1:
+        # libtiff hands PIL the samples in the host's (little-endian) order,
+        # which PIL's F;32BF, I;32BS and I;16BS unpack as big-endian
+        px = px.byteswap()
+    rgb = _to_rgb(px, out_mode, photo, bits, tags)
     return _orient(rgb, _one(tags, _ORIENTATION, 1))
 
 
+# (mode, bits) -> the dtype of the decoded samples, where not uint8
+_DTYPES = {("grey16", 16): np.uint16, ("rgb", 16): np.uint16, ("rgb_premultiplied", 16): np.uint16,
+           ("cmyk", 16): np.uint16, ("grey12", 12): np.uint16, ("float", 32): np.float32,
+           ("int", 16): np.int16, ("int", 32): np.int32}
+
+
+def _raw_chunk(src, compression, fill, tw, rows, spp, bits, bo, predictor, mode, sub, tags,
+               strip):
+    """One strip or tile of a compression other than JPEG -> its samples
+    (rows, tw, spp); subsampled YCbCr -> RGB (rows, tw, 3)."""
+    if mode == "ycbcr" and spp == 3 and sub != (1, 1):
+        hs, vs = sub
+        bw, bh = -(-tw // hs), -(-rows // vs)
+        need = bw * bh * (hs * vs + 2)
+    else:
+        row_bytes = (tw * spp * bits + 7) // 8
+        need = rows * row_bytes
+    if fill == 2:                   # libtiff reverses the bits before decompressing
+        src = src.translate(_BIT_REVERSE)
+    if compression in _FAX:
+        from shmgan_tpu_torch.data.ccitt import decode_fax
+        return decode_fax(src, tw, rows, compression, _one(tags, _T4_OPTIONS, 0))[..., None]
+    if compression == _ZSTD:
+        from shmgan_tpu_torch.data.zstd import zstd_decompress
+        raw = zstd_decompress(src, need)
+    elif compression == _LZMA:
+        raw = _lzma(src, need)
+    else:
+        raw = _DECOMPRESS[compression](src, need)
+    if len(raw) < need:
+        raise ValueError("TIFF: truncated strip or tile data")
+    if mode == "ycbcr" and spp == 3 and sub != (1, 1):
+        if strip:
+            # libtiff's gtStripContig reads whole block rows of its scanline
+            # size, a block row's bytes // v: where that division has a
+            # remainder it reads short, and the rest of its (zeroed) buffer
+            # stands in for the last blocks' samples
+            read = bh * vs * (bw * (hs * vs + 2) // vs)
+            raw = raw[:read] + bytes(need - read)
+        blocks = np.frombuffer(raw, np.uint8, count=need).reshape(bh, bw, hs * vs + 2)
+        y = blocks[..., :hs * vs].reshape(bh, bw, vs, hs).transpose(0, 2, 1, 3)
+        y = y.reshape(bh * vs, bw * hs)
+        cb = np.repeat(np.repeat(blocks[..., -2], vs, 0), hs, 1)
+        cr = np.repeat(np.repeat(blocks[..., -1], vs, 0), hs, 1)
+        return _ycbcr_to_rgb(y, cb, cr, tags)[:rows, :tw]
+    rows_ = np.frombuffer(raw, np.uint8, count=need).reshape(rows, row_bytes)
+    if predictor == 2:
+        rows_ = _unpredict(rows_, spp, bits, bo)
+    elif predictor == 3:
+        rows_ = _unpredict_float(rows_, spp, bits, bo)
+    px = _samples(rows_, tw, spp, bits, bo, mode)
+    if mode == "ycbcr" and spp == 3:
+        return _ycbcr_to_rgb(px[..., 0], px[..., 1], px[..., 2], tags)
+    return px
+
+
+def _jpeg_chunk(src, tables, tw, rows, th, mode):
+    """One strip or tile of JPEG-in-TIFF -> (rows, tw, spp) samples, as
+    libtiff's JPEG codec has libjpeg give them: YCbCr converted to RGB
+    (PIL sets JPEGCOLORMODE_RGB), every other photometric as coded (an
+    unknown colour space). Both upsample as libjpeg does. libtiff refuses
+    a frame past the strip or tile (a last strip's may keep the full strip
+    height)."""
+    from shmgan_tpu_torch.data.jpeg import jpeg_planes, ycc_to_rgb
+
+    planes = jpeg_planes(src, tables, limit=(tw, th))
+    want = {"grey": 1, "rgb": 3, "ycbcr": 3, "lab": 3, "cmyk": 4}[mode]
+    if len(planes) != want:
+        raise ValueError(f"TIFF: a JPEG strip or tile of {len(planes)} components where "
+                         f"the photometric needs {want}")
+    ph, pw = planes[0].shape
+    if ph < rows or pw < tw:
+        raise ValueError(f"TIFF: a JPEG strip or tile of {pw}x{ph} where {tw}x{rows} is "
+                         "needed")
+    if mode == "ycbcr":
+        return ycc_to_rgb(*planes)[:rows, :tw]
+    return np.stack(planes, -1)[:rows, :tw].astype(np.uint8)
+
+
+def _lzma(src: bytes, need: int) -> bytes:
+    try:
+        import lzma
+    except ImportError:
+        raise ValueError("TIFF: LZMA (compression 34925) needs Python's lzma module, which "
+                         "this Python lacks") from None
+    try:
+        return lzma.LZMADecompressor().decompress(src, need)
+    except lzma.LZMAError as e:
+        raise ValueError(f"TIFF: corrupt LZMA data ({e})") from None
+
+
+
+def _unpredict_float(rows: np.ndarray, spp: int, bits: int, bo: str) -> np.ndarray:
+    """libtiff's floating-point predictor (3): each row's bytes summed
+    along the row (a stride of spp bytes), then regrouped from byte planes
+    (most significant first) into samples in the file's byte order."""
+    h = rows.shape[0]
+    nb = bits // 8
+    acc = np.cumsum(rows.reshape(h, -1, spp), axis=1, dtype=np.uint8).reshape(h, -1)
+    planes_ = acc.reshape(h, nb, -1)                       # byte planes, MSB first
+    be = planes_.transpose(0, 2, 1)                        # (h, samples, bytes) big-endian
+    if bo == "<":
+        be = be[..., ::-1]
+    return np.ascontiguousarray(be).reshape(h, -1)
+
+
+def _ycbcr_to_rgb(y, cb, cr, tags) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit and TIFFYCbCrtoRGB (tif_color.c), which
+    PIL reaches through TIFFReadRGBA*: tables in 16-bit fixed point from
+    the YCbCrCoefficients and ReferenceBlackWhite tags (their defaults
+    0.299, 0.587, 0.114 and 0, 255, 128, 255, 128, 255), in float32 as
+    libtiff computes them. The chroma of a subsampled block is replicated
+    (no interpolation), which the caller has done."""
+    f32 = np.float32
+    luma = [f32(v) for v in (tags.get(_YCC_COEFFS) or (0.299, 0.587, 0.114))[:3]]
+    ref = [f32(v) for v in (tags.get(_REF_BW) or (0, 255, 128, 255, 128, 255))[:6]]
+    if len(luma) < 3 or len(ref) < 6 or abs(luma[1]) < np.finfo(f32).eps or any(
+            np.isnan(luma)) or any(np.isnan(ref)):
+        raise ValueError("TIFF: invalid YCbCrCoefficients or ReferenceBlackWhite, refused by "
+                         "libtiff too")
+
+    def fix(x):                     # FIX(x): (int32_t)(x * 65536.0f + 0.5)
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    def clampf(x):
+        return min(max(x, f32(0)), f32(2))
+    f1 = f32(2) - f32(2) * luma[0]
+    f2 = luma[0] * f1 / luma[1]
+    f3 = f32(2) - f32(2) * luma[2]
+    f4 = luma[2] * f3 / luma[1]
+    d1, d2, d3, d4 = fix(clampf(f1)), -fix(clampf(f2)), fix(clampf(f3)), -fix(clampf(f4))
+    x = np.arange(-128, 128)
+
+    def code2v(c, rb, rw, cr):      # Code2V, then CLAMPw to +-4096 and (int32_t)
+        den = rw - rb if rw - rb != 0 else f32(1)
+        v = (c - int(rb)).astype(f32) * f32(cr) / f32(den)
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+    c_r = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    c_b = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    cr_r = (d1 * c_r + 32768) >> 16
+    cb_b = (d3 * c_b + 32768) >> 16
+    cr_g = d2 * c_r
+    cb_g = d4 * c_b + 32768
+    y_tab = code2v(x + 128, ref[0], ref[1], 255)
+    yy = y_tab[y.astype(np.int64)]
+    cb, cr = cb.astype(np.int64), cr.astype(np.int64)
+    r = yy + cr_r[cr]
+    g = yy + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = yy + cb_b[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def _lab_clut() -> np.ndarray:
+    """LittleCMS's 16-bit CLUT for PIL's LAB -> RGB transform (ImageCms,
+    a Lab v2 profile to its built-in sRGB, perceptual intent): the float
+    pipeline (Lab D50 -> XYZ -> the Bradford-adapted sRGB matrix -> the
+    sRGB curve's inverse), each stage's output rounded to float32 as
+    LittleCMS's stages round it, sampled on 33 nodes an axis
+    (_cmsQuantizeVal) and saturated to 16 bits. (33, 33, 33, 3) int64."""
+    f32, adj = np.float32, 1 + 32767 / 32768          # MAX_ENCODEABLE_XYZ
+    xy = np.array([[0.64, 0.33], [0.30, 0.60], [0.15, 0.06]])
+    w65 = np.array([0.3127 / 0.3290, 1.0, (1 - 0.3127 - 0.3290) / 0.3290])
+    prim = np.stack([xy[:, 0] / xy[:, 1], np.ones(3), (1 - xy.sum(1)) / xy[:, 1]])
+    rgb2xyz = prim * np.linalg.solve(prim, w65)[None]
+    brad = np.array([[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367],
+                     [0.0389, -0.0685, 1.0296]])
+    d50 = np.array([0.9642, 1.0, 0.8249])
+    adapt = np.linalg.inv(brad) @ np.diag((brad @ d50) / (brad @ w65)) @ brad
+    inv = np.linalg.inv(adapt @ rgb2xyz) * adj
+    q = np.floor(np.arange(33) * 65535 / 32 + 0.5)
+    ql, qa, qb = np.meshgrid(q, q, q, indexing="ij")
+    lab = [(x.astype(f32) / f32(65535)).astype(np.float64) for x in (ql, qa, qb)]
+    fy = (lab[0] * 100.0 + 16) / 116
+    f = [fy + (lab[1] * 255.0 - 128.0) / 500, fy, fy - (lab[2] * 255.0 - 128.0) / 200]
+    xyz = [(white * np.where(t <= 24 / 116, 108 / 841 * (t - 16 / 116), t ** 3) / adj
+            ).astype(f32).astype(np.float64) for white, t in zip(d50, f)]
+    lin = np.stack([(inv[i, 0] * xyz[0] + inv[i, 1] * xyz[1] + inv[i, 2] * xyz[2]).astype(f32)
+                    for i in range(3)], -1).astype(np.float64)
+    a, b, c = 1 / 1.055, 0.055 / 1.055, 1 / 12.92      # the sRGB curve (type 4), reversed
+    disc = (a * 0.04045 + b) ** 2.4
+    out = np.where(lin >= disc, (np.abs(lin) ** (1 / 2.4) - b) / a, lin / c).astype(f32)
+    return np.clip(np.floor(out.astype(np.float64) * 65535 + 0.5), 0, 65535).astype(np.int64)
+
+
+def lab_to_rgb(px: np.ndarray) -> np.ndarray:
+    """TIFF CIELab samples (L unsigned, a and b signed) -> RGB uint8, as
+    PIL's LAB -> RGB conversion gives them: PIL's "LAB" unpacker offsets a
+    and b by 128, and LittleCMS evaluates an 8-bit input on _lab_clut by
+    its PrelinEval8 (tetrahedral interpolation in 16.16 fixed point), then
+    takes 16 bits to 8 (FROM_16_TO_8)."""
+    table = _lab_clut()
+    i = np.arange(256) * 257 * 32
+    v = i + (i + 0x7FFF) // 0xFFFF                         # _cmsToFixedDomain
+    node, rest = v >> 16, v & 0xFFFF
+    p = px.astype(np.int64) ^ np.array([0, 128, 128])
+    x0, y0, z0 = node[p[..., 0]], node[p[..., 1]], node[p[..., 2]]
+    rx, ry, rz = rest[p[..., 0]], rest[p[..., 1]], rest[p[..., 2]]
+    x1, y1, z1 = x0 + (rx != 0), y0 + (ry != 0), z0 + (rz != 0)
+
+    def d(x, y, z):
+        return table[x, y, z]
+    c0 = d(x0, y0, z0)
+    cases = [  # PrelinEval8's six tetrahedra, in its order: (c1, c2, c3)
+        ((rx >= ry) & (ry >= rz), lambda: (d(x1, y0, z0) - c0, d(x1, y1, z0) - d(x1, y0, z0),
+                                           d(x1, y1, z1) - d(x1, y1, z0))),
+        ((rx >= rz) & (rz >= ry), lambda: (d(x1, y0, z0) - c0, d(x1, y1, z1) - d(x1, y0, z1),
+                                           d(x1, y0, z1) - d(x1, y0, z0))),
+        ((rz >= rx) & (rx >= ry), lambda: (d(x1, y0, z1) - d(x0, y0, z1),
+                                           d(x1, y1, z1) - d(x1, y0, z1), d(x0, y0, z1) - c0)),
+        ((ry >= rx) & (rx >= rz), lambda: (d(x1, y1, z0) - d(x0, y1, z0), d(x0, y1, z0) - c0,
+                                           d(x1, y1, z1) - d(x1, y1, z0))),
+        ((ry >= rz) & (rz >= rx), lambda: (d(x1, y1, z1) - d(x0, y1, z1), d(x0, y1, z0) - c0,
+                                           d(x0, y1, z1) - d(x0, y1, z0))),
+        ((rz >= ry) & (ry >= rx), lambda: (d(x1, y1, z1) - d(x0, y1, z1),
+                                           d(x0, y1, z1) - d(x0, y0, z1), d(x0, y0, z1) - c0)),
+    ]
+    c = [np.zeros_like(c0) for _ in range(3)]
+    done = np.zeros(rx.shape, bool)
+    for cond, terms in cases:
+        take = (cond & ~done)[..., None]
+        c = [np.where(take, t, old) for t, old in zip(terms(), c)]
+        done |= cond
+    r = c[0] * rx[..., None] + c[1] * ry[..., None] + c[2] * rz[..., None] + 0x8001
+    out16 = (c0 + ((r + (r >> 16)) >> 16)) & 0xFFFF
+    return ((out16 * 65281 + 8388608) >> 24).astype(np.uint8)
+
+
 def _to_rgb(px: np.ndarray, mode: str, photo: int, bits: int, tags) -> np.ndarray:
+    if mode == "float":             # PIL's F -> RGB: clipped, then truncated; NaN is 0
+        f = px[..., 0]
+        g = np.where(np.isnan(f), 0, np.clip(f, 0, 255)).astype(np.uint8)
+        return np.repeat(g[..., None], 3, -1)
+    if mode in ("int", "grey12"):   # PIL's I and I;16 -> RGB: clipped
+        return np.repeat(np.clip(px[..., :1], 0, 255).astype(np.uint8), 3, -1)
+    if mode == "lab":
+        return lab_to_rgb(px)
     if mode == "grey" or mode == "grey_alpha":
         g = px[..., 0]
         if bits < 8:

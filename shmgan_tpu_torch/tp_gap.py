@@ -1,11 +1,12 @@
 """Reads how far the bf16 train step on a 1 x 2 model mesh sits from the
 one-rank bf16 step, by chip_smoke.py's gap measure, and what moves it.
 
-    python3 shmgan_tpu_torch/tp_gap.py [--seeds 15 16 17 18] [--out FILE]
+    python3 shmgan_tpu_torch/tp_gap.py [--seeds 15 16 17 18] [--batches N] [--out FILE]
 
 On one card, at chip_smoke's model_parallel configuration (the JAX defaults:
 128 px, filter 64, batch 8, tp_min_channels 256, weights from seed 0), on
-STEP_GAP_BATCHES seeded batches of each seed (chip_smoke's `_tp_batches`;
+--batches seeded batches of each seed (default chip_smoke's
+STEP_GAP_BATCHES, as its model_parallel phase pools them; `_tp_batches`;
 seed 15 gives chip_smoke's own), the same train step with debug_grads runs
 as:
   one       one rank in bf16 through the kernels;
@@ -21,11 +22,12 @@ as:
   mesh      two gloo ranks on the card (chip_smoke.tp_rank's setting), as
             the code is ("mesh, none") and with each of FAULTS planted in
             memory in parallel/tp.py, every one touching bf16 tensors only.
-For each part the gap rule reads (G's gradients, D's gradients, the losses
-scaled by their f32 values) and each pair (a, b) it prints ||a - b|| /
-||one - f32||, per batch and pooled over each seed's batches as chip_smoke
-pools them, and over every batch: each run against one, against f32, and
-each mesh run against split. Prints one JSON line, also written to --out. Needs a CUDA card.
+For each pair (a, b) it prints every reading of chip_smoke's gap rule
+(gap_readings: G's and D's gradients, D's scale along f32, the losses each
+against its own bf16 error) of a against b, ||a - b|| / ||b - f32||, per
+batch and pooled over each seed's batches as chip_smoke pools them, and over
+every batch: each run against one, and each mesh run against split. Prints
+one JSON line, also written to --out. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -251,17 +253,15 @@ class _OneRank:
 
 
 def _reduce(cs, runs):
-    """The squared distances the summary needs, and each run's losses."""
-    vec = {name: cs._gap_vectors(m, runs["f32"]) for name, m in runs.items()}
-    pairs = [(a, "one") for a in vec if a not in ("one", "f32")]
-    pairs += [(a, "f32") for a in vec if a != "f32"]
-    pairs += [(a, "split") for a in vec if a.startswith("mesh, ")]
-    d2 = {f"{a} vs {b}": {part: float(np.sum((vec[a][part] - vec[b][part]) ** 2))
-                          for part in vec["f32"]}
-          for a, b in pairs if a in vec and b in vec}
+    """Each pair's chip_smoke._step_gap_stats (a against b, beside f32),
+    and each run's losses."""
+    pairs = [(a, "one") for a in runs if a not in ("one", "f32")]
+    pairs += [(a, "split") for a in runs if a.startswith("mesh, ")]
+    stats = {f"{a} vs {b}": cs._step_gap_stats(runs[a], runs[b], runs["f32"])
+             for a, b in pairs if a in runs and b in runs}
     keys = sorted(k for k in runs["f32"] if not k.startswith("_") and k != "target_label")
     losses = {name: {k: float(m[k]) for k in keys} for name, m in runs.items()}
-    return {"d2": d2, "losses": losses}
+    return {"stats": stats, "losses": losses}
 
 
 def rank(workdir):
@@ -290,7 +290,7 @@ def rank(workdir):
         step = make_train_step(cfg, debug_grads=True)
         one = _OneRank(cs) if r == 0 else None
         for seed in plan["seeds"]:
-            batches, _ = cs._tp_batches(cfg, cs.STEP_GAP_BATCHES, seed)
+            batches, _ = cs._tp_batches(cfg, plan["batches"], seed)
             for i, batch in enumerate(batches):
                 runs = one.runs(batch) if one else {}
                 for name in plan["faults"]:
@@ -311,27 +311,22 @@ def rank(workdir):
         shutdown_distributed()
 
 
-def _ratio(num, den):
-    return float(np.sqrt(num) / max(np.sqrt(den), 1e-300))
-
-
-def summarize(results):
+def summarize(cs, results):
     """{pair: {part: {"batches": [...], "seeds": {seed: pooled}, "all": x}}}
-    of ||a - b|| / ||one - f32||, from rank 0's results."""
-    yard = "one vs f32"
+    of chip_smoke.gap_readings of a against b (||a - b|| / ||b - f32||),
+    from rank 0's results."""
     out = {}
-    for pair in results[0]["d2"]:
+    for pair in results[0]["stats"]:
         out[pair] = {}
-        for part in results[0]["d2"][pair]:
-            row = {"batches": [_ratio(r["d2"][pair][part], r["d2"][yard][part])
-                               for r in results], "seeds": {}}
-            for seed in sorted({r["seed"] for r in results}):
-                mine = [r for r in results if r["seed"] == seed]
-                row["seeds"][seed] = _ratio(sum(r["d2"][pair][part] for r in mine),
-                                            sum(r["d2"][yard][part] for r in mine))
-            row["all"] = _ratio(sum(r["d2"][pair][part] for r in results),
-                                sum(r["d2"][yard][part] for r in results))
-            out[pair][part] = row
+        per_batch = [cs.gap_readings([r["stats"][pair]]) for r in results]
+        by_seed = {seed: cs.gap_readings([r["stats"][pair] for r in results
+                                          if r["seed"] == seed])
+                   for seed in sorted({r["seed"] for r in results})}
+        every = cs.gap_readings([r["stats"][pair] for r in results])
+        for part in every:
+            out[pair][part] = {"batches": [b[part] for b in per_batch],
+                               "seeds": {s: v[part] for s, v in by_seed.items()},
+                               "all": every[part]}
     return out
 
 
@@ -339,6 +334,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--faults", nargs="+", default=list(FAULTS), choices=list(FAULTS))
+    ap.add_argument("--batches", type=int, default=None,
+                    help="batches a seed (default chip_smoke.STEP_GAP_BATCHES)")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     ap.add_argument("--timeout", type=float, default=1800.0)
     args = ap.parse_args(argv)
@@ -349,10 +346,11 @@ def main(argv=None) -> int:
     cs.build_phase()
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "plan.json"), "w") as f:
-            json.dump({"seeds": args.seeds, "faults": args.faults}, f)
+            json.dump({"seeds": args.seeds, "faults": args.faults,
+                       "batches": args.batches or cs.STEP_GAP_BATCHES}, f)
         results = cs._run_ranks(tmp, "shmgan_tpu_torch.tp_gap.rank", cs.TP_RANKS, "gap",
                                 args.timeout)[0]
-    summary = summarize(results)
+    summary = summarize(cs, results)
     for pair, parts in summary.items():
         for part, row in parts.items():
             cs.say(f"{pair}, {part}: all {row['all']:.3f}; by seed "

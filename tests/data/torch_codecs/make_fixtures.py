@@ -7,7 +7,9 @@ The images are camera images of `synth_polar_scene` (seeded), so the
 fixtures are the same on every run of the same PIL, libjpeg-turbo, libwebp
 and libtiff. The formats PIL does not write (16-bit RGB and Adam7 PNG,
 16-bit and maxval-100 P6, RLE8 BMP, a planar TIFF with the horizontal
-predictor, YCCK JPEG, ASCII P3) are written by the small writers below.
+predictor, YCCK JPEG, ASCII P3) are written by the small writers below;
+JPEG-in-TIFF YCbCr, subsampled YCbCr LZW, arithmetic-coded and lossless
+JPEG by the writers of tests/test_torch_tiff.py and tests/test_torch_jpeg.py.
 """
 
 import io
@@ -113,6 +115,35 @@ def ycck(cmyk_jpeg):
     return cmyk_jpeg[:i + 11] + b"\x02" + cmyk_jpeg[i + 12:]
 
 
+def variants(tiny):
+    """The TIFF and JPEG variants beyond baseline, one of each family, from
+    the writers of tests/test_torch_tiff.py and tests/test_torch_jpeg.py
+    (which PIL's encoders cannot write) or PIL's encoder, at 24x16."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    import test_torch_jpeg as tj
+    import test_torch_tiff as tt
+
+    im = Image.fromarray(tiny)
+    ycc = tt._ycbcr_samples(tiny)
+    bilevel = Image.fromarray(tiny[..., 1] > 100)
+    return {
+        "tiff_jpeg_ycbcr.tif": tt._jpeg_in_tiff(tiny, (2, 2), "strips", True),
+        "tiff_ycbcr_lzw.tif": tt._tiff(
+            ycc, 8, 6, compression=5, rows_per_strip=8,
+            chunks=[tt._lzw_encode(c) for c in tt._ycbcr_blocks(ycc, (2, 2), 8)],
+            extra_tags=((530, (3, [2, 2])),)),
+        "tiff_float.tif": pil(Image.fromarray(tiny[..., 1].astype(np.float32) * 1.3 - 20.25),
+                              "TIFF", compression="tiff_adobe_deflate"),
+        "tiff_lzma.tif": pil(im, "TIFF", compression="lzma"),
+        "tiff_zstd.tif": pil(im, "TIFF", compression="zstd"),
+        "tiff_cielab.tif": pil(im.convert("LAB"), "TIFF", compression="tiff_lzw"),
+        "tiff_group4.tif": pil(bilevel, "TIFF", compression="group4"),
+        "arithmetic.jpg": tj.arith_version(pil(im, "JPEG", quality=85)),
+        "lossless.jpg": tj._lossless_jpeg(tiny, 4),
+    }
+
+
 def fixtures():
     cam = u8(scene(256, 256, 1))
     im = Image.fromarray(cam)
@@ -173,6 +204,7 @@ def fixtures():
     cmyk = pil(sm.convert("CMYK"), "JPEG", quality=85)
     out["cmyk.jpg"] = cmyk
     out["ycck.jpg"] = ycck(cmyk)
+    out.update(variants(u8(scene(16, 24, 11))))
     p3 = u8(scene(24, 32, 10))
     out["p3.ppm"] = (b"P3\n# ASCII PPM\n32 24\n255\n"
                      + "\n".join(" ".join(map(str, row)) for row in p3.reshape(24, -1)).encode()

@@ -22,8 +22,8 @@ def _pil_rgb(path):
 
 
 def test_every_fixture_has_its_pixels_and_the_set_is_whole():
-    assert len(FIXTURES) == 37
-    assert len(os.listdir(HERE)) == 2 * 37 + 2          # and the README and the writer
+    assert len(FIXTURES) == 46
+    assert len(os.listdir(HERE)) == 2 * 46 + 2          # and the README and the writer
     assert sum(os.path.getsize(os.path.join(HERE, f)) for f in os.listdir(HERE)) < 2_000_000
 
 

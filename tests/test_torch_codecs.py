@@ -14,6 +14,7 @@ test_torch_tiff.py.)"""
 import io
 import os
 import struct
+import tracemalloc
 import zlib
 
 import numpy as np
@@ -147,6 +148,53 @@ def test_resize_is_pillows_bilinear(size):
 def test_decode_resize_and_original_equal_jax(tmp_path, fmt, ext, image_size):
     path = str(tmp_path / f"img.{ext}")
     Image.fromarray(_photo(45, 61, seed=7)).save(path, format=fmt)
+    got, want = decode_resize(path, image_size), j_decode_resize(path, image_size)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(decode_original(path), j_decode_original(path))
+
+
+def _variant_body(kind):
+    """One file of each TIFF and JPEG variant the port reads beyond
+    baseline, from the writers of test_torch_tiff.py and test_torch_jpeg.py."""
+    import test_torch_jpeg as tj
+    import test_torch_tiff as tt
+
+    img = _photo(45, 61, seed=7)
+    if kind == "arithmetic jpeg":
+        return tj.arith_version(_pil_bytes(Image.fromarray(img), "JPEG", quality=85))
+    if kind == "progressive arithmetic jpeg":
+        return tj.arith_version(_pil_bytes(Image.fromarray(img), "JPEG", quality=85),
+                                progressive=True)
+    if kind == "lossless jpeg":
+        return tj._lossless_jpeg(img, 4)
+    if kind == "ycbcr jpeg-in-tiff":
+        return tt._jpeg_in_tiff(img, (2, 2), "strips", True)
+    if kind == "ycbcr lzw tiff":
+        ycc = tt._ycbcr_samples(img)
+        return tt._tiff(ycc, 8, 6, compression=5, rows_per_strip=8,
+                        chunks=[tt._lzw_encode(c) for c in tt._ycbcr_blocks(ycc, (2, 2), 8)],
+                        extra_tags=((530, (3, [2, 2])),))
+    mode, compression = {"float tiff": ("F", "tiff_lzw"), "signed tiff": ("I", "tiff_lzw"),
+                         "lzma tiff": ("RGB", "lzma"), "cielab tiff": ("LAB", "tiff_lzw")}[kind]
+    im = Image.fromarray(img)
+    if mode in ("F", "I"):
+        im = Image.fromarray(img[..., 1].astype(np.float32 if mode == "F" else np.int32) * 2 - 70)
+    return _pil_bytes(im.convert(mode) if mode == "LAB" else im, "TIFF", compression=compression)
+
+
+_VARIANTS = ["arithmetic jpeg", "progressive arithmetic jpeg", "lossless jpeg",
+             "ycbcr jpeg-in-tiff", "ycbcr lzw tiff", "float tiff", "signed tiff", "lzma tiff",
+             "cielab tiff"]
+
+
+@pytest.mark.parametrize("kind", _VARIANTS)
+@pytest.mark.parametrize("image_size", [48, 128])
+def test_decode_resize_and_original_equal_jax_on_tiff_and_jpeg_variants(tmp_path, kind,
+                                                                          image_size):
+    path = str(tmp_path / "img.png")     # a file is decoded by its bytes, never its name
+    with open(path, "wb") as f:
+        f.write(_variant_body(kind))
     got, want = decode_resize(path, image_size), j_decode_resize(path, image_size)
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got, want)
@@ -532,7 +580,7 @@ def _unsupported():
         "empty": b"",
         "truncated jpeg": jpeg[:len(jpeg) // 2],
         "jpeg without eoi": jpeg[:-2],
-        "arithmetic jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc9" + d[i + 2:]),
+        "lossless arithmetic jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xcb" + d[i + 2:]),
         "12-bit jpeg": _jpeg_with(lambda d, i: d[:i + 4] + b"\x0c" + d[i + 5:]),
         "lossless jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc3" + d[i + 2:]),
         "hierarchical jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc5" + d[i + 2:]),
@@ -543,6 +591,14 @@ def _unsupported():
         "bmp jpeg compression": _bmp(2, 2, 24, bytes(16), compression=4),
         "bmp 2-bit": _bmp(2, 2, 2, bytes(8), palette=bytes(16)),
     }
+
+
+def test_huffman_data_under_an_arithmetic_frame_decodes_as_pil_decodes_it():
+    """A baseline file whose SOF0 says SOF9: libjpeg-turbo arithmetic-decodes
+    the Huffman data into other coefficients without an error, and so does
+    the port, to the same pixels."""
+    data = _jpeg_with(lambda d, i: d[:i + 1] + b"\xc9" + d[i + 2:])
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
 
 
 @pytest.mark.parametrize("case", list(_unsupported()))
@@ -571,6 +627,10 @@ def _bombs():
         # VP8L's sizes are 14-bit: 16383 x 16383 is the most a header claims
         "webp": _webp_vp8l_header(16383, 16383),
         "tiff": _tiff_header(big, big),
+        "jpeg-in-tiff": _tiff_header(big, big, compression=7, photo=6),
+        "ccitt group 4 tiff": _tiff_header(big, big, compression=4, photo=0, spp=1, bits=1),
+        "arithmetic jpeg": _jpeg_with(lambda d, i: d[:i + 1] + b"\xc9"
+                                      + d[i + 2:i + 5] + struct.pack(">HH", big, big) + d[i + 9:]),
     }
 
 
@@ -584,10 +644,11 @@ def _webp_vp8l_header(w, h):
             + struct.pack("<I", len(vp8l)) + vp8l)
 
 
-def _tiff_header(w, h):
-    """An uncompressed RGB TIFF header that claims w x h, and 3 bytes of data."""
-    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (262, 3, 2), (273, 4, 8), (277, 3, 3),
-            (278, 4, 1), (279, 4, 3)]
+def _tiff_header(w, h, compression=1, photo=2, spp=3, bits=8):
+    """A TIFF header (RGB, uncompressed, unless asked) that claims w x h, and
+    3 bytes of data."""
+    tags = [(256, 4, w), (257, 4, h), (258, 3, bits), (259, 3, compression), (262, 3, photo),
+            (273, 4, 8), (277, 3, spp), (278, 4, 1), (279, 4, 3)]
     ifd = struct.pack("<H", len(tags)) + b"".join(struct.pack("<HHII", t, k, 1, v)
                                                   for t, k, v in tags) + bytes(4)
     return b"II*\x00" + struct.pack("<I", 12) + bytes(4) + ifd
@@ -616,6 +677,66 @@ def test_png_inflates_no_further_than_its_scanlines():
             + codecs._png_chunk(b"IDAT", idat) + codecs._png_chunk(b"IEND", b""))
     np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
     np.testing.assert_array_equal(codecs.decode(data), img)
+
+
+def _zstd_tiff(w, h, strip):
+    """An RGB TIFF of one strip compressed with Zstd (50000)."""
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 50000), (262, 3, 2),
+            (273, 4, 8 + 2 + 12 * 9 + 4), (277, 3, 3), (278, 4, h), (279, 4, len(strip))]
+    ifd = struct.pack("<H", len(tags)) + b"".join(struct.pack("<HHII", t, k, 1, v)
+                                                  for t, k, v in tags) + bytes(4)
+    return b"II*\x00" + struct.pack("<I", 8) + ifd + strip
+
+
+def _zstd_rle_block(n, byte, last=False, window=7 << 3):
+    """A Zstd frame header (no content size, a window of 2 ** (10 + window
+    >> 3) bytes) when `n` is None, else an RLE block of n bytes."""
+    if n is None:
+        return struct.pack("<I", 0xFD2FB528) + bytes([0, window])
+    return ((n << 3) | 2 | last).to_bytes(3, "little") + bytes([byte])
+
+
+def _zstd_bombs():
+    """8 x 8 TIFFs (192 bytes of pixels) whose ~8 KB strips inflate to
+    262 MB of RLE blocks, or 131 MB of compressed blocks: each one raw
+    literal, then one sequence (RLE-coded tables: literal length 1, offset
+    1, match length code 51 with all 15 extra bits set) that copies it
+    65538 times."""
+    frame = _zstd_rle_block(None, 0)
+    seq = bytes([8, 65, 1, 0x54, 1, 2, 51]) + ((1 << 17) | 32767).to_bytes(3, "little")
+    comp = lambda last=False: ((len(seq) << 3) | 4 | last).to_bytes(3, "little") + seq  # noqa
+    return {"rle blocks": frame + b"".join(_zstd_rle_block(1 << 17, 9) for _ in range(2000))
+                          + _zstd_rle_block(1, 9, True),
+            "compressed blocks": frame + b"".join(comp() for _ in range(2000)) + comp(True)}
+
+
+@pytest.mark.parametrize("case", list(_zstd_bombs()))
+def test_zstd_tiff_inflates_no_further_than_its_strip(case):
+    """libtiff's Zstd codec stops at the end of its strip buffer; so does the
+    port's decoder, inside a frame and inside a block, and the pixels are
+    PIL's."""
+    data = _zstd_tiff(8, 8, _zstd_bombs()[case])
+    np.testing.assert_array_equal(codecs.decode(data), _pil_rgb(data))
+    tracemalloc.start()                 # a second decode: the modules are imported
+    try:
+        codecs.decode(data)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 1 << 20, peak
+
+
+@pytest.mark.parametrize("window,n", [(7 << 3, (1 << 21) - 1), (0, 2048)],
+                         ids=["2 MB under 128 KiB", "2 KiB under a 1 KiB window"])
+def test_zstd_block_past_its_maximum_is_refused(window, n):
+    """RFC 8878's Block_Maximum_Size, min(Window_Size, 128 KiB): a larger
+    block is corrupt, for libzstd (PIL raises OSError) and for the port."""
+    data = _zstd_tiff(8, 8, _zstd_rle_block(None, 0, window=window)
+                      + _zstd_rle_block(n, 5, True))
+    with pytest.raises(OSError):
+        _pil_rgb(data)
+    with pytest.raises(ValueError, match="Zstd data .*past its maximum"):
+        codecs.decode(data)
 
 
 def test_webp_canvas_past_the_limit_is_refused_from_its_header():

@@ -22,6 +22,7 @@ from shmgan_tpu.data.loader import PolarimetricDataset as JPolarimetricDataset
 from shmgan_tpu.data.loader import decode_original as j_decode_original
 from shmgan_tpu.data.loader import decode_resize as j_decode_resize
 from shmgan_tpu_torch.config import DataConfig
+from shmgan_tpu_torch.data import jpeg as _port_jpeg
 from shmgan_tpu_torch.data.jpeg import decode_jpeg
 from shmgan_tpu_torch.data.loader import PolarimetricDataset, decode_original, decode_resize
 from shmgan_tpu_torch.data.synthetic import camera_image, synth_polar_scene
@@ -233,6 +234,511 @@ def test_hand_made_sampling_layouts(factors, size):
     _same_as_pil(data)
 
 
+# -- arithmetic coding (SOF9, SOF10) and lossless (SOF3) ------------------------------
+
+# jaricom.c's Table D.2 as the encoder reads it: (Qe, next after LPS, next after MPS, switch)
+_QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class _QMEncoder:
+    """jcarith.c's arith_encode and finish_pass: one restart interval's
+    entropy-coded bytes (stuffed), statistics in bytearrays of state bytes
+    (MPS in bit 7)."""
+
+    def __init__(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+        self.out = bytearray()
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _flush_pending(self):
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        qe, nlps, nmps, switch = _QE_TABLE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ ((switch << 7) | nlps)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_pending()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._flush_pending()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._flush_pending()
+                        for _ in range(self.sc):
+                            self._emit(0xFF)
+                            self._emit(0)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0x8000000:
+            if self.buffer >= 0:
+                self._flush_pending()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_pending()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_pending()
+                for _ in range(self.sc):
+                    self._emit(0xFF)
+                    self._emit(0)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_pending()
+            self._emit((self.c >> 19) & 0xFF)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _arith_value(enc, st, i, v, upper):
+    """Figures F.8 and F.9 for |v| - 1 = v (> 0 allowed 0): the magnitude
+    category from bin i (DC: its chain at 20; AC: at `upper`), then the bits."""
+    m = 0
+    if v:
+        enc.encode(st, i, 1)
+        m, v2 = 1, v
+        if upper < 0:
+            i = 20
+            v2 >>= 1
+            while v2:
+                enc.encode(st, i, 1)
+                m <<= 1
+                i += 1
+                v2 >>= 1
+        else:
+            v2 >>= 1
+            if v2:
+                enc.encode(st, i, 1)
+                m <<= 1
+                i = upper
+                v2 >>= 1
+                while v2:
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+                    v2 >>= 1
+    enc.encode(st, i, 0)
+    mag = m
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+    return mag
+
+
+def _arith_scans(blocks_of, order_of_mcus, scans, kx=5, dc_lu=(0, 1), restart=0):
+    """Entropy-coded segments of jcarith.c's scans: `scans` lists (component
+    indices, Ss, Se, Ah, Al); blocks_of(c) is (rows, cols, 64) natural order;
+    order_of_mcus(comps) yields each MCU's [(c, row, col), ...]."""
+    out = []
+    fixed = bytearray([113])
+    for comps, ss, se, ah, al in scans:
+        mcus = list(order_of_mcus(comps))
+        segs = []
+        for start in range(0, len(mcus), restart or len(mcus)):
+            enc = _QMEncoder()
+            dc_st = {c: bytearray(64) for c in comps}
+            ac_st = {c: bytearray(256) for c in comps}
+            dc_st = dict.fromkeys(comps, dc_st[comps[0]])    # every component: table 0
+            ac_st = dict.fromkeys(comps, ac_st[comps[0]])
+            last, ctx = {c: 0 for c in comps}, {c: 0 for c in comps}
+            for mcu in mcus[start:start + (restart or len(mcus))]:
+                for c, r, q in mcu:
+                    blk = blocks_of(c)[r, q]
+                    zz = [int(blk[p]) for p in _ZZ]
+                    st = dc_st[c]
+                    if ss == 0 and ah:                   # DC refinement
+                        enc.encode(fixed, 0, (zz[0] >> al) & 1)
+                        continue
+                    if ss == 0:
+                        dc = zz[0] >> al
+                        v = dc - last[c]
+                        i = ctx[c]
+                        if v == 0:
+                            enc.encode(st, i, 0)
+                            ctx[c] = 0
+                        else:
+                            last[c] = dc
+                            enc.encode(st, i, 1)
+                            enc.encode(st, i + 1, 0 if v > 0 else 1)
+                            ctx[c] = 4 if v > 0 else 8
+                            m = _arith_value(enc, st, i + (2 if v > 0 else 3), abs(v) - 1, -1)
+                            if m < (1 << dc_lu[0]) >> 1:
+                                ctx[c] = 0
+                            elif m > (1 << dc_lu[1]) >> 1:
+                                ctx[c] += 8
+                        if len(scans) > 1 and se == 0:
+                            continue
+                        ss_, se_ = 1, 63
+                    else:
+                        ss_, se_ = ss, se
+                    st = ac_st[c]
+                    t = [(-((-x) >> al) if x < 0 else x >> al) for x in zz]
+                    if ah == 0:
+                        ke = se_
+                        while ke >= ss_ and t[ke] == 0:
+                            ke -= 1
+                        k = ss_
+                        while k <= ke:
+                            i = 3 * (k - 1)
+                            enc.encode(st, i, 0)
+                            while t[k] == 0:
+                                enc.encode(st, i + 1, 0)
+                                i += 3
+                                k += 1
+                            enc.encode(st, i + 1, 1)
+                            enc.encode(fixed, 0, 1 if t[k] < 0 else 0)
+                            _arith_value(enc, st, i + 2, abs(t[k]) - 1,
+                                         189 if k <= kx else 217)
+                            k += 1
+                        if k <= se_:
+                            enc.encode(st, 3 * (k - 1), 1)
+                        continue
+                    prev = [(-((-x) >> ah) if x < 0 else x >> ah) for x in zz]
+                    ke = se_
+                    while ke >= ss_ and t[ke] == 0:
+                        ke -= 1
+                    kex = ke
+                    while kex >= ss_ and prev[kex] == 0:
+                        kex -= 1
+                    k = ss_
+                    while k <= ke:
+                        i = 3 * (k - 1)
+                        if k > kex:
+                            enc.encode(st, i, 0)
+                        while True:
+                            if t[k]:
+                                if prev[k]:
+                                    enc.encode(st, i + 2, abs(t[k]) & 1)
+                                else:
+                                    enc.encode(st, i + 1, 1)
+                                    enc.encode(fixed, 0, 1 if t[k] < 0 else 0)
+                                break
+                            enc.encode(st, i + 1, 0)
+                            i += 3
+                            k += 1
+                        k += 1
+                    if k <= se_:
+                        enc.encode(st, 3 * (k - 1), 1)
+            segs.append(enc.finish())
+        out.append(segs)
+    return out
+
+
+def _arith_jpeg(width, height, factors, coefs, progressive=False, restart=0, dac=None,
+                q=4, jfif=False):
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with a spectral-selection and
+    successive-approximation script) of quantised coefficients laid out as
+    _encode takes them; `dac` {index: value} written as a DAC segment."""
+    hmax, vmax = max(h for h, _ in factors), max(v for _, v in factors)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    nc = len(factors)
+
+    def order_of_mcus(comps):
+        if len(comps) == 1:
+            c = comps[0]
+            h, v = factors[c]
+            rows = -(-(-(-height * v // vmax)) // 8)
+            cols = -(-(-(-width * h // hmax)) // 8)
+            return ([(c, r, q_)] for r in range(rows) for q_ in range(cols))
+        return ([(c, my * factors[c][1] + i, mx * factors[c][0] + j) for c in comps
+                 for i in range(factors[c][1]) for j in range(factors[c][0])]
+                for my in range(mcuy) for mx in range(mcux))
+
+    if progressive:
+        scans = [(list(range(nc)), 0, 0, 0, 1)] + [([c], 1, 5, 0, 1) for c in range(nc)] \
+            + [([c], 6, 63, 0, 1) for c in range(nc)] + [(list(range(nc)), 0, 0, 1, 0)] \
+            + [([c], 1, 63, 1, 0) for c in range(nc)]
+    else:
+        scans = [(list(range(nc)), 0, 63, 0, 0)]
+    cond = dac or {}
+    dc_lu = (cond.get(0, 0x10) & 15, cond.get(0, 0x10) >> 4)
+    segs = _arith_scans(lambda c: coefs[c], order_of_mcus, scans, kx=cond.get(16, 5),
+                        dc_lu=dc_lu, restart=restart)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    sof = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big") + bytes([nc])
+    sof += b"".join(bytes([c + 1, (h << 4) | v, 0]) for c, (h, v) in enumerate(factors))
+    out = b"\xff\xd8"
+    if jfif:
+        out += seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += seg(0xDB, bytes([0]) + bytes([q] * 64)) + seg(0xCA if progressive else 0xC9, sof)
+    if dac:
+        out += seg(0xCC, b"".join(bytes([k, v]) for k, v in dac.items()))
+    if restart:
+        out += seg(0xDD, restart.to_bytes(2, "big"))
+    for (comps, ss, se, ah, al), pieces in zip(scans, segs):
+        sos = bytes([len(comps)]) + b"".join(bytes([c + 1, 0x00]) for c in comps)
+        out += seg(0xDA, sos + bytes([ss, se, (ah << 4) | al]))
+        for n, piece in enumerate(pieces):
+            out += piece
+            if n < len(pieces) - 1:
+                out += bytes([0xFF, 0xD0 + n % 8])
+    return out + b"\xff\xd9"
+
+
+def arith_version(jpeg: bytes, progressive=False, restart=0) -> bytes:
+    """A Huffman-coded JPEG's coefficients, quantisation tables, sampling
+    and JFIF segment, arithmetic-coded (SOF9, or SOF10): the same pixels."""
+    comps, (width, height, *_), jfif, _ = _port_jpeg._read(jpeg)
+    nat = np.argsort(np.array(_ZZ))                 # natural position -> zigzag index
+    coefs = [np.frombuffer(c.coefs, np.int32).reshape(c.bh, c.bw, 64)[..., nat]
+             for c in comps]
+    data = _arith_jpeg(width, height, [(c.h, c.v) for c in comps], coefs,
+                       progressive=progressive, restart=restart, jfif=jfif)
+    i = data.index(b"\xff\xdb")
+    n = int.from_bytes(data[i + 2:i + 4], "big")
+    dqt = b"".join(bytes([tq]) + bytes(comps[[c.tq for c in comps].index(tq)].quant)
+                   for tq in sorted({c.tq for c in comps}))
+    data = data[:i] + b"\xff\xdb" + (len(dqt) + 2).to_bytes(2, "big") + dqt + data[i + 2 + n:]
+    j = data.index(b"\xff\xc9" if not progressive else b"\xff\xca") + 4
+    sof = bytearray(data[j:j + 6 + 3 * len(comps)])
+    for k, c in enumerate(comps):
+        sof[6 + 3 * k + 2] = c.tq
+    return data[:j] + bytes(sof) + data[j + len(sof):]
+
+
+def _arith_coefs(width, height, factors, seed):
+    """_coefs with more, larger AC terms: every magnitude category and
+    both conditioning regions of the AC statistics are exercised."""
+    out = _coefs(width, height, factors, seed)
+    rng = np.random.default_rng(seed + 1)
+    for c in out:
+        c[..., 0] = np.cumsum(rng.integers(-40, 41, c.shape[:2]), axis=1) % 200 - 100
+        for p in rng.choice(np.arange(1, 64), 12, replace=False):
+            c[..., p] = np.where(rng.random(c.shape[:2]) < 0.5, 0,
+                                 rng.integers(-70, 71, c.shape[:2]))
+    return out
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["sof9", "sof10"])
+@pytest.mark.parametrize("factors", [((1, 1), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1)),
+                                     ((2, 1), (1, 1), (1, 1)), ((1, 1),)], ids=str)
+@pytest.mark.parametrize("size", [(1, 1), (23, 17), (37, 29)], ids=str)
+def test_arithmetic_coding_decodes_like_pil(progressive, factors, size):
+    """Arithmetic-coded files of jcarith.c's encoder: PIL's libjpeg-turbo
+    decodes them (jdarith.c), the port gives its pixels; and they are the
+    pixels of the same coefficients Huffman-coded."""
+    width, height = size
+    coefs = _arith_coefs(width, height, factors, seed=width + 3 * height)
+    data = _arith_jpeg(width, height, factors, coefs, progressive=progressive)
+    _same_as_pil(data)
+    huff = [np.clip(c, -1023, 1023) for c in coefs]
+    if all(np.array_equal(a, b) for a, b in zip(huff, coefs)):
+        np.testing.assert_array_equal(decode_jpeg(data),
+                                      _pil_rgb(_encode(width, height, factors, coefs)))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(progressive=True), dict(restart=2)], ids=str)
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_arithmetic_version_of_a_photo_is_its_pixels(kw, subsampling):
+    """A PIL photo JPEG re-coded arithmetically: PIL and the port give the
+    Huffman file's pixels."""
+    base = _jpeg(_photo(37, 53, seed=12), quality=90, subsampling=subsampling)
+    data = arith_version(base, **kw)
+    np.testing.assert_array_equal(_pil_rgb(data), _pil_rgb(base))
+    _same_as_pil(data)
+
+
+@pytest.mark.parametrize("kw", [dict(restart=1), dict(restart=3, progressive=True),
+                                dict(dac={0: 0x52, 16: 2}), dict(dac={0: 0x00, 16: 63}),
+                                dict(dac={0: 0x31, 16: 0}, progressive=True), dict(jfif=True),
+                                dict(q=1)], ids=str)
+def test_arithmetic_restarts_and_conditioning(kw):
+    factors = ((2, 2), (1, 1), (1, 1))
+    coefs = _arith_coefs(40, 33, factors, seed=31)
+    _same_as_pil(_arith_jpeg(40, 33, factors, coefs, **kw))
+
+
+def _lossless_jpeg(img, psv, pt=0, restart_rows=0, interleaved=True, jfif=False):
+    """A lossless JPEG (SOF3) of 8-bit samples (h, w, n): predictor psv,
+    point transform pt, differences Huffman-coded with one table built from
+    their category counts (categories 0-16)."""
+    h, w, n = img.shape
+    x = (img.astype(np.int64) >> pt)
+    diffs = np.zeros_like(x)
+    for c in range(n):
+        p = x[..., c]
+        for y in range(h):
+            first = y == 0 or (restart_rows and y % restart_rows == 0)
+            for xx in range(w):
+                if first:
+                    pred = (1 << (7 - pt)) if xx == 0 else p[y, xx - 1]
+                elif xx == 0:
+                    pred = p[y - 1, 0]
+                else:
+                    ra, rb, rc = p[y, xx - 1], p[y - 1, xx], p[y - 1, xx - 1]
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv]
+                diffs[y, xx, c] = (p[y, xx] - pred) & 0xFFFF
+    d = np.where(diffs >= 32768, diffs - 65536, diffs)
+    cats = np.where(d == -32768, 16, np.ceil(np.log2(np.abs(d) + 1)).astype(np.int64))
+    counts = np.bincount(cats.ravel(), minlength=17)
+    symbols = sorted((s for s in range(17) if counts[s]), key=lambda s: -counts[s])
+    bits = [0] * 16                      # the two most frequent in 2 bits, the rest in 6
+    bits[1], bits[5] = min(2, len(symbols)), max(0, len(symbols) - 2)
+    table = _codes(bits, symbols)
+
+    def put(code, nbits, out):
+        out.extend((code >> (nbits - 1 - i)) & 1 for i in range(nbits))
+
+    def code_rows(comps, rows):
+        out = []
+        for y in rows:
+            for xx in range(w):
+                for c in comps:
+                    v = int(d[y, xx, c])
+                    s = int(cats[y, xx, c])
+                    put(*table[s], out)
+                    if 0 < s < 16:
+                        put(v if v >= 0 else v + (1 << s) - 1, s, out)
+        out.extend([1] * (-len(out) % 8))
+        b = bytes(int("".join(map(str, out[i:i + 8])), 2) for i in range(0, len(out), 8))
+        return b.replace(b"\xff", b"\xff\x00")
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    head = b"\xff\xd8" + (seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+                            if jfif else b"")
+    sof = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([n])
+    sof += b"".join(bytes([c + 1, 0x11, 0]) for c in range(n))
+    out = head + seg(0xC3, sof) + seg(0xC4, bytes([0x00] + bits) + bytes(symbols))
+    if restart_rows:
+        out += seg(0xDD, (restart_rows * w).to_bytes(2, "big"))
+    for comps in ([list(range(n))] if interleaved else [[c] for c in range(n)]):
+        out += seg(0xDA, bytes([len(comps)]) + b"".join(bytes([c + 1, 0]) for c in comps)
+                   + bytes([psv, 0, pt]))
+        blocks = [range(y, min(h, y + restart_rows)) for y in range(0, h, restart_rows)] \
+            if restart_rows else [range(h)]
+        for i, rows in enumerate(blocks):
+            out += code_rows(comps, rows)
+            if i < len(blocks) - 1:
+                out += bytes([0xFF, 0xD0 + i % 8])
+    return out + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("kind", ["sof9", "sof10", "sof3"])
+@pytest.mark.parametrize("cut", [0.3, 0.8, 0.99])
+def test_arithmetic_and_lossless_cut_short_raise(kind, cut):
+    base = _jpeg(_photo(40, 48, seed=13), quality=85)
+    data = _lossless_jpeg(_photo(17, 23, seed=13), 4) if kind == "sof3" else arith_version(
+        base, progressive=kind == "sof10")
+    with pytest.raises(OSError):
+        _pil_rgb(data[:int(len(data) * cut)])
+    with pytest.raises(ValueError, match="truncated"):
+        decode_jpeg(data[:int(len(data) * cut)])
+
+
+@pytest.mark.parametrize("psv", range(1, 8))
+@pytest.mark.parametrize("layout", ["grey", "ids 1, 2, 3", "jfif", "planar scans"])
+def test_lossless_decodes_like_pil(psv, layout):
+    img = _photo(19, 23, seed=psv)
+    if layout == "grey":
+        img = img[..., :1]
+    data = _lossless_jpeg(img, psv, jfif=layout == "jfif", interleaved=layout != "planar scans")
+    if layout == "jfif":     # YCbCr samples: libjpeg-turbo converts no colour in lossless mode
+        with pytest.raises(OSError):
+            _pil_rgb(data)
+        with pytest.raises(ValueError, match="refused by PIL too"):
+            decode_jpeg(data)
+        return
+    _same_as_pil(data)
+
+
+@pytest.mark.parametrize("kw", [dict(pt=2), dict(restart_rows=4), dict(pt=1, restart_rows=5)],
+                         ids=str)
+@pytest.mark.parametrize("size", [(1, 1), (17, 23), (37, 29)], ids=str)
+def test_lossless_point_transform_and_restarts(kw, size):
+    _same_as_pil(_lossless_jpeg(_photo(*size, seed=40), 4, **kw))
+
+
 # -- refusals and truncation ----------------------------------------------------------
 
 def _patched(fn):
@@ -247,19 +753,24 @@ def _insert_segment(marker, body=b"\x00\x00"):
 
 
 @pytest.mark.parametrize("name,fn,match", [
-    ("sof9", lambda d, i: d[:i + 1] + b"\xc9" + d[i + 2:], "arithmetic coding"),
-    ("sof10", lambda d, i: d[:i + 1] + b"\xca" + d[i + 2:], "arithmetic coding"),
-    ("sof15", lambda d, i: d[:i + 1] + b"\xcf" + d[i + 2:], "arithmetic coding"),
-    ("dac", _insert_segment(0xCC), "arithmetic coding"),
+    ("sof11", lambda d, i: d[:i + 1] + b"\xcb" + d[i + 2:], "lossless arithmetic-coded"),
+    ("sof13", lambda d, i: d[:i + 1] + b"\xcd" + d[i + 2:], "hierarchical arithmetic-coded"),
+    ("sof15", lambda d, i: d[:i + 1] + b"\xcf" + d[i + 2:], "hierarchical arithmetic-coded"),
+    ("sof3, subsampled", lambda d, i: d[:i + 1] + b"\xc3" + d[i + 2:], "lossless JPEG with sub"),
     ("12-bit", lambda d, i: d[:i + 4] + b"\x0c" + d[i + 5:], "12-bit precision"),
-    ("sof3", lambda d, i: d[:i + 1] + b"\xc3" + d[i + 2:], "lossless"),
+    ("dac of table 32", _insert_segment(0xCC, b"\x20\x10"), "corrupt DAC"),
     ("sof5", lambda d, i: d[:i + 1] + b"\xc5" + d[i + 2:], "hierarchical"),
     ("sof7", lambda d, i: d[:i + 1] + b"\xc7" + d[i + 2:], "hierarchical"),
     ("dhp", _insert_segment(0xDE), "hierarchical"),
 ])
 def test_refused_kinds_name_their_feature(name, fn, match):
-    with pytest.raises(ValueError, match=match):
-        decode_jpeg(_patched(fn))
+    """Each refusal names the feature; PIL refuses these files too."""
+    data = _patched(fn)
+    with pytest.raises(ValueError, match=match) as e:
+        decode_jpeg(data)
+    if "refuses" in str(e.value) or "corrupt" in str(e.value):
+        with pytest.raises(OSError):
+            _pil_rgb(data)
 
 
 def _adobe(data, transform):

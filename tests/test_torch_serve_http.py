@@ -153,24 +153,38 @@ def test_bad_requests_are_400(server, query, body):
 
 
 def test_jpeg_is_400_with_a_reason(server):
-    """A JPEG of a kind the port does not decode (arithmetic coding, SOF9)
-    is refused with the feature named."""
+    """A JPEG of a kind the port does not decode (hierarchical, SOF5, which
+    PIL refuses too) is refused with the feature named."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, format="JPEG")
     data = bytearray(buf.getvalue())
-    data[data.index(b"\xff\xc0") + 1] = 0xC9
+    data[data.index(b"\xff\xc0") + 1] = 0xC5
     with pytest.raises(urllib.error.HTTPError) as exc:
         _post(server + "/v1/specfree", bytes(data))
     error = json.loads(exc.value.read())["error"]
-    assert exc.value.code == 400 and "JPEG" in error and "arithmetic coding" in error
+    assert exc.value.code == 400 and "JPEG" in error and "hierarchical" in error
 
 
 def _photo_body(arr, fmt):
     """arr (h, w, 3) uint8 encoded as `fmt`: a PIL format name, "CMYK JPEG",
-    "TIFF" (LZW) or "P3" (an ASCII PPM)."""
+    "TIFF" (LZW), "P3" (an ASCII PPM), "ARITH JPEG" (PIL's JPEG re-coded
+    arithmetically), "YCBCR JPEG TIFF" (JPEG-in-TIFF, 4:2:0, its tables in
+    JPEGTables) or "FLOAT TIFF" (the luma as 32-bit float samples)."""
+    from test_torch_jpeg import arith_version
+    from test_torch_tiff import _jpeg_in_tiff
+
     if fmt == "P3":
         h, w, _ = arr.shape
         return b"P3\n%d %d\n255\n" % (w, h) + b" ".join(b"%d" % v for v in arr.ravel())
+    if fmt == "ARITH JPEG":
+        return arith_version(_photo_body(arr, "JPEG"))
+    if fmt == "YCBCR JPEG TIFF":
+        return _jpeg_in_tiff(arr, (2, 2), "strips", True)
+    if fmt == "FLOAT TIFF":
+        buf = io.BytesIO()
+        Image.fromarray(arr.astype(np.float32) @ np.float32([0.3, 0.55, 0.15]) * 1.1 - 9).save(
+            buf, format="TIFF", compression="tiff_adobe_deflate")
+        return buf.getvalue()
     im = Image.fromarray(arr)
     kw = {"CMYK JPEG": dict(format="JPEG"), "TIFF": dict(format="TIFF", compression="tiff_lzw"),
           "WEBP": dict(format="WEBP", quality=80)}.get(fmt, dict(format=fmt))
@@ -185,7 +199,12 @@ def _photo_body(arr, fmt):
                                              ("WEBP", "?size=native", (40, 56)),
                                              ("TIFF", "", (48, 40)),
                                              ("CMYK JPEG", "?size=native", (40, 56)),
-                                             ("P3", "", (40, 56))])
+                                             ("P3", "", (40, 56)),
+                                             ("ARITH JPEG", "", (48, 40)),
+                                             ("ARITH JPEG", "?size=native", (40, 56)),
+                                             ("YCBCR JPEG TIFF", "", (48, 40)),
+                                             ("YCBCR JPEG TIFF", "?size=native", (40, 56)),
+                                             ("FLOAT TIFF", "?size=native", (40, 56))])
 def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
     """A JPEG, GIF, WebP, TIFF, CMYK JPEG or ASCII PPM body gives 200,
     within one level of the engine given PIL's decoded pixels (resized as
@@ -213,7 +232,8 @@ def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "CMYK JPEG", "P3"])
+@pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "CMYK JPEG", "P3", "ARITH JPEG",
+                                 "YCBCR JPEG TIFF", "FLOAT TIFF"])
 @pytest.mark.parametrize("size", [256, "native"])
 def test_request_decode_equals_jaxs_on_photo_formats(fmt, size):
     """serve_http._decode_request_image against the JAX package's (PIL's

@@ -265,26 +265,32 @@ def _write_formats(root, seed):
     im.convert("CMYK").save(os.path.join(root, "i_cmyk.jpg"), quality=85)
     with open(os.path.join(root, "j_ascii.ppm"), "wb") as f:
         f.write(b"P3\n48 40\n255\n" + b" ".join(b"%d" % v for v in arr.ravel()))
+    from test_torch_jpeg import arith_version
+    from test_torch_tiff import _jpeg_in_tiff
+    with open(os.path.join(root, "k_arithmetic.jpg"), "wb") as f:
+        f.write(arith_version(data))
+    with open(os.path.join(root, "l_jpeg_in_tiff_named.png"), "wb") as f:
+        f.write(_jpeg_in_tiff(arr, (2, 2), "strips", True))
 
 
 @pytest.mark.parametrize("native", [False, True], ids=["square", "native"])
 def test_folder_jobs_on_photo_formats_match_the_jax_engine(weights, tmp_path, native):
     """JPEG, GIF, 16-bit PNG, palette BMP, 16-bit PPM, a .png-named WebP, a
-    CMYK JPEG and an ASCII PPM: the port's folder job writes the JAX
-    engine's files, pixels within one level; the JPEG cut short is skipped
-    by both."""
+    CMYK JPEG, an ASCII PPM, an arithmetic-coded JPEG and a .png-named
+    YCbCr JPEG-in-TIFF: the port's folder job writes the JAX engine's
+    files, pixels within one level; the JPEG cut short is skipped by both."""
     jcfg, cfg = _configs()
     in_dir = str(tmp_path / "in")
     _write_formats(in_dir, seed=29)
     kw = dict(batch_size=2, native_resolution=native, outputs=("gen_rgb_calibrated", "mask"))
     jeng = JEngine(jcfg, *weights, **kw)
-    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 9
+    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 11
     gen, specseg = _port(cfg, weights)
     eng = BatchInferenceEngine(cfg, gen, specseg, device="cpu", **kw)
-    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 9
+    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 11
     eng.close()
     want, got = _read_dir(str(tmp_path / "jax")), _read_dir(str(tmp_path / "port"))
-    assert len(want) == 18 and list(got) == list(want)
+    assert len(want) == 22 and list(got) == list(want)
     for f in want:
         assert got[f].shape == want[f].shape, f
         assert np.abs(got[f] - want[f]).max() <= 1, f
