@@ -68,20 +68,25 @@ Phases (each prints its name before it starts and its seconds after):
               YCbCr, YCbCr LZW, float, LZMA, Zstd, CIELab and Group 4 TIFF;
               arithmetic-coded and lossless JPEG; 16-bit and Adam7
               PNG; 16-bit and maxval-100 P6, ASCII P3; palette and RLE8
-              BMP) decoded on the host
+              BMP; JPEG 2000: lossless JP2, 9/7 layered raw codestream,
+              tiled CPRL with precincts, 16-bit grey, RGBA, palette)
+              decoded on the host
               against PIL's pixels (the PNG beside it), exactly, with the
               decode ms of each beside the PNG decode of the same pixels;
-              the 612x816 and 2048x1536 JPEG photos through
-              process_images_native on the bundle in f32 and bf16
+              the 612x816 JPEG 2000 photo (9/7, three layers) against the
+              SHA-256 of PIL's pixels, its decode ms and its C++ tier-1 ms;
+              the 612x816 and 2048x1536 JPEG photos and the JPEG 2000 photo
+              through process_images_native on the bundle in f32 and bf16
               (launches, each output against the plain versions, the
-              612x816 bucket's streaming preprocess, ms);
+              612x816 buckets' streaming preprocess, ms);
   serve_http  `python -m shmgan_tpu_torch.cli --mode serve` on the bundle as a
               subprocess (batch 8, a 20 ms window): /healthz by a deadline,
               PNGs at size=256 with each output=, at size=native, resized
               from 612x816, the 612x816 JPEG fixture at size=256 and
               size=native, a GIF fixture, and the lossy WebP, LZW TIFF,
-              CMYK JPEG, YCbCr JPEG-in-TIFF and arithmetic JPEG fixtures at
-              size=256 and size=native, each within
+              CMYK JPEG, YCbCr JPEG-in-TIFF, arithmetic JPEG and 24x16 JP2
+              fixtures and the 612x816 JPEG 2000 photo at size=256 and
+              size=native, each within
               one level of an in-process engine's pixels (of PIL's pixels
               for a photo format); host decode ms of those bodies; 16
               concurrent requests in fewer device calls than requests;
@@ -90,9 +95,10 @@ Phases (each prints its name before it starts and its seconds after):
               terminated in any case;
   serve_folder process_folder and watch_folder(max_iterations=3), square and
               native, on ten PNGs and every JPEG, GIF, 16-bit PNG, BMP,
-              WebP and TIFF (both named .png: read by their bytes) and P3
-              fixture: the files written, their shapes, the square job's
-              pixels against process_images', launches;
+              WebP, TIFF and JPEG 2000 (all three named .png: read by their
+              bytes) and P3 fixture, beside a .jp2 that list_images skips
+              as JAX's does: the files written, their shapes, the square
+              job's pixels against process_images', launches;
   data_parallel two ranks of one gloo group on the one card (NCCL refuses
               two ranks on one device), each a process running dp_rank: the
               fused step at the JAX defaults (128 px, filter 64, global batch
@@ -343,21 +349,24 @@ NATIVE_SHAPES = [(256, 256), (300, 452), (612, 816)]
 # the committed codec fixtures (tests/data/torch_codecs/): each file beside
 # <name>.png, the pixels PIL's convert("RGB") gives for it
 CODEC_DIR = os.path.join(ROOT, "tests", "data", "torch_codecs")
-CODEC_FIXTURES = 46
+CODEC_FIXTURES = 52
+# the 612x816 JPEG 2000 photo, pinned by the SHA-256 of PIL's pixels beside it
+PHOTO_JP2 = "photo_612x816.jp2"
 # a Python built without _lzma refuses an LZMA TIFF by name (data/tiff.py):
 # codec_fixtures() then leaves those fixtures out, and says so
 LZMA_HERE = importlib.util.find_spec("_lzma") is not None
-FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg")
+FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg", PHOTO_JP2)
 # serve_folder's extra inputs: every JPEG and GIF fixture, the 16-bit PNGs, the
-# BMPs, the WebPs and TIFFs (named .png: list_images keeps JAX's extensions, and
-# a file is decoded by its bytes), the ASCII P3
-FOLDER_FORMATS = (".jpg", ".gif", "16.png", ".bmp", ".webp", ".tif", "p3.ppm")
+# BMPs, the WebPs, TIFFs and JPEG 2000s (named .png: list_images keeps JAX's
+# extensions, and a file is decoded by its bytes), the ASCII P3
+FOLDER_FORMATS = (".jpg", ".gif", "16.png", ".bmp", ".webp", ".tif", ".jp2", ".j2k", "p3.ppm")
 # serve_http's photo bodies beside the 612x816 JPEG and the GIF, each POSTed at
 # size=256 and size=native
 HTTP_PHOTO_FORMATS = (("64x48 WebP", "webp_lossy.webp"), ("64x48 TIFF", "tiff_lzw_rgb.tif"),
                       ("64x48 CMYK JPEG", "cmyk.jpg"),
                       ("24x16 YCbCr JPEG-in-TIFF", "tiff_jpeg_ycbcr.tif"),
-                      ("24x16 arithmetic JPEG", "arithmetic.jpg"))
+                      ("24x16 arithmetic JPEG", "arithmetic.jpg"),
+                      ("24x16 JP2", "jp2_lossless.jp2"))
 
 PRE_SHAPE = (8, 256, 256, 3)
 PRE_STREAM_SHAPE = (2, 640, 640, 3)   # too large for a cluster's shared memory
@@ -1383,14 +1392,33 @@ def codec_fixtures():
             for n in names}
 
 
+def jp2_photo():
+    """(the 612x816 JPEG 2000 photo's bytes, the PNG of its pixels): decoded
+    by data/codecs.py and held to the SHA-256 of PIL's pixels beside it."""
+    import hashlib
+
+    from shmgan_tpu_torch.data.codecs import decode, encode_png
+
+    data = _read(os.path.join(CODEC_DIR, PHOTO_JP2))
+    with open(os.path.join(CODEC_DIR, PHOTO_JP2 + ".sha256")) as f:
+        want = f.read().strip()
+    rgb = np.ascontiguousarray(decode(data))
+    got = hashlib.sha256(rgb.tobytes()).hexdigest()
+    if rgb.shape != (612, 816, 3) or got != want:
+        raise AssertionError(f"{PHOTO_JP2}: {rgb.shape}, SHA-256 {got}, not PIL's {want}")
+    return data, encode_png(rgb)
+
+
 def formats_phase(bundle):
     """Every committed codec fixture decoded on the host by data/codecs.py
     against PIL's pixels (its PNG, read by the port's PNG decoder), exactly;
-    decode ms of each beside the PNG decode of the same pixels; then the two
-    largest photos, one a call, through process_images_native on the
-    trained bundle in f32 and in bf16 (_native_runs: launches, outputs held
-    against the plain versions), the 612x816 photo's preprocess streaming;
-    ms each."""
+    decode ms of each beside the PNG decode of the same pixels; the JPEG
+    2000 photo against the SHA-256 of PIL's pixels, its decode ms and its
+    C++ tier-1 ms; then the two largest JPEG photos and the JPEG 2000 photo,
+    one a call, through process_images_native on the trained bundle in f32
+    and in bf16 (_native_runs: launches, outputs held against the plain
+    versions), the 612x816 photos' preprocess streaming; ms each."""
+    from shmgan_tpu_torch.data import jpeg2000
     from shmgan_tpu_torch.data.codecs import decode
     from shmgan_tpu_torch.data.loader import to_unit
 
@@ -1414,11 +1442,24 @@ def formats_phase(bundle):
     if wrong:
         raise AssertionError(f"fixtures decoded otherwise than PIL: {wrong}")
 
+    data, ref = jp2_photo()
+    decoded[PHOTO_JP2] = decode(data)
+    blocks = jpeg2000.tier1_inputs(data)
+    dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
+    t1 = [_timed_ms(lambda: jpeg2000.tier1(blocks)) for _ in range(5)]
+    png = [_timed_ms(lambda: decode(ref)) for _ in range(5)]
+    say(f"decode {PHOTO_JP2} ({len(data)} bytes, 612x816, {len(blocks)} code-blocks): median "
+        f"{np.median(dec):.2f} ms over 5, of which the C++ tier 1 {np.median(t1):.2f} ms; "
+        f"the PNG of the same pixels ({len(ref)} bytes) {np.median(png):.2f} ms; equal to "
+        f"the SHA-256 of PIL's pixels")
+
     images = [to_unit(decoded[n]) for n in FORMAT_PHOTOS]
 
     def after(eng, compute_dtype, plans):
-        if plans[0] != ((1, 640, 832, 3), "streaming"):
-            raise AssertionError(f"the 612x816 photo took {plans[0]}, not the streaming variant")
+        # the engine runs the photos by bucket: both 612x816 ones stream
+        streamed = [p for p in plans if p == ((1, 640, 832, 3), "streaming")]
+        if len(streamed) != sum("612x816" in n for n in FORMAT_PHOTOS):
+            raise AssertionError(f"the 612x816 photos took {plans}, not the streaming variant")
         for name, img in zip(FORMAT_PHOTOS, images):
             ts = []
             for _ in range(3):
@@ -1447,7 +1488,7 @@ def serve_http_phase():
     each output=, at size=native, and resized from 612x816, and the 612x816
     JPEG fixture (at size=256 and size=native), a GIF fixture, and the
     HTTP_PHOTO_FORMATS fixtures (WebP, TIFF, CMYK JPEG, YCbCr JPEG-in-TIFF,
-    arithmetic JPEG) at size=256 and
+    arithmetic JPEG, JP2) and the 612x816 JPEG 2000 photo at size=256 and
     size=native; each response's pixels within one level of an in-process
     engine's on the same decoded input (for a photo format, PIL's pixels);
     the host decode ms of those bodies; 16 concurrent requests in fewer
@@ -1493,6 +1534,7 @@ def serve_http_phase():
     fixtures = codec_fixtures()
     jpeg, gif = fixtures["photo_612x816.jpg"], fixtures["palette.gif"]
     photos = [(label, fixtures[name]) for label, name in HTTP_PHOTO_FORMATS]
+    photos.append(("612x816 JP2", jp2_photo()))
     for label, (data, _) in [("JPEG 612x816", jpeg), ("GIF 256x256", gif)] + photos:
         dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
         say(f"host decode of the {label} body ({len(data)} bytes): median "
@@ -1639,13 +1681,14 @@ def _timed_ms(fn):
 
 def _listed_ext(name):
     ext = os.path.splitext(name)[1]
-    return ".png" if ext in (".webp", ".tif") else ext
+    return ".png" if ext in (".webp", ".tif", ".jp2", ".j2k") else ext
 
 
 def serve_folder_phase(bundle):
     """10 PNGs (five 256x256, five 300x452) and the codec fixtures of
-    FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs, the WebPs
-    and TIFFs named .png, the P3) through
+    FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs, the WebPs,
+    TIFFs and JPEG 2000s named .png, the P3), beside a JP2 named .jp2 that
+    list_images skips (JAX's extensions), through
     process_folder and watch_folder(max_iterations=3), square (256) and
     native, bf16 on the trained bundle: the files written (names, shapes),
     the square job's pixels against the same engine's process_images,
@@ -1684,6 +1727,8 @@ def serve_folder_phase(bundle):
         for name, data in inputs.items():
             with open(os.path.join(in_dir, name), "wb") as f:
                 f.write(data)
+        with open(os.path.join(in_dir, "not_listed.jp2"), "wb") as f:
+            f.write(codec_fixtures()["jp2_lossless.jp2"][0])
         for eng in engines.values():
             eng.warmup()
         _launch_counts(reset=True)

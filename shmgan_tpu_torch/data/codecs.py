@@ -23,6 +23,11 @@ its name), and reads what PIL 12 reads of these formats, to PIL's
     Zstd/JPEG/CCITT (Modified Huffman, T.4, T.6), predictors 2 and 3, grey
     at 1-16 bits, float and signed samples, RGB, palette, CMYK at 8 and 16
     bits, YCbCr and CIELab (data/tiff.py, data/zstd.py, data/ccitt.py);
+  - JPEG 2000: a JP2 file or a raw codestream, reversible 5/3 or
+    irreversible 9/7, with or without the colour transform, tiles,
+    offsets, precincts, every progression, quality layers, 1-16 bits,
+    signed or not, grey, grey+alpha, RGB, RGBA, CMYK and palette JP2
+    (data/jpeg2000.py, its tier 1 in csrc/jpeg2000_t1.cc);
   - PNG: every colour type at every bit depth, 16 bits included, Adam7
     interlaced or not, every row filter;
   - PNM: binary P6 (PPM) and P5 (PGM) at every maxval, 16-bit samples
@@ -39,11 +44,12 @@ grey+alpha PNG keeps the high byte, a PPM of maxval other than 255 is
 scaled by round(v / maxval * 255).
 
 Formats PIL opens that the port does not decode raise a ValueError that
-names them where their signature does: AVIF, JPEG 2000, PSD, QOI, ICO/CUR,
-DDS, SGI, PCX, PFM, TGA (by its footer), ICNS, MSP, XBM (`_UNPORTED`), and the
+names them where their signature does: AVIF, PSD, QOI, ICO/CUR, DDS, SGI,
+PCX, PFM, TGA (by its footer), ICNS, MSP, XBM (`_UNPORTED`), and the
 variants of a ported format the port does not read, each by name (12-bit,
 hierarchical and lossless arithmetic-coded JPEG, which PIL refuses too; the
-TIFF codes and layouts data/tiff.py lists). So does
+TIFF codes and layouts data/tiff.py lists; the JPEG 2000 features
+data/jpeg2000.py lists, HTJ2K first). So does
 input that is truncated, corrupt or not an image, and, from its header
 before anything is allocated, an image of more pixels than PIL opens
 (`check_size`).
@@ -84,8 +90,6 @@ def check_size(kind: str, w: int, h: int) -> None:
 # (offset, bytes, name)
 _UNPORTED = (
     (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"),
-    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000 (JP2)"),
-    (0, b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"),
     (0, b"8BPS", "PSD"), (0, b"qoif", "QOI"), (0, b"DDS ", "DDS"),
     (0, b"\x00\x00\x01\x00", "ICO"), (0, b"\x00\x00\x02\x00", "CUR"),
     (0, b"\x01\xda", "SGI"), (0, b"icns", "ICNS"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
@@ -98,6 +102,7 @@ def decode(data: bytes) -> np.ndarray:
     signature, as `Image.open` tells it, never by a file name."""
     from shmgan_tpu_torch.data.gif import decode_gif     # each imports check_size
     from shmgan_tpu_torch.data.jpeg import decode_jpeg
+    from shmgan_tpu_torch.data.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
     from shmgan_tpu_torch.data.tiff import TIFF_SIGNATURES, decode_tiff
     from shmgan_tpu_torch.data.webp import decode_webp
 
@@ -116,6 +121,8 @@ def decode(data: bytes) -> np.ndarray:
         return decode_webp(data)
     if data[:4] in TIFF_SIGNATURES:
         return decode_tiff(data)
+    if data.startswith(JP2_SIGNATURE) or data.startswith(J2K_SIGNATURE):
+        return decode_jpeg2000(data)
     if data[-18:] == b"TRUEVISION-XFILE.\x00":    # before CUR: a TGA may start alike
         raise ValueError("TGA: PIL opens this format, the port does not decode it")
     for offset, magic, name in _UNPORTED:
@@ -124,7 +131,7 @@ def decode(data: bytes) -> np.ndarray:
     if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"):
         raise ValueError("PCX: PIL opens this format, the port does not decode it")
     raise ValueError("unrecognised image format: the port decodes PNG, JPEG, GIF, WebP, "
-                     "TIFF, PNM (P1-P6) and BMP")
+                     "TIFF, JPEG 2000, PNM (P1-P6) and BMP")
 
 
 # -- PNG ------------------------------------------------------------------------

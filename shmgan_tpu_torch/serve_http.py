@@ -10,7 +10,8 @@ Endpoints:
   POST /v1/specfree               body: an encoded image in any format
                                   data/codecs.decode reads (PNG, JPEG incl.
                                   CMYK/YCCK, GIF, WebP lossy/lossless/
-                                  animated, baseline TIFF, PNM P1-P6, BMP),
+                                  animated, TIFF, JPEG 2000 (JP2 or a raw
+                                  codestream), PNM P1-P6, BMP),
                                   told by its bytes, as JAX's PIL tells it
        ?size=<px>|native          a square resize to <px> (a multiple of 16 in
                                   [16, 2048]; default cfg.model.image_size, or
@@ -23,7 +24,7 @@ Endpoints:
                                   with both PNGs base64-encoded
   400 for a bad request (body, size, output, an image that is truncated,
   corrupt, of a kind PIL does not read either, or of one PIL reads and the
-  port does not, named in the body: AVIF, JPEG 2000, PSD, TGA, ...; the
+  port does not, named in the body: AVIF, PSD, TGA, HTJ2K, ...; the
   native-shape budget spent), 404 for an unknown path, 500 when inference
   fails.
 

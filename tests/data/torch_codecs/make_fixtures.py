@@ -9,9 +9,11 @@ and libtiff. The formats PIL does not write (16-bit RGB and Adam7 PNG,
 16-bit and maxval-100 P6, RLE8 BMP, a planar TIFF with the horizontal
 predictor, YCCK JPEG, ASCII P3) are written by the small writers below;
 JPEG-in-TIFF YCbCr, subsampled YCbCr LZW, arithmetic-coded and lossless
-JPEG by the writers of tests/test_torch_tiff.py and tests/test_torch_jpeg.py.
+JPEG by the writers of tests/test_torch_tiff.py and tests/test_torch_jpeg.py;
+a palette JP2 (PIL writes none) by rewriting the header boxes of its JP2.
 """
 
+import hashlib
 import io
 import os
 import struct
@@ -23,6 +25,8 @@ from PIL import Image
 from shmgan_tpu_torch.data.synthetic import camera_image, synth_polar_scene
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the 612x816 JPEG 2000 photo, beside it <name>.sha256 of PIL's pixels
+PHOTO_JP2 = "photo_612x816.jp2"
 
 
 def scene(h, w, seed):
@@ -144,6 +148,46 @@ def variants(tiny):
     }
 
 
+def jp2_palette(indices, palette):
+    """A palette JP2: PIL's JP2 of the 8-bit indices, its header rewritten to
+    an sRGB colr, a pclr of the palette's 8-bit entries and a cmap."""
+    data = pil(Image.fromarray(indices), "JPEG2000")
+    box = lambda kind, body: struct.pack(">I", 8 + len(body)) + kind + body
+    ihdr = data[data.index(b"ihdr") + 4:data.index(b"ihdr") + 18]
+    pclr = struct.pack(">HB", len(palette), 3) + bytes([7, 7, 7]) + palette.tobytes()
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(3))
+    header = box(b"jp2h", box(b"ihdr", ihdr) + box(b"colr", struct.pack(">BBBI", 1, 0, 0, 16))
+                 + box(b"pclr", pclr) + box(b"cmap", cmap))
+    start = data.index(b"jp2h") - 4
+    end = start + struct.unpack(">I", data[start:start + 4])[0]
+    return data[:start] + header + data[end:]
+
+
+def jpeg2000():
+    """Small JPEG 2000 fixtures (24x16) and the 612x816 photo, whose pixels
+    are pinned by the SHA-256 of PIL's convert("RGB") bytes (a PNG of them
+    would not fit the directory's byte budget)."""
+    small = u8(scene(16, 24, 12))
+    im = Image.fromarray(small)
+    rgba = Image.fromarray(np.dstack([small, u8(scene(16, 24, 13))[..., 0]]), "RGBA")
+    grey16 = Image.fromarray((scene(16, 24, 14)[..., 0] * 300).astype(np.uint16)).convert("I;16")
+    pal = im.quantize(16)
+    palette = np.array(pal.getpalette()[:48], np.uint8).reshape(16, 3)
+    out = {
+        "jp2_lossless.jp2": pil(im, "JPEG2000"),
+        "j2k_97_layers.j2k": pil(im, "JPEG2000", no_jp2=True, irreversible=True,
+                                 quality_layers=[20, 8, 3], mct=1),
+        "jp2_tiled_cprl.jp2": pil(im, "JPEG2000", tile_size=(8, 8), progression="CPRL",
+                                  precinct_size=(16, 16), num_resolutions=3),
+        "j2k_grey16.j2k": pil(grey16, "JPEG2000", no_jp2=True),
+        "jp2_rgba.jp2": pil(rgba, "JPEG2000"),
+        "jp2_palette.jp2": jp2_palette(np.asarray(pal), palette),
+    }
+    photo = pil(Image.fromarray(u8(scene(612, 816, 15))), "JPEG2000", irreversible=True,
+                quality_layers=[1000, 500, 200])
+    return out, photo
+
+
 def fixtures():
     cam = u8(scene(256, 256, 1))
     im = Image.fromarray(cam)
@@ -213,7 +257,14 @@ def fixtures():
 
 
 def main():
-    for name, data in sorted(fixtures().items()):
+    small, photo = jpeg2000()
+    with open(os.path.join(HERE, PHOTO_JP2), "wb") as f:
+        f.write(photo)
+    with Image.open(io.BytesIO(photo)) as im:
+        digest = hashlib.sha256(np.ascontiguousarray(im.convert("RGB")).tobytes()).hexdigest()
+    with open(os.path.join(HERE, PHOTO_JP2 + ".sha256"), "w") as f:
+        f.write(digest + "\n")
+    for name, data in sorted({**fixtures(), **small}.items()):
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
         with Image.open(io.BytesIO(data)) as im:

@@ -1,8 +1,10 @@
 """The committed codec fixtures (tests/data/torch_codecs/), on the CPU: PIL
 still decodes every fixture to its committed PNG, the port decodes every
 fixture to the same pixels, exactly, and the directory says how it was
-written."""
+written. The 612x816 JPEG 2000 photo has no PNG beside it: PIL's pixels
+and the port's are held to the SHA-256 written beside it."""
 
+import hashlib
 import os
 
 import numpy as np
@@ -14,6 +16,7 @@ from shmgan_tpu_torch.data import codecs
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_codecs")
 # a fixture is a file with its pixels beside it as <name>.png
 FIXTURES = sorted(f for f in os.listdir(HERE) if os.path.isfile(os.path.join(HERE, f + ".png")))
+PHOTO_JP2 = "photo_612x816.jp2"
 
 
 def _pil_rgb(path):
@@ -22,9 +25,31 @@ def _pil_rgb(path):
 
 
 def test_every_fixture_has_its_pixels_and_the_set_is_whole():
-    assert len(FIXTURES) == 46
-    assert len(os.listdir(HERE)) == 2 * 46 + 2          # and the README and the writer
+    assert len(FIXTURES) == 52
+    # and the README, the writer, the JPEG 2000 photo and its SHA-256
+    assert len(os.listdir(HERE)) == 2 * 52 + 4
     assert sum(os.path.getsize(os.path.join(HERE, f)) for f in os.listdir(HERE)) < 2_000_000
+
+
+def _photo_sha256():
+    with open(os.path.join(HERE, PHOTO_JP2 + ".sha256")) as f:
+        return f.read().strip()
+
+
+def test_pil_still_decodes_the_jpeg2000_photo_to_its_sha256():
+    path = os.path.join(HERE, PHOTO_JP2)
+    assert os.path.getsize(path) <= 10_000
+    with Image.open(path) as im:
+        assert im.size == (816, 612)
+        pixels = np.ascontiguousarray(im.convert("RGB"))
+    assert hashlib.sha256(pixels.tobytes()).hexdigest() == _photo_sha256()
+
+
+def test_the_port_decodes_the_jpeg2000_photo_to_pils_sha256():
+    with open(os.path.join(HERE, PHOTO_JP2), "rb") as f:
+        got = codecs.decode(f.read())
+    assert got.shape == (612, 816, 3) and got.dtype == np.uint8
+    assert hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest() == _photo_sha256()
 
 
 @pytest.mark.parametrize("name", FIXTURES)
@@ -44,5 +69,5 @@ def test_readme_says_how_the_fixtures_were_written():
     with open(os.path.join(HERE, "README.md")) as f:
         readme = f.read()
     assert "make_fixtures.py" in readme and "convert(\"RGB\")" in readme
-    for kind in ("JPEG", "GIF", "PNG", "P6", "BMP"):
+    for kind in ("JPEG", "GIF", "PNG", "P6", "BMP", "JPEG 2000", PHOTO_JP2):
         assert kind in readme

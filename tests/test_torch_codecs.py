@@ -808,7 +808,6 @@ def _unported():
     img = Image.fromarray(_photo(16, 16, seed=23))
     return {
         "AVIF": _pil_bytes(img, "AVIF"),
-        "JPEG 2000": _pil_bytes(img, "JPEG2000"),
         "TGA": _pil_bytes(img, "TGA"),
         "QOI": _pil_bytes(img, "QOI"),
         "ICO": _pil_bytes(img, "ICO"),

@@ -169,7 +169,8 @@ def _photo_body(arr, fmt):
     """arr (h, w, 3) uint8 encoded as `fmt`: a PIL format name, "CMYK JPEG",
     "TIFF" (LZW), "P3" (an ASCII PPM), "ARITH JPEG" (PIL's JPEG re-coded
     arithmetically), "YCBCR JPEG TIFF" (JPEG-in-TIFF, 4:2:0, its tables in
-    JPEGTables) or "FLOAT TIFF" (the luma as 32-bit float samples)."""
+    JPEGTables), "FLOAT TIFF" (the luma as 32-bit float samples), "JP2" (9/7,
+    three layers) or "J2K" (a raw 5/3 codestream with the colour transform)."""
     from test_torch_jpeg import arith_version
     from test_torch_tiff import _jpeg_in_tiff
 
@@ -187,7 +188,9 @@ def _photo_body(arr, fmt):
         return buf.getvalue()
     im = Image.fromarray(arr)
     kw = {"CMYK JPEG": dict(format="JPEG"), "TIFF": dict(format="TIFF", compression="tiff_lzw"),
-          "WEBP": dict(format="WEBP", quality=80)}.get(fmt, dict(format=fmt))
+          "WEBP": dict(format="WEBP", quality=80),
+          "JP2": dict(format="JPEG2000", irreversible=True, quality_layers=[40, 15, 5]),
+          "J2K": dict(format="JPEG2000", no_jp2=True, mct=1)}.get(fmt, dict(format=fmt))
     buf = io.BytesIO()
     (im.convert("CMYK") if fmt == "CMYK JPEG" else im).save(buf, **kw)
     return buf.getvalue()
@@ -204,7 +207,9 @@ def _photo_body(arr, fmt):
                                              ("ARITH JPEG", "?size=native", (40, 56)),
                                              ("YCBCR JPEG TIFF", "", (48, 40)),
                                              ("YCBCR JPEG TIFF", "?size=native", (40, 56)),
-                                             ("FLOAT TIFF", "?size=native", (40, 56))])
+                                             ("FLOAT TIFF", "?size=native", (40, 56)),
+                                             ("JP2", "", (48, 40)),
+                                             ("JP2", "?size=native", (40, 56))])
 def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
     """A JPEG, GIF, WebP, TIFF, CMYK JPEG or ASCII PPM body gives 200,
     within one level of the engine given PIL's decoded pixels (resized as
@@ -233,7 +238,7 @@ def test_jpeg_and_gif_are_served_like_the_engine(running, fmt, query, shape):
 
 
 @pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "CMYK JPEG", "P3", "ARITH JPEG",
-                                 "YCBCR JPEG TIFF", "FLOAT TIFF"])
+                                 "YCBCR JPEG TIFF", "FLOAT TIFF", "JP2", "J2K"])
 @pytest.mark.parametrize("size", [256, "native"])
 def test_request_decode_equals_jaxs_on_photo_formats(fmt, size):
     """serve_http._decode_request_image against the JAX package's (PIL's
@@ -249,10 +254,28 @@ def test_request_decode_equals_jaxs_on_photo_formats(fmt, size):
                                   j_decode_request_image(body, size))
 
 
-@pytest.mark.parametrize("body,name", [(b"8BPS" + bytes(40), "PSD"),
-                                       (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
-                                        "JPEG 2000")], ids=["psd", "jp2"])
-def test_a_format_pil_opens_and_the_port_does_not_is_400_naming_it(server, body, name):
+def _htj2k_jp2():
+    """A JP2 whose codestream declares HTJ2K with a CAP marker after SIZ
+    (Pcap: Part 15). Its code-blocks are Part 1's, so PIL's openjpeg decodes
+    it; the port refuses CAP by name."""
+    buf = io.BytesIO()
+    Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(buf, format="JPEG2000")
+    data = buf.getvalue()
+    siz = data.index(b"\xff\x4f\xff\x51") + 2
+    end = siz + 2 + int.from_bytes(data[siz + 2:siz + 4], "big")
+    cap = b"\xff\x50\x00\x08\x00\x02\x00\x00\x00\x00"
+    jp2c = data.index(b"jp2c") - 4                  # its box grows by the marker
+    grown = (int.from_bytes(data[jp2c:jp2c + 4], "big") + len(cap)).to_bytes(4, "big")
+    return data[:jp2c] + grown + data[jp2c + 4:end] + cap + data[end:]
+
+
+@pytest.mark.parametrize("body,name,pil_rgb", [(b"8BPS" + bytes(40), "PSD", None),
+                                               (_htj2k_jp2(), "HTJ2K", 90)],
+                         ids=["psd", "jp2"])
+def test_a_format_pil_opens_and_the_port_does_not_is_400_naming_it(server, body, name,
+                                                                    pil_rgb):
+    if pil_rgb is not None:
+        assert (np.asarray(Image.open(io.BytesIO(body)).convert("RGB")) == pil_rgb).all()
     with pytest.raises(urllib.error.HTTPError) as exc:
         _post(server + "/v1/specfree", body)
     assert exc.value.code == 400 and name in json.loads(exc.value.read())["error"]

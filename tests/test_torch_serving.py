@@ -271,26 +271,30 @@ def _write_formats(root, seed):
         f.write(arith_version(data))
     with open(os.path.join(root, "l_jpeg_in_tiff_named.png"), "wb") as f:
         f.write(_jpeg_in_tiff(arr, (2, 2), "strips", True))
+    im.save(os.path.join(root, "m_jp2_named.png"), format="JPEG2000", irreversible=True,
+            quality_layers=[30, 10])
+    im.save(os.path.join(root, "n_not_listed.jp2"))     # JAX's extensions hold no .jp2
 
 
 @pytest.mark.parametrize("native", [False, True], ids=["square", "native"])
 def test_folder_jobs_on_photo_formats_match_the_jax_engine(weights, tmp_path, native):
     """JPEG, GIF, 16-bit PNG, palette BMP, 16-bit PPM, a .png-named WebP, a
-    CMYK JPEG, an ASCII PPM, an arithmetic-coded JPEG and a .png-named
-    YCbCr JPEG-in-TIFF: the port's folder job writes the JAX engine's
-    files, pixels within one level; the JPEG cut short is skipped by both."""
+    CMYK JPEG, an ASCII PPM, an arithmetic-coded JPEG, a .png-named
+    YCbCr JPEG-in-TIFF and a .png-named JP2: the port's folder job writes
+    the JAX engine's files, pixels within one level; the JPEG cut short is
+    skipped by both, and the .jp2 is listed by neither."""
     jcfg, cfg = _configs()
     in_dir = str(tmp_path / "in")
     _write_formats(in_dir, seed=29)
     kw = dict(batch_size=2, native_resolution=native, outputs=("gen_rgb_calibrated", "mask"))
     jeng = JEngine(jcfg, *weights, **kw)
-    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 11
+    assert jeng.process_folder(in_dir, str(tmp_path / "jax")) == 12
     gen, specseg = _port(cfg, weights)
     eng = BatchInferenceEngine(cfg, gen, specseg, device="cpu", **kw)
-    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 11
+    assert eng.process_folder(in_dir, str(tmp_path / "port")) == 12
     eng.close()
     want, got = _read_dir(str(tmp_path / "jax")), _read_dir(str(tmp_path / "port"))
-    assert len(want) == 22 and list(got) == list(want)
+    assert len(want) == 24 and list(got) == list(want)
     for f in want:
         assert got[f].shape == want[f].shape, f
         assert np.abs(got[f] - want[f]).max() <= 1, f
