@@ -73,6 +73,10 @@ Phases (each prints its name before it starts and its seconds after):
               decoded on the host
               against PIL's pixels (the PNG beside it), exactly, with the
               decode ms of each beside the PNG decode of the same pixels;
+              a footer-less type-2 TGA, a QOI, a PackBits PSD, an RLE PCX,
+              a raw SGI and a BMP-entry ICO written here from a seeded
+              scene (written_bodies) at 16x24, 48x64 and 612x816, each
+              against its scene's pixels, exactly, ms beside the PNG's;
               the 612x816 JPEG 2000 photo (9/7, three layers) against the
               SHA-256 of PIL's pixels, its decode ms and its C++ tier-1 ms;
               the 612x816 and 2048x1536 JPEG photos and the JPEG 2000 photo
@@ -85,7 +89,8 @@ Phases (each prints its name before it starts and its seconds after):
               from 612x816, the 612x816 JPEG fixture at size=256 and
               size=native, a GIF fixture, and the lossy WebP, LZW TIFF,
               CMYK JPEG, YCbCr JPEG-in-TIFF, arithmetic JPEG and 24x16 JP2
-              fixtures and the 612x816 JPEG 2000 photo at size=256 and
+              fixtures, the 612x816 JPEG 2000 photo and the six 48x64
+              written bodies (TGA, QOI, PSD, PCX, SGI, ICO) at size=256 and
               size=native, each within
               one level of an in-process engine's pixels (of PIL's pixels
               for a photo format); host decode ms of those bodies; 16
@@ -96,7 +101,8 @@ Phases (each prints its name before it starts and its seconds after):
   serve_folder process_folder and watch_folder(max_iterations=3), square and
               native, on ten PNGs and every JPEG, GIF, 16-bit PNG, BMP,
               WebP, TIFF and JPEG 2000 (all three named .png: read by their
-              bytes) and P3 fixture, beside a .jp2 that list_images skips
+              bytes) and P3 fixture and the six 48x64 written bodies
+              (named .png), beside a .jp2 that list_images skips
               as JAX's does: the files written, their shapes, the square
               job's pixels against process_images', launches;
   data_parallel two ranks of one gloo group on the one card (NCCL refuses
@@ -289,6 +295,7 @@ import json
 import os
 import re
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1409,12 +1416,115 @@ def jp2_photo():
     return data, encode_png(rgb)
 
 
+# the lossless bodies written here at run time (the card's host has no PIL),
+# each decoded against its scene's own pixels, exactly: shapes (h, w), the
+# middle one POSTed to serve_http and given to serve_folder
+WRITTEN_FORMATS = ("TGA", "QOI", "PSD", "PCX", "SGI", "ICO")
+WRITTEN_SHAPES = ((16, 24), (48, 64), (612, 816))
+WRITTEN_HTTP_SHAPE = (48, 64)
+
+
+def _write_tga(img):
+    """A type-2 TGA with no footer (its first bytes are CUR's signature):
+    24-bit BGR, rows bottom-up."""
+    h, w, _ = img.shape
+    return (b"\x00\x00\x02" + bytes(9) + struct.pack("<HH", w, h) + b"\x18\x00"
+            + img[::-1, :, ::-1].tobytes())
+
+
+def _write_qoi(img):
+    """QOI of QOI_OP_DIFF, QOI_OP_LUMA and QOI_OP_RGB ops, each chosen from
+    the previous pixel as an encoder would (no index or run ops), then the
+    end marker."""
+    h, w, _ = img.shape
+    px = img.reshape(-1, 3).astype(np.int64)
+    prev = np.concatenate([np.zeros((1, 3), np.int64), px[:-1]])
+    d = (px - prev + 128) % 256 - 128                        # wrapped differences
+    dg = d[:, 1]
+    dr_dg, db_dg = d[:, 0] - dg, d[:, 2] - dg
+    diff = (d >= -2).all(1) & (d <= 1).all(1)
+    luma = ~diff & (dg >= -32) & (dg <= 31) & (np.abs(dr_dg + 0.5) <= 8) & (
+        np.abs(db_dg + 0.5) <= 8)
+    ops = np.zeros((len(px), 4), np.uint8)
+    ops[:, 0] = 0xFE
+    ops[:, 1:] = px
+    ops[diff, 0] = (0x40 | (d[diff, 0] + 2) << 4 | (d[diff, 1] + 2) << 2 | (d[diff, 2] + 2))
+    ops[luma, 0] = 0x80 | (dg[luma] + 32)
+    ops[luma, 1] = (dr_dg[luma] + 8) << 4 | (db_dg[luma] + 8)
+    size = np.where(diff, 1, np.where(luma, 2, 4))
+    keep = np.arange(4)[None] < size[:, None]
+    return (b"qoif" + struct.pack(">IIBB", w, h, 3, 0) + ops[keep].tobytes()
+            + bytes(7) + b"\x01")
+
+
+def _write_psd(img):
+    """An RGB PSD in PackBits: each row in literal packets of up to 128
+    bytes, after the table of the rows' byte counts."""
+    h, w, _ = img.shape
+    rows = []
+    for plane in np.moveaxis(img, -1, 0):
+        for row in plane:
+            rows.append(b"".join(bytes([len(c) - 1]) + c.tobytes()
+                                 for c in np.array_split(row, -(-w // 128))))
+    return (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + bytes(12)
+            + struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in rows)
+            + b"".join(rows))
+
+
+def _write_pcx(img):
+    """A version-5 PCX of three 8-bit planes a line (w even), run-length
+    coded as PIL's encoder codes a byte of the two top bits set: a run of 1."""
+    h, w, _ = img.shape
+    lines = np.moveaxis(img, -1, 1).reshape(-1)               # R, G, B planes a line
+    high = lines >= 0xC0
+    pairs = np.stack([np.where(high, 0xC1, lines), lines], 1).astype(np.uint8)
+    keep = np.stack([np.ones_like(high), high], 1)
+    head = (bytes([10, 5, 1, 8]) + struct.pack("<HHHHHH", 0, 0, w - 1, h - 1, 72, 72)
+            + bytes(48) + bytes([0, 3]) + struct.pack("<HH", w, 1) + bytes(58))
+    return head + pairs[keep].tobytes()
+
+
+def _write_sgi(img):
+    """A raw 8-bit RGB SGI: planar, rows bottom-up."""
+    h, w, _ = img.shape
+    return (struct.pack(">HBBHHHH", 474, 0, 1, 3, w, h, 3) + bytes(500)
+            + np.moveaxis(img[::-1], -1, 0).tobytes())
+
+
+def _write_ico(img):
+    """An ICO of one 24-bit BMP entry: the DIB of twice the height, its
+    rows bottom-up and padded, then an empty AND mask."""
+    h, w, _ = img.shape
+    stride, mstride = (3 * w + 3) // 4 * 4, (w + 31) // 32 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    entry = (struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 24, 0, 0, 0, 0, 0, 0)
+             + rows.tobytes() + bytes(mstride * h))
+    return (struct.pack("<HHH", 0, 1, 1) + bytes([w % 256, h % 256, 0, 0])
+            + struct.pack("<HHII", 1, 24, len(entry), 22) + entry)
+
+
+_WRITERS = {"TGA": _write_tga, "QOI": _write_qoi, "PSD": _write_psd, "PCX": _write_pcx,
+            "SGI": _write_sgi, "ICO": _write_ico}
+
+
+def written_bodies(shape, seed=6):
+    """{format: (body, the PNG of its scene)} at `shape`, from one seeded
+    scene; each body decoded by the port must equal the scene exactly."""
+    from shmgan_tpu_torch.data.codecs import encode_png
+
+    scene = (scenes(1, *shape, np.random.default_rng(seed))[0] * 255).astype(np.uint8)
+    return {f: (_WRITERS[f](scene), encode_png(scene)) for f in WRITTEN_FORMATS}
+
+
 def formats_phase(bundle):
     """Every committed codec fixture decoded on the host by data/codecs.py
     against PIL's pixels (its PNG, read by the port's PNG decoder), exactly;
     decode ms of each beside the PNG decode of the same pixels; the JPEG
     2000 photo against the SHA-256 of PIL's pixels, its decode ms and its
-    C++ tier-1 ms; then the two largest JPEG photos and the JPEG 2000 photo,
+    C++ tier-1 ms; the bodies of written_bodies at WRITTEN_SHAPES against
+    their scenes, exactly, ms beside the PNG's; then the two largest JPEG
+    photos and the JPEG 2000 photo,
     one a call, through process_images_native on the trained bundle in f32
     and in bf16 (_native_runs: launches, outputs held against the plain
     versions), the 612x816 photos' preprocess streaming; ms each."""
@@ -1441,6 +1551,21 @@ def formats_phase(bundle):
         decoded[name] = got
     if wrong:
         raise AssertionError(f"fixtures decoded otherwise than PIL: {wrong}")
+
+    for shape in WRITTEN_SHAPES:               # TGA, QOI, PSD, PCX, SGI, ICO: their scenes
+        reps = 2 if shape[0] > 100 else 5
+        for fmt, (data, ref) in written_bodies(shape).items():
+            got, want = decode(data), decode(ref)
+            dec = [_timed_ms(lambda: decode(data)) for _ in range(reps)]
+            png = [_timed_ms(lambda: decode(ref)) for _ in range(reps)]
+            same = got.shape == want.shape and np.array_equal(got, want)
+            say(f"decode written {fmt} {shape[0]}x{shape[1]} ({len(data)} bytes): median "
+                f"{np.median(dec):.2f} ms over {reps}; the PNG of the same pixels ({len(ref)} "
+                f"bytes) {np.median(png):.2f} ms; {'equal to its scene' if same else 'DIFFERS'}")
+            if not same:
+                wrong.append(f"{fmt} {shape}")
+    if wrong:
+        raise AssertionError(f"written bodies decoded otherwise than their scenes: {wrong}")
 
     data, ref = jp2_photo()
     decoded[PHOTO_JP2] = decode(data)
@@ -1488,7 +1613,8 @@ def serve_http_phase():
     each output=, at size=native, and resized from 612x816, and the 612x816
     JPEG fixture (at size=256 and size=native), a GIF fixture, and the
     HTTP_PHOTO_FORMATS fixtures (WebP, TIFF, CMYK JPEG, YCbCr JPEG-in-TIFF,
-    arithmetic JPEG, JP2) and the 612x816 JPEG 2000 photo at size=256 and
+    arithmetic JPEG, JP2), the 612x816 JPEG 2000 photo and the 48x64
+    written TGA, QOI, PSD, PCX, SGI and ICO bodies at size=256 and
     size=native; each response's pixels within one level of an in-process
     engine's on the same decoded input (for a photo format, PIL's pixels);
     the host decode ms of those bodies; 16 concurrent requests in fewer
@@ -1535,6 +1661,9 @@ def serve_http_phase():
     jpeg, gif = fixtures["photo_612x816.jpg"], fixtures["palette.gif"]
     photos = [(label, fixtures[name]) for label, name in HTTP_PHOTO_FORMATS]
     photos.append(("612x816 JP2", jp2_photo()))
+    h, w = WRITTEN_HTTP_SHAPE
+    photos += [(f"{h}x{w} written {fmt}", body)
+               for fmt, body in written_bodies(WRITTEN_HTTP_SHAPE).items()]
     for label, (data, _) in [("JPEG 612x816", jpeg), ("GIF 256x256", gif)] + photos:
         dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
         say(f"host decode of the {label} body ({len(data)} bytes): median "
@@ -1685,9 +1814,10 @@ def _listed_ext(name):
 
 
 def serve_folder_phase(bundle):
-    """10 PNGs (five 256x256, five 300x452) and the codec fixtures of
+    """10 PNGs (five 256x256, five 300x452), the codec fixtures of
     FOLDER_FORMATS (every JPEG and GIF, the 16-bit PNGs, the BMPs, the WebPs,
-    TIFFs and JPEG 2000s named .png, the P3), beside a JP2 named .jp2 that
+    TIFFs and JPEG 2000s named .png, the P3) and the 48x64 written bodies
+    (TGA, QOI, PSD, PCX, SGI, ICO, named .png), beside a JP2 named .jp2 that
     list_images skips (JAX's extensions), through
     process_folder and watch_folder(max_iterations=3), square (256) and
     native, bf16 on the trained bundle: the files written (names, shapes),
@@ -1711,6 +1841,9 @@ def serve_folder_phase(bundle):
     # outputs; a WebP or TIFF as .png, an extension list_images keeps
     inputs.update({"fx_" + n.replace(".", "_") + _listed_ext(n): data
                    for n, (data, _) in codec_fixtures().items() if n.endswith(FOLDER_FORMATS)})
+    # the written TGA, QOI, PSD, PCX, SGI and ICO bodies, named .png
+    inputs.update({f"written_{fmt.lower()}.png": body
+                   for fmt, (body, _) in written_bodies(WRITTEN_HTTP_SHAPE).items()})
     file_of = {os.path.splitext(n)[0]: n for n in inputs}
     names = sorted(file_of)
     native_sizes = {b: decode(inputs[n]).shape[:2] for b, n in file_of.items()}

@@ -7,9 +7,12 @@ native/loader.cc (`encode_png`).
     data = encode_png(u8)                     # (H, W) or (H, W, 1|3) uint8
     data = encode_ppm(u8); encode_bmp(u8)     # PIL's P6/P5 and 24-bit BMP bytes
 
-`decode` dispatches on the file's signature, as `Image.open` does (never on
-its name), and reads what PIL 12 reads of these formats, to PIL's
-`convert("RGB")` pixels:
+`decode` tells a file by its bytes as `Image.open` does (never by its
+name): PIL 12's plugins in its order (`_open_order`), each taking the
+bytes where PIL's `_accept` and `_open` would and passing them on
+(NotThisFormat) where PIL's would; TGA, which has no signature, is tried
+on nearly everything. It reads what PIL 12 reads of these formats, to
+PIL's `convert("RGB")` pixels:
 
   - JPEG: baseline, extended sequential and progressive, Huffman or
     arithmetic coding, and lossless (SOF3), 8-bit, 1, 3 or 4 components
@@ -31,33 +34,42 @@ its name), and reads what PIL 12 reads of these formats, to PIL's
   - PNG: every colour type at every bit depth, 16 bits included, Adam7
     interlaced or not, every row filter;
   - PNM: binary P6 (PPM) and P5 (PGM) at every maxval, 16-bit samples
-    included; plain P3 and P2; bilevel P1 and P4 (PBM);
-  - BMP: 1-, 4- and 8-bit palettes, 16-bit 555 and 565, 24-bit, 32-bit, the
-    BITFIELDS layouts PIL knows, RLE8 and RLE4, bottom-up or top-down, the
-    Windows headers and OS/2's BITMAPCOREHEADER.
+    included; plain P3 and P2; bilevel P1 and P4 (PBM); PFM's grey `Pf`;
+  - BMP and the headerless DIB: 1-, 4- and 8-bit palettes, 16-bit 555 and
+    565, 24-bit, 32-bit, the BITFIELDS layouts PIL knows, RLE8 and RLE4,
+    bottom-up or top-down, the Windows headers and OS/2's
+    BITMAPCOREHEADER;
+  - TGA (data/tga.py), PSD (data/psd.py), ICO, CUR and ICNS
+    (data/icons.py), QOI (data/qoi.py), PCX and DCX (data/pcx.py), SGI
+    (data/sgi.py), DDS with every block format PIL reads (data/dds.py),
+    MSP and XBM.
 
 Colour follows PIL's `convert("RGB")`, which does not scale every format
 the same way: grey is replicated, alpha and transparency are dropped, a
 palette is looked up (zeros past its end); a 16-bit grey PNG and a PGM of
 maxval above 255 clip at 255 (PIL's modes I;16 and I), a 16-bit RGB or
 grey+alpha PNG keeps the high byte, a PPM of maxval other than 255 is
-scaled by round(v / maxval * 255).
+scaled by round(v / maxval * 255), PFM's floats clip to [0, 255] and
+truncate.
 
-Formats PIL opens that the port does not decode raise a ValueError that
-names them where their signature does: AVIF, PSD, QOI, ICO/CUR, DDS, SGI,
-PCX, PFM, TGA (by its footer), ICNS, MSP, XBM (`_UNPORTED`), and the
-variants of a ported format the port does not read, each by name (12-bit,
-hierarchical and lossless arithmetic-coded JPEG, which PIL refuses too; the
-TIFF codes and layouts data/tiff.py lists; the JPEG 2000 features
-data/jpeg2000.py lists, HTJ2K first). So does
-input that is truncated, corrupt or not an image, and, from its header
-before anything is allocated, an image of more pixels than PIL opens
-(`check_size`).
+Formats PIL opens that the port does not decode raise a ValueError naming
+them where their `_accept` takes the bytes: AVIF, BLP, BUFR, EPS, FITS,
+FTEX, GRIB, HDF5, MCIDAS, MPEG, PIXAR, SUN, WMF, XPM, XVTHUMB and PIL's
+own PPM variants (P0CMYK, PyP, PyRGBA, PyCMYK); IM, IMT, IPTC, PCD and
+SPIDER (which have no `_accept`), GBR and FLI fall to "unrecognised".
+So do the variants of a ported format the port does not read, each by
+name (12-bit, hierarchical and lossless arithmetic-coded JPEG, which PIL
+refuses too; the TIFF codes and layouts data/tiff.py lists; the JPEG 2000
+features data/jpeg2000.py lists, HTJ2K first). So does input that is
+truncated, corrupt or not an image, and, from its header before anything
+is allocated, an image of more pixels than PIL opens (`check_size`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 import struct
 import zlib
 from typing import Tuple
@@ -86,52 +98,106 @@ def check_size(kind: str, w: int, h: int) -> None:
                          f"{2 * MAX_IMAGE_PIXELS} PIL opens")
 
 
-# formats PIL opens that the port does not decode, by their signatures:
-# (offset, bytes, name)
-_UNPORTED = (
-    (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"),
-    (0, b"8BPS", "PSD"), (0, b"qoif", "QOI"), (0, b"DDS ", "DDS"),
-    (0, b"\x00\x00\x01\x00", "ICO"), (0, b"\x00\x00\x02\x00", "CUR"),
-    (0, b"\x01\xda", "SGI"), (0, b"icns", "ICNS"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
-    (0, b"#define", "XBM"), (0, b"Pf", "PFM"),
-)
+class NotThisFormat(ValueError):
+    """The bytes are not this plugin's after all: where PIL's `_open` raises
+    SyntaxError (or IndexError, TypeError, KeyError, EOFError or
+    struct.error, which ImageFile turns into SyntaxError), or opens an empty
+    image, `Image.open` goes on to the next plugin, and so does `decode`."""
 
 
-def decode(data: bytes) -> np.ndarray:
-    """Encoded image bytes -> (H, W, 3) uint8 RGB. The format is told by its
-    signature, as `Image.open` tells it, never by a file name."""
-    from shmgan_tpu_torch.data.gif import decode_gif     # each imports check_size
+def _refused(name: str):
+    def refuse(data: bytes) -> np.ndarray:
+        raise ValueError(f"{name}: PIL opens this format, the port does not decode it")
+    return refuse
+
+
+def _starts(*magics: bytes):
+    return lambda data: data.startswith(magics)
+
+
+def _i32(data: bytes, fmt: str = "<I") -> int:
+    return struct.unpack(fmt, data[:4])[0] if len(data) >= 4 else -1
+
+
+def _ppm_accept(data: bytes) -> bool:
+    return data[:1] == b"P" and len(data) >= 2 and data[1] in b"0123456fy"
+
+
+@functools.lru_cache(maxsize=1)
+def _open_order() -> tuple:
+    """(name, accept, decoder) in the order `Image.open` tries PIL 12's
+    plugins: the five it imports first (BMP with DIB, GIF, JPEG, PPM, PNG),
+    then the rest in `Image.ID` order. `accept` sees the bytes as PIL's
+    `_accept` sees the first 16. A plugin PIL opens and the port does not
+    decode refuses by name where its `_accept` takes the bytes; IM, IMT,
+    IPTC, PCD and SPIDER (no `_accept`), GBR and FLI are not emulated, and
+    their files fall to "unrecognised"."""
+    from shmgan_tpu_torch.data import dds, icons, pcx, psd, qoi, sgi, tga
+    from shmgan_tpu_torch.data.gif import decode_gif
     from shmgan_tpu_torch.data.jpeg import decode_jpeg
     from shmgan_tpu_torch.data.jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
     from shmgan_tpu_torch.data.tiff import TIFF_SIGNATURES, decode_tiff
     from shmgan_tpu_torch.data.webp import decode_webp
 
+    return (
+        ("BMP", _starts(b"BM"), _decode_bmp),
+        ("DIB", lambda d: _i32(d) in _DIB_HEADERS, decode_dib),
+        ("GIF", _starts(b"GIF87a", b"GIF89a"), decode_gif),
+        ("JPEG", _starts(b"\xff\xd8\xff"), decode_jpeg),
+        ("PPM", _ppm_accept, _decode_ppm),
+        ("PNG", _starts(PNG_SIGNATURE), _decode_png),
+        ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
+         _refused("AVIF")),
+        ("BLP", _starts(b"BLP1", b"BLP2"), _refused("BLP")),
+        ("BUFR", _starts(b"BUFR", b"ZCZC"), _refused("BUFR")),
+        ("CUR", _starts(b"\x00\x00\x02\x00"), icons.decode_cur),
+        ("PCX", lambda d: d[:1] == b"\x0a" and d[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"),
+         pcx.decode_pcx),
+        ("DCX", lambda d: _i32(d) == pcx.DCX_MAGIC, pcx.decode_dcx),
+        ("DDS", _starts(b"DDS "), dds.decode_dds),
+        ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5, _refused("EPS")),
+        ("FITS", _starts(b"SIMPLE"), _refused("FITS")),
+        ("FTEX", _starts(b"FTEX"), _refused("FTEX")),
+        ("GRIB", lambda d: d.startswith(b"GRIB") and d[7:8] == b"\x01", _refused("GRIB")),
+        ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _refused("HDF5")),
+        ("JPEG2000", _starts(JP2_SIGNATURE, J2K_SIGNATURE), decode_jpeg2000),
+        ("ICNS", _starts(b"icns"), icons.decode_icns),
+        ("ICO", _starts(b"\x00\x00\x01\x00"), icons.decode_ico),
+        ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), _refused("MCIDAS")),
+        ("MPEG", _starts(b"\x00\x00\x01\xb3"), _refused("MPEG")),
+        ("TIFF", _starts(*TIFF_SIGNATURES), decode_tiff),
+        ("MSP", _starts(b"DanM", b"LinS"), _decode_msp),
+        ("PIXAR", _starts(b"\x80\xe8\x00\x00"), _refused("PIXAR")),
+        ("PSD", _starts(b"8BPS"), psd.decode_psd),
+        ("QOI", _starts(b"qoif"), qoi.decode_qoi),
+        ("SGI", lambda d: d[:2] == b"\x01\xda", sgi.decode_sgi),
+        ("SUN", lambda d: _i32(d, ">I") == 0x59A66A95, _refused("SUN")),
+        ("TGA", lambda d: True, tga.decode_tga),       # no _accept: tried on the rest
+        ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
+        ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _refused("WMF")),
+        ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), _decode_xbm),
+        ("XPM", _starts(b"/* XPM */"), _refused("XPM")),
+        ("XVTHUMB", _starts(b"P7 332"), _refused("XVTHUMB")),
+    )
+
+
+_DECODED = ("PNG, JPEG, GIF, WebP, TIFF, JPEG 2000, PNM (P1-P6), PFM, BMP, DIB, TGA, PSD, "
+            "ICO, CUR, ICNS, QOI, PCX, DCX, SGI, MSP, XBM and DDS")
+
+
+def decode(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> (H, W, 3) uint8 RGB. The format is told by its
+    bytes, as `Image.open` tells it, never by a file name: each plugin in
+    PIL's order, passing on where PIL's would (NotThisFormat)."""
     data = bytes(data)
-    if data.startswith(PNG_SIGNATURE):
-        return _decode_png(data)
-    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
-        return _decode_pnm(data)
-    if data[:2] == b"BM":
-        return _decode_bmp(data)
-    if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg(data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data)
-    if data[:4] in TIFF_SIGNATURES:
-        return decode_tiff(data)
-    if data.startswith(JP2_SIGNATURE) or data.startswith(J2K_SIGNATURE):
-        return decode_jpeg2000(data)
-    if data[-18:] == b"TRUEVISION-XFILE.\x00":    # before CUR: a TGA may start alike
-        raise ValueError("TGA: PIL opens this format, the port does not decode it")
-    for offset, magic, name in _UNPORTED:
-        if data[offset:offset + len(magic)] == magic:
-            raise ValueError(f"{name}: PIL opens this format, the port does not decode it")
-    if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"):
-        raise ValueError("PCX: PIL opens this format, the port does not decode it")
-    raise ValueError("unrecognised image format: the port decodes PNG, JPEG, GIF, WebP, "
-                     "TIFF, JPEG 2000, PNM (P1-P6) and BMP")
+    head = data[:16]
+    for _, accept, decoder in _open_order():
+        if accept(head):
+            try:
+                return decoder(data)
+            except NotThisFormat:
+                continue
+    raise ValueError(f"unrecognised image format: the port decodes {_DECODED}")
 
 
 # -- PNG ------------------------------------------------------------------------
@@ -318,10 +384,11 @@ def _encodable(img_u8: np.ndarray, what: str) -> np.ndarray:
 _PNM_WHITESPACE = b" \t\n\x0b\x0c\r"
 
 
-def _pnm_token(data: bytes, pos: int) -> Tuple[bytes, int]:
+def _pnm_token(data: bytes, pos: int, digits: bool = True) -> Tuple[bytes, int]:
     """PpmImagePlugin._read_token: skip whitespace, read up to the next
     whitespace byte (consumed); a `#` drops the rest of its line, newline
-    included, and the token goes on after it."""
+    included, and the token goes on after it. With `digits`, a token of
+    other than decimal digits is refused."""
     token = b""
     while len(token) <= 10:
         ch = data[pos:pos + 1]
@@ -339,7 +406,7 @@ def _pnm_token(data: bytes, pos: int) -> Tuple[bytes, int]:
             token += ch
     if not token:
         raise ValueError("PNM: truncated header")
-    if len(token) > 10 or not token.isdigit():
+    if len(token) > 10 or (digits and not token.isdigit()):
         raise ValueError(f"PNM: bad header token {token[:16]!r}")
     return token, pos
 
@@ -359,6 +426,53 @@ def _pnm_uncommented(body: bytes) -> bytes:
         if not ends:
             return b"".join(parts)
         pos = min(ends) + 1
+
+
+def _decode_ppm(data: bytes) -> np.ndarray:
+    """PpmImagePlugin's magic: up to 6 bytes, to the first whitespace. P1-P6
+    are PNM, Pf is PFM; PIL's own P0CMYK, PyP, PyRGBA and PyCMYK are
+    refused by name; anything else is not PIL's PPM."""
+    magic = data[:6]
+    for i, b in enumerate(magic):
+        if b in _PNM_WHITESPACE:
+            magic = magic[:i]
+            break
+    if magic in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        return _decode_pnm(data)
+    if magic == b"Pf":
+        return _decode_pfm(data, len(magic) + 1)
+    if magic in (b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK"):
+        raise ValueError(f"PPM: PIL opens {magic.decode()}, the port does not decode it")
+    raise NotThisFormat(f"PPM: unknown magic number {magic!r}")
+
+
+def _decode_pfm(data: bytes, pos: int) -> np.ndarray:
+    """PFM's grey `Pf` as PpmImagePlugin reads it (mode F): width, height and
+    scale tokens, then float32 samples, little-endian if the scale is
+    negative, rows bottom-up; `convert("RGB")` clips to [0, 255] and
+    truncates, NaN to 0. (PIL opens no colour `PF`.)"""
+    tokens = []
+    for _ in range(3):
+        token, pos = _pnm_token(data, pos, digits=False)
+        tokens.append(token)
+    try:
+        w, h = int(tokens[0]), int(tokens[1])
+    except ValueError:
+        raise ValueError(f"PFM: bad size tokens {tokens[:2]}") from None
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("PFM: empty image")
+    check_size("PFM", w, h)
+    try:
+        scale = float(tokens[2])
+    except ValueError:
+        raise ValueError(f"PFM: bad scale token {tokens[2]!r}") from None
+    if scale == 0.0 or not math.isfinite(scale):
+        raise ValueError("PFM: the scale must be finite and non-zero")
+    if len(data) - pos < 4 * w * h:
+        raise ValueError("PFM: truncated raster")
+    f = np.frombuffer(data, "<f4" if scale < 0 else ">f4", count=w * h, offset=pos)
+    g = np.where(np.isnan(f), 0, np.clip(f, 0, 255)).astype(np.uint8).reshape(h, w)[::-1]
+    return np.repeat(g[..., None], 3, -1)
 
 
 def _decode_pnm(data: bytes) -> np.ndarray:
@@ -438,6 +552,105 @@ def _decode_pnm(data: bytes) -> np.ndarray:
     return np.repeat(px, 3, axis=-1) if bands == 1 else px
 
 
+# -- MSP, XBM ---------------------------------------------------------------------
+
+def _bilevel(rows: np.ndarray, w: int, lsb_first: bool = False) -> np.ndarray:
+    """(h, stride) packed rows -> (h, w, 3) uint8 as PIL's mode "1" gives
+    them to RGB: a set bit is 255."""
+    bits = np.unpackbits(rows, axis=1, bitorder="little" if lsb_first else "big")[:, :w]
+    return np.repeat((bits * np.uint8(255))[..., None], 3, -1)
+
+
+def _decode_msp(data: bytes) -> np.ndarray:
+    """Windows Paint as MspImagePlugin reads it: a 32-byte header whose 16
+    little-endian words XOR to 0; v1 (DanM) raw rows, v2 (LinS) a row map
+    then rows of runs (0, count, value) and literals (count, bytes), an
+    empty row white. The rows are joined as PIL joins them, whatever their
+    lengths, and must fill the image."""
+    if len(data) < 32:
+        raise NotThisFormat("MSP: truncated header")
+    words = struct.unpack("<16H", data[:32])
+    if functools.reduce(lambda a, b: a ^ b, words):
+        raise NotThisFormat("MSP: bad header checksum")
+    w, h = words[2], words[3]
+    if w == 0 or h == 0:
+        raise NotThisFormat("MSP: empty image")
+    check_size("MSP", w, h)
+    stride = (w + 7) // 8
+    if data.startswith(b"DanM"):
+        if len(data) < 32 + stride * h:
+            raise ValueError("MSP: truncated image data")
+        raw = data[32:32 + stride * h]
+    else:
+        if len(data) < 32 + 2 * h:
+            raise ValueError("MSP: truncated row map")
+        out, pos, need = bytearray(), 32 + 2 * h, stride * h
+        blank = b"\xff" * stride
+        for y, n in enumerate(struct.unpack_from(f"<{h}H", data, 32)):
+            if n == 0:
+                out += blank
+                continue
+            row = data[pos:pos + n]
+            pos += n
+            if len(row) != n:
+                raise ValueError(f"MSP: truncated row {y}")
+            i = 0
+            while i < n:       # every row is read, as PIL reads it; the bytes kept stop at
+                if row[i] == 0:                 # the image's end
+                    if i + 3 > n:
+                        raise ValueError(f"MSP: corrupt row {y}")
+                    if len(out) < need:
+                        out += row[i + 2:i + 3] * row[i + 1]
+                    i += 3
+                else:
+                    if len(out) < need:
+                        out += row[i + 1:i + 1 + row[i]]
+                    i += 1 + row[i]
+        if len(out) < need:
+            raise ValueError("MSP: not enough image data")
+        raw = bytes(out[:need])
+    return _bilevel(np.frombuffer(raw, np.uint8).reshape(h, stride), w)
+
+
+# XbmImagePlugin's header, matched on the first 512 bytes
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    b"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    b"(?P<hotspot>"
+    b"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    b"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    b")?"
+    rb"[\000-\377]*_bits\[]"
+)
+# XbmDecode.c's HEX(): a byte that is no hex digit counts 0
+_HEX = np.array([int(chr(c), 16) if chr(c) in "0123456789abcdefABCDEF" else 0
+                 for c in range(256)], np.uint8)
+
+
+def _decode_xbm(data: bytes) -> np.ndarray:
+    """X11 bitmap as PIL reads it: its header pattern on the first 512
+    bytes; then, as XbmDecode.c, each value is the two bytes after the next
+    `x`, least significant bit first."""
+    m = _XBM_HEAD.match(data[:512])
+    if not m:
+        raise NotThisFormat("XBM: no XBM header")
+    w, h = int(m.group("width")), int(m.group("height"))
+    if w == 0 or h == 0:
+        raise NotThisFormat("XBM: empty image")
+    check_size("XBM", w, h)
+    stride = (w + 7) // 8
+    pairs = []
+    for pair in re.finditer(rb"x([\s\S][\s\S])", data[m.end():]):
+        pairs.append(pair.group(1))
+        if len(pairs) == stride * h:
+            break
+    else:
+        raise ValueError("XBM: truncated bitmap")
+    digits = _HEX[np.frombuffer(b"".join(pairs), np.uint8)].reshape(-1, 2)
+    values = (digits[:, 0] << 4) | digits[:, 1]
+    return _bilevel(values.reshape(h, stride), w, lsb_first=True)
+
+
 # -- BMP ------------------------------------------------------------------------
 
 # BITFIELDS masks PIL knows -> the byte offsets of R, G, B in a 32-bit pixel
@@ -454,7 +667,7 @@ _BMP_MASKS32 = {
 _BMP_MASKS16 = {(0xF800, 0x7E0, 0x1F): 6, (0x7C00, 0x3E0, 0x1F): 5}   # green bits
 
 
-def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool, kind: str) -> np.ndarray:
     """PIL's BmpRleDecoder, step for step (its delta escape reads two bytes
     more than it uses, as PIL's does): (h * w) indices in file row order."""
     out = bytearray()
@@ -482,7 +695,7 @@ def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
                 break
             pos += 2
             if pos + 2 > len(data):
-                raise ValueError("BMP: truncated RLE delta")
+                raise ValueError(f"{kind}: truncated RLE delta")
             right, up = data[pos], data[pos + 1]
             pos += 2
             out += bytes(right + up * w)
@@ -499,8 +712,11 @@ def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
             x += byte
             pos += pos % 2              # PIL aligns to the file's 16-bit words
     if len(out) < n:
-        raise ValueError("BMP: truncated RLE data")
+        raise ValueError(f"{kind}: truncated RLE data")
     return np.frombuffer(bytes(out[:n]), np.uint8).reshape(h, w)
+
+
+_DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 
 
 def _decode_bmp(data: bytes) -> np.ndarray:
@@ -508,16 +724,37 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     BITFIELDS layouts and RLE of its tables, and nothing else."""
     if len(data) < 18:
         raise ValueError("BMP: truncated header")
-    offset, hsize = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
-    hd = data[18:14 + hsize]
+    try:
+        return dib(data, 14, struct.unpack("<I", data[10:14])[0])[0]
+    except NotThisFormat as e:     # no later plugin takes "BM": refused by name
+        raise ValueError(str(e)) from None
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """A headerless DIB (PIL's DIB plugin): the info header at byte 0, the
+    pixels after it, its masks and its palette."""
+    return dib(data, 0, 0)[0]
+
+
+def dib(data: bytes, start: int, offset: int, kind: str = "BMP",
+        halve: bool = False) -> Tuple[np.ndarray, int]:
+    """BmpImageFile._bitmap: the info header at `start`, the pixels at
+    `offset` or, where that is 0, after the header, its masks and its
+    palette. `halve` keeps the top half of the rows, the XOR bitmap of an
+    icon or a cursor entry. -> (RGB, the pixels' offset). Where PIL's reads
+    would raise struct.error, NotThisFormat."""
+    if len(data) < start + 4:
+        raise NotThisFormat(f"{kind}: truncated header")
+    hsize = struct.unpack("<I", data[start:start + 4])[0]
+    hd = data[start + 4:start + hsize]
     if hsize < 12 or len(hd) < hsize - 4:
-        raise ValueError("BMP: truncated header")
-    pos = 14 + hsize
+        raise ValueError(f"{kind}: truncated header")
+    pos = start + hsize
     masks = None
     if hsize == 12:                     # OS/2 BITMAPCOREHEADER
         w, h, _, bits = struct.unpack("<HHHH", hd[:8])
         compression, colors, pal_pad, bottom_up = 0, 0, 3, True
-    elif hsize in (40, 52, 56, 64, 108, 124):
+    elif hsize in _DIB_HEADERS:
         bottom_up = hd[7] != 0xFF
         w, h = struct.unpack("<II", hd[:8])
         if not bottom_up:
@@ -531,19 +768,19 @@ def _decode_bmp(data: bytes) -> np.ndarray:
                     struct.unpack("<I", hd[48:52]) if len(hd) >= 52 else (0,))
             else:
                 if len(data) < pos + 12:
-                    raise ValueError("BMP: truncated header")
+                    raise NotThisFormat(f"{kind}: truncated header")
                 masks = struct.unpack("<III", data[pos:pos + 12]) + (0,)
                 pos += 12
     else:
-        raise ValueError(f"BMP: header size {hsize} is not one PIL reads")
+        raise ValueError(f"{kind}: header size {hsize} is not one PIL reads")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
     if bits not in (1, 4, 8, 16, 24, 32):
-        raise ValueError(f"BMP: {bits} bits a pixel is not one PIL reads")
+        raise ValueError(f"{kind}: {bits} bits a pixel is not one PIL reads")
     if w == 0 or h == 0:
-        raise ValueError("BMP: empty image")
-    check_size("BMP", w, h)
+        raise NotThisFormat(f"{kind}: empty image")
+    check_size(kind, w, h)
     if compression == 3:
         if bits == 32 and masks in _BMP_MASKS32:
             layout = _BMP_MASKS32[masks]
@@ -552,19 +789,20 @@ def _decode_bmp(data: bytes) -> np.ndarray:
         elif bits == 16 and masks[:3] in _BMP_MASKS16:
             layout = _BMP_MASKS16[masks[:3]]
         else:
-            raise ValueError(f"BMP: BITFIELDS layout {masks} is not one PIL reads")
+            raise ValueError(f"{kind}: BITFIELDS layout {masks} is not one PIL reads")
     elif compression == 0:
         layout = 5 if bits == 16 else (2, 1, 0) if bits == 32 else None
     elif compression in (1, 2):
         layout = None
     else:
-        raise ValueError(f"BMP: compression {compression} is not one PIL reads")
+        raise ValueError(f"{kind}: compression {compression} is not one PIL reads")
 
     palette, mode = None, "RGB"
     if bits <= 8:
         if not 0 < colors <= 65536:
-            raise ValueError(f"BMP: palette of {colors} colours")
+            raise ValueError(f"{kind}: palette of {colors} colours")
         raw = data[pos:pos + pal_pad * colors]
+        pos += len(raw)
         grey = all(raw[i * pal_pad:i * pal_pad + 3] == bytes([v]) * 3 for i, v in
                    enumerate((0, 255) if colors == 2 else range(colors)))
         if grey:
@@ -576,12 +814,17 @@ def _decode_bmp(data: bytes) -> np.ndarray:
             palette = np.zeros((256, 3), np.uint8)
             palette[:len(entries)] = entries
 
+    offset = offset or pos
+    if halve:
+        h //= 2
+        if h == 0:
+            raise NotThisFormat(f"{kind}: empty image")
     if compression in (1, 2):
-        idx = _bmp_rle(data, offset, w, h, compression == 2)
+        idx = _bmp_rle(data, offset, w, h, compression == 2, kind)
     else:
         stride = ((w * bits + 31) >> 3) & ~3
         if len(data) < offset + stride * h:
-            raise ValueError("BMP: truncated pixel data")
+            raise ValueError(f"{kind}: truncated pixel data")
         rows = np.frombuffer(data, np.uint8, count=stride * h, offset=offset).reshape(h, stride)
         unpack = {"1": 1, "L": 8}.get(mode, bits)      # PIL's raw modes "1" and "L"
         if unpack < 8:
@@ -603,12 +846,12 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     if bottom_up:
         idx = idx[::-1]
     if mode == "1":
-        return np.repeat(np.where(idx[..., None] != 0, 255, 0).astype(np.uint8), 3, -1)
-    if mode == "L":
-        return np.repeat(np.ascontiguousarray(idx)[..., None], 3, -1)
-    if mode == "P":
-        return palette[idx]
-    return np.ascontiguousarray(idx)
+        rgb = np.repeat(np.where(idx[..., None] != 0, 255, 0).astype(np.uint8), 3, -1)
+    elif mode == "L":
+        rgb = np.repeat(np.ascontiguousarray(idx)[..., None], 3, -1)
+    else:
+        rgb = palette[idx] if mode == "P" else np.ascontiguousarray(idx)
+    return rgb, offset
 
 
 # -- resize -----------------------------------------------------------------------
