@@ -359,10 +359,14 @@ CODEC_DIR = os.path.join(ROOT, "tests", "data", "torch_codecs")
 CODEC_FIXTURES = 52
 # the 612x816 JPEG 2000 photo, pinned by the SHA-256 of PIL's pixels beside it
 PHOTO_JP2 = "photo_612x816.jp2"
+# a 16x16 4:2:0 sYCC JP2 of every code-block style with SOP and EPH markers,
+# pinned the same way
+STYLES_JP2 = "jp2_sycc420_styles.jp2"
+PINNED_JP2 = {PHOTO_JP2: (612, 816), STYLES_JP2: (16, 16)}
 # a Python built without _lzma refuses an LZMA TIFF by name (data/tiff.py):
 # codec_fixtures() then leaves those fixtures out, and says so
 LZMA_HERE = importlib.util.find_spec("_lzma") is not None
-FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg", PHOTO_JP2)
+FORMAT_PHOTOS = ("photo_612x816.jpg", "photo_2048x1536.jpg", PHOTO_JP2, STYLES_JP2)
 # serve_folder's extra inputs: every JPEG and GIF fixture, the 16-bit PNGs, the
 # BMPs, the WebPs, TIFFs and JPEG 2000s (named .png: list_images keeps JAX's
 # extensions, and a file is decoded by its bytes), the ASCII P3
@@ -1399,20 +1403,20 @@ def codec_fixtures():
             for n in names}
 
 
-def jp2_photo():
-    """(the 612x816 JPEG 2000 photo's bytes, the PNG of its pixels): decoded
-    by data/codecs.py and held to the SHA-256 of PIL's pixels beside it."""
+def jp2_photo(name=PHOTO_JP2):
+    """(a pinned JPEG 2000 file's bytes, the PNG of its pixels): decoded by
+    data/codecs.py and held to the SHA-256 of PIL's pixels beside it."""
     import hashlib
 
     from shmgan_tpu_torch.data.codecs import decode, encode_png
 
-    data = _read(os.path.join(CODEC_DIR, PHOTO_JP2))
-    with open(os.path.join(CODEC_DIR, PHOTO_JP2 + ".sha256")) as f:
+    data = _read(os.path.join(CODEC_DIR, name))
+    with open(os.path.join(CODEC_DIR, name + ".sha256")) as f:
         want = f.read().strip()
     rgb = np.ascontiguousarray(decode(data))
     got = hashlib.sha256(rgb.tobytes()).hexdigest()
-    if rgb.shape != (612, 816, 3) or got != want:
-        raise AssertionError(f"{PHOTO_JP2}: {rgb.shape}, SHA-256 {got}, not PIL's {want}")
+    if rgb.shape != PINNED_JP2[name] + (3,) or got != want:
+        raise AssertionError(f"{name}: {rgb.shape}, SHA-256 {got}, not PIL's {want}")
     return data, encode_png(rgb)
 
 
@@ -1522,9 +1526,11 @@ def formats_phase(bundle):
     against PIL's pixels (its PNG, read by the port's PNG decoder), exactly;
     decode ms of each beside the PNG decode of the same pixels; the JPEG
     2000 photo against the SHA-256 of PIL's pixels, its decode ms and its
-    C++ tier-1 ms; the bodies of written_bodies at WRITTEN_SHAPES against
+    C++ tier-1 ms; the 4:2:0 sYCC JP2 of every code-block style against
+    its SHA-256, its C++ tier 1 against the plain one bit for bit, both
+    ms; the bodies of written_bodies at WRITTEN_SHAPES against
     their scenes, exactly, ms beside the PNG's; then the two largest JPEG
-    photos and the JPEG 2000 photo,
+    photos and both JPEG 2000 files,
     one a call, through process_images_native on the trained bundle in f32
     and in bf16 (_native_runs: launches, outputs held against the plain
     versions), the 612x816 photos' preprocess streaming; ms each."""
@@ -1578,6 +1584,27 @@ def formats_phase(bundle):
         f"the PNG of the same pixels ({len(ref)} bytes) {np.median(png):.2f} ms; equal to "
         f"the SHA-256 of PIL's pixels")
 
+    # 4:2:0 sYCC, code-block styles 0x3f, SOP and EPH: the C++ tier 1 against
+    # the plain version on every code-block, bit for bit
+    data, ref = jp2_photo(STYLES_JP2)
+    decoded[STYLES_JP2] = decode(data)
+    blocks = jpeg2000.tier1_inputs(data)
+    native, plain = jpeg2000.tier1(blocks), jpeg2000.tier1(blocks, plain=True)
+    bad = [i for i, (a, b) in enumerate(zip(native, plain)) if not np.array_equal(a, b)]
+    if bad or len(native) != len(plain):
+        raise AssertionError(f"{STYLES_JP2}: the C++ tier 1 differs from the plain version on "
+                             f"code-blocks {bad}")
+    dec = [_timed_ms(lambda: decode(data)) for _ in range(5)]
+    t1 = [_timed_ms(lambda: jpeg2000.tier1(blocks)) for _ in range(5)]
+    t1_plain = [_timed_ms(lambda: jpeg2000.tier1(blocks, plain=True)) for _ in range(3)]
+    png = [_timed_ms(lambda: decode(ref)) for _ in range(5)]
+    say(f"decode {STYLES_JP2} ({len(data)} bytes, 16x16 4:2:0 sYCC, code-block styles "
+        f"{sorted({b.style for b in blocks})}, {len(blocks)} code-blocks in "
+        f"{sum(len(b.segs) for b in blocks)} codeword segments): median {np.median(dec):.2f} "
+        f"ms over 5; tier 1 C++ {np.median(t1):.3f} ms over 5, plain {np.median(t1_plain):.2f} "
+        f"ms over 3, equal bit for bit; the PNG of the same pixels ({len(ref)} bytes) "
+        f"{np.median(png):.2f} ms; equal to the SHA-256 of PIL's pixels")
+
     images = [to_unit(decoded[n]) for n in FORMAT_PHOTOS]
 
     def after(eng, compute_dtype, plans):
@@ -1613,7 +1640,8 @@ def serve_http_phase():
     each output=, at size=native, and resized from 612x816, and the 612x816
     JPEG fixture (at size=256 and size=native), a GIF fixture, and the
     HTTP_PHOTO_FORMATS fixtures (WebP, TIFF, CMYK JPEG, YCbCr JPEG-in-TIFF,
-    arithmetic JPEG, JP2), the 612x816 JPEG 2000 photo and the 48x64
+    arithmetic JPEG, JP2), the 612x816 JPEG 2000 photo, the 16x16 4:2:0
+    sYCC JP2 of every code-block style and the 48x64
     written TGA, QOI, PSD, PCX, SGI and ICO bodies at size=256 and
     size=native; each response's pixels within one level of an in-process
     engine's on the same decoded input (for a photo format, PIL's pixels);
@@ -1660,7 +1688,8 @@ def serve_http_phase():
     fixtures = codec_fixtures()
     jpeg, gif = fixtures["photo_612x816.jpg"], fixtures["palette.gif"]
     photos = [(label, fixtures[name]) for label, name in HTTP_PHOTO_FORMATS]
-    photos.append(("612x816 JP2", jp2_photo()))
+    photos += [("612x816 JP2", jp2_photo()),
+               ("16x16 4:2:0 sYCC JP2, every code-block style", jp2_photo(STYLES_JP2))]
     h, w = WRITTEN_HTTP_SHAPE
     photos += [(f"{h}x{w} written {fmt}", body)
                for fmt, body in written_bodies(WRITTEN_HTTP_SHAPE).items()]

@@ -1,20 +1,25 @@
-// JPEG 2000 tier 1 (ITU-T T.800 Annex C and D) for code-block style 0: the
-// MQ decoder and the significance-propagation, magnitude-refinement and
-// cleanup passes of a batch of code-blocks, as openjpeg's t1.c decodes them.
-// The counterpart of data/jpeg2000.py's t1_block_plain, which it repeats bit
-// for bit: coefficients at twice their scale, the last decoded bit-plane's
-// mid-point included, negative where the sign bit is set.
+// JPEG 2000 tier 1 (ITU-T T.800 Annex C and D): the MQ decoder, the raw
+// decoder of selective bypass, and the significance-propagation,
+// magnitude-refinement and cleanup passes of a batch of code-blocks, every
+// code-block style of Part 1 (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM),
+// as openjpeg's t1.c decodes them. The counterpart of data/jpeg2000.py's
+// t1_block_plain, which it repeats bit for bit: coefficients at twice their
+// scale, the last decoded bit-plane's mid-point included, negative where the
+// sign bit is set.
 //
 //   int shm_j2k_t1_decode(const char* data, const int64_t* data_off,
-//                         const int32_t* params, const int64_t* out_off,
-//                         int32_t* out, int n)
+//                         const int32_t* params, const int32_t* segs, int nsegs,
+//                         const int64_t* out_off, int32_t* out, int n)
 //
-// Block i reads data[data_off[i] .. data_off[i] + params[6i + 5]) and writes
-// params[6i + 1] rows of params[6i] int32 coefficients at out + out_off[i];
-// params[6i + 2] is its sub-band (0 LL, 1 HL, 2 LH, 3 HH), params[6i + 3]
-// its coded bit-planes, params[6i + 4] its coding passes. Blocks go to
-// kThreads threads. Returns 0, or 1 + the first block whose parameters
-// are out of range (nothing is written for it).
+// Block i reads data[data_off[i] .. data_off[i + 1]) and writes params[8i + 1]
+// rows of params[8i] int32 coefficients at out + out_off[i]; params[8i + 2]
+// is its sub-band (0 LL, 1 HL, 2 LH, 3 HH), params[8i + 3] its coded
+// bit-planes, params[8i + 4] its RGN shift (bit-planes above them),
+// params[8i + 5] its code-block style, and its codeword segments are the
+// params[8i + 7] pairs (passes, bytes) of segs from pair params[8i + 6] on,
+// their bytes one after another. Blocks go to kThreads threads. Returns 0,
+// or 1 + the first block whose parameters are out of range (nothing is
+// written for it).
 
 #include <algorithm>
 #include <atomic>
@@ -109,20 +114,42 @@ struct Mq {
     }
   }
 
-  void init(const uint8_t* data, int64_t n) {
-    d = data;
-    len = n;
-    bp = 0;
+  void reset() {
     std::memset(state, 0, sizeof state);
     std::memset(mps, 0, sizeof mps);
     state[0] = 4;
     state[kCtxRl] = 3;
     state[kCtxUni] = 46;
+  }
+
+  // a codeword segment, MQ-coded (INITDEC) or raw (selective bypass)
+  void init(const uint8_t* data, int64_t n, bool raw) {
+    d = data;
+    len = n;
+    bp = 0;
+    if (raw) {
+      c = 0;
+      ct = 0;
+      return;
+    }
     c = static_cast<uint32_t>(at(0)) << 16;
     bytein();
     c <<= 7;
     ct -= 7;
     a = 0x8000;
+  }
+
+  int raw() {  // opj_mqc_raw_decode
+    if (ct == 0) {
+      if (c == 0xFF && at(bp) > 0x8F) {
+        ct = 8;
+      } else {
+        ct = c == 0xFF ? 7 : 8;
+        c = at(bp++);
+      }
+    }
+    --ct;
+    return (c >> ct) & 1;
   }
 
   int decode(int cx) {
@@ -161,79 +188,97 @@ struct Mq {
   }
 };
 
+constexpr int kBypass = 0x01, kReset = 0x02, kVsc = 0x08, kSegsym = 0x20;
+
 struct Block {
   int w, h, S;
+  bool vsc;
   std::vector<uint8_t> sig, neg, pi, refined;
   std::vector<int32_t> mag;
   const uint8_t* zc;
   Mq mq;
 
-  int context(int p) const {
+  // `cut`: the row below the stripe counts as insignificant (VSC)
+  int context(int p, bool cut) const {
     const uint8_t* s = sig.data();
-    return zc[15 * (s[p - 1] + s[p + 1]) + 5 * (s[p - S] + s[p + S]) + s[p - S - 1] +
-              s[p - S + 1] + s[p + S - 1] + s[p + S + 1]];
+    int below = cut ? 0 : 5 * s[p + S] + s[p + S - 1] + s[p + S + 1];
+    return zc[15 * (s[p - 1] + s[p + 1]) + 5 * s[p - S] + below + s[p - S - 1] + s[p - S + 1]];
   }
 
   int contribution(int p) const { return sig[p] ? (neg[p] ? -1 : 1) : 0; }
 
-  int sign(int p) {
+  int sign(int p, bool cut) {
     int hc = std::clamp(contribution(p - 1) + contribution(p + 1), -1, 1);
-    int vc = std::clamp(contribution(p - S) + contribution(p + S), -1, 1);
+    int vc = std::clamp(contribution(p - S) + (cut ? 0 : contribution(p + S)), -1, 1);
     int i = 3 * (hc + 1) + vc + 1;
     return mq.decode(kScCtx[i]) ^ kScXor[i];
   }
 
-  void significant(int p, int32_t oph) {
-    neg[p] = static_cast<uint8_t>(sign(p));
+  void significant(int p, int32_t oph, bool cut) {
+    neg[p] = static_cast<uint8_t>(sign(p, cut));
     mag[p] = oph;
     sig[p] = 1;
   }
 
   bool any_neighbour(int p0) const {
-    for (int k = -1; k < 5; ++k) {
+    for (int k = -1; k < (vsc ? 4 : 5); ++k) {
       int p = p0 + k * S;
       if (sig[p - 1] | sig[p] | sig[p + 1]) return true;
     }
     return false;
   }
 
-  void sigpass(int32_t oph) {
+  void sigpass(int32_t oph, bool raw) {
     for (int y0 = 0; y0 < h; y0 += 4)
       for (int x = 0; x < w; ++x) {
         int p = (y0 + 1) * S + x + 1;
         for (int k = 0; k < std::min(4, h - y0); ++k, p += S) {
           if (sig[p]) continue;
-          int ctx = context(p);
+          bool cut = vsc && k == 3;
+          int ctx = context(p, cut);
           if (!ctx) continue;
           pi[p] = 1;
-          if (mq.decode(ctx)) significant(p, oph);
+          if (raw) {
+            if (mq.raw()) {
+              neg[p] = static_cast<uint8_t>(mq.raw());
+              mag[p] = oph;
+              sig[p] = 1;
+            }
+          } else if (mq.decode(ctx)) {
+            significant(p, oph, cut);
+          }
         }
       }
   }
 
-  void refpass(int32_t half) {
+  void refpass(int32_t half, bool raw) {
     for (int y0 = 0; y0 < h; y0 += 4)
       for (int x = 0; x < w; ++x) {
         int p = (y0 + 1) * S + x + 1;
         for (int k = 0; k < std::min(4, h - y0); ++k, p += S) {
           if (!sig[p] || pi[p]) continue;
-          int ctx;
-          if (refined[p]) {
-            ctx = 16;
+          int bit;
+          if (raw) {
+            bit = mq.raw();
           } else {
-            const uint8_t* s = sig.data();
-            ctx = (s[p - 1] | s[p + 1] | s[p - S] | s[p + S] | s[p - S - 1] | s[p - S + 1] |
-                   s[p + S - 1] | s[p + S + 1])
-                      ? 15
-                      : 14;
+            int ctx;
+            if (refined[p]) {
+              ctx = 16;
+            } else {
+              const uint8_t* s = sig.data();
+              int around = s[p - 1] | s[p + 1] | s[p - S] | s[p - S - 1] | s[p - S + 1];
+              if (!(vsc && k == 3)) around |= s[p + S] | s[p + S - 1] | s[p + S + 1];
+              ctx = around ? 15 : 14;
+            }
+            bit = mq.decode(ctx);
           }
-          mag[p] += mq.decode(ctx) ? half : -half;
+          mag[p] += bit ? half : -half;
           refined[p] = 1;
         }
       }
   }
 
-  void cleanup(int32_t oph) {
+  void cleanup(int32_t oph, bool segsym) {
     for (int y0 = 0; y0 < h; y0 += 4) {
       int rows = std::min(4, h - y0);
       for (int x = 0; x < w; ++x) {
@@ -244,20 +289,23 @@ struct Block {
           if (!mq.decode(kCtxRl)) continue;
           int k = mq.decode(kCtxUni) << 1;
           k |= mq.decode(kCtxUni);
-          significant(p0 + k * S, oph);
+          significant(p0 + k * S, oph, vsc && k == 3);
           start = k + 1;
         }
         for (int k = start; k < rows; ++k) {
           int p = p0 + k * S;
-          if (!sig[p] && !pi[p] && mq.decode(context(p))) significant(p, oph);
+          bool cut = vsc && k == 3;
+          if (!sig[p] && !pi[p] && mq.decode(context(p, cut))) significant(p, oph, cut);
         }
       }
     }
     std::fill(pi.begin(), pi.end(), 0);
+    if (segsym)
+      for (int i = 0; i < 4; ++i) mq.decode(kCtxUni);
   }
 
-  void run(const uint8_t* data, int64_t len, int orient, int numbps, int passes,
-           int32_t* out) {
+  void run(const uint8_t* data, const int32_t* segs, int nsegs, int orient, int numbps,
+           int roishift, int style, int32_t* out) {
     S = w + 2;
     size_t n = static_cast<size_t>(S) * (h + 2);
     sig.assign(n, 0);
@@ -266,16 +314,23 @@ struct Block {
     refined.assign(n, 0);
     mag.assign(n, 0);
     zc = kZc.t[orient];
-    mq.init(data, len);
-    int bp = numbps - 1, kind = 2;  // the first pass is a cleanup
-    for (int i = 0; i < passes && bp >= 0; ++i) {
-      int32_t oph = 3 << bp;
-      if (kind == 0) sigpass(oph);
-      else if (kind == 1) refpass(1 << bp);
-      else cleanup(oph);
-      if (++kind == 3) {
-        kind = 0;
-        --bp;
+    vsc = style & kVsc;
+    mq.reset();
+    int bpno = numbps + roishift, kind = 2;  // openjpeg's bpno_plus_one; a cleanup first
+    for (int s = 0; s < nsegs; ++s) {
+      bool raw = (style & kBypass) && kind < 2 && bpno <= numbps - 4;
+      mq.init(data, segs[2 * s + 1], raw);
+      data += segs[2 * s + 1];
+      for (int i = 0; i < segs[2 * s] && bpno >= 1; ++i) {
+        int bp = bpno - 1;
+        if (kind == 0) sigpass(3 << bp, raw);
+        else if (kind == 1) refpass(1 << bp, raw);
+        else cleanup(3 << bp, style & kSegsym);
+        if ((style & kReset) && !raw) mq.reset();
+        if (++kind == 3) {
+          kind = 0;
+          --bpno;
+        }
       }
     }
     for (int y = 0; y < h; ++y)
@@ -289,27 +344,34 @@ struct Block {
 }  // namespace
 
 extern "C" int shm_j2k_t1_decode(const char* data, const int64_t* data_off,
-                                 const int32_t* params, const int64_t* out_off, int32_t* out,
-                                 int n) {
+                                 const int32_t* params, const int32_t* segs, int nsegs,
+                                 const int64_t* out_off, int32_t* out, int n) {
   for (int i = 0; i < n; ++i) {
-    const int32_t* p = params + 6 * i;
+    const int32_t* p = params + 8 * i;
     if (p[0] < 0 || p[1] < 0 || p[0] > 1024 || p[1] > 1024 || p[0] * p[1] > 4096 ||
-        p[2] < 0 || p[2] > 3 || p[3] > 30 || p[4] < 0 || p[5] < 0)
+        p[2] < 0 || p[2] > 3 || p[4] < 0 || p[3] + p[4] > 30 || (p[5] & ~0x3F) ||
+        p[6] < 0 || p[7] < 0 || p[6] > nsegs - p[7])
       return i + 1;
+    int64_t bytes = 0;
+    for (int s = p[6]; s < p[6] + p[7]; ++s) {
+      if (segs[2 * s] < 0 || segs[2 * s + 1] < 0) return i + 1;
+      bytes += segs[2 * s + 1];
+    }
+    if (bytes != data_off[i + 1] - data_off[i]) return i + 1;
   }
   std::atomic<int> next{0};
   auto worker = [&]() {
     Block blk;
     for (int i; (i = next.fetch_add(1)) < n;) {
-      const int32_t* p = params + 6 * i;
-      if (p[0] == 0 || p[1] == 0 || p[4] == 0 || p[3] <= 0) {
+      const int32_t* p = params + 8 * i;
+      if (p[0] == 0 || p[1] == 0 || p[7] == 0) {
         std::fill(out + out_off[i], out + out_off[i] + static_cast<int64_t>(p[0]) * p[1], 0);
         continue;
       }
       blk.w = p[0];
       blk.h = p[1];
-      blk.run(reinterpret_cast<const uint8_t*>(data) + data_off[i], p[5], p[2], p[3], p[4],
-              out + out_off[i]);
+      blk.run(reinterpret_cast<const uint8_t*>(data) + data_off[i], segs + 2 * p[6], p[7], p[2],
+              p[3], p[4], p[5], out + out_off[i]);
     }
   };
   int threads = std::max(1, std::min(kThreads, n));

@@ -12,33 +12,58 @@ for pixel.
 Containers: a JP2 file (the signature box, `ftyp` of brand `jp2 ` or `jpx `,
 `jp2h` with `ihdr`, `colr` (enumerated or ICC), `pclr` + `cmap`, `cdef` and
 `res `, then `jp2c`; PIL decodes a tile at a time, where openjpeg applies
-neither the palette nor the channel definitions) or a raw codestream (`FF4F FF51`). The mode is chosen by PIL's
-rules, which decide its `convert("RGB")`: from `ihdr` (JP2) or SIZ (raw),
-one component of more than 8 bits (JP2: 9, raw: 8) is I;16, which clips at
-255; two are LA and four RGBA, whose alpha is dropped; `colr` 12 on four
-components is CMYK (PIL's cmyk2rgb); a `pclr` of 8-bit entries on L or LA
-is P or PA, its entries deduplicated in order as PIL's ImagePalette.getcolor
-collects them, an index past them black. Pillow's unpacker then scales each
-component to the mode's bits (shifted, rounding half up when it narrows;
-signed samples offset by half their range).
+neither the palette nor the channel definitions) or a raw codestream
+(`FF4F FF51`). The mode is chosen by PIL's rules, which decide its
+`convert("RGB")`: from `ihdr` (JP2) or SIZ (raw), one component of more
+than 8 bits (JP2: 9, raw: 8) is I;16, which clips at 255; two are LA and
+four RGBA, whose alpha is dropped; `colr` 12 on four components is CMYK
+(PIL's cmyk2rgb); a `pclr` of 8-bit entries on L or LA is P or PA, its
+entries deduplicated in order as PIL's ImagePalette.getcolor collects them,
+an index past them black. Pillow's unpacker then scales each component to
+the mode's bits (shifted, rounding half up when it narrows; signed samples
+offset by half their range). `colr` 18 (sYCC) goes through Pillow's
+ImagingConvertYCbCr2RGB; so does a colour space openjpeg leaves
+unspecified (a raw codestream) or unknown (no `colr`, an ICC profile, an
+enumeration it does not know) where the first component is at full size
+and the second or third sub-sampled: Pillow's rule, not openjpeg's, whose
+opj_read_header reports them unspecified or unknown. Sub-sampled components
+are read as Pillow's RGB and YCbCr unpackers read them: component n at byte
+sum(size * (w / dx) * (h / dy)) of those before it in openjpeg's tile
+buffer, pixel (x, y) at (y / dy) * (w / dx) + x / dx of it, in C's integer
+division, the buffer zeroed past openjpeg's samples for each tile.
 
 Codestream: SIZ (image and tile offsets, 1-4 components, 1-16 bits, signed
-or not), COD and COC, QCD and QCC (no quantisation, scalar derived, scalar
-expounded), COM, TLM, PLM and PLT (skipped), SOT with several tile-parts a
-tile in any order, SOD, EOC. Tier 2: tag trees, packet headers, empty
-packets, code-block inclusion, zero bit-planes, pass counts and lengths,
-precinct partitions at every resolution (Scod bit 0), and the five
-progressions iterated as openjpeg's pi.c iterates them. Tier 1: the MQ
-decoder (T.800 Table C.2) and the significance, refinement and cleanup
-passes with run-length mode and the context tables of Tables D.1, D.3 and
-D.4, every layer's bytes of a code-block decoded as one codeword (code-block
-style 0), magnitudes held at twice their scale with the mid-point of the
-last decoded bit-plane, as openjpeg holds them. Then, as openjpeg's tcd.c:
-reversible coefficients halved toward zero, irreversible ones times half
-the sub-band's float32 step size (its gain left out, openjpeg's
-BUG_WEIRD_TWO_INVK); the inverse 5/3 in integers and the inverse 9/7 in
-float32 with openjpeg's constants (K, 1.625732422 for the high band) and
-order (rows, then columns; each lifting step (left + right) * c added),
+or not, sub-sampled by any XRsiz and YRsiz from 1 to 255), COD and COC,
+QCD and QCC (no quantisation, scalar derived, scalar expounded), RGN
+(max-shift, Srgn not read, as openjpeg), POC (in the main header and any
+tile-part's, a tile's appended to the main header's as openjpeg appends
+them), PPM and PPT (packet headers merged in Zppm/Zppt order, Nppm
+dropped, as openjpeg merges them; PPM read across the tiles in the order
+openjpeg completes them), CRG (read and ignored), COM, TLM, PLM and PLT
+(skipped), SOT with several tile-parts a tile in any order, SOD, EOC. Tier
+2: tag trees, packet headers, SOP markers (skipped where present, passed
+over where not, as openjpeg) and EPH markers (openjpeg fails without one),
+empty packets, code-block inclusion, zero bit-planes, pass counts, each
+codeword segment's length (Lblock + floor(log2(its passes)) bits; a
+segment holds 1 pass under TERMALL, 10 then 2 and 1 in turn under BYPASS,
+else 109, as openjpeg's opj_t2_init_seg), precinct partitions at every
+resolution (Scod bit 0), and the five progressions iterated as openjpeg's
+pi.c iterates them (POC entries one after another, each packet at its
+first visit; a component sub-sampled by dx steps by dx << (ppx + level)).
+Tier 1, as openjpeg's opj_t1_decode_cblk: the MQ decoder (T.800 Table C.2)
+and the significance, refinement and cleanup passes with run-length mode
+and the context tables of Tables D.1, D.3 and D.4, each codeword segment
+read from its own bytes; BYPASS's raw significance and refinement passes
+below the 4th bit-plane, RESET's context reset after each MQ pass, VSC's
+vertically causal contexts, SEGSYM's four UNIFORM decisions after each
+cleanup (not checked, as openjpeg), PTERM (nothing to do); magnitudes held
+at twice their scale with the mid-point of the last decoded bit-plane, as
+openjpeg holds them, RGN's shift above them undone after. Then, as
+openjpeg's tcd.c: reversible coefficients halved toward zero, irreversible
+ones times half the sub-band's float32 step size (its gain left out,
+openjpeg's BUG_WEIRD_TWO_INVK); the inverse 5/3 in integers and the inverse
+9/7 in float32 with openjpeg's constants (K, 1.625732422 for the high band)
+and order (rows, then columns; each lifting step (left + right) * c added),
 whole-sample symmetric extension, at any size and offset; the inverse RCT
 or ICT when the MCT flag is set; the DC level shift after lrintf's round
 half to even, then the clamp to the component's range.
@@ -49,16 +74,19 @@ JPEG 2000 decode and loaded through ctypes; a failed build raises. The
 plain Python version is reached only through `tier1(blocks, plain=True)`
 (the tests hold the C++ to it, bit for bit, on every code-block).
 
-Refused with a ValueError that names the feature: code-block styles other
-than 0 (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), sub-sampled components,
-RGN, POC, PPM, PPT and CRG markers, SOP and EPH, HTJ2K (CAP, CPF, HT
-code-blocks), Part-2 extensions (their markers, wavelet kernels, component
-transforms and JPX boxes), more than 16 bits, `bpcc`,
-colour spaces and layouts PIL's unpacker has no case for (sYCC,
-e-sYCC, a `pclr` of other than 8-bit entries), a tile missing from the
-stream. A header that claims more pixels than PIL opens, more tiles,
-packets or code-blocks than the stream can hold, or bytes past its end
-raises before any of it is allocated, as does input cut short or corrupt.
+Refused with a ValueError that names the feature the port does not decode:
+HTJ2K (CAP, CPF, HT code-blocks), Part-2 extensions (their markers, wavelet
+kernels, component transforms and JPX boxes), more than 16 bits, `bpcc`, a
+`pclr` of other than 8-bit entries, the colour transform over reversible
+and irreversible components, a tile missing from the stream.
+
+Refused with a ValueError that says PIL refuses it too: what openjpeg or
+Pillow fails on (e-sYCC and the other colour spaces and layouts Pillow's
+unpackers have no case for, sub-sampled grey, a missing EPH, the colour
+transform over components of other sizes, a corrupt or misplaced marker).
+A header that claims more pixels than PIL opens, more tiles, packets or
+code-blocks than the stream can hold, or bytes past its end raises before
+any of it is allocated, as does input cut short or corrupt.
 """
 
 from __future__ import annotations
@@ -75,19 +103,12 @@ from shmgan_tpu_torch.data.codecs import check_size
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 
-_STYLE_NAMES = ((0x01, "BYPASS (selective arithmetic-coding bypass)"),
-                (0x02, "RESET (context reset on each pass)"),
-                (0x04, "TERMALL (termination on each pass)"),
-                (0x08, "VSC (vertically causal context)"),
-                (0x10, "PTERM (predictable termination)"),
-                (0x20, "SEGSYM (segmentation symbols)"),
-                (0x40, "HTJ2K (HT code-blocks, Part 15)"))
-_REFUSED_MARKERS = {0xFF5E: "RGN (region of interest)", 0xFF5F: "POC (progression order change)",
-                    0xFF60: "PPM (packed packet headers, main header)",
-                    0xFF61: "PPT (packed packet headers, tile-part header)",
-                    0xFF63: "CRG (component registration)", 0xFF50: "HTJ2K (CAP, Part 15)",
-                    0xFF59: "HTJ2K (CPF, Part 15)", 0xFF91: "SOP (start of packet)",
-                    0xFF92: "EPH (end of packet header)"}
+# code-block styles (COD/COC's SPcod): what tier 2 and tier 1 do for each
+BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM = 0x01, 0x02, 0x04, 0x08, 0x10, 0x20
+_REFUSED_MARKERS = {0xFF50: "HTJ2K (CAP, Part 15)", 0xFF59: "HTJ2K (CPF, Part 15)"}
+# markers openjpeg takes only in the main header, or only in a tile-part's
+_MAIN_ONLY = {0xFF60: "PPM", 0xFF63: "CRG"}
+_TILE_ONLY = {0xFF61: "PPT"}
 _PART2_MARKERS = range(0xFF70, 0xFF80)   # MCT, MCC, MCO, CBD, NLT, ... (T.801)
 _SKIPPED_MARKERS = (0xFF64, 0xFF55, 0xFF57, 0xFF58)   # COM, TLM, PLM, PLT
 
@@ -95,12 +116,14 @@ _SKIPPED_MARKERS = (0xFF64, 0xFF55, 0xFF57, 0xFF58)   # COM, TLM, PLM, PLT
 # (an ICC profile, an enumeration it does not know, or no `colr`: unspecified)
 _CS_UNSPECIFIED, _CS_SRGB, _CS_GRAY, _CS_SYCC, _CS_EYCC, _CS_CMYK = range(6)
 _ENUMCS = {16: _CS_SRGB, 17: _CS_GRAY, 18: _CS_SYCC, 24: _CS_EYCC, 12: _CS_CMYK}
+_CS_NAMES = ("unspecified", "sRGB", "grey", "sYCC", "e-sYCC", "CMYK")
 # Pillow's j2k_unpackers that a mode of PIL's rules can meet (the mode's
 # components are SIZ's): (mode, colour space, components) -> how it unpacks
 _UNPACKERS = {
     ("L", _CS_GRAY, 1): "grey", ("P", _CS_SRGB, 1): "grey", ("PA", _CS_SRGB, 2): "grey",
     ("I;16", _CS_GRAY, 1): "grey16", ("LA", _CS_GRAY, 2): "grey",
     ("RGB", _CS_SRGB, 3): "rgb", ("RGBA", _CS_SRGB, 4): "rgb", ("CMYK", _CS_CMYK, 4): "rgb",
+    ("RGB", _CS_SYCC, 3): "sycc", ("RGBA", _CS_SYCC, 4): "sycc",
 }
 
 # the inverse 9/7 of openjpeg's dwt.c, in float32
@@ -245,15 +268,20 @@ def _read_jp2h(data: bytes, start: int, end: int) -> _Jp2Header:
 # -- codestream headers ---------------------------------------------------------------
 
 class _Comp:
-    __slots__ = ("prec", "sgnd")
+    __slots__ = ("prec", "sgnd", "dx", "dy")
 
-    def __init__(self, prec, sgnd):
-        self.prec, self.sgnd = prec, sgnd
+    def __init__(self, prec, sgnd, dx=1, dy=1):
+        self.prec, self.sgnd, self.dx, self.dy = prec, sgnd, dx, dy
 
 
 class _Coding:
-    """One component's coding and quantisation parameters (COD/COC, QCD/QCC)."""
-    __slots__ = ("nl", "cbw", "cbh", "reversible", "pp", "qstyle", "guard", "steps")
+    """One component's coding and quantisation parameters (COD/COC, QCD/QCC)
+    and its region-of-interest shift (RGN)."""
+    __slots__ = ("nl", "cbw", "cbh", "reversible", "pp", "qstyle", "guard", "steps", "style",
+                 "roishift")
+
+    def __init__(self):
+        self.roishift = 0
 
     def copy(self):
         c = _Coding()
@@ -274,13 +302,15 @@ class _Coding:
 
 
 class _Tile:
-    __slots__ = ("scod", "prog", "layers", "mct", "coding", "parts", "seen_parts")
+    __slots__ = ("scod", "prog", "layers", "mct", "coding", "parts", "seen_parts", "pocs", "ppt")
 
-    def __init__(self, scod, prog, layers, mct, coding):
+    def __init__(self, scod, prog, layers, mct, coding, pocs):
         self.scod, self.prog, self.layers, self.mct = scod, prog, layers, mct
         self.coding = coding
         self.parts: List[Tuple[int, bytes]] = []
         self.seen_parts = 0
+        self.pocs = list(pocs)     # openjpeg appends a tile-part's POC to the main header's
+        self.ppt: Dict[int, bytes] = {}
 
 
 class _Stream:
@@ -289,8 +319,10 @@ class _Stream:
     def __init__(self):
         self.comps: List[_Comp] = []
         self.tiles: Dict[int, _Tile] = {}
+        self.order: List[int] = []     # the tiles in the order openjpeg completes them
         self.size = self.tiling = (0, 0, 0, 0)     # SIZ's (Xsiz, Ysiz, XOsiz, YOsiz), tiles'
         self.ntx = self.nty = 0
+        self.ppm: Optional[bytes] = None           # PPM's packet headers, merged
 
 
 def _u16(b: bytes, i: int) -> int:
@@ -314,11 +346,11 @@ def _read_siz(st: _Stream, body: bytes) -> None:
     for i in range(nc):
         ssiz, dx, dy = body[36 + 3 * i:39 + 3 * i]
         prec = (ssiz & 0x7F) + 1
-        if dx != 1 or dy != 1:
-            raise _refuse(f"sub-sampled components (XRsiz {dx}, YRsiz {dy})")
+        if dx == 0 or dy == 0:
+            raise _fail(f"component {i}: XRsiz {dx}, YRsiz {dy}: openjpeg refuses 0 (PIL too)")
         if prec > 16:
             raise _refuse(f"{prec}-bit samples")
-        st.comps.append(_Comp(prec, bool(ssiz & 0x80)))
+        st.comps.append(_Comp(prec, bool(ssiz & 0x80), dx, dy))
     st.size = (xs, ys, xo, yo)
     st.tiling = (xt, yt, xto, yto)
     st.ntx = -(-(xs - xto) // xt)
@@ -333,14 +365,13 @@ def _read_spcod(body: bytes, pos: int, with_pp: bool, c: _Coding) -> None:
         raise _fail(f"{nl} decomposition levels")
     if xcb > 8 or ycb > 8 or xcb + ycb > 8:
         raise _fail(f"code-block size 2^{xcb + 2} x 2^{ycb + 2}")
-    for bit, name in _STYLE_NAMES:
-        if style & bit:
-            raise _refuse(f"code-block style {name}")
-    if style:
-        raise _fail(f"code-block style {style:#x}")
+    if style & 0x80:
+        raise _fail("code-block style 0x80 (mixed HT code-blocks): openjpeg refuses it too")
+    if style & 0x40:
+        raise _refuse("code-block style HTJ2K (HT code-blocks, Part 15)")
     if transform > 1:
         raise _refuse(f"wavelet transform {transform} (Part-2 kernels)")
-    c.nl, c.cbw, c.cbh, c.reversible = nl, xcb + 2, ycb + 2, transform == 1
+    c.nl, c.cbw, c.cbh, c.reversible, c.style = nl, xcb + 2, ycb + 2, transform == 1, style
     if with_pp:
         pp = body[pos + 5:pos + 6 + nl]
         if len(pp) != nl + 1:
@@ -372,12 +403,12 @@ def _read_qcx(body: bytes, pos: int, c: _Coding) -> None:
 
 
 def _comp_index(st: _Stream, body: bytes) -> int:
-    """Ccoc/Cqcc, one byte: SIZ allows at most 4 components."""
+    """Ccoc/Cqcc/Crgn, one byte: SIZ allows at most 4 components."""
     if not body:
-        raise _fail("truncated COC/QCC")
+        raise _fail("truncated COC/QCC/RGN")
     i = body[0]
     if i >= len(st.comps):
-        raise _fail(f"COC/QCC for component {i} of {len(st.comps)}")
+        raise _fail(f"COC/QCC/RGN for component {i} of {len(st.comps)}")
     return i
 
 
@@ -401,18 +432,16 @@ def _segments(data: bytes, pos: int, stop_at_sot: bool):
         pos += 2 + n
 
 
-def _coding_marker(st: _Stream, m: int, body: bytes, cod: list, coding: List[_Coding]) -> bool:
-    """Apply COD, COC, QCD or QCC to `coding` (per component) and `cod`
-    ([scod, progression, layers, mct]); False for any other marker."""
+def _coding_marker(st: _Stream, m: int, body: bytes, cod: list, coding: List[_Coding],
+                   pocs: list) -> bool:
+    """Apply COD, COC, QCD, QCC or RGN to `coding` (per component) and `cod`
+    ([scod, progression, layers, mct]), or append a POC's entries to `pocs`;
+    False for any other marker."""
     if m == 0xFF52:                     # COD: every component's coding
         if len(body) < 5:
             raise _fail("truncated COD")
         scod, prog, layers, mct = body[0], body[1], _u16(body, 2), body[4]
-        if scod & 0x02:
-            raise _refuse("SOP (start-of-packet markers)")
-        if scod & 0x04:
-            raise _refuse("EPH (end-of-packet-header markers)")
-        if scod & ~0x07:
+        if scod & ~0x07:                # precincts, SOP (0x02), EPH (0x04)
             raise _fail(f"COD style {scod:#x}")
         if prog > 4:
             raise _fail(f"progression order {prog}")
@@ -435,9 +464,54 @@ def _coding_marker(st: _Stream, m: int, body: bytes, cod: list, coding: List[_Co
             _read_qcx(body, 0, c)
     elif m == 0xFF5D:
         _read_qcx(body, 1, coding[_comp_index(st, body)])
+    elif m == 0xFF5E:                   # RGN: Crgn, Srgn (not read, as openjpeg), SPrgn
+        if len(body) != 3:
+            raise _fail("corrupt RGN: openjpeg refuses it too")
+        coding[_comp_index(st, body)].roishift = body[2]
+    elif m == 0xFF5F:                   # POC: RSpoc, CSpoc, LYEpoc, REpoc, CEpoc, Ppoc
+        if not body or len(body) % 7:
+            raise _fail("corrupt POC: openjpeg refuses it too")
+        if len(pocs) + len(body) // 7 >= 32:
+            raise _fail("32 or more progression order changes: openjpeg refuses them too")
+        for i in range(0, len(body), 7):
+            rs, cs, lye, re, ce, prog = struct.unpack(">BBHBBB", body[i:i + 7])
+            pocs.append((prog, rs, cs, lye, re, min(ce, len(st.comps))))
     else:
         return False
     return True
+
+
+def _merge_ppm(markers: Dict[int, bytes]) -> bytes:
+    """The packet headers of PPM segments in Zppm order, each Nppm length
+    dropped (it may run from one segment into the next), as openjpeg's
+    opj_j2k_merge_ppm reads them."""
+    out, left = [], 0
+    for z in sorted(markers):
+        data = markers[z]
+        take = min(left, len(data))
+        out.append(data[:take])
+        left -= take
+        pos = take
+        while pos < len(data):
+            if len(data) - pos < 4:
+                raise _fail("PPM: not enough bytes for Nppm: openjpeg refuses it too")
+            (n,) = struct.unpack(">I", data[pos:pos + 4])
+            out.append(data[pos + 4:pos + 4 + n])
+            left = max(0, n - (len(data) - pos - 4))
+            pos += 4 + n
+    if left:
+        raise _fail("PPM: packet headers cut short: openjpeg refuses them too")
+    return b"".join(out)
+
+
+def _packed_header(m: int, body: bytes, markers: Dict[int, bytes]) -> None:
+    """A PPM or PPT segment's Zppm/Zppt and headers into `markers`."""
+    name = "PPM" if m == 0xFF60 else "PPT"
+    if len(body) < 2:
+        raise _fail(f"corrupt {name}: openjpeg refuses it too")
+    if body[0] in markers:
+        raise _fail(f"{name} Z {body[0]} twice: openjpeg refuses it too")
+    markers[body[0]] = body[1:]
 
 
 def _parse(cs: bytes) -> _Stream:
@@ -453,6 +527,8 @@ def _parse(cs: bytes) -> _Stream:
     # before it, as openjpeg reads them (a QCD after a QCC overrides it)
     coding = [_Coding() for _ in st.comps]
     cod: list = []
+    pocs: list = []
+    ppm: Dict[int, bytes] = {}
     have_qcd = False
     pos = 4 + n
     for m, body, at in _segments(cs, pos, True):
@@ -461,18 +537,26 @@ def _parse(cs: bytes) -> _Stream:
             break
         if m in (0xFF93, 0xFFD9):
             raise _fail("SOD or EOC in the main header")
-        if _coding_marker(st, m, body, cod, coding):
+        if _coding_marker(st, m, body, cod, coding, pocs):
             have_qcd |= m == 0xFF5C
+        elif m == 0xFF60:
+            _packed_header(m, body, ppm)
+        elif m == 0xFF63:               # CRG: read and ignored, as openjpeg ignores it
+            if len(body) != 4 * len(st.comps):
+                raise _fail("corrupt CRG: openjpeg refuses it too")
         else:
-            _other_marker(m)
+            _other_marker(m, _TILE_ONLY)
     if not cod:
         raise _fail("no COD in the main header")
     if not have_qcd:
         raise _fail("no QCD in the main header")
+    if ppm:
+        st.ppm = _merge_ppm(ppm)
     default = cod[:4]
     ntiles = st.ntx * st.nty
     if ntiles > len(cs) // 14:
         raise _fail(f"SIZ claims {ntiles} tiles, more than the {len(cs)}-byte stream can hold")
+    last: Dict[int, int] = {}
     while True:
         if pos + 2 > len(cs):
             raise _fail("truncated codestream (no EOC)")
@@ -492,11 +576,12 @@ def _parse(cs: bytes) -> _Stream:
         tile = st.tiles.get(isot)
         first = tile is None
         if first:
-            tile = _Tile(*default, [c.copy() for c in coding])
+            tile = _Tile(*default, [c.copy() for c in coding], pocs)
             st.tiles[isot] = tile
         if tpsot != tile.seen_parts:
             raise _fail(f"tile {isot}: tile-part {tpsot} out of order")
         tile.seen_parts += 1
+        last[isot] = len(last)
         tcod = [tile.scod, tile.prog, tile.layers, tile.mct]
         for m2, body, at in _segments(cs, pos + 12, False):
             if m2 == 0xFF93:
@@ -504,12 +589,16 @@ def _parse(cs: bytes) -> _Stream:
                 break
             if m2 in (0xFF90, 0xFFD9):
                 raise _fail("tile-part header without SOD")
-            if m2 in (0xFF52, 0xFF53, 0xFF5C, 0xFF5D):
-                if not first:
-                    raise _fail("COD/COC/QCD/QCC in a tile-part other than the first")
-                _coding_marker(st, m2, body, tcod, tile.coding)
+            if m2 in (0xFF52, 0xFF53, 0xFF5C, 0xFF5D) and not first:
+                raise _fail("COD/COC/QCD/QCC in a tile-part other than the first")
+            if _coding_marker(st, m2, body, tcod, tile.coding, tile.pocs):
                 continue
-            _other_marker(m2)
+            if m2 == 0xFF61:
+                if st.ppm is not None:
+                    raise _fail("PPT after PPM: openjpeg refuses it too")
+                _packed_header(m2, body, tile.ppt)
+            else:
+                _other_marker(m2, _MAIN_ONLY)
         tile.scod, tile.prog, tile.layers, tile.mct = tcod
         if sod > end:
             raise _fail("a tile-part header runs past its tile-part")
@@ -520,12 +609,15 @@ def _parse(cs: bytes) -> _Stream:
     if len(st.tiles) != ntiles:
         missing = sorted(set(range(ntiles)) - set(st.tiles))[:4]
         raise _refuse(f"a codestream with tiles missing ({missing} of {ntiles})")
+    st.order = sorted(st.tiles, key=last.__getitem__)
     return st
 
 
-def _other_marker(m: int) -> None:
+def _other_marker(m: int, misplaced: Dict[int, str]) -> None:
     if m in _SKIPPED_MARKERS:
         return
+    if m in misplaced:
+        raise _fail(f"{misplaced[m]} where openjpeg does not take it: PIL refuses it too")
     if m in _REFUSED_MARKERS:
         raise _refuse(f"the {_REFUSED_MARKERS[m]} marker")
     if m in _PART2_MARKERS:
@@ -623,21 +715,29 @@ class _TagTree:
 
 
 class Block:
-    """One code-block: where it lies in its sub-band and what tier 1 reads."""
+    """One code-block: where it lies in its sub-band and what tier 1 reads.
+    `segs` holds its codeword segments as [passes, most passes, bytes]."""
     __slots__ = ("comp", "res", "band", "x0", "y0", "x1", "y1", "orient", "mb", "numbps",
-                 "passes", "lblock", "chunks", "included")
+                 "passes", "lblock", "chunks", "included", "style", "roishift", "segs")
 
-    def __init__(self, comp, res, band, x0, y0, x1, y1, orient, mb):
+    def __init__(self, comp, res, band, x0, y0, x1, y1, orient, mb, style=0, roishift=0):
         self.comp, self.res, self.band = comp, res, band
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
         self.orient, self.mb = orient, mb
+        self.style, self.roishift = style, roishift
         self.numbps, self.passes, self.lblock = 0, 0, 3
         self.chunks: List[bytes] = []
+        self.segs: List[List[int]] = []
         self.included = False
 
     @property
     def data(self) -> bytes:
         return b"".join(self.chunks)
+
+    @property
+    def segments(self) -> List[Tuple[int, int]]:
+        """(passes, bytes) of each codeword segment, in order."""
+        return [(p, n) for p, _, n in self.segs]
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -725,7 +825,8 @@ def _precinct(res: _Res, r: int, p: int, coding: _Coding, c: int) -> _Precinct:
         for k in range(cw * ch):
             cx, cy = bx0 + (k % cw << cw_e), by0 + (k // cw << ch_e)
             blocks.append(Block(c, r, b, max(cx, px0), max(cy, py0), min(cx + (1 << cw_e), px1),
-                                min(cy + (1 << ch_e), py1), b.orient, b.mb))
+                                min(cy + (1 << ch_e), py1), b.orient, b.mb, coding.style,
+                                coding.roishift))
         trees = (_TagTree(cw, ch), _TagTree(cw, ch)) if blocks else (None, None)
         prc.bands.append((b, blocks) + trees)
     res.precincts[p] = prc
@@ -746,39 +847,84 @@ def _num_passes(bits: _Bits) -> int:
     return 37 + bits.bits(7)
 
 
-def _read_packet(data: bytes, pos: int, prc: _Precinct, layer: int) -> int:
-    """One packet (T.800 B.10): its header, then its code-block bytes.
-    Returns the position after it."""
-    bits = _Bits(data, pos)
-    if not bits.bit():                            # an empty packet
-        return bits.align()
+def _max_passes(style: int, segs: List[List[int]]) -> int:
+    """The most passes a block's next codeword segment holds (openjpeg's
+    opj_t2_init_seg): one under TERMALL; under BYPASS 10 for the first, then
+    2 raw passes (significance, refinement) and 1 MQ pass (cleanup) in turn;
+    otherwise 109 (T.800 B.10.6)."""
+    if style & TERMALL:
+        return 1
+    if style & BYPASS:
+        return 10 if not segs else 2 if segs[-1][1] in (1, 10) else 1
+    return 109
+
+
+class _Headers:
+    """Packet headers packed in PPM or PPT segments, read from `pos` on."""
+    __slots__ = ("data", "pos")
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+
+def _read_packet(data: bytes, pos: int, prc: _Precinct, layer: int, scod: int,
+                 headers: Optional[_Headers]) -> int:
+    """One packet (T.800 B.10): a SOP marker where COD says so, its header
+    (from the stream, or from PPM/PPT's `headers`), an EPH marker where COD
+    says so, then its code-block bytes. A SOP that is not there is passed
+    over, as openjpeg passes it (with a warning); a missing EPH raises, as
+    openjpeg fails on it. Returns the position after the packet."""
+    if scod & 0x02 and len(data) - pos >= 6 and data[pos] == 0xFF and data[pos + 1] == 0x91:
+        pos += 6                                  # SOP: FF91, Lsop, Nsop
+    src = data if headers is None else headers.data
+    bits = _Bits(src, pos if headers is None else headers.pos)
     news = []
-    for band, blocks, incl, zero in prc.bands:
-        for k, blk in enumerate(blocks):
-            if blk.included:
-                if not bits.bit():
+    if bits.bit():                                # else an empty packet
+        for band, blocks, incl, zero in prc.bands:
+            for k, blk in enumerate(blocks):
+                if blk.included:
+                    if not bits.bit():
+                        continue
+                elif not incl.decode(bits, k, layer + 1):
                     continue
-            elif not incl.decode(bits, k, layer + 1):
-                continue
-            if not blk.included:
-                i = 0
-                while not zero.decode(bits, k, i):
-                    i += 1
-                    if i > blk.mb + 1:
-                        raise _fail("more zero bit-planes than the sub-band has")
-                blk.numbps = blk.mb + 1 - i
-                if blk.numbps >= 31:
-                    raise _fail(f"{blk.numbps} bit-planes in a code-block")
-                blk.included = True
-            n = _num_passes(bits)
-            while bits.bit():
-                blk.lblock += 1
-            length = bits.bits(blk.lblock + n.bit_length() - 1)
-            blk.passes += n
-            if blk.passes > 109:
-                raise _fail("more coding passes than one codeword segment holds")
-            news.append((blk, length))
-    pos = bits.align()
+                if not blk.included:
+                    i = 0
+                    while not zero.decode(bits, k, i):
+                        i += 1
+                        if i > blk.mb + 1:
+                            raise _fail("more zero bit-planes than the sub-band has")
+                    blk.numbps = blk.mb + 1 - i
+                    if blk.numbps + blk.roishift >= 31:
+                        raise _fail(f"{blk.numbps + blk.roishift} bit-planes in a code-block: "
+                                    f"openjpeg refuses them too")
+                    blk.included = True
+                n = _num_passes(bits)
+                while bits.bit():
+                    blk.lblock += 1
+                blk.passes += n
+                if blk.passes > 164:
+                    raise _fail(f"{blk.passes} coding passes in a code-block")
+                segs, length = blk.segs, 0
+                while n:                          # each segment's length (B.10.7.2)
+                    if not segs or segs[-1][0] == segs[-1][1]:
+                        segs.append([0, _max_passes(blk.style, segs), 0])
+                    seg = segs[-1]
+                    take = min(seg[1] - seg[0], n)
+                    seg_len = bits.bits(blk.lblock + take.bit_length() - 1)
+                    seg[0] += take
+                    seg[2] += seg_len
+                    length += seg_len
+                    n -= take
+                news.append((blk, length))
+    end = bits.align()
+    if scod & 0x04:                               # EPH
+        if len(src) - end < 2 or src[end] != 0xFF or src[end + 1] != 0x92:
+            raise _fail("no EPH marker after a packet header: openjpeg refuses it (PIL too)")
+        end += 2
+    if headers is None:
+        pos = end
+    else:
+        headers.pos = end
     for blk, length in news:
         if pos + length > len(data):
             raise _fail("a code-block's bytes run past the end of its tile")
@@ -787,29 +933,22 @@ def _read_packet(data: bytes, pos: int, prc: _Precinct, layer: int) -> int:
     return pos
 
 
-def _packet_order(tx: Tuple[int, int, int, int], prog: int, layers: int,
-                  res_of: List[List[_Res]]):
+def _packet_order(tx: Tuple[int, int, int, int], entries, res_of: List[List[_Res]],
+                  comps: List[_Comp]):
     """(layer, resolution, component, precinct) of each packet of a tile in
-    the order openjpeg's pi.c visits them (T.800 B.12)."""
+    the order openjpeg's pi.c visits them (T.800 B.12): one progression
+    (prog, first resolution, first component, layers, resolution end,
+    component end) of `entries` after another (POC), each packet at its
+    first visit only."""
     nc = len(res_of)
-    maxres = max(len(rs) for rs in res_of)
-    if prog in (0, 1):                              # LRCP, RLCP
-        outer = ((l, r) for l in range(layers) for r in range(maxres)) if prog == 0 else \
-            ((l, r) for r in range(maxres) for l in range(layers))
-        for l, r in outer:
-            for c in range(nc):
-                if r < len(res_of[c]):
-                    res = res_of[c][r]
-                    for p in range(res.pw * res.ph):
-                        yield l, r, c, p
-        return
     tx0, ty0, tx1, ty1 = tx
+    seen = set()
 
-    def steps(comps):
-        dx = min((1 << (res_of[c][r].ppx + len(res_of[c]) - 1 - r))
-                 for c in comps for r in range(len(res_of[c])))
-        dy = min((1 << (res_of[c][r].ppy + len(res_of[c]) - 1 - r))
-                 for c in comps for r in range(len(res_of[c])))
+    def steps(cs):
+        dx = min(comps[c].dx << (res_of[c][r].ppx + len(res_of[c]) - 1 - r)
+                 for c in cs for r in range(len(res_of[c])))
+        dy = min(comps[c].dy << (res_of[c][r].ppy + len(res_of[c]) - 1 - r)
+                 for c in cs for r in range(len(res_of[c])))
         return dx, dy
 
     def positions(dx, dy):
@@ -827,51 +966,72 @@ def _packet_order(tx: Tuple[int, int, int, int], prog: int, layers: int,
             return None
         res = rs[r]
         lv = len(rs) - 1 - r
-        rx0, ry0 = _ceil_div(tx0, 1 << lv), _ceil_div(ty0, 1 << lv)
+        sx, sy = comps[c].dx << lv, comps[c].dy << lv
+        rx0, ry0 = _ceil_div(tx0, sx), _ceil_div(ty0, sy)
         rpx, rpy = res.ppx + lv, res.ppy + lv
-        if not (y % (1 << rpy) == 0 or (y == ty0 and (ry0 << lv) % (1 << rpy))):
+        if not (y % (comps[c].dy << rpy) == 0 or (y == ty0 and (ry0 << lv) % (1 << rpy))):
             return None
-        if not (x % (1 << rpx) == 0 or (x == tx0 and (rx0 << lv) % (1 << rpx))):
+        if not (x % (comps[c].dx << rpx) == 0 or (x == tx0 and (rx0 << lv) % (1 << rpx))):
             return None
         if res.pw == 0 or res.ph == 0:
             return None
-        if rx0 == _ceil_div(tx1, 1 << lv) or ry0 == _ceil_div(ty1, 1 << lv):
+        if rx0 == _ceil_div(tx1, sx) or ry0 == _ceil_div(ty1, sy):
             return None
-        pi = (_ceil_div(x, 1 << lv) >> res.ppx) - (rx0 >> res.ppx)
-        pj = (_ceil_div(y, 1 << lv) >> res.ppy) - (ry0 >> res.ppy)
+        pi = (_ceil_div(x, sx) >> res.ppx) - (rx0 >> res.ppx)
+        pj = (_ceil_div(y, sy) >> res.ppy) - (ry0 >> res.ppy)
         return pi + pj * res.pw
 
-    seen = set()
+    def progression(prog, r0, c0, l1, r1, c1):
+        if prog in (0, 1):                          # LRCP, RLCP
+            outer = ((l, r) for l in range(l1) for r in range(r0, r1)) if prog == 0 else \
+                ((l, r) for r in range(r0, r1) for l in range(l1))
+            for l, r in outer:
+                for c in range(c0, c1):
+                    if r < len(res_of[c]):
+                        res = res_of[c][r]
+                        for p in range(res.pw * res.ph):
+                            yield l, r, c, p
+            return
 
-    def emit(c, r, y, x):
-        p = precinct_at(c, r, y, x)
-        if p is not None and (r, c, p) not in seen:
-            seen.add((r, c, p))
-            for l in range(layers):
-                yield l, r, c, p
+        def layers(c, r, y, x):
+            p = precinct_at(c, r, y, x)
+            if p is not None:
+                for l in range(l1):
+                    yield l, r, c, p
 
-    if prog == 2:                                   # RPCL
-        dx, dy = steps(range(nc))
-        for r in range(maxres):
+        if prog == 2:                               # RPCL
+            dx, dy = steps(range(nc))
+            for r in range(r0, r1):
+                for y, x in positions(dx, dy):
+                    for c in range(c0, c1):
+                        yield from layers(c, r, y, x)
+        elif prog == 3:                             # PCRL
+            dx, dy = steps(range(nc))
             for y, x in positions(dx, dy):
-                for c in range(nc):
-                    yield from emit(c, r, y, x)
-    elif prog == 3:                                 # PCRL
-        dx, dy = steps(range(nc))
-        for y, x in positions(dx, dy):
-            for c in range(nc):
-                for r in range(len(res_of[c])):
-                    yield from emit(c, r, y, x)
-    else:                                           # CPRL
-        for c in range(nc):
-            dx, dy = steps([c])
-            for y, x in positions(dx, dy):
-                for r in range(len(res_of[c])):
-                    yield from emit(c, r, y, x)
+                for c in range(c0, c1):
+                    for r in range(r0, min(r1, len(res_of[c]))):
+                        yield from layers(c, r, y, x)
+        elif prog == 4:                             # CPRL
+            for c in range(c0, c1):
+                dx, dy = steps([c])
+                for y, x in positions(dx, dy):
+                    for r in range(r0, min(r1, len(res_of[c]))):
+                        yield from layers(c, r, y, x)
+
+    for prog, r0, c0, l1, r1, c1 in entries:
+        if c0 >= nc:                                # openjpeg: no packets from this entry
+            continue
+        for key in progression(prog, r0, c0, l1, r1, c1):
+            if key not in seen:
+                seen.add(key)
+                yield key
 
 
-def _tier2(st: _Stream, t: int) -> Tuple[Tuple[int, int, int, int], List[List[_Res]], List[Block]]:
-    """A tile's rectangle, its resolutions and every code-block with its bytes."""
+def _tier2(st: _Stream, t: int, ppm: Optional[_Headers] = None
+           ) -> Tuple[Tuple[int, int, int, int], List[List[_Res]], List[Block]]:
+    """A tile's rectangle, its resolutions and every code-block with its
+    bytes; its packet headers from `ppm` (PPM, shared by the tiles in their
+    order), from its PPT segments, or from its tile-parts."""
     tile = st.tiles[t]
     xs, ys, xo, yo = st.size
     xt, yt, xto, yto = st.tiling
@@ -879,7 +1039,13 @@ def _tier2(st: _Stream, t: int) -> Tuple[Tuple[int, int, int, int], List[List[_R
     tx = (max(xto + p * xt, xo), max(yto + q * yt, yo), min(xto + (p + 1) * xt, xs),
           min(yto + (q + 1) * yt, ys))
     data = b"".join(body for _, body in tile.parts)
-    res_of = [_resolutions(tx, tile.coding[c], st.comps[c], c) for c in range(len(st.comps))]
+    headers = ppm if st.ppm is not None else (
+        _Headers(b"".join(tile.ppt[z] for z in sorted(tile.ppt))) if tile.ppt else None)
+    res_of = []
+    for c, comp in enumerate(st.comps):              # the tile-component (T.800 B-12)
+        tc = (_ceil_div(tx[0], comp.dx), _ceil_div(tx[1], comp.dy), _ceil_div(tx[2], comp.dx),
+              _ceil_div(tx[3], comp.dy))
+        res_of.append(_resolutions(tc, tile.coding[c], comp, c))
     npackets, nblocks = 0, 0
     for c, rs in enumerate(res_of):
         coding = tile.coding[c]
@@ -889,15 +1055,22 @@ def _tier2(st: _Stream, t: int) -> Tuple[Tuple[int, int, int, int], List[List[_R
             ey = min(coding.cbh, res.ppy - (r > 0))
             for b in res.bands:
                 nblocks += ((b.x1 - b.x0 >> ex) + 1 + res.pw) * ((b.y1 - b.y0 >> ey) + 1 + res.ph)
+                if coding.roishift >= 31 and b.x1 > b.x0 and b.y1 > b.y0:
+                    raise _fail(f"an RGN shift of {coding.roishift}: openjpeg refuses it too")
     npackets *= tile.layers
-    if npackets > len(data):
-        raise _fail(f"tile {t} claims {npackets} packets, more than its {len(data)} bytes hold")
-    if nblocks > 16 * len(data) + 65536:
-        raise _fail(f"tile {t} claims {nblocks} code-blocks, more than its {len(data)} bytes "
+    room = len(data) + (len(headers.data) - headers.pos if headers is not None else 0)
+    if npackets > room:
+        raise _fail(f"tile {t} claims {npackets} packets, more than its {room} bytes hold")
+    if nblocks > 16 * room + 65536:
+        raise _fail(f"tile {t} claims {nblocks} code-blocks, more than its {room} bytes "
                     f"can hold")
+    entries = tile.pocs or [(tile.prog, 0, 0, tile.layers, max(map(len, res_of)), len(res_of))]
+    entries = [(prog, r0, c0, min(l1, tile.layers), r1, c1)
+               for prog, r0, c0, l1, r1, c1 in entries if prog <= 4]
     pos = 0
-    for l, r, c, p in _packet_order(tx, tile.prog, tile.layers, res_of):
-        pos = _read_packet(data, pos, _precinct(res_of[c][r], r, p, tile.coding[c], c), l)
+    for l, r, c, p in _packet_order(tx, entries, res_of, st.comps):
+        pos = _read_packet(data, pos, _precinct(res_of[c][r], r, p, tile.coding[c], c), l,
+                           tile.scod, headers)
     blocks = [blk for rs in res_of for res in rs for prc in res.precincts.values()
               for _, blks, _, _ in prc.bands for blk in blks]
     return tx, res_of, blocks
@@ -948,37 +1121,56 @@ _SC = ((13, 1), (12, 1), (11, 1), (10, 1), (9, 0), (10, 0), (11, 0), (12, 0), (1
 
 
 def t1_block_plain(data: bytes, w: int, h: int, orient: int, numbps: int,
-                   passes: int) -> np.ndarray:
-    """One code-block's tier-1 decode (T.800 Annex C and D, code-block style
-    0): (h, w) int32 coefficients at twice their scale, as openjpeg's t1.c
-    holds them."""
+                   segments: List[Tuple[int, int]], style: int = 0,
+                   roishift: int = 0) -> np.ndarray:
+    """One code-block's tier-1 decode (T.800 Annex C and D) as openjpeg's
+    opj_t1_decode_cblk: each codeword segment of `segments` ((passes, bytes),
+    in the order of `data`) read from its own bytes, by the MQ decoder or,
+    under BYPASS, raw for the significance and refinement passes below the
+    4th bit-plane; the contexts reset after each MQ pass under RESET, the
+    row below a stripe insignificant under VSC, four UNIFORM decisions after
+    each cleanup under SEGSYM (PTERM and TERMALL change nothing here). (h, w)
+    int32 coefficients at twice their scale, as openjpeg's t1.c holds them,
+    from bit-plane numbps + roishift - 1 down (tier1 shifts RGN's back)."""
     out = np.zeros((h, w), np.int32)
-    if passes == 0 or numbps <= 0 or w == 0 or h == 0:
+    if not segments or w == 0 or h == 0:
         return out
-    buf = bytes(data) + b"\xff\xff"
     state = [0] * 19
     mps = [0] * 19
-    state[0], state[_CTX_RL], state[_CTX_UNI] = 4, 3, 46
-    mq = [0x8000, buf[0] << 16, 0, 0]                  # A, C, CT, the byte C last took
+
+    def reset():
+        state[:] = [0] * 19
+        mps[:] = [0] * 19
+        state[0], state[_CTX_RL], state[_CTX_UNI] = 4, 3, 46
+
+    reset()
+    buf = [b""]
+    mq = [0, 0, 0, 0]                                  # A, C, CT, the byte C last took
 
     def bytein():
-        bp = mq[3]
-        if buf[bp] == 0xFF:
-            if buf[bp + 1] > 0x8F:
+        b, bp = buf[0], mq[3]
+        if b[bp] == 0xFF:
+            if b[bp + 1] > 0x8F:
                 mq[1] += 0xFF00
                 mq[2] = 8
             else:
                 mq[3] = bp + 1
-                mq[1] += buf[bp + 1] << 9
+                mq[1] += b[bp + 1] << 9
                 mq[2] = 7
         else:
             mq[3] = bp + 1
-            mq[1] += buf[bp + 1] << 8
+            mq[1] += b[bp + 1] << 8
             mq[2] = 8
 
-    bytein()
-    mq[1] = (mq[1] << 7) & 0xFFFFFFFF
-    mq[2] -= 7
+    def init(seg: bytes, raw: bool):                   # two 0xFF bytes end each segment
+        buf[0] = seg + b"\xff\xff"
+        if raw:
+            mq[1:] = [0, 0, 0]
+            return
+        mq[:] = [0x8000, buf[0][0] << 16, 0, 0]
+        bytein()
+        mq[1] = (mq[1] << 7) & 0xFFFFFFFF
+        mq[2] -= 7
 
     def dec(cx: int) -> int:
         qe, nmps, nlps, switch = _MQ[state[cx]]
@@ -1019,19 +1211,34 @@ def t1_block_plain(data: bytes, w: int, h: int, orient: int, numbps: int,
         mq[0], mq[1] = a, c
         return d
 
+    def raw() -> int:                                  # opj_mqc_raw_decode
+        if mq[2] == 0:
+            b, bp = buf[0], mq[3]
+            if mq[1] == 0xFF and b[bp] > 0x8F:
+                mq[2] = 8
+            else:
+                mq[2] = 7 if mq[1] == 0xFF else 8
+                mq[1] = b[bp]
+                mq[3] = bp + 1
+        mq[2] -= 1
+        return (mq[1] >> mq[2]) & 1
+
     S = w + 2
     n = S * (h + 2)
     sig, neg, pi, refined = bytearray(n), bytearray(n), bytearray(n), bytearray(n)
     mag = [0] * n
     zc = _ZC[orient]
+    vsc = bool(style & VSC)
 
-    def context(p):
-        return zc[15 * (sig[p - 1] + sig[p + 1]) + 5 * (sig[p - S] + sig[p + S])
-                  + sig[p - S - 1] + sig[p - S + 1] + sig[p + S - 1] + sig[p + S + 1]]
+    def context(p, cut):                               # cut: the row below is not seen (VSC)
+        below = 0 if cut else 5 * sig[p + S] + sig[p + S - 1] + sig[p + S + 1]
+        return zc[15 * (sig[p - 1] + sig[p + 1]) + 5 * sig[p - S] + below
+                  + sig[p - S - 1] + sig[p - S + 1]]
 
-    def sign(p):
+    def sign(p, cut):
         hc = (sig[p - 1] and (-1 if neg[p - 1] else 1)) + (sig[p + 1] and (-1 if neg[p + 1] else 1))
-        vc = (sig[p - S] and (-1 if neg[p - S] else 1)) + (sig[p + S] and (-1 if neg[p + S] else 1))
+        vc = (sig[p - S] and (-1 if neg[p - S] else 1)) + (
+            0 if cut else sig[p + S] and (-1 if neg[p + S] else 1))
         ctx, xor = _SC[3 * (max(-1, min(1, hc)) + 1) + max(-1, min(1, vc)) + 1]
         return dec(ctx) ^ xor
 
@@ -1039,74 +1246,99 @@ def t1_block_plain(data: bytes, w: int, h: int, orient: int, numbps: int,
         for y0 in range(0, h, 4):
             for x in range(w):
                 p = (y0 + 1) * S + x + 1
-                for _ in range(min(4, h - y0)):
-                    yield p
+                for k in range(min(4, h - y0)):
+                    yield p, vsc and k == 3
                     p += S
 
-    def significant(p, oph):
-        neg[p] = sign(p)
-        mag[p] = oph
-        sig[p] = 1
-
-    bp = numbps - 1
-    kind = 2                                            # the first pass is a cleanup
-    for _ in range(passes):
-        if bp < 0:
-            break
-        oph = 3 << bp                                   # 1.5 of this plane, at twice the scale
-        if kind == 0:                                   # significance propagation
-            for p in scan():
-                if not sig[p]:
-                    ctx = context(p)
-                    if ctx:
+    bpno = numbps + roishift                           # openjpeg's bpno_plus_one
+    kind = 2                                           # the first pass is a cleanup
+    start = 0
+    for seg_passes, seg_len in segments:
+        is_raw = bool(style & BYPASS) and kind < 2 and bpno <= numbps - 4
+        init(bytes(data[start:start + seg_len]), is_raw)
+        start += seg_len
+        for _ in range(seg_passes):
+            if bpno < 1:
+                break
+            bp = bpno - 1
+            oph = 3 << bp                              # 1.5 of this plane, at twice the scale
+            if kind == 0:                              # significance propagation
+                for p, cut in scan():
+                    if not sig[p] and context(p, cut):
                         pi[p] = 1
-                        if dec(ctx):
-                            significant(p, oph)
-        elif kind == 1:                                 # magnitude refinement
-            half = 1 << bp
-            for p in scan():
-                if sig[p] and not pi[p]:
-                    if refined[p]:
-                        ctx = 16
-                    else:
-                        ctx = 15 if (sig[p - 1] | sig[p + 1] | sig[p - S] | sig[p + S]
-                                     | sig[p - S - 1] | sig[p - S + 1] | sig[p + S - 1]
-                                     | sig[p + S + 1]) else 14
-                    mag[p] += half if dec(ctx) else -half
-                    refined[p] = 1
-        else:                                           # cleanup, with run-length mode
-            for y0 in range(0, h, 4):
-                rows = min(4, h - y0)
-                for x in range(w):
-                    p0 = (y0 + 1) * S + x + 1
-                    start = 0
-                    if rows == 4 and not (pi[p0] or pi[p0 + S] or pi[p0 + 2 * S]
-                                          or pi[p0 + 3 * S] or _any_neighbour(sig, p0, S)):
-                        if not dec(_CTX_RL):
-                            continue
-                        k = dec(_CTX_UNI) << 1
-                        k |= dec(_CTX_UNI)
-                        significant(p0 + k * S, oph)
-                        start = k + 1
-                    for k in range(start, rows):
-                        p = p0 + k * S
-                        if not sig[p] and not pi[p] and dec(context(p)):
-                            significant(p, oph)
-            for i in range(n):
-                pi[i] = 0
-        kind += 1
-        if kind == 3:
-            kind = 0
-            bp -= 1
+                        if is_raw:
+                            if raw():
+                                neg[p] = raw()
+                                mag[p] = oph
+                                sig[p] = 1
+                        elif dec(context(p, cut)):
+                            neg[p] = sign(p, cut)
+                            mag[p] = oph
+                            sig[p] = 1
+            elif kind == 1:                            # magnitude refinement
+                half = 1 << bp
+                for p, cut in scan():
+                    if sig[p] and not pi[p]:
+                        if is_raw:
+                            bit = raw()
+                        else:
+                            if refined[p]:
+                                ctx = 16
+                            else:
+                                around = (sig[p - 1] | sig[p + 1] | sig[p - S] | sig[p - S - 1]
+                                          | sig[p - S + 1])
+                                if not cut:
+                                    around |= sig[p + S] | sig[p + S - 1] | sig[p + S + 1]
+                                ctx = 15 if around else 14
+                            bit = dec(ctx)
+                        mag[p] += half if bit else -half
+                        refined[p] = 1
+            else:                                      # cleanup, with run-length mode
+                for y0 in range(0, h, 4):
+                    rows = min(4, h - y0)
+                    for x in range(w):
+                        p0 = (y0 + 1) * S + x + 1
+                        start_k = 0
+                        if rows == 4 and not (pi[p0] or pi[p0 + S] or pi[p0 + 2 * S]
+                                              or pi[p0 + 3 * S]
+                                              or _any_neighbour(sig, p0, S, vsc)):
+                            if not dec(_CTX_RL):
+                                continue
+                            k = dec(_CTX_UNI) << 1
+                            k |= dec(_CTX_UNI)
+                            p = p0 + k * S
+                            neg[p] = sign(p, vsc and k == 3)
+                            mag[p] = oph
+                            sig[p] = 1
+                            start_k = k + 1
+                        for k in range(start_k, rows):
+                            p = p0 + k * S
+                            cut = vsc and k == 3
+                            if not sig[p] and not pi[p] and dec(context(p, cut)):
+                                neg[p] = sign(p, cut)
+                                mag[p] = oph
+                                sig[p] = 1
+                for i in range(n):
+                    pi[i] = 0
+                if style & SEGSYM:
+                    for _ in range(4):
+                        dec(_CTX_UNI)
+            if style & RESET and not is_raw:
+                reset()
+            kind += 1
+            if kind == 3:
+                kind = 0
+                bpno -= 1
     body = np.array(mag, np.int64).reshape(h + 2, S)[1:-1, 1:-1]
     negs = np.frombuffer(bytes(neg), np.uint8).reshape(h + 2, S)[1:-1, 1:-1]
     out[:] = np.where(negs == 1, -body, body)
     return out
 
 
-def _any_neighbour(sig: bytearray, p0: int, S: int) -> bool:
-    """Any significant coefficient in a stripe column of four or around it."""
-    for k in range(-1, 5):
+def _any_neighbour(sig: bytearray, p0: int, S: int, vsc: bool) -> bool:
+    """Any significant coefficient in a stripe column of four or around it
+    (under VSC, not the row below the stripe)."""
+    for k in range(-1, 4 if vsc else 5):
         p = p0 + k * S
         if sig[p - 1] or sig[p] or sig[p + 1]:
             return True
@@ -1130,40 +1362,57 @@ def _library() -> ctypes.CDLL:
 
             lib = load("jpeg2000_t1")
             lib.shm_j2k_t1_decode.argtypes = [
-                ctypes.c_char_p, _I64P, _I32P, _I64P, _I32P, ctypes.c_int]
+                ctypes.c_char_p, _I64P, _I32P, _I32P, ctypes.c_int, _I64P, _I32P, ctypes.c_int]
             lib.shm_j2k_t1_decode.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
+def _roi_shift(v: np.ndarray, shift: int) -> np.ndarray:
+    """RGN's max-shift, as opj_t1_clbl_decode_processor undoes it: each
+    coefficient of magnitude 2^shift or more (at twice its scale) shifted
+    down by `shift`."""
+    mag = np.abs(v)
+    return np.where(mag >= (1 << shift), np.where(v < 0, -(mag >> shift), mag >> shift), v
+                    ).astype(np.int32)
+
+
 def tier1(blocks: List[Block], plain: bool = False) -> List[np.ndarray]:
     """Every block's coefficients ((h, w) int32, twice their scale), by the
-    C++ decoder, or by `t1_block_plain` when `plain` is set."""
+    C++ decoder, or by `t1_block_plain` when `plain` is set; RGN's shift
+    undone after either."""
     global calls
     if plain:
-        return [t1_block_plain(b.data, b.x1 - b.x0, b.y1 - b.y0, b.orient, b.numbps, b.passes)
-                for b in blocks]
-    if not blocks:
+        outs = [t1_block_plain(b.data, b.x1 - b.x0, b.y1 - b.y0, b.orient, b.numbps,
+                               b.segments, b.style, b.roishift) for b in blocks]
+    elif not blocks:
         return []
-    lib = _library()
-    datas = [b.data for b in blocks]
-    offsets = np.zeros(len(blocks) + 1, np.int64)
-    np.cumsum([len(d) for d in datas], out=offsets[1:])
-    params = np.array([(b.x1 - b.x0, b.y1 - b.y0, b.orient, b.numbps, b.passes, len(d))
-                       for b, d in zip(blocks, datas)], np.int32).reshape(-1, 6)
-    sizes = params[:, 0].astype(np.int64) * params[:, 1]
-    out_off = np.zeros(len(blocks) + 1, np.int64)
-    np.cumsum(sizes, out=out_off[1:])
-    out = np.zeros(int(out_off[-1]), np.int32)
-    bad = lib.shm_j2k_t1_decode(b"".join(datas), offsets.ctypes.data_as(_I64P),
-                                params.ctypes.data_as(_I32P), out_off.ctypes.data_as(_I64P),
-                                out.ctypes.data_as(_I32P), len(blocks))
-    with _lock:
-        calls += 1
-    if bad:
-        raise _fail(f"code-block {bad - 1}: tier 1 refused its parameters")
-    return [out[out_off[i]:out_off[i + 1]].reshape(int(params[i, 1]), int(params[i, 0]))
-            for i in range(len(blocks))]
+    else:
+        lib = _library()
+        datas = [b.data for b in blocks]
+        offsets = np.zeros(len(blocks) + 1, np.int64)
+        np.cumsum([len(d) for d in datas], out=offsets[1:])
+        segs = np.array([s for b in blocks for s in b.segments], np.int32).reshape(-1, 2)
+        first = np.zeros(len(blocks) + 1, np.int64)
+        np.cumsum([len(b.segs) for b in blocks], out=first[1:])
+        params = np.array([(b.x1 - b.x0, b.y1 - b.y0, b.orient, b.numbps, b.roishift, b.style,
+                            first[i], len(b.segs)) for i, b in enumerate(blocks)],
+                          np.int32).reshape(-1, 8)
+        sizes = params[:, 0].astype(np.int64) * params[:, 1]
+        out_off = np.zeros(len(blocks) + 1, np.int64)
+        np.cumsum(sizes, out=out_off[1:])
+        out = np.zeros(int(out_off[-1]), np.int32)
+        bad = lib.shm_j2k_t1_decode(b"".join(datas), offsets.ctypes.data_as(_I64P),
+                                    params.ctypes.data_as(_I32P), segs.ctypes.data_as(_I32P),
+                                    len(segs), out_off.ctypes.data_as(_I64P),
+                                    out.ctypes.data_as(_I32P), len(blocks))
+        with _lock:
+            calls += 1
+        if bad:
+            raise _fail(f"code-block {bad - 1}: tier 1 refused its parameters")
+        outs = [out[out_off[i]:out_off[i + 1]].reshape(int(params[i, 1]), int(params[i, 0]))
+                for i in range(len(blocks))]
+    return [_roi_shift(v, b.roishift) if b.roishift else v for b, v in zip(blocks, outs)]
 
 
 # -- reconstruction ---------------------------------------------------------------------
@@ -1256,18 +1505,24 @@ def _tile_component(res: List[_Res], coefs: Dict[int, np.ndarray], reversible: b
 def _samples(planes: List[np.ndarray], comps: List[_Comp], mct: int, reversible: bool
              ) -> List[np.ndarray]:
     """Inverse RCT or ICT (skipped below three components, as openjpeg skips
-    it), the DC level shift, the clamp (openjpeg's
+    it; over the first three planes' samples in order, which openjpeg
+    requires to be as many), the DC level shift, the clamp (openjpeg's
     opj_tcd_dc_level_shift_decode; float samples rounded by lrintf first)."""
     planes = list(planes)
     if mct and len(planes) >= 3:
-        y, u, v = planes[:3]
+        if len({p.size for p in planes[:3]}) > 1:
+            raise _fail("the colour transform over components of other sizes: openjpeg "
+                        "refuses the tile (PIL too)")
+        shapes = [p.shape for p in planes[:3]]
+        y, u, v = (p.reshape(-1) for p in planes[:3])
         if reversible:
             g = y - ((u + v) >> 2)
-            planes[:3] = [v + g, g, u + g]
+            out3 = [v + g, g, u + g]
         else:
-            planes[:3] = [y + v * np.float32(1.402),
-                          y - u * np.float32(0.34413) - v * np.float32(0.71414),
-                          y + u * np.float32(1.772)]
+            out3 = [y + v * np.float32(1.402),
+                    y - u * np.float32(0.34413) - v * np.float32(0.71414),
+                    y + u * np.float32(1.772)]
+        planes[:3] = [p.reshape(s) for p, s in zip(out3, shapes)]
     out = []
     for p, comp in zip(planes, comps):
         lo, hi = ((-(1 << (comp.prec - 1)), (1 << (comp.prec - 1)) - 1) if comp.sgnd
@@ -1281,13 +1536,16 @@ def _samples(planes: List[np.ndarray], comps: List[_Comp], mct: int, reversible:
     return out
 
 
-def _unpack(v: np.ndarray, comp: _Comp, bits: int) -> np.ndarray:
-    """Pillow's j2ku_shift(offset + sample, shift) into a `bits`-bit sample:
-    the sample as openjpeg stores it ((prec + 7) // 8 bytes, unsigned), offset
-    by half the range when signed, shifted to `bits` (rounding half up when
-    it narrows)."""
+def _csize(comp: _Comp) -> int:
+    """Bytes a sample takes in openjpeg's tile buffer (3 become 4)."""
     size = (comp.prec + 7) >> 3
-    raw = v & ((1 << (8 * size)) - 1)
+    return 4 if size == 3 else size
+
+
+def _shift(raw: np.ndarray, comp: _Comp, bits: int) -> np.ndarray:
+    """Pillow's j2ku_shift(offset + word, shift): a word as openjpeg stores
+    it (unsigned), offset by half the range when signed, shifted to `bits`
+    (rounding half up when it narrows)."""
     shift = bits - comp.prec
     offset = (1 << (comp.prec - 1)) if comp.sgnd else 0
     if shift < 0:
@@ -1298,6 +1556,58 @@ def _unpack(v: np.ndarray, comp: _Comp, bits: int) -> np.ndarray:
     return (x & ((1 << bits) - 1)).astype(np.uint16 if bits == 16 else np.uint8)
 
 
+def _unpack(v: np.ndarray, comp: _Comp, bits: int) -> np.ndarray:
+    """A component's samples as Pillow's unpacker reads them from openjpeg's
+    tile buffer (`_csize` bytes each), through `_shift`."""
+    return _shift(v & ((1 << (8 * _csize(comp))) - 1), comp, bits)
+
+
+def _subsampled(planes: List[np.ndarray], comps: List[_Comp], tw: int, th: int
+                ) -> List[np.ndarray]:
+    """Each component as Pillow's j2ku_srgb_rgb and j2ku_sycc_rgb read
+    sub-sampled ones: openjpeg writes each tile-component's samples, one
+    after another, into Pillow's tile buffer, zeroed for each tile to the
+    larger of that and every component at the tile's full size; Pillow takes
+    component n at byte sum(csize * (tw / dx) * (th / dy)) of those before
+    it, and the sample of pixel (x, y) at (y / dy) * (tw / dx) + x / dx of
+    it, in C's integer division (so an odd edge may read the next
+    component's samples, or zeros). -> (th, tw) uint8 planes."""
+    sizes = [_csize(c) for c in comps]
+    buf = np.zeros(max(sum(s * p.size for s, p in zip(sizes, planes)), sum(sizes) * tw * th),
+                   np.uint8)
+    pos = 0
+    for s, p, c in zip(sizes, planes, comps):
+        words = (p & ((1 << (8 * s)) - 1)).astype(f"<u{s}")
+        buf[pos:pos + s * p.size] = words.reshape(-1).view(np.uint8)
+        pos += s * p.size
+    out, start = [], 0
+    ys, xs = np.arange(th)[:, None], np.arange(tw)[None, :]
+    for s, c in zip(sizes, comps):
+        row = tw // c.dx
+        at = start + s * ((ys // c.dy) * row + xs // c.dx)
+        word = sum(buf[at + k].astype(np.int64) << (8 * k) for k in range(s))
+        out.append(_shift(word, c, 8))
+        start += s * row * (th // c.dy)
+    return out
+
+
+# Pillow's ConvertYCbCr.c: Cr's and Cb's terms of R, G and B in 6-bit fixed
+# point, (v - 128) * c * 64 truncated after adding a half
+_YCC_TERMS = [np.trunc((np.arange(256) - 128) * c * 64 + 0.5).astype(np.int64)
+              for c in (1.40200, -0.34414, -0.71414, 1.77200)]
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """Pillow's ImagingConvertYCbCr2RGB (what Jpeg2KDecode.c's sYCC
+    unpackers call): (..., 3) uint8 YCbCr -> RGB."""
+    r_cr, g_cb, g_cr, b_cb = _YCC_TERMS
+    y = ycc[..., 0].astype(np.int64)
+    cb, cr = ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([y + (r_cr[cr] >> 6), y + ((g_cb[cb] + g_cr[cr]) >> 6), y + (b_cb[cb] >> 6)],
+                   axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     """Pillow's cmyk2rgb: nk - nk * c / 255 with nk = 255 - k, in MULDIV255."""
     nk = 255 - cmyk[..., 3:].astype(np.int64)
@@ -1306,7 +1616,7 @@ def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
 
 
 def _to_rgb(mode: str, unpacker: str, planes: List[np.ndarray], comps: List[_Comp],
-            palette: Optional[np.ndarray]) -> np.ndarray:
+            palette: Optional[np.ndarray], tile: Tuple[int, int]) -> np.ndarray:
     """A tile's samples through Pillow's unpacker into `mode`, then
     `convert("RGB")`."""
     if unpacker == "grey16":
@@ -1319,10 +1629,29 @@ def _to_rgb(mode: str, unpacker: str, planes: List[np.ndarray], comps: List[_Com
             table[:len(palette)] = palette[:256]
             return table[g]
         return np.repeat(g[..., None], 3, axis=2)
-    chans = np.stack([_unpack(p, c, 8) for p, c in zip(planes, comps)][:4], axis=-1)
+    if any(c.dx != 1 or c.dy != 1 for c in comps):
+        chans = np.stack(_subsampled(planes, comps, *tile)[:4], axis=-1)
+    else:
+        chans = np.stack([_unpack(p, c, 8) for p, c in zip(planes, comps)][:4], axis=-1)
+    if unpacker == "sycc":
+        return _ycbcr_to_rgb(chans[..., :3])
     if mode == "CMYK":
         return _cmyk_to_rgb(chans)
     return chans[..., :3]
+
+
+def _colour_space(colour: int, comps: List[_Comp]) -> int:
+    """Pillow's colour space of an image openjpeg gives it unspecified (a
+    raw codestream) or unknown (a JP2 with no enumerated colour space it
+    knows, an ICC profile, or no colr): sYCC where the first component is at
+    full size and the second or third sub-sampled, else grey below three
+    components and sRGB from three."""
+    if colour != _CS_UNSPECIFIED:
+        return colour
+    full = lambda c: c.dx == 1 and c.dy == 1  # noqa: E731
+    if len(comps) >= 3 and full(comps[0]) and not (full(comps[1]) and full(comps[2])):
+        return _CS_SYCC
+    return _CS_GRAY if len(comps) <= 2 else _CS_SRGB
 
 
 def _image(cs: bytes, mode: Optional[str], colour: int, size: Optional[Tuple[int, int]],
@@ -1334,15 +1663,16 @@ def _image(cs: bytes, mode: Optional[str], colour: int, size: Optional[Tuple[int
         mode = {1: "I;16" if st.comps[0].prec > 8 else "L", 2: "LA", 3: "RGB", 4: "RGBA"}[nc]
     elif size != (xs - xo, ys - yo):
         raise _fail(f"ihdr's size {size} is not SIZ's {(xs - xo, ys - yo)}")
-    if colour == _CS_UNSPECIFIED:
-        colour = _CS_GRAY if nc <= 2 else _CS_SRGB
+    colour = _colour_space(colour, st.comps)
     unpacker = _UNPACKERS.get((mode, colour, nc))
     if unpacker is None:
-        if colour in (_CS_SYCC, _CS_EYCC):
-            raise _refuse("the colour space " + ("sYCC" if colour == _CS_SYCC else "e-sYCC"))
-        raise _fail(f"mode {mode} from {nc} components in colour space {colour}: PIL refuses "
-                    f"it too (no unpacker)")
-    tiles = [(t,) + _tier2(st, t) for t in sorted(st.tiles)]
+        raise _fail(f"mode {mode} from {nc} components in colour space {_CS_NAMES[colour]}: "
+                    f"PIL refuses it too (no unpacker)")
+    if unpacker not in ("rgb", "sycc") and any(c.dx != 1 or c.dy != 1 for c in st.comps):
+        raise _fail(f"mode {mode} from sub-sampled components: PIL refuses it too (its "
+                    f"unpacker takes none)")
+    ppm = _Headers(st.ppm) if st.ppm is not None else None
+    tiles = [(t,) + _tier2(st, t, ppm) for t in st.order]
     out = np.zeros((ys - yo, xs - xo, 3), np.uint8)
     blocks = [b for *_, bs in tiles for b in bs if b.passes]
     decoded = {id(b): v for b, v in zip(blocks, tier1(blocks))}
@@ -1366,7 +1696,8 @@ def _image(cs: bytes, mode: Optional[str], colour: int, size: Optional[Tuple[int
                         arr[b.y0 - band.y0:b.y1 - band.y0, b.x0 - band.x0:b.x1 - band.x0] = v
             planes.append(_tile_component(res_of[c], coefs, tile.coding[c].reversible))
         samples = _samples(planes, st.comps, tile.mct, tile.coding[0].reversible)
-        rgb = _to_rgb(mode, unpacker, samples, st.comps, palette)
+        rgb = _to_rgb(mode, unpacker, samples, st.comps, palette,
+                      (tx[2] - tx[0], tx[3] - tx[1]))
         out[tx[1] - yo:tx[3] - yo, tx[0] - xo:tx[2] - xo] = rgb
     return out
 
@@ -1400,4 +1731,5 @@ def tier1_inputs(data: bytes) -> List[Block]:
     (parsed, no tier 1 run), for holding the C++ to the plain version."""
     cs = _split(data)[0]
     st = _parse(cs)
-    return [b for t in sorted(st.tiles) for b in _tier2(st, t)[2] if b.passes]
+    ppm = _Headers(st.ppm) if st.ppm is not None else None
+    return [b for t in st.order for b in _tier2(st, t, ppm)[2] if b.passes]

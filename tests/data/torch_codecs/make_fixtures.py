@@ -10,13 +10,15 @@ and libtiff. The formats PIL does not write (16-bit RGB and Adam7 PNG,
 predictor, YCCK JPEG, ASCII P3) are written by the small writers below;
 JPEG-in-TIFF YCbCr, subsampled YCbCr LZW, arithmetic-coded and lossless
 JPEG by the writers of tests/test_torch_tiff.py and tests/test_torch_jpeg.py;
-a palette JP2 (PIL writes none) by rewriting the header boxes of its JP2.
+a palette JP2 (PIL writes none) by rewriting the header boxes of its JP2;
+STYLES_JP2 by tests/_opj_encode.py.
 """
 
 import hashlib
 import io
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -27,6 +29,8 @@ from shmgan_tpu_torch.data.synthetic import camera_image, synth_polar_scene
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the 612x816 JPEG 2000 photo, beside it <name>.sha256 of PIL's pixels
 PHOTO_JP2 = "photo_612x816.jp2"
+# 4:2:0 sYCC, styles 0x3f, SOP, EPH; beside it <name>.sha256
+STYLES_JP2 = "jp2_sycc420_styles.jp2"
 
 
 def scene(h, w, seed):
@@ -188,6 +192,22 @@ def jpeg2000():
     return out, photo
 
 
+def jp2_styles():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    from _opj_encode import ycc420_styles
+    return ycc420_styles(u8(scene(16, 16, 16)))
+
+
+def write_with_sha256(name, data):
+    """`data` as `name`, beside it the SHA-256 of PIL's pixels."""
+    with open(os.path.join(HERE, name), "wb") as f:
+        f.write(data)
+    with Image.open(io.BytesIO(data)) as im:
+        digest = hashlib.sha256(np.ascontiguousarray(im.convert("RGB")).tobytes()).hexdigest()
+    with open(os.path.join(HERE, name + ".sha256"), "w") as f:
+        f.write(digest + "\n")
+
+
 def fixtures():
     cam = u8(scene(256, 256, 1))
     im = Image.fromarray(cam)
@@ -258,12 +278,8 @@ def fixtures():
 
 def main():
     small, photo = jpeg2000()
-    with open(os.path.join(HERE, PHOTO_JP2), "wb") as f:
-        f.write(photo)
-    with Image.open(io.BytesIO(photo)) as im:
-        digest = hashlib.sha256(np.ascontiguousarray(im.convert("RGB")).tobytes()).hexdigest()
-    with open(os.path.join(HERE, PHOTO_JP2 + ".sha256"), "w") as f:
-        f.write(digest + "\n")
+    write_with_sha256(PHOTO_JP2, photo)
+    write_with_sha256(STYLES_JP2, jp2_styles())
     for name, data in sorted({**fixtures(), **small}.items()):
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)

@@ -308,7 +308,26 @@ def _rewritten():
         "Rsiz bit 15 (Part 2) on a Part-1 stream": _set_siz(cs, 0, 0x8000),
         "scalar derived 9/7": _derived(_codestream(_jp2(_image("photo", 48, 64, seed=8),
                                                          irreversible=True))),
+        # decoded since the port took these features; a code-block style or
+        # SOP flagged on a stream written without it, as PIL decodes it
+        **{f"{name} flagged": _set_cod_style(cs, bit) for bit, name in (
+            (0x02, "RESET"), (0x08, "VSC"), (0x10, "PTERM"), (0x20, "SEGSYM"))},
+        "SOP flagged": _set_scod(cs, 0x02),
+        "sub-sampled": _set_siz(cs, 36 + 3 * 1 + 1, 2, ">B"),
+        "RGN": _after_siz(cs, _segment(0xFF5E, b"\x00\x00\x03")),
+        "CRG": _after_siz(cs, _segment(0xFF63, b"\x00\x00\x00\x00" * 3)),
+        "sYCC": _with_header(rgb, [(b"ihdr", dict(_header(rgb))[b"ihdr"]), _colr(18)]),
     }
+
+
+def _set_cod_style(cs, style):
+    i = cs.index(b"\xff\x52")
+    return cs[:i + 4 + 8] + bytes([style]) + cs[i + 4 + 9:]
+
+
+def _set_scod(cs, scod):
+    i = cs.index(b"\xff\x52")
+    return cs[:i + 4] + bytes([scod]) + cs[i + 5:]
 
 
 def _set_mct(cs):
@@ -442,41 +461,23 @@ def test_the_library_refuses_a_code_block_out_of_range():
 
 # -- refusals by name ----------------------------------------------------------------------
 
-def _set_cod_style(cs, style):
-    i = cs.index(b"\xff\x52")
-    return cs[:i + 4 + 8] + bytes([style]) + cs[i + 4 + 9:]
-
-
-def _set_scod(cs, scod):
-    i = cs.index(b"\xff\x52")
-    return cs[:i + 4] + bytes([scod]) + cs[i + 5:]
-
-
 def _refusals():
     cs = _codestream(_jp2(_image("RGB", seed=13)))
     rgb = _jp2(_image("RGB", seed=13))
     grey = _jp2(_image("L", seed=14))
     ihdr = dict(_header(grey))[b"ihdr"]
     pclr16 = struct.pack(">HB", 2, 3) + bytes([15, 15, 15]) + bytes(12)
-    out = {name: (_set_cod_style(cs, bit), name) for bit, name in (
-        (0x01, "BYPASS"), (0x02, "RESET"), (0x04, "TERMALL"), (0x08, "VSC"), (0x10, "PTERM"),
-        (0x20, "SEGSYM"), (0x40, "HTJ2K"))}
+    out = {"HTJ2K": (_set_cod_style(cs, 0x40), "HTJ2K")}
     out.update({
-        "sub-sampled": (_set_siz(cs, 36 + 3 * 1 + 1, 2, ">B"), "sub-sampled"),
         "17 bits": (_set_siz(cs, 36, 16, ">B"), "17-bit"),
-        "RGN": (_after_siz(cs, _segment(0xFF5E, b"\x00\x00\x03")), "RGN"),
         "POC": (_after_siz(cs, _segment(0xFF5F, b"\x00\x00\x00\x01\x02\x00")), "POC"),
         "PPM": (_after_siz(cs, _segment(0xFF60, b"\x00")), "PPM"),
         "PPT": (_in_first_tile_part(cs, _segment(0xFF61, b"\x00")), "PPT"),
-        "CRG": (_after_siz(cs, _segment(0xFF63, b"\x00\x00\x00\x00" * 3)), "CRG"),
-        "SOP": (_set_scod(cs, 0x02), "SOP"),
         "EPH": (_set_scod(cs, 0x04), "EPH"),
         "HTJ2K CAP": (_after_siz(cs, _segment(0xFF50, b"\x00\x02\x00\x00\x00\x00")), "HTJ2K"),
         "HTJ2K CPF": (_after_siz(cs, _segment(0xFF59, b"\x00\x00")), "HTJ2K"),
         "Part-2 MCT marker": (_after_siz(cs, _segment(0xFF74, b"\x00\x00")), "Part-2"),
         "bpcc": (_with_header(rgb, _header(rgb) + [(b"bpcc", b"\x07\x07\x07")]), "bpcc"),
-        "sYCC": (_with_header(rgb, [(b"ihdr", dict(_header(rgb))[b"ihdr"]), _colr(18)]),
-                 "sYCC"),
         "16-bit palette": (_with_header(grey, [(b"ihdr", ihdr), _colr(16),
                                                (b"pclr", pclr16)]), "pclr"),
         "MCT over 5/3 and 9/7": (_before_sot(_codestream(_jp2(_image("RGB", seed=16), mct=1)),
